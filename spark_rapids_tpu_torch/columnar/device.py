@@ -1,0 +1,282 @@
+"""Device-side columnar batches as torch tensors — the port of
+``spark_rapids_tpu/columnar/device.py``.
+
+The batch layout is the JAX package's, plane for plane, so batches of the
+two engines can be compared directly:
+
+1. **Bucketed capacities.** Every batch has a row capacity from the
+   canonical bucket ladder (power-of-two multiples of a minimum bucket).
+2. **Selection masks instead of compaction.** A filter ANDs a per-table
+   ``row_mask``; masked-off rows keep stale data. Compaction (a stable
+   partition of the mask plus a gather) happens only at operator boundaries
+   that need dense data: exchanges, concatenation and host download.
+3. **Validity as bool planes**, one per column, plus a host-side
+   ``all_valid`` promise that lets kernels skip the plane.
+
+``num_rows`` is a 0-d int32 tensor on the batch's device: batch functions
+never turn it into a Python int, so they never wait on the device. The host
+reads it at the boundaries that must (download, exchange, shrink).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import dtypes as dt
+from .host import HostColumn, HostTable
+
+__all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "as_torch_dtype",
+           "bucket_rows",
+           "concat_device_tables", "shrink_to_fit", "stable_partition_order",
+           "torch_dtype"]
+
+_TORCH_DTYPES = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
+                 np.dtype(np.int16): torch.int16,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.uint8): torch.uint8}
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or the torch dtype of a numpy dtype / scalar type."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH_DTYPES[np.dtype(dtype)]
+
+
+def torch_dtype(d: dt.DataType) -> torch.dtype:
+    """The torch dtype of a fixed-width type's value plane."""
+    if isinstance(d, (dt.StringType, dt.BinaryType)):
+        raise TypeError(f"{d!r} columns are not ported to the device yet")
+    return as_torch_dtype(d.np_dtype())
+
+
+def stable_partition_order(mask: torch.Tensor) -> torch.Tensor:
+    """Sort-free stable-partition permutation: int32 gather indices that put
+    mask=True rows first, preserving relative order in both segments —
+    ``argsort(!mask, stable=True)`` built from two cumsums and one scatter."""
+    n = mask.shape[0]
+    m32 = mask.to(torch.int32)
+    kept_rank = torch.cumsum(m32, 0, dtype=torch.int32) - m32
+    n_keep = m32.sum(dtype=torch.int32)
+    drop = 1 - m32
+    drop_rank = torch.cumsum(drop, 0, dtype=torch.int32) - drop
+    dest = torch.where(mask, kept_rank, n_keep + drop_rank)
+    iota = torch.arange(n, dtype=torch.int32, device=mask.device)
+    return torch.zeros(n, dtype=torch.int32, device=mask.device) \
+        .scatter_(0, dest.long(), iota)
+
+
+def _compact_impl(table: "DeviceTable") -> "DeviceTable":
+    order = stable_partition_order(table.row_mask)
+    # permutation + re-mask below: only real rows stay exposed
+    cols = tuple(c.gather(order) for c in table.columns)
+    iota = torch.arange(table.capacity, dtype=torch.int32,
+                        device=table.row_mask.device)
+    mask = iota < table.num_rows
+    # masked-off tail keeps stale data; null it for hygiene
+    cols = tuple(c.with_validity(torch.logical_and(c.validity, mask),
+                                 all_valid=c.all_valid)
+                 for c in cols)
+    return DeviceTable(cols, mask, table.num_rows, table.names)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPolicy:
+    """The bucket ladder: rungs are ``min_rows * growth^k``; within a rung,
+    capacities quantize down toward the row count in steps of
+    ``growth * rung * max_waste_frac`` (never below ``min_rows``). The
+    defaults give the plain power-of-two ladder."""
+    min_rows: int = 1024
+    growth: float = 2.0
+    max_waste_frac: float = 0.5
+
+    def bucket(self, n: int, min_bucket: Optional[int] = None) -> int:
+        base = int(min_bucket) if min_bucket is not None else self.min_rows
+        cap = max(base, 1)
+        while cap < n:
+            # max(+1): a growth factor rounding to itself must still climb
+            cap = max(cap + 1, int(cap * self.growth))
+        if cap > base:
+            step = max(base, int(cap * self.max_waste_frac))
+            cap = min(cap, -(-n // step) * step)
+        return cap
+
+
+_POLICY = BucketPolicy()
+
+
+def bucket_rows(n: int, min_bucket: Optional[int] = None) -> int:
+    """Canonical row capacity for ``n`` rows, floored at ``min_bucket``."""
+    return _POLICY.bucket(n, min_bucket)
+
+
+@dataclasses.dataclass
+class DeviceColumn:
+    """One device column: padded values + validity."""
+    data: torch.Tensor                # (capacity,)
+    validity: torch.Tensor            # (capacity,) bool — True = non-null
+    dtype: dt.DataType
+    #: null-freedom promise: every row under the table's row_mask is valid,
+    #: so kernels may skip the validity plane (which stays correct either
+    #: way). False is always safe.
+    all_valid: bool = False
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    def gather(self, idx: torch.Tensor) -> "DeviceColumn":
+        """Row gather by int32 indices. Keeps ``all_valid``: callers only
+        expose rows that map to real source rows (permutations,
+        compaction)."""
+        i = idx.long()
+        return DeviceColumn(self.data.index_select(0, i),
+                            self.validity.index_select(0, i), self.dtype,
+                            self.all_valid)
+
+    def with_validity(self, validity: torch.Tensor,
+                      all_valid: bool = False) -> "DeviceColumn":
+        return DeviceColumn(self.data, validity, self.dtype, all_valid)
+
+
+@dataclasses.dataclass
+class DeviceTable:
+    """A batch of device columns + row mask (active rows) + row count."""
+    columns: Tuple[DeviceColumn, ...]
+    row_mask: torch.Tensor           # (capacity,) bool — True = row exists
+    num_rows: torch.Tensor           # 0-d int32 == sum(row_mask)
+    names: Tuple[str, ...]
+
+    @property
+    def capacity(self) -> int:
+        return self.row_mask.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_mask.device
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    def column(self, name: str) -> DeviceColumn:
+        return self.columns[self.names.index(name)]
+
+    def filter_mask(self, keep: torch.Tensor) -> "DeviceTable":
+        """AND a predicate into the row mask (no data movement)."""
+        mask = torch.logical_and(self.row_mask, keep)
+        return DeviceTable(self.columns, mask, mask.sum(dtype=torch.int32),
+                           self.names)
+
+    def compact(self) -> "DeviceTable":
+        """Move active rows to the front (stable). Same capacity; afterwards
+        ``row_mask == iota < num_rows``."""
+        return _compact_impl(self)
+
+    def nbytes(self) -> int:
+        total = self.row_mask.numel() + 4
+        for c in self.columns:
+            total += c.data.numel() * c.data.element_size() \
+                + c.validity.numel()
+        return total
+
+    # -- host <-> device ------------------------------------------------------
+    @staticmethod
+    def from_host(table: HostTable, min_bucket: Optional[int],
+                  device: torch.device,
+                  capacity: Optional[int] = None) -> "DeviceTable":
+        n = table.num_rows
+        cap = capacity if capacity is not None \
+            else bucket_rows(max(n, 1), min_bucket)
+        if cap < n:
+            raise ValueError(f"capacity {cap} < {n} rows")
+        cols = [_upload_column(hc, cap, device) for hc in table.columns]
+        row_mask = torch.from_numpy(np.arange(cap) < n).to(device)
+        return DeviceTable(tuple(cols), row_mask,
+                           torch.tensor(n, dtype=torch.int32, device=device),
+                           tuple(table.names))
+
+    def to_host(self) -> HostTable:
+        """Download and compact to exactly num_rows host rows."""
+        mask = self.row_mask.cpu().numpy()
+        n = int(self.num_rows)
+        cols = [_download_column(c, mask, n) for c in self.columns]
+        return HostTable(list(self.names), cols)
+
+
+def _download_column(c: DeviceColumn, mask: np.ndarray, n: int) -> HostColumn:
+    """One column's device->host decode over the active-row mask."""
+    validity = c.validity.cpu().numpy()[mask][:n]
+    vals = c.data.cpu().numpy()[mask][:n]
+    return HostColumn(c.dtype, vals, None if validity.all() else validity)
+
+
+def _upload_column(hc: HostColumn, capacity: int,
+                   device: torch.device) -> DeviceColumn:
+    n = len(hc)
+    validity = np.zeros(capacity, dtype=np.bool_)
+    validity[:n] = hc.valid_mask()
+    all_valid = hc.validity is None or bool(validity[:n].all())
+    torch_dtype(hc.dtype)  # raises for the types not ported to the device
+    vals = np.zeros(capacity, dtype=hc.dtype.np_dtype())
+    vals[:n] = hc.values
+    return DeviceColumn(torch.from_numpy(vals).to(device),
+                        torch.from_numpy(validity).to(device), hc.dtype,
+                        all_valid)
+
+
+def concat_device_tables(tables: Sequence[DeviceTable],
+                         min_bucket: Optional[int] = None) -> DeviceTable:
+    """Device-side concatenation (reference: GpuCoalesceBatches concat):
+    compacts each input, concatenates into a bucketed capacity."""
+    if not tables:
+        raise ValueError("cannot concat zero device tables")
+    if len(tables) == 1:
+        return tables[0]
+    first = tables[0]
+    total_cap = sum(t.capacity for t in tables)
+    # a bucketed capacity keeps the set of shapes downstream small
+    out_cap = bucket_rows(total_cap, min_bucket)
+    tail = out_cap - total_cap
+    compacted = [t.compact() for t in tables]
+
+    def cat(planes: List[torch.Tensor]) -> torch.Tensor:
+        out = torch.cat(planes)
+        return torch.nn.functional.pad(out, (0, tail)) if tail else out
+
+    out_cols = []
+    for ci in range(first.num_columns):
+        parts = [t.columns[ci] for t in compacted]
+        out_cols.append(DeviceColumn(
+            cat([p.data for p in parts]), cat([p.validity for p in parts]),
+            parts[0].dtype, all(p.all_valid for p in parts)))
+    row_mask = cat([t.row_mask for t in compacted])
+    num_rows = torch.stack([t.num_rows for t in tables]).sum(dtype=torch.int32)
+    return DeviceTable(tuple(out_cols), row_mask, num_rows,
+                       first.names).compact()
+
+
+def shrink_to_fit(table: DeviceTable, min_bucket: Optional[int] = None,
+                  num_rows: Optional[int] = None) -> DeviceTable:
+    """Compact and shrink capacity to the bucket of the active row count.
+
+    Reads the row count on the host (one int, a device wait) unless the
+    caller already holds it and passes ``num_rows``."""
+    floor = min_bucket if min_bucket is not None else _POLICY.min_rows
+    if table.capacity <= floor:
+        return table  # cannot shrink below one bucket: skip the device wait
+    n = num_rows if num_rows is not None else int(table.num_rows)
+    cap = bucket_rows(max(n, 1), min_bucket)
+    if cap >= table.capacity:
+        return table
+    compacted = table.compact()
+    cols = tuple(DeviceColumn(c.data[:cap], c.validity[:cap], c.dtype,
+                              c.all_valid) for c in compacted.columns)
+    return DeviceTable(cols, compacted.row_mask[:cap], compacted.num_rows,
+                       compacted.names)

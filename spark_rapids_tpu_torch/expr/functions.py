@@ -1,0 +1,198 @@
+"""User-facing column DSL, modeled on pyspark.sql.functions / Column — the
+port of ``spark_rapids_tpu/expr/functions.py`` for the operators and
+aggregates this engine runs.
+
+``col("a") * 2 > lit(3)`` builds an Expression tree consumed by the
+DataFrame API (spark_rapids_tpu_torch.session).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from ..columnar import dtypes as dt
+from . import aggregates as agg
+from .arithmetic import (Abs, Add, Divide, IntegralDivide, Multiply,
+                         Remainder, Subtract, UnaryMinus)
+from .base import Alias, AttributeReference, Expression, Literal
+from .cast import Cast
+from .conditional import CaseWhen, Coalesce
+from .predicates import (And, EqualNullSafe, EqualTo, GreaterThan,
+                         GreaterThanOrEqual, In, IsNaN, IsNotNull, IsNull,
+                         LessThan, LessThanOrEqual, Not, Or)
+
+__all__ = ["Column", "col", "lit", "when", "coalesce",
+           "sum", "count", "count_star", "min", "max", "avg", "mean", "abs"]
+
+
+class Column:
+    """Wrapper giving Expressions Python operator sugar."""
+
+    def __init__(self, expr: Expression):
+        self.expr = expr
+
+    # arithmetic
+    def __add__(self, other):
+        return Column(Add(self.expr, _to_expr(other)))
+
+    def __radd__(self, other):
+        return Column(Add(_to_expr(other), self.expr))
+
+    def __sub__(self, other):
+        return Column(Subtract(self.expr, _to_expr(other)))
+
+    def __rsub__(self, other):
+        return Column(Subtract(_to_expr(other), self.expr))
+
+    def __mul__(self, other):
+        return Column(Multiply(self.expr, _to_expr(other)))
+
+    def __rmul__(self, other):
+        return Column(Multiply(_to_expr(other), self.expr))
+
+    def __truediv__(self, other):
+        return Column(Divide(self.expr, _to_expr(other)))
+
+    def __rtruediv__(self, other):
+        return Column(Divide(_to_expr(other), self.expr))
+
+    def __mod__(self, other):
+        return Column(Remainder(self.expr, _to_expr(other)))
+
+    def __floordiv__(self, other):
+        return Column(IntegralDivide(self.expr, _to_expr(other)))
+
+    def __neg__(self):
+        return Column(UnaryMinus(self.expr))
+
+    # comparisons
+    def __eq__(self, other):  # type: ignore[override]
+        return Column(EqualTo(self.expr, _to_expr(other)))
+
+    def __ne__(self, other):  # type: ignore[override]
+        return Column(Not(EqualTo(self.expr, _to_expr(other))))
+
+    def __lt__(self, other):
+        return Column(LessThan(self.expr, _to_expr(other)))
+
+    def __le__(self, other):
+        return Column(LessThanOrEqual(self.expr, _to_expr(other)))
+
+    def __gt__(self, other):
+        return Column(GreaterThan(self.expr, _to_expr(other)))
+
+    def __ge__(self, other):
+        return Column(GreaterThanOrEqual(self.expr, _to_expr(other)))
+
+    def eq_null_safe(self, other):
+        return Column(EqualNullSafe(self.expr, _to_expr(other)))
+
+    # boolean (PySpark convention: &/|/~ are logical)
+    def __and__(self, other):
+        return Column(And(self.expr, _to_expr(other)))
+
+    def __or__(self, other):
+        return Column(Or(self.expr, _to_expr(other)))
+
+    def __invert__(self):
+        return Column(Not(self.expr))
+
+    # misc
+    def alias(self, name: str) -> "Column":
+        return Column(Alias(self.expr, name))
+
+    def cast(self, to: dt.DataType) -> "Column":
+        return Column(Cast(self.expr, to))
+
+    def is_null(self) -> "Column":
+        return Column(IsNull(self.expr))
+
+    def is_not_null(self) -> "Column":
+        return Column(IsNotNull(self.expr))
+
+    def is_nan(self) -> "Column":
+        return Column(IsNaN(self.expr))
+
+    def isin(self, *values) -> "Column":
+        return Column(In(self.expr, *[_to_expr(v) for v in values]))
+
+    def between(self, low, high) -> "Column":
+        return (self >= low) & (self <= high)
+
+    def __repr__(self):
+        return f"Column({self.expr!r})"
+
+    __hash__ = None  # type: ignore[assignment]
+
+
+def _to_expr(v: Any) -> Expression:
+    if isinstance(v, Column):
+        return v.expr
+    if isinstance(v, Expression):
+        return v
+    return Literal(v)
+
+
+def col(name: str) -> Column:
+    return Column(AttributeReference(name))
+
+
+def lit(value: Any) -> Column:
+    return Column(Literal(value))
+
+
+class _When:
+    def __init__(self, branches):
+        self._branches = branches
+
+    def when(self, cond: Column, value) -> "_When":
+        return _When(self._branches + [(_to_expr(cond), _to_expr(value))])
+
+    def otherwise(self, value) -> Column:
+        flat = [e for branch in self._branches for e in branch]
+        flat.append(_to_expr(value))
+        return Column(CaseWhen(*flat))
+
+    @property
+    def column(self) -> Column:
+        return Column(CaseWhen(*[e for branch in self._branches
+                                 for e in branch]))
+
+
+def when(cond: Column, value) -> _When:
+    return _When([(_to_expr(cond), _to_expr(value))])
+
+
+def coalesce(*cols) -> Column:
+    return Column(Coalesce(*[_to_expr(c) for c in cols]))
+
+
+# -- aggregates ----------------------------------------------------------------
+def sum(c) -> Column:  # noqa: A001
+    return Column(agg.Sum(_to_expr(c)))
+
+
+def count(c) -> Column:
+    return Column(agg.Count(_to_expr(c)))
+
+
+def count_star() -> Column:
+    return Column(agg.CountStar())
+
+
+def min(c) -> Column:  # noqa: A001
+    return Column(agg.Min(_to_expr(c)))
+
+
+def max(c) -> Column:  # noqa: A001
+    return Column(agg.Max(_to_expr(c)))
+
+
+def avg(c) -> Column:
+    return Column(agg.Average(_to_expr(c)))
+
+
+mean = avg
+
+
+def abs(c) -> Column:  # noqa: A001
+    return Column(Abs(_to_expr(c)))

@@ -1,0 +1,145 @@
+"""Logical plan nodes — the port's copy of ``spark_rapids_tpu/plan/logical.py``
+for scan, filter, project and aggregate.
+
+The logical layer's only jobs are (a) the DataFrame builder API, (b)
+expression resolution, and (c) feeding the physical planner
+(plan/planner.py). Tagging, lowering and transitions happen at the physical
+level.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+from ..columnar import dtypes as dt
+from ..expr.aggregates import AggregateFunction
+from ..expr.base import (Alias, AttributeReference, Expression,
+                         resolve_expression)
+from .schema import Field, Schema
+
+__all__ = ["LogicalPlan", "LogicalScan", "LogicalProject", "LogicalFilter",
+           "LogicalAggregate", "DataSource"]
+
+
+class DataSource:
+    """Abstract scan source; io/memory.py holds the in-memory one."""
+
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def partitions(self) -> int:
+        raise NotImplementedError
+
+    def read_partition(self, pidx: int, columns: Optional[List[str]] = None):
+        """Yield HostTable batches for one partition (column-pruned)."""
+        raise NotImplementedError
+
+    def name(self) -> str:
+        return type(self).__name__
+
+
+class LogicalPlan:
+    children: Tuple["LogicalPlan", ...] = ()
+
+    @property
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def node_name(self) -> str:
+        return type(self).__name__
+
+
+class LogicalScan(LogicalPlan):
+    def __init__(self, source: DataSource):
+        self.source = source
+        self.children = ()
+
+    @property
+    def schema(self) -> Schema:
+        return self.source.schema()
+
+
+class LogicalProject(LogicalPlan):
+    def __init__(self, child: LogicalPlan, exprs: Sequence[Expression]):
+        self.child = child
+        self.children = (child,)
+        cs = child.schema
+        self.exprs = [_named(resolve_expression(e, cs.to_dict(),
+                                                cs.nullable_dict()), i)
+                      for i, e in enumerate(exprs)]
+
+    @property
+    def schema(self) -> Schema:
+        return Schema([Field(e.name, e.data_type, e.nullable)
+                       for e in self.exprs])
+
+
+class LogicalFilter(LogicalPlan):
+    def __init__(self, child: LogicalPlan, condition: Expression):
+        self.child = child
+        self.children = (child,)
+        cs = child.schema
+        self.condition = resolve_expression(condition, cs.to_dict(),
+                                            cs.nullable_dict())
+        if not isinstance(self.condition.data_type, dt.BooleanType):
+            raise TypeError("filter condition must be boolean, got "
+                            f"{self.condition.data_type!r}")
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class LogicalAggregate(LogicalPlan):
+    """groupBy(groupings).agg(aggregates).
+
+    ``aggregates`` entries are either AggregateFunction or
+    Alias(AggregateFunction).
+    """
+
+    def __init__(self, child: LogicalPlan, groupings: Sequence[Expression],
+                 aggregates: Sequence[Expression]):
+        self.child = child
+        self.children = (child,)
+        cs = child.schema
+        self.groupings = [_named(resolve_expression(g, cs.to_dict(),
+                                                    cs.nullable_dict()), i,
+                                 prefix="group")
+                          for i, g in enumerate(groupings)]
+        resolved = []
+        for a in aggregates:
+            r = resolve_expression(a, cs.to_dict(), cs.nullable_dict())
+            fn = r.child if isinstance(r, Alias) else r
+            if not isinstance(fn, AggregateFunction):
+                raise TypeError(f"agg expression must be an aggregate, got {r!r}")
+            name = r.name if isinstance(r, Alias) else _default_agg_name(fn)
+            resolved.append((name, fn))
+        self.aggregates: List[Tuple[str, AggregateFunction]] = resolved
+        _check_dup([e.name for e in self.groupings] + [n for n, _ in resolved])
+
+    @property
+    def schema(self) -> Schema:
+        fields = [Field(g.name, g.data_type, g.nullable) for g in self.groupings]
+        fields += [Field(n, f.data_type, f.nullable) for n, f in self.aggregates]
+        return Schema(fields)
+
+
+def _named(e: Expression, i: int, prefix: str = "col") -> Expression:
+    """Ensure a projected expression has a stable output name."""
+    if isinstance(e, (Alias, AttributeReference, AggregateFunction)):
+        return e
+    return Alias(e, f"{prefix}_{i}")
+
+
+def _default_agg_name(fn: AggregateFunction) -> str:
+    base = type(fn).__name__.lower()
+    if fn.children:
+        c = fn.children[0]
+        inner = c.name if isinstance(c, (AttributeReference, Alias)) else "expr"
+        return f"{base}({inner})"
+    return f"{base}(*)"
+
+
+def _check_dup(names: Sequence[str]):
+    if len(set(names)) != len(names):
+        dupes = sorted({n for n in names if list(names).count(n) > 1})
+        raise ValueError(f"duplicate output columns: {dupes}")

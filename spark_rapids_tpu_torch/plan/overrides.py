@@ -1,0 +1,115 @@
+"""The override pass: rule registry + main pass — the port of
+``spark_rapids_tpu/plan/overrides.py`` cut to the rules for this engine's
+nodes and expressions (reference: GpuOverrides.scala:4008 apply; rule
+tables at :3348-3800).
+
+``apply_overrides(cpu_plan, conf, device)`` wraps the plan in metas, tags
+every node and expression with device capability (recording the reasons when
+it cannot run), converts convertible subtrees to device execs on ``device``,
+inserts host<->device transitions, and runs whole-stage fusion. Nodes and
+expressions without a rule here are not ported yet: ``explain`` says so and
+they run on the host engine.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..columnar.dtypes import TypeEnum, TypeSig
+from ..conf import RapidsConf
+from ..exec.aggregate import TpuHashAggregateExec
+from ..exec.basic import TpuFilterExec, TpuProjectExec
+from ..exec.exchange import TpuLocalExchangeExec
+from ..exec.wholestage import fuse_stages
+from ..expr import aggregates as A
+from ..expr import arithmetic as AR
+from ..expr import conditional as C
+from ..expr import predicates as P
+from ..expr.base import Alias, AttributeReference, Literal
+from ..expr.cast import Cast, cast_supported
+from ..udf.columnar import ColumnarUDF
+from .meta import register_exec_rule, register_expr_rule, wrap_plan
+from .physical import (CpuFilterExec, CpuHashAggregateExec, CpuProjectExec,
+                       CpuScanExec, PhysicalPlan, ShuffleExchangeExec)
+from .transitions import insert_transitions
+
+__all__ = ["apply_overrides", "explain_plan"]
+
+#: the fixed-width types of the device batch layout
+_device_common = TypeSig.numeric + TypeSig.of(
+    TypeEnum.BOOLEAN, TypeEnum.DATE, TypeEnum.TIMESTAMP, TypeEnum.NULL)
+
+
+def _register_expr_rules():
+    for cls in (AttributeReference, Literal, Alias,
+                AR.Add, AR.Subtract, AR.Multiply, AR.Divide,
+                AR.IntegralDivide, AR.Remainder, AR.Pmod, AR.UnaryMinus,
+                AR.Abs,
+                P.EqualTo, P.GreaterThan, P.GreaterThanOrEqual, P.LessThan,
+                P.LessThanOrEqual, P.EqualNullSafe, P.And, P.Or, P.Not,
+                P.IsNull, P.IsNotNull, P.IsNaN, P.In,
+                C.If, C.CaseWhen, C.Coalesce,
+                A.Sum, A.Min, A.Max, A.Count, A.CountStar, A.Average):
+        register_expr_rule(cls, _device_common)
+
+    def tag_cast(meta, conf):
+        c: Cast = meta.expr
+        if not cast_supported(c.child.data_type, c.to):
+            meta.cannot_run(f"cast {c.child.data_type!r} -> {c.to!r} is not "
+                            "ported yet")
+    register_expr_rule(Cast, _device_common, tag_fn=tag_cast)
+
+    def tag_columnar_udf(meta, conf):
+        if not meta.expr.device_ok:
+            meta.cannot_run(f"columnar UDF {meta.expr.udf_name!r} declared "
+                            "device_ok=False")
+    register_expr_rule(ColumnarUDF, _device_common, tag_fn=tag_columnar_udf)
+
+
+def _register_exec_rules():
+    register_exec_rule(
+        CpuProjectExec, _device_common,
+        lambda p, ch, conf, device: TpuProjectExec(ch[0], p.exprs, p.names),
+        exprs_fn=lambda p: p.exprs)
+    register_exec_rule(
+        CpuFilterExec, _device_common,
+        lambda p, ch, conf, device: TpuFilterExec(ch[0], p.condition),
+        exprs_fn=lambda p: [p.condition])
+    register_exec_rule(
+        CpuHashAggregateExec, _device_common,
+        lambda p, ch, conf, device: TpuHashAggregateExec(
+            ch[0], p.key_names, p.specs, p.mode, device))
+    # one device holds the whole exchange output (exec/exchange.py)
+    register_exec_rule(
+        ShuffleExchangeExec, _device_common,
+        lambda p, ch, conf, device: TpuLocalExchangeExec(
+            ch[0], p.partitioning, conf.min_bucket_rows))
+
+
+_register_expr_rules()
+_register_exec_rules()
+
+
+def explain_plan(cpu_plan: PhysicalPlan, conf: RapidsConf) -> str:
+    meta = wrap_plan(cpu_plan)
+    meta.tag(conf)
+    return meta.explain(not_on_device_only=(conf.explain == "NOT_ON_GPU"))
+
+
+def apply_overrides(cpu_plan: PhysicalPlan, conf: RapidsConf,
+                    device: torch.device) -> PhysicalPlan:
+    """Tag + convert + insert transitions + fuse (SURVEY §3.2 call stack)."""
+    meta = wrap_plan(cpu_plan)
+    meta.tag(conf)
+    if conf.explain != "NONE":
+        text = meta.explain(not_on_device_only=(conf.explain == "NOT_ON_GPU"))
+        if text:
+            print(text)
+    if conf.test_enabled:
+        for m in meta.walk():
+            # scans decode on the host by design (SURVEY §7.5)
+            if not m.can_run and not isinstance(m.plan, CpuScanExec):
+                raise AssertionError(
+                    f"[test.enabled] {type(m.plan).__name__} fell off the "
+                    f"device: {m.reasons}")
+    converted = meta.convert_if_needed(conf, device)
+    return fuse_stages(insert_transitions(converted, conf, device))

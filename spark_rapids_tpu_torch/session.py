@@ -1,0 +1,149 @@
+"""TorchSession + DataFrame — the user entry point; the port of
+``spark_rapids_tpu/session.py``.
+
+Holds the RapidsConf and the torch device queries run on, and drives
+logical -> physical -> overrides -> execution. Plans are made without AQE
+(adaptive execution is a later step of the port, ROADMAP Queue 1 step 5).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Union
+
+import pyarrow as pa
+import torch
+
+from .conf import RapidsConf
+from .expr.base import Alias, AttributeReference, Expression
+from .expr.functions import _to_expr, col as _col
+from .io.memory import InMemorySource
+from .plan.logical import (LogicalAggregate, LogicalFilter, LogicalPlan,
+                           LogicalProject, LogicalScan)
+from .plan.overrides import apply_overrides, explain_plan
+from .plan.physical import PhysicalPlan
+from .plan.planner import plan_physical
+from .plan.schema import Schema
+
+__all__ = ["TorchSession", "DataFrame"]
+
+
+class TorchSession:
+    """A session whose device plans run on ``device`` (default ``"cuda"``).
+
+    A session asked for CUDA on a machine without a usable CUDA device
+    raises: it never carries on on the CPU unless the caller asked for
+    ``device="cpu"``.
+    """
+
+    def __init__(self, conf: Optional[Union[RapidsConf, Dict]] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        if isinstance(conf, dict):
+            conf = RapidsConf(conf)
+        self.conf = conf or RapidsConf()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchSession: no CUDA device is available; pass "
+                "device='cpu' to run the engine on the CPU")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"TorchSession: unsupported device {device!r}")
+
+    def create_dataframe(self, data, num_partitions: int = 1) -> "DataFrame":
+        if isinstance(data, pa.Table):
+            table = data
+        elif isinstance(data, dict):
+            table = pa.table(data)
+        else:  # pandas
+            table = pa.Table.from_pandas(data, preserve_index=False)
+        return DataFrame(self, LogicalScan(InMemorySource(table,
+                                                          num_partitions)))
+
+    def _physical(self, logical: LogicalPlan,
+                  device: Optional[bool] = None) -> PhysicalPlan:
+        cpu = plan_physical(logical)
+        use_device = self.conf.is_sql_enabled if device is None else device
+        if not use_device:
+            return cpu
+        return apply_overrides(cpu, self.conf, self.device)
+
+    def set_conf(self, key: str, value) -> "TorchSession":
+        self.conf = self.conf.set(key, value)
+        return self
+
+
+class DataFrame:
+    def __init__(self, session: TorchSession, logical: LogicalPlan):
+        self.session = session
+        self.logical = logical
+
+    @property
+    def schema(self) -> Schema:
+        return self.logical.schema
+
+    @property
+    def columns(self) -> List[str]:
+        return self.schema.names
+
+    # -- transformations -----------------------------------------------------
+    def select(self, *cols) -> "DataFrame":
+        return DataFrame(self.session, LogicalProject(
+            self.logical, [self._col_expr(c) for c in cols]))
+
+    def with_column(self, name: str, c) -> "DataFrame":
+        exprs: List[Expression] = [
+            AttributeReference(n) for n in self.schema.names if n != name]
+        exprs.append(Alias(_to_expr(c), name))
+        return DataFrame(self.session, LogicalProject(self.logical, exprs))
+
+    def filter(self, cond) -> "DataFrame":
+        return DataFrame(self.session,
+                         LogicalFilter(self.logical, _to_expr(cond)))
+
+    where = filter
+
+    def agg(self, *aggs) -> "DataFrame":
+        """Aggregate over all rows (no grouping keys)."""
+        return DataFrame(self.session, LogicalAggregate(
+            self.logical, [], [_to_expr(a) for a in aggs]))
+
+    def group_by(self, *cols):
+        raise NotImplementedError(
+            "group_by: keyed aggregates are not ported yet "
+            "(ROADMAP Queue 1 step 4, the Q1 slice)")
+
+    groupBy = group_by
+
+    def sort(self, *orders, ascending: bool = True):
+        raise NotImplementedError(
+            "sort is not ported yet (ROADMAP Queue 1 step 4, the Q1 slice)")
+
+    order_by = orderBy = sort
+
+    def join(self, other, on=None, how: str = "inner", condition=None):
+        raise NotImplementedError(
+            "join is not ported yet (ROADMAP Queue 1 step 6)")
+
+    def _col_expr(self, c) -> Expression:
+        return _to_expr(_col(c) if isinstance(c, str) else c)
+
+    # -- actions -------------------------------------------------------------
+    def collect(self, device: Optional[bool] = None) -> pa.Table:
+        """Run the query: on the session's device (``device=True``, the
+        default when SQL is enabled) or on the host engine
+        (``device=False``)."""
+        return self.session._physical(self.logical, device).collect() \
+            .to_arrow()
+
+    def to_pandas(self, device: Optional[bool] = None):
+        return self.collect(device).to_pandas()
+
+    def explain(self, mode: str = "plan") -> str:
+        """``"plan"``: the physical plan that runs; ``"device"``: the tagging
+        report — each host node and whether, or why not, it runs on the
+        device."""
+        if mode == "device":
+            text = explain_plan(plan_physical(self.logical),
+                                self.session.conf)
+        else:
+            text = self.session._physical(self.logical).tree_string()
+        print(text)
+        return text

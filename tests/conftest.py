@@ -112,3 +112,9 @@ def _drain_movement_state_per_module():
     yield
     from spark_rapids_tpu.utils.movement import reset_movement
     reset_movement()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA device (the port's kernels); "
+        "skips without one")
