@@ -15,7 +15,13 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    warm wall times and a profiler trace of one more warm run;
 3. UDF phase: a Q6-shaped query summing the ``pallas_axpy`` UDF, checked the
    same way, with the kernel's launch count over the run equal to the number
-   of input batches (the proof that the query went through the kernel).
+   of input batches (the proof that the query went through the kernel);
+4. Q1 phase: TPC-H Q1 (keyed aggregate over two string keys, then a sort)
+   through ``TorchSession`` on the card: its device plan node for node, the
+   result against the host engine and an independent numpy computation
+   (keys, row order and counts exactly, doubles at rel 1e-9), cold and warm
+   walls and a profiler trace. Q1 runs no hand-written kernel: its device
+   work is torch ops, and ``axpy`` must launch 0 times on it.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -179,11 +185,12 @@ def query_phase(q, label: str, column: str, expect: float,
     return launched
 
 
-def _profile(q, label: str) -> None:
+def _profile(q, label: str):
     """One more warm run under torch.profiler: the device's busy time (its
     kernels and copies) against the run's wall time, and the top device
     events. The profiler slows the host side, so the wall here is longer
-    than the untraced warm wall above."""
+    than the untraced warm wall above. Returns (busy ms, traced wall ms),
+    or None when the profiler saw no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -197,13 +204,122 @@ def _profile(q, label: str) -> None:
     if not dev:
         print(f"# {label} trace: the profiler recorded no device events; "
               f"device busy time not measured", flush=True)
-        return
+        return None
     busy = sum(ms for ms, _, _ in dev)
     print(f"# {label} trace: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
           f"traced wall ({100 * busy / wall_ms:.1f} %); top device events:",
           flush=True)
     for ms, count, key in sorted(dev, reverse=True)[:6]:
         print(f"#   {ms:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return busy, wall_ms
+
+
+Q1_DEVICE_PLAN = [
+    "DeviceToHostExec", "TpuSortExec", "TpuLocalExchangeExec",
+    "TpuProjectExec", "TpuHashAggregateExec", "TpuLocalExchangeExec",
+    "TpuWholeStage[Filter+Project+HashAggregate]", "HostToDeviceExec",
+    "CpuScanExec"]
+Q1_SUMS = ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
+           "avg_qty", "avg_price", "avg_disc")
+
+
+def _q1_numpy(li) -> dict:
+    """TPC-H Q1 in numpy alone: the filter, then per (returnflag,
+    linestatus) group, in key order, the sums, averages and row counts."""
+    keep = li.column("l_shipdate").cast("int32").to_numpy() <= 10471
+    cols = {c: li.column(c).to_numpy()[keep] for c in
+            ("l_quantity", "l_extendedprice", "l_discount", "l_tax")}
+    codes, uniques = [], []
+    for c in ("l_returnflag", "l_linestatus"):
+        u, inv = np.unique(np.asarray(
+            li.column(c).to_numpy(zero_copy_only=False)[keep], dtype=str),
+            return_inverse=True)
+        uniques.append(u)
+        codes.append(inv.reshape(-1))
+    groups, gid = np.unique(codes[0] * len(uniques[1]) + codes[1],
+                            return_inverse=True)
+    gid = gid.reshape(-1)
+    count = np.bincount(gid)
+
+    def gsum(x):
+        return np.bincount(gid, weights=x)
+
+    disc_price = cols["l_extendedprice"] * (1.0 - cols["l_discount"])
+    return {
+        "l_returnflag": [str(uniques[0][g // len(uniques[1])])
+                         for g in groups],
+        "l_linestatus": [str(uniques[1][g % len(uniques[1])])
+                         for g in groups],
+        "sum_qty": gsum(cols["l_quantity"]),
+        "sum_base_price": gsum(cols["l_extendedprice"]),
+        "sum_disc_price": gsum(disc_price),
+        "sum_charge": gsum(disc_price * (1.0 + cols["l_tax"])),
+        "avg_qty": gsum(cols["l_quantity"]) / count,
+        "avg_price": gsum(cols["l_extendedprice"]) / count,
+        "avg_disc": gsum(cols["l_discount"]) / count,
+        "count_order": count.tolist()}
+
+
+def _check_q1(out, want: dict, what: str) -> None:
+    """Keys, row order and counts exactly; sums and averages at rel 1e-9."""
+    for c in ("l_returnflag", "l_linestatus", "count_order"):
+        got = out.column(c).to_pylist()
+        if got != list(want[c]):
+            raise AssertionError(f"Q1 {what}: {c} {got} != {list(want[c])}")
+    for c in Q1_SUMS:
+        for a, b in zip(out.column(c).to_pylist(), want[c]):
+            if a is None or not math.isfinite(a):
+                raise AssertionError(f"Q1 {what}: {c} = {a!r}")
+            _close(a, float(b), f"Q1 {what}: {c}")
+
+
+def q1_phase(q, li) -> None:
+    """Drive TPC-H Q1 on the card: the device plan node for node, above the
+    scan device nodes only; a cold and a warm run, each against the host
+    engine and numpy, with ``axpy``'s launch count set to 0 before each and
+    read after (Q1 runs no hand-written kernel, so it must stay 0); then a
+    profiler trace of one more warm run."""
+    from spark_rapids_tpu_torch.udf.kernels import axpy
+    q.explain()
+    _check_device_plan(q)
+    plan = q.session._physical(q.logical, True)
+    names = []
+    while plan is not None:
+        names.append(plan.node_name())
+        plan = plan.children[0] if plan.children else None
+    if names != Q1_DEVICE_PLAN:
+        raise AssertionError(f"Q1 device plan {names}")
+    t0 = time.perf_counter()
+    want = _q1_numpy(li)
+    t_numpy = time.perf_counter() - t0
+    walls, results = [], []
+    for _ in ("cold", "warm"):
+        axpy.launches = 0
+        t0 = time.perf_counter()
+        results.append(q.collect())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if axpy.launches != 0:
+            raise AssertionError(f"Q1: axpy launched {axpy.launches} times")
+    t0 = time.perf_counter()
+    host = q.collect(device=False)
+    t_host = time.perf_counter() - t0
+    _check_q1(host, want, "host engine vs numpy")
+    for out in results:
+        _check_q1(out, want, "device vs numpy")
+        host_cols = {c: host.column(c).to_pylist() for c in host.column_names}
+        _check_q1(out, host_cols, "device vs host engine")
+    print(f"# Q1: {results[0].num_rows} groups, "
+          f"{sum(want['count_order'])} rows pass the filter; device cold "
+          f"{walls[0]:.3f} s, warm {walls[1]:.3f} s; host engine "
+          f"{t_host:.3f} s; numpy {t_numpy:.3f} s; axpy launches per run 0",
+          flush=True)
+    traced = _profile(q, "Q1")
+    if traced is not None:
+        busy, wall_ms = traced
+        print(f"# Q1 trace: device busy {100 * busy / wall_ms:.1f} %, idle "
+              f"{100 - 100 * busy / wall_ms:.1f} % of the traced warm run",
+              flush=True)
 
 
 def _value(table, name: str) -> float:
@@ -281,6 +397,9 @@ def main() -> int:
     launches = query_phase(udf_q, "UDF query", "s",
                            float(np.sum(r[mask].astype(np.float64))),
                            launches=batches)
+
+    # -- Q1 phase: keyed aggregate over string keys, then a sort -----------
+    q1_phase(tpch.q1({"lineitem": df}), li)
 
     t = kern["timings"][1 << 20]
     print(json.dumps({"kernels": [{

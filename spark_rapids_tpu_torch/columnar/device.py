@@ -12,6 +12,9 @@ two engines can be compared directly:
    that need dense data: exchanges, concatenation and host download.
 3. **Validity as bool planes**, one per column, plus a host-side
    ``all_valid`` promise that lets kernels skip the plane.
+4. **Strings as a byte matrix**: a ``(capacity, width)`` uint8 plane (each
+   value left-aligned, zero-padded) plus an int32 ``lengths`` plane. The
+   width is per batch, ``bucket_width`` of its longest value.
 
 ``num_rows`` is a 0-d int32 tensor on the batch's device: batch functions
 never turn it into a Python int, so they never wait on the device. The host
@@ -23,15 +26,16 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import pyarrow as pa
 import torch
 
 from . import dtypes as dt
 from .host import HostColumn, HostTable
 
 __all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "as_torch_dtype",
-           "bucket_rows",
-           "concat_device_tables", "shrink_to_fit", "stable_partition_order",
-           "torch_dtype"]
+           "bucket_rows", "bucket_width",
+           "concat_device_tables", "pack_string_key_words", "shrink_to_fit",
+           "stable_partition_order", "torch_dtype"]
 
 _TORCH_DTYPES = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
                  np.dtype(np.int16): torch.int16,
@@ -50,8 +54,11 @@ def as_torch_dtype(dtype) -> torch.dtype:
 
 
 def torch_dtype(d: dt.DataType) -> torch.dtype:
-    """The torch dtype of a fixed-width type's value plane."""
-    if isinstance(d, (dt.StringType, dt.BinaryType)):
+    """The torch dtype of a type's value plane (uint8 for the string byte
+    matrix)."""
+    if isinstance(d, dt.StringType):
+        return torch.uint8
+    if isinstance(d, dt.BinaryType):
         raise TypeError(f"{d!r} columns are not ported to the device yet")
     return as_torch_dtype(d.np_dtype())
 
@@ -116,16 +123,27 @@ def bucket_rows(n: int, min_bucket: Optional[int] = None) -> int:
     return _POLICY.bucket(n, min_bucket)
 
 
+def bucket_width(w: int, min_width: int = 8, max_width: int = 4096) -> int:
+    """Byte width of a string matrix holding values of up to ``w`` bytes."""
+    cap = min_width
+    while cap < w:
+        cap *= 2
+    return min(cap, max(max_width, w))
+
+
 @dataclasses.dataclass
 class DeviceColumn:
-    """One device column: padded values + validity."""
-    data: torch.Tensor                # (capacity,)
+    """One device column: padded values + validity (+ lengths for
+    strings)."""
+    data: torch.Tensor                # (capacity,); strings (capacity, width)
     validity: torch.Tensor            # (capacity,) bool — True = non-null
     dtype: dt.DataType
     #: null-freedom promise: every row under the table's row_mask is valid,
     #: so kernels may skip the validity plane (which stays correct either
     #: way). False is always safe.
     all_valid: bool = False
+    #: (capacity,) int32 byte lengths of a string column, else None
+    lengths: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -138,11 +156,21 @@ class DeviceColumn:
         i = idx.long()
         return DeviceColumn(self.data.index_select(0, i),
                             self.validity.index_select(0, i), self.dtype,
-                            self.all_valid)
+                            self.all_valid,
+                            None if self.lengths is None
+                            else self.lengths.index_select(0, i))
 
     def with_validity(self, validity: torch.Tensor,
                       all_valid: bool = False) -> "DeviceColumn":
-        return DeviceColumn(self.data, validity, self.dtype, all_valid)
+        return DeviceColumn(self.data, validity, self.dtype, all_valid,
+                            self.lengths)
+
+    def cut(self, rows: int) -> "DeviceColumn":
+        """The first ``rows`` rows of every plane."""
+        return DeviceColumn(self.data[:rows], self.validity[:rows],
+                            self.dtype, self.all_valid,
+                            None if self.lengths is None
+                            else self.lengths[:rows])
 
 
 @dataclasses.dataclass
@@ -184,6 +212,8 @@ class DeviceTable:
         for c in self.columns:
             total += c.data.numel() * c.data.element_size() \
                 + c.validity.numel()
+            if c.lengths is not None:
+                total += c.lengths.numel() * c.lengths.element_size()
         return total
 
     # -- host <-> device ------------------------------------------------------
@@ -213,8 +243,80 @@ class DeviceTable:
 def _download_column(c: DeviceColumn, mask: np.ndarray, n: int) -> HostColumn:
     """One column's device->host decode over the active-row mask."""
     validity = c.validity.cpu().numpy()[mask][:n]
+    opt_valid = None if validity.all() else validity
     vals = c.data.cpu().numpy()[mask][:n]
-    return HostColumn(c.dtype, vals, None if validity.all() else validity)
+    if c.lengths is not None:
+        lengths = c.lengths.cpu().numpy()[mask][:n]
+        return HostColumn(c.dtype, _decode_string_matrix(vals, lengths),
+                          opt_valid)
+    return HostColumn(c.dtype, vals, opt_valid)
+
+
+def _encode_string_matrix(values: np.ndarray, capacity: int,
+                          arrow: Optional[pa.Array] = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Object array of str -> (capacity, width) uint8 matrix + int32
+    lengths, from Arrow's offsets and data buffers with one fancy-index
+    scatter (no per-row Python loop). ``arrow``, when the column carries
+    it, skips building the Arrow array from ``values``."""
+    n = len(values)
+    arr = arrow if arrow is not None else pa.array(values, type=pa.string(),
+                                                   from_pandas=True)
+    if pa.types.is_large_string(arr.type):
+        arr = arr.cast(pa.string())
+    offsets = np.frombuffer(arr.buffers()[1], dtype=np.int32,
+                            count=n + 1 + arr.offset)[arr.offset:]
+    blob_buf = arr.buffers()[2]
+    blob = np.frombuffer(blob_buf, dtype=np.uint8) if blob_buf is not None \
+        else np.zeros(0, dtype=np.uint8)
+    starts = offsets[:-1].astype(np.int64)
+    lengths = (offsets[1:] - offsets[:-1]).astype(np.int32)
+    width = bucket_width(max(int(lengths.max()) if n else 0, 1))
+    mat = np.zeros((capacity, width), dtype=np.uint8)
+    total = int(offsets[-1]) - int(offsets[0])
+    if total and (lengths == lengths[0]).all():
+        # values of one length: the data buffer is the matrix's rows
+        mat[:n, :lengths[0]] = blob[int(offsets[0]):int(offsets[-1])] \
+            .reshape(n, lengths[0])
+    elif total:
+        rows = np.repeat(np.arange(n, dtype=np.int64), lengths)
+        flat = np.arange(int(offsets[0]), int(offsets[-1]), dtype=np.int64)
+        cols = flat - np.repeat(starts, lengths)
+        mat[rows, cols] = blob[flat]
+    out_lengths = np.zeros(capacity, dtype=np.int32)
+    out_lengths[:n] = lengths
+    return mat, out_lengths
+
+
+def _decode_string_matrix(data: np.ndarray, lengths: np.ndarray
+                          ) -> np.ndarray:
+    """(n, width) byte matrix + lengths -> object array of str, through one
+    Arrow varlen array (the inverse of ``_encode_string_matrix``)."""
+    n = len(lengths)
+    lengths = lengths.astype(np.int64)
+    total = int(lengths.sum())
+    starts = np.cumsum(lengths) - lengths
+    if total:
+        rows = np.repeat(np.arange(n, dtype=np.int64), lengths)
+        cols = np.arange(total, dtype=np.int64) - np.repeat(starts, lengths)
+        blob = np.ascontiguousarray(data[rows, cols])
+    else:
+        blob = np.zeros(0, dtype=np.uint8)
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    try:
+        arr = pa.Array.from_buffers(pa.string(), n, [
+            None, pa.py_buffer(offsets.tobytes()),
+            pa.py_buffer(blob.tobytes())])
+        arr.validate(full=True)
+        return arr.to_numpy(zero_copy_only=False).astype(object)
+    except pa.ArrowInvalid:
+        # invalid UTF-8: per-row decode with replacement
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            out[i] = bytes(data[i, :lengths[i]]).decode("utf-8",
+                                                       errors="replace")
+        return out
 
 
 def _upload_column(hc: HostColumn, capacity: int,
@@ -224,6 +326,11 @@ def _upload_column(hc: HostColumn, capacity: int,
     validity[:n] = hc.valid_mask()
     all_valid = hc.validity is None or bool(validity[:n].all())
     torch_dtype(hc.dtype)  # raises for the types not ported to the device
+    if isinstance(hc.dtype, dt.StringType):
+        mat, lengths = _encode_string_matrix(hc.values, capacity, hc.arrow)
+        return DeviceColumn(torch.from_numpy(mat).to(device),
+                            torch.from_numpy(validity).to(device), hc.dtype,
+                            all_valid, torch.from_numpy(lengths).to(device))
     vals = np.zeros(capacity, dtype=hc.dtype.np_dtype())
     vals[:n] = hc.values
     return DeviceColumn(torch.from_numpy(vals).to(device),
@@ -248,14 +355,26 @@ def concat_device_tables(tables: Sequence[DeviceTable],
 
     def cat(planes: List[torch.Tensor]) -> torch.Tensor:
         out = torch.cat(planes)
-        return torch.nn.functional.pad(out, (0, tail)) if tail else out
+        if not tail:
+            return out
+        # F.pad pads the last dimension first: (0, 0) keeps a matrix's width
+        return torch.nn.functional.pad(
+            out, (0, 0) * (out.dim() - 1) + (0, tail))
 
     out_cols = []
     for ci in range(first.num_columns):
         parts = [t.columns[ci] for t in compacted]
+        lengths = None
+        datas = [p.data for p in parts]
+        if parts[0].lengths is not None:
+            # string matrices: pad every part to the widest part's width
+            width = max(d.shape[1] for d in datas)
+            datas = [torch.nn.functional.pad(d, (0, width - d.shape[1]))
+                     for d in datas]
+            lengths = cat([p.lengths for p in parts])
         out_cols.append(DeviceColumn(
-            cat([p.data for p in parts]), cat([p.validity for p in parts]),
-            parts[0].dtype, all(p.all_valid for p in parts)))
+            cat(datas), cat([p.validity for p in parts]),
+            parts[0].dtype, all(p.all_valid for p in parts), lengths))
     row_mask = cat([t.row_mask for t in compacted])
     num_rows = torch.stack([t.num_rows for t in tables]).sum(dtype=torch.int32)
     return DeviceTable(tuple(out_cols), row_mask, num_rows,
@@ -276,7 +395,27 @@ def shrink_to_fit(table: DeviceTable, min_bucket: Optional[int] = None,
     if cap >= table.capacity:
         return table
     compacted = table.compact()
-    cols = tuple(DeviceColumn(c.data[:cap], c.validity[:cap], c.dtype,
-                              c.all_valid) for c in compacted.columns)
+    cols = tuple(c.cut(cap) for c in compacted.columns)
     return DeviceTable(cols, compacted.row_mask[:cap], compacted.num_rows,
                        compacted.names)
+
+
+def pack_string_key_words(data: torch.Tensor, lengths: torch.Tensor
+                          ) -> List[torch.Tensor]:
+    """(cap, width) uint8 matrix + lengths -> 1-D int64 words, most
+    significant first: 8 bytes per word big-endian, then the length as the
+    last word, so zero padding cannot conflate "ab" with "ab\\x00".
+
+    The words hold the bit patterns of the JAX package's uint64 words. As
+    torch has no unsigned 64-bit order, a caller that sorts by them flips
+    the sign bit first (``w ^ -2**63``); equality needs nothing."""
+    cap, w = data.shape
+    pad = -w % 8
+    if pad:
+        data = torch.nn.functional.pad(data, (0, pad))
+    # reversing each 8-byte group and reading it as one little-endian
+    # int64 packs the group big-endian
+    packed = data.reshape(cap, -1, 8).flip(2).contiguous() \
+        .view(torch.int64).reshape(cap, -1)
+    return [packed[:, i] for i in range(packed.shape[1])] \
+        + [lengths.to(torch.int64)]

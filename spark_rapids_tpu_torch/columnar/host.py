@@ -3,8 +3,9 @@
 The port's copy of ``spark_rapids_tpu/columnar/host.py``: data sits in host
 memory in a layout that uploads to the device without reinterpretation.
 Fixed-width types are numpy arrays; strings stay numpy object arrays so the
-host engine can compute on them directly (their device layout is not ported
-yet).
+host engine can compute on them directly. A string column decoded from
+Arrow keeps its Arrow array, so the upload encodes the device byte matrix
+straight from Arrow's buffers.
 """
 from __future__ import annotations
 
@@ -52,6 +53,10 @@ class HostColumn:
     dtype: dt.DataType
     values: np.ndarray          # fixed width: typed array; string: object array of str
     validity: Optional[np.ndarray] = None   # bool array, None means all-valid
+    #: the Arrow array the values were decoded from (string columns fresh
+    #: off a scan); the upload reads its buffers instead of re-encoding
+    arrow: Optional[pa.Array] = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
 
     def __post_init__(self):
         if self.validity is not None and self.validity.dtype != np.bool_:
@@ -75,9 +80,10 @@ class HostColumn:
         if arr.null_count:
             validity = np.asarray(arr.is_valid())
         if isinstance(d, (dt.StringType, dt.BinaryType)):
-            values = np.asarray(arr.to_pylist(), dtype=object)
+            values = arr.to_numpy(zero_copy_only=False).astype(object)
             if validity is not None:
                 values[~validity] = "" if isinstance(d, dt.StringType) else b""
+            return HostColumn(d, values, validity, arr)
         elif isinstance(d, dt.DateType):
             values = np.asarray(arr.cast(pa.int32()).fill_null(0))
         elif isinstance(d, dt.TimestampType):

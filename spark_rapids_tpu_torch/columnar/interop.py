@@ -31,9 +31,11 @@ def device_table_from_numpy(names: Sequence[str],
     """Build a ``DeviceTable`` from numpy planes.
 
     ``columns`` holds one mapping per column with keys ``data`` and
-    ``validity`` (arrays of the batch capacity), ``dtype`` (a port
-    ``DataType`` or its simple name, e.g. ``"double"``) and ``all_valid``.
-    ``row_mask`` is the bool row mask and ``num_rows`` the active row count.
+    ``validity`` (arrays of the batch capacity; ``data`` of a string column
+    is its ``(capacity, width)`` byte matrix), ``dtype`` (a port
+    ``DataType`` or its simple name, e.g. ``"double"``), ``all_valid`` and,
+    for a string column, ``lengths``. ``row_mask`` is the bool row mask and
+    ``num_rows`` the active row count.
     """
     device = torch.device(device)
     cap = len(row_mask)
@@ -43,10 +45,18 @@ def device_table_from_numpy(names: Sequence[str],
         d = dt.from_simple_name(d) if isinstance(d, str) else d
         data = _tensor(c["data"], torch_dtype(d), device)
         validity = _tensor(c["validity"], torch.bool, device)
-        if data.shape != (cap,) or validity.shape != (cap,):
+        lengths = None
+        if isinstance(d, dt.StringType):
+            lengths = _tensor(c["lengths"], torch.int32, device)
+            ok = data.dim() == 2 and data.shape[0] == cap \
+                and lengths.shape == (cap,)
+        else:
+            ok = data.shape == (cap,)
+        if not ok or validity.shape != (cap,):
             raise ValueError(f"column {name!r}: planes {tuple(data.shape)} /"
                              f" {tuple(validity.shape)}, capacity {cap}")
-        cols.append(DeviceColumn(data, validity, d, bool(c["all_valid"])))
+        cols.append(DeviceColumn(data, validity, d, bool(c["all_valid"]),
+                                 lengths))
     return DeviceTable(tuple(cols), _tensor(row_mask, torch.bool, device),
                        torch.tensor(int(num_rows), dtype=torch.int32,
                                     device=device),

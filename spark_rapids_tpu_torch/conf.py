@@ -84,6 +84,20 @@ BATCH_ROWS_MIN_BUCKET = register_conf(
     "up to power-of-two multiples of this, so operators see a bounded set "
     "of shapes.", 1024, checker=_positive("bucket"))
 
+BATCH_SIZE_BYTES = register_conf(
+    "spark.rapids.sql.batchSizeBytes",
+    "Target device batch size in bytes: a sort whose input batches exceed "
+    "it together raises until the out-of-core sort is ported (ROADMAP "
+    "Queue 1 step 9). "
+    "(reference: RapidsConf.scala:425-432)",
+    512 * 1024 * 1024, checker=_positive("batch size"))
+
+SHUFFLE_PARTITIONS = register_conf(
+    "spark.rapids.tpu.shuffle.partitions",
+    "Number of output partitions for hash/range exchanges (Spark's "
+    "spark.sql.shuffle.partitions analogue).", 8,
+    checker=_positive("partition count"))
+
 TEST_ENABLED = register_conf(
     "spark.rapids.sql.test.enabled",
     "Fail if a query does not fully run on device, scans and exchanges "
@@ -125,6 +139,14 @@ class RapidsConf:
     @property
     def min_bucket_rows(self) -> int:
         return self.get(BATCH_ROWS_MIN_BUCKET)
+
+    @property
+    def batch_size_bytes(self) -> int:
+        return self.get(BATCH_SIZE_BYTES)
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return self.get(SHUFFLE_PARTITIONS)
 
     @property
     def test_enabled(self) -> bool:

@@ -1,82 +1,274 @@
-"""Device aggregate without grouping keys — the port of the ungrouped path of
-``spark_rapids_tpu/exec/aggregate.py`` (reference: aggregate.scala,
-GpuHashAggregateExec at :1319).
+"""Device hash aggregate — the port of ``spark_rapids_tpu/exec/aggregate.py``
+(reference: aggregate.scala, GpuHashAggregateIterator at :181,
+GpuHashAggregateExec at :1319) for sum, count, min and max, with or without
+grouping keys.
 
-The partial pass reduces each batch to one state row (a masked reduction per
-state column) and fuses into the whole-stage node above the upload; the
-final pass concatenates the state rows it receives and reduces them again
-with the merge ops. Keyed aggregation (the hash strategy) is a later step of
-the port (ROADMAP Queue 1 step 4).
+Grouping is the JAX package's hash strategy (what its ``auto`` resolves
+to): key columns become equality words (``_key_small_fields``), the words
+hash into row-count buckets, and rounds resolve each bucket's
+minimum-index candidate's whole key class until no row is left. Group ids
+come out in order of first appearance, whatever the hash. Per-group
+reductions then run as ``index_add_`` / ``scatter_reduce_`` over the group
+ids, and each group's key is gathered from its first row.
+
+The partial pass fuses into the whole-stage node above the upload and
+emits one aggregated batch per input batch; the final pass concatenates
+what it receives and merges as it goes, shrinking the running state to the
+bucket of its group count.
+
+Torch lacks shifts, remainders and order on unsigned integers, so the
+JAX package's uint64 key words ride int64 tensors bit for bit and its
+uint32 hash arithmetic rides int64 in ``[0, 2**32)`` (shuffle/manager.py).
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.device import (DeviceColumn, DeviceTable,
-                               concat_device_tables, shrink_to_fit,
-                               torch_dtype)
-from ..plan.physical import (AggSpec, PhysicalPlan, _check_mode_and_keys,
-                             aggregate_columns_ops)
-from ..plan.schema import Field, Schema
+                               concat_device_tables, pack_string_key_words,
+                               shrink_to_fit, torch_dtype)
+from ..plan.physical import (AggSpec, PhysicalPlan, aggregate_columns_ops,
+                             aggregate_schema, check_mode)
+from ..plan.schema import Schema
+from ..shuffle.manager import MASK32, fmix_device
 from .base import TpuExec
 
 __all__ = ["TpuHashAggregateExec"]
 
 #: capacity of the one-state-row output batch
 _STATE_CAPACITY = 8
-#: input capacity the final pass gathers before one reduction
+#: input capacity the aggregate gathers before one reduction
 _CHUNK_CAPACITY = 1 << 20
+_BIG = 2**62
+_COLLECT_OPS = frozenset(
+    {"collect_list", "collect_set", "merge_lists", "merge_sets"})
+_FIXED_WIDTH = (dt.BooleanType, dt.IntegralType, dt.FractionalType,
+                dt.DateType, dt.TimestampType, dt.NullType)
 
 
 def _minmax_identity(dtype: torch.dtype, for_min: bool):
-    if dtype == torch.bool:
-        return for_min
-    info = torch.finfo(dtype) if dtype.is_floating_point \
-        else torch.iinfo(dtype)
+    """The value a non-contributing row holds in a min or max: +-inf for
+    floats. (The JAX package uses the largest finite double there, so a
+    group whose contributions are all +inf, beside a null or masked-off
+    row, gets a min of 1.8e308 from it where Spark and both host engines
+    give inf; see the grouped query test.)"""
+    if dtype.is_floating_point:
+        return float("inf") if for_min else float("-inf")
+    info = torch.iinfo(dtype)
     return info.max if for_min else info.min
 
 
-def _reduce(op: str, vals: torch.Tensor, contrib: torch.Tensor,
-            out_dt: dt.DataType) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One whole-batch reduction -> (value, has) as 0-d tensors; ``has`` is
-    False when no row contributed (the value is then null).
+def _normalize_float_key(v: torch.Tensor) -> torch.Tensor:
+    if v.dtype.is_floating_point:
+        v = torch.where(v == 0, torch.zeros_like(v), v)
+    return v
+
+
+def _key_code_words(kc: DeviceColumn
+                    ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Column -> (1-D equality words most-significant first, optional NaN
+    flag). Strings pack 8 bytes per word plus the length as the last word;
+    floats map -0.0 to 0.0 and NaN to inf (the NaN flag keeps it apart)."""
+    if isinstance(kc.dtype, dt.StringType):
+        return pack_string_key_words(kc.data, kc.lengths), None
+    if not isinstance(kc.dtype, _FIXED_WIDTH):
+        raise NotImplementedError(
+            f"group-by keys of type {kc.dtype!r} are not ported yet (struct "
+            "keys: ROADMAP Queue 1 step 11; decimal keys: step 8)")
+    v = _normalize_float_key(kc.data)
+    if v.dtype.is_floating_point:
+        nan = torch.isnan(v)
+        return [torch.where(nan, torch.full_like(v, float("inf")), v)], nan
+    return [v], None
+
+
+def _key_small_fields(kc: DeviceColumn):
+    """Column -> (value words, [(small_field, nbits), ...]): the small
+    fields (null flag, string length, NaN flag) need only a few bits each,
+    and the caller packs them into shared meta words. Value words are
+    zeroed on null rows so null-key groups cannot split on stale plane
+    contents."""
+    valid = kc.validity
+    smalls = [(torch.logical_not(valid).to(torch.int64), 1)]
+
+    def z(w):
+        return torch.where(valid, w, torch.zeros_like(w))
+
+    if isinstance(kc.dtype, dt.StringType):
+        width = kc.data.shape[1]
+        words = [z(x) for x in
+                 pack_string_key_words(kc.data, kc.lengths)[:-1]]
+        smalls.append((z(kc.lengths.to(torch.int64)),
+                       max(int(width).bit_length(), 1)))
+        return words, smalls
+    words, nan = _key_code_words(kc)
+    words = [z(x) for x in words]
+    if nan is not None:
+        smalls.append((torch.logical_and(nan, valid).to(torch.int64), 1))
+    return words, smalls
+
+
+def _pack_meta_words(bit_fields) -> List[torch.Tensor]:
+    """[(int64 field, nbits), ...] -> int64 words holding the JAX package's
+    uint64 bit patterns, most-significant field first; a new word starts
+    when 64 bits fill up. Equality over the words == equality over the
+    fields."""
+    words: List[torch.Tensor] = []
+    acc = None
+    used = 0
+    for field, nbits in bit_fields:
+        if acc is None or used + nbits > 64:
+            if acc is not None:
+                words.append(acc << (64 - used))
+            acc = field
+            used = nbits
+        else:
+            acc = (acc << nbits) | field
+            used += nbits
+    if acc is not None:
+        words.append(acc << (64 - used))
+    return words
+
+
+def _word_bits_u32(w: torch.Tensor) -> torch.Tensor:
+    """Equality word -> its uint32 hash contribution (bit-exact per value),
+    as int64 in ``[0, 2**32)``."""
+    if w.dtype == torch.float32:
+        return w.view(torch.int32).to(torch.int64) & MASK32
+    if w.dtype == torch.bool:
+        return w.to(torch.int64)
+    u = w.to(torch.float64).view(torch.int64) if w.dtype.is_floating_point \
+        else w.to(torch.int64)
+    # arithmetic shift, then the mask: a logical shift of the uint64 bits
+    return (u & MASK32) ^ ((u >> 32) & MASK32)
+
+
+def _hash_group_ids(table: DeviceTable, key_names: List[str]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-free exact grouping -> (gid int32 per row, is_rep bool per row,
+    num_groups 0-d int32).
+
+    Keys hash into row-count buckets; each round, every bucket's
+    minimum-index unresolved row wins, and the rows whose key words all
+    equal the winner's resolve to it; the rest rehash. Rows of one key
+    share a bucket in every round, so a key resolves all at once to its
+    first row: ``gid`` is the rank of first appearance, whatever the hash
+    or the number of rounds. The loop reads ``unresolved.any()`` on the
+    host once per round."""
+    cap = table.capacity
+    active = table.row_mask
+    device = active.device
+    bit_fields = []
+    words: List[torch.Tensor] = []
+    for k in key_names:
+        value_words, smalls = _key_small_fields(table.column(k))
+        words.extend(value_words)
+        bit_fields.extend(smalls)
+    words += _pack_meta_words(bit_fields)
+
+    h = torch.zeros(cap, dtype=torch.int64, device=device)
+    for i, w in enumerate(words):
+        h = h ^ fmix_device(_word_bits_u32(w) ^ (i + 1))
+        h = (h * 5 + 0xE6546B64) & MASK32
+
+    iota = torch.arange(cap, dtype=torch.int64, device=device)
+    winner = iota
+    unresolved = active
+    r = 0
+    while r < cap and bool(unresolved.any()):
+        hr = fmix_device(h ^ ((r * 2654435761) & MASK32))
+        bucket = hr % cap
+        cand_src = torch.where(unresolved, iota, cap)
+        cand = torch.full((cap,), cap, dtype=torch.int64, device=device) \
+            .scatter_reduce_(0, bucket, cand_src, "amin", include_self=True)
+        w = cand[bucket]
+        w_safe = w.clamp(0, cap - 1)
+        eq = torch.logical_and(unresolved, w < cap)
+        for word in words:
+            eq = torch.logical_and(eq, word == word[w_safe])
+        winner = torch.where(eq, w_safe, winner)
+        unresolved = torch.logical_and(unresolved, torch.logical_not(eq))
+        r += 1
+    is_rep = torch.logical_and(active, winner == iota)
+    rep_rank = torch.cumsum(is_rep.to(torch.int32), 0, dtype=torch.int32) - 1
+    gid = rep_rank[winner].clamp(0, cap - 1)
+    return gid, is_rep, is_rep.sum(dtype=torch.int32)
+
+
+def _seg_sum(x: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-group sum; one segment is a plain reduction."""
+    if cap == 1:
+        return x.sum(0, keepdim=True, dtype=x.dtype)
+    return torch.zeros(cap, dtype=x.dtype, device=x.device) \
+        .index_add_(0, gid.long(), x)
+
+
+def _seg_extreme(x: torch.Tensor, gid: torch.Tensor, cap: int,
+                 for_min: bool) -> torch.Tensor:
+    """Per-group min or max. Empty groups hold the identity, as the JAX
+    package's segment_min/segment_max leave there."""
+    if cap == 1:
+        return x.amin(0, keepdim=True) if for_min \
+            else x.amax(0, keepdim=True)
+    ident = _minmax_identity(x.dtype, for_min)
+    return torch.full((cap,), ident, dtype=x.dtype, device=x.device) \
+        .scatter_reduce_(0, gid.long(), x, "amin" if for_min else "amax",
+                         include_self=True)
+
+
+def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
+                    gid: torch.Tensor, cap: int, out_dt: dt.DataType,
+                    counts: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group reduction -> (values[cap], has[cap]); ``has`` is False for
+    a group no row contributed to (its value is then null). ``counts``, the
+    per-group count of ``contrib``, is computed when not given: callers
+    reducing many columns under one mask compute it once.
 
     Spark rules: NaN is the largest double; sum propagates NaN; masked-off
     rows may hold stale data (even NaN), so they are replaced with the
     identity by ``where`` and never multiplied by the mask."""
+    if op in _COLLECT_OPS:
+        raise NotImplementedError(
+            f"aggregate op {op!r} is not ported yet (ROADMAP Queue 1 step 11)")
     out_dtype = torch_dtype(out_dt)
-    counts = contrib.sum(dtype=torch.int64)
+    if counts is None:
+        counts = _seg_sum(contrib.to(torch.int64), gid, cap)
     has = counts > 0
     if op == "count":
-        return counts.to(out_dtype), torch.ones((), dtype=torch.bool,
+        return counts.to(out_dtype), torch.ones(cap, dtype=torch.bool,
                                                 device=vals.device)
     if op == "sum":
         x = torch.where(contrib, vals.to(out_dtype), 0)
-        return x.sum(), has
+        return _seg_sum(x, gid, cap), has
     if op not in ("min", "max"):
-        raise ValueError(op)
-    x = vals.to(torch.int32) if vals.dtype == torch.bool else vals
-    ident = _minmax_identity(x.dtype, op == "min")
+        raise NotImplementedError(
+            f"aggregate op {op!r} is not ported yet (ROADMAP Queue 1 step 11)")
+    for_min = op == "min"
+    # bool as uint8: its extremes 0 and 255 cast back to the JAX package's
+    # bool identities (False for max, True for min) in empty groups
+    x = vals.to(torch.uint8) if vals.dtype == torch.bool else vals
     isfloat = x.dtype.is_floating_point
     if isfloat:
         # Spark total order: NaN is the largest value
         nan = torch.isnan(x)
-        x = torch.where(nan, float("inf") if op == "min" else float("-inf"),
-                        x)
-    x = torch.where(contrib, x, ident)
-    out = x.amin() if op == "min" else x.amax()
+        x = torch.where(nan, float("inf") if for_min else float("-inf"), x)
+    x = torch.where(contrib, x, _minmax_identity(x.dtype, for_min))
+    out = _seg_extreme(x, gid, cap, for_min)
     if isfloat:
-        if op == "min":
+        if for_min:
             # NaN only when every contributing value is NaN
-            nonnan = torch.logical_and(contrib, ~nan).sum()
+            nonnan = _seg_sum(torch.logical_and(
+                contrib, torch.logical_not(nan)).to(torch.int64), gid, cap)
             out = torch.where(torch.logical_and(has, nonnan == 0),
                               float("nan"), out)
         else:
-            out = torch.where(torch.logical_and(contrib, nan).any(),
-                              float("nan"), out)
+            nans = _seg_sum(torch.logical_and(contrib, nan).to(torch.int64),
+                            gid, cap)
+            out = torch.where(nans > 0, float("nan"), out)
     return out.to(out_dtype), has
 
 
@@ -84,9 +276,10 @@ class TpuHashAggregateExec(TpuExec):
     """Same pre-projected input contract as CpuHashAggregateExec."""
 
     def __init__(self, child: PhysicalPlan, key_names: List[str],
-                 specs: List[AggSpec], mode: str, device: torch.device):
+                 specs: List[AggSpec], mode: str, device: torch.device,
+                 min_bucket: Optional[int] = None):
         super().__init__()
-        _check_mode_and_keys(mode, key_names)
+        check_mode(mode)
         self.child = child
         self.children = (child,)
         self.key_names = list(key_names)
@@ -94,36 +287,56 @@ class TpuHashAggregateExec(TpuExec):
         self.mode = mode
         #: where the empty-input state row is built
         self.device = device
-        self.schema = Schema([Field(n, d, nb) for s in specs
-                              for (n, d, nb) in s.state_fields])
+        #: the capacity floor of the running state
+        self.min_bucket = min_bucket
+        self.schema = aggregate_schema(child, key_names, specs)
 
     @property
     def fusible(self) -> bool:
-        # partial mode emits one state row per input batch (downstream merge
-        # reduces them); final mode must merge across batches itself
+        # partial mode emits one aggregated batch per input batch (the
+        # final pass merges them); final mode must merge across batches
         return self.mode == "partial"
 
     def batch_fn(self, mode: str = None) -> Callable[[DeviceTable], DeviceTable]:
-        """One batch -> its state row. ``mode`` defaults to this node's; the
-        final pass also merges its own outputs with ``"final"``."""
+        """One batch -> its aggregated batch. ``mode`` defaults to this
+        node's; the merge of running states uses ``"final"``."""
         cols_ops = aggregate_columns_ops(self.specs, mode or self.mode)
+        key_names = self.key_names
         out_names = tuple(self.schema.names)
 
+        def contributions(table: DeviceTable, gid: torch.Tensor, cap: int):
+            """col -> (contributing rows, their per-group count), the count
+            computed once per distinct validity plane."""
+            seen = {}
+
+            def of(col: DeviceColumn):
+                key = None if col.all_valid else id(col.validity)
+                if key not in seen:
+                    contrib = table.row_mask if col.all_valid \
+                        else torch.logical_and(col.validity, table.row_mask)
+                    seen[key] = (contrib, _seg_sum(contrib.to(torch.int64),
+                                                   gid, cap))
+                return seen[key]
+            return of
+
         def ungrouped(table: DeviceTable) -> DeviceTable:
+            gid = torch.zeros(table.capacity, dtype=torch.int32,
+                              device=table.device)
+            contribution = contributions(table, gid, 1)
             out_cols = []
             for in_col, op, _, out_dt in cols_ops:
                 col = table.column(in_col)
-                contrib = table.row_mask if col.all_valid \
-                    else torch.logical_and(col.validity, table.row_mask)
-                val, has = _reduce(op, col.data, contrib, out_dt)
+                contrib, counts = contribution(col)
+                val, has = _reduce_segment(op, col.data, contrib, gid, 1,
+                                           out_dt, counts)
                 # state row 0 of a fixed small capacity, built on the device
                 # (no host read of the reduced values)
                 vals = torch.zeros(_STATE_CAPACITY, dtype=val.dtype,
                                    device=val.device)
-                vals[0] = val
+                vals[:1] = val
                 validity = torch.zeros(_STATE_CAPACITY, dtype=torch.bool,
                                        device=val.device)
-                validity[0] = has
+                validity[:1] = has
                 out_cols.append(DeviceColumn(vals, validity, out_dt))
             row_mask = torch.arange(_STATE_CAPACITY,
                                     device=table.device) < 1
@@ -131,37 +344,69 @@ class TpuHashAggregateExec(TpuExec):
                                torch.ones((), dtype=torch.int32,
                                           device=table.device), out_names)
 
-        return ungrouped
+        def grouped(table: DeviceTable) -> DeviceTable:
+            cap = table.capacity
+            gid, _, num_groups = _hash_group_ids(table, key_names)
+            # each group's key comes from its first row
+            pos = torch.arange(cap, dtype=torch.int64, device=table.device)
+            rep_src = torch.where(table.row_mask, pos, _BIG)
+            rep = _seg_extreme(rep_src, gid, cap, True).clamp(0, cap - 1)
+            group_mask = pos < num_groups
+            out_cols: List[DeviceColumn] = []
+            for k in key_names:
+                g = table.column(k).gather(rep)
+                out_cols.append(g.with_validity(
+                    torch.logical_and(g.validity, group_mask)))
+            contribution = contributions(table, gid, cap)
+            for in_col, op, _, out_dt in cols_ops:
+                col = table.column(in_col)
+                contrib, counts = contribution(col)
+                vals, has = _reduce_segment(op, col.data, contrib, gid, cap,
+                                            out_dt, counts)
+                validity = group_mask if op == "count" \
+                    else torch.logical_and(has, group_mask)
+                out_cols.append(DeviceColumn(vals, validity, out_dt))
+            return DeviceTable(tuple(out_cols), group_mask, num_groups,
+                               out_names)
+
+        return grouped if key_names else ungrouped
 
     def _chunks(self, pidx: int) -> Iterator[DeviceTable]:
         """Child batches concatenated up to ~1M rows of capacity, so one
-        reduction covers many small state batches."""
+        aggregation covers many small batches."""
         staged: List[DeviceTable] = []
         cap = 0
         for b in self.child_device_batches(pidx):
             staged.append(b)
             cap += b.capacity
             if cap >= _CHUNK_CAPACITY:
-                yield concat_device_tables(staged)
+                yield concat_device_tables(staged, self.min_bucket)
                 staged, cap = [], 0
         if staged:
-            yield concat_device_tables(staged)
+            yield concat_device_tables(staged, self.min_bucket)
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
         fn = self.batch_fn()
         merge_fn = self.batch_fn("final")
-        pending = None  # the running merged state row
+        pending = None  # the running merged state
         for chunk in self._chunks(pidx):
-            out = shrink_to_fit(fn(chunk))
+            # shrink to the group bucket: the running state must not scale
+            # with the input capacity
+            out = shrink_to_fit(fn(chunk), self.min_bucket)
             if pending is not None:
-                out = shrink_to_fit(merge_fn(concat_device_tables([pending,
-                                                                   out])))
+                # merge-as-you-go over the concatenated pair: the string
+                # key matrices may differ in width, so the pair is grouped
+                # again as one table, never part by part
+                out = shrink_to_fit(merge_fn(concat_device_tables(
+                    [pending, out], self.min_bucket)), self.min_bucket)
             pending = out
         if pending is None:
+            if self.key_names:
+                return  # no input, no groups
             # no input batch at all: the grand aggregate of nothing
             pending = fn(_empty_device_table(self.child.schema,
                                              _STATE_CAPACITY, self.device))
-        self.account_batch(1)
+        self.account_batch()
         yield pending
 
     def node_desc(self):
@@ -170,11 +415,17 @@ class TpuHashAggregateExec(TpuExec):
 
 def _empty_device_table(schema: Schema, cap: int,
                         device: torch.device) -> DeviceTable:
-    cols = [DeviceColumn(torch.zeros(cap, dtype=torch_dtype(f.dtype),
-                                     device=device),
-                         torch.zeros(cap, dtype=torch.bool, device=device),
-                         f.dtype) for f in schema]
-    return DeviceTable(tuple(cols), torch.zeros(cap, dtype=torch.bool,
-                                                device=device),
+    def empty_col(d: dt.DataType) -> DeviceColumn:
+        validity = torch.zeros(cap, dtype=torch.bool, device=device)
+        if isinstance(d, dt.StringType):
+            return DeviceColumn(
+                torch.zeros((cap, 8), dtype=torch.uint8, device=device),
+                validity, d,
+                lengths=torch.zeros(cap, dtype=torch.int32, device=device))
+        return DeviceColumn(torch.zeros(cap, dtype=torch_dtype(d),
+                                        device=device), validity, d)
+
+    return DeviceTable(tuple(empty_col(f.dtype) for f in schema),
+                       torch.zeros(cap, dtype=torch.bool, device=device),
                        torch.zeros((), dtype=torch.int32, device=device),
                        tuple(schema.names))

@@ -27,12 +27,14 @@ def eval_exprs_device(table: DeviceTable, exprs: Sequence[Expression],
     cols: List[DeviceColumn] = []
     for e in exprs:
         c = e.eval(ctx)
-        validity = c.validity
-        if validity is None:
-            validity = torch.ones(table.capacity, dtype=torch.bool,
-                                  device=table.device)
+        # no validity plane out of evaluation: the column is null-free
+        all_valid = c.validity is None
+        validity = torch.ones(table.capacity, dtype=torch.bool,
+                              device=table.device) if all_valid \
+            else c.validity
         values = c.values.to(torch_dtype(c.dtype))
-        cols.append(DeviceColumn(values, validity, c.dtype))
+        cols.append(DeviceColumn(values, validity, c.dtype, all_valid,
+                                 lengths=c.lengths))
     return DeviceTable(tuple(cols), table.row_mask, table.num_rows,
                        tuple(names))
 

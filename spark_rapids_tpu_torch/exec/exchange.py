@@ -3,10 +3,13 @@
 
 With one device there is no locality to exploit and no transport to ride:
 the whole input coalesces into ONE output partition that never leaves the
-device. Each map batch is compacted and shrunk to the bucket of its row
-count first, since post-filter and partial-aggregate batches are mostly
-masked slack. Hash and range exchanges across devices are later steps of
-the port (ROADMAP Queue 1 steps 8 and 10).
+device. Single, hash and range partitioning are all satisfied by one
+partition (all rows of any key land together; the sort above orders its one
+partition), so the exchange never computes partition ids. Each map batch
+is compacted and shrunk to the bucket of its row count first, since
+post-filter and partial-aggregate batches are mostly masked slack. Exchanges
+across devices and device partition ids are later steps of the port
+(ROADMAP Queue 1 steps 8 and 10).
 """
 from __future__ import annotations
 

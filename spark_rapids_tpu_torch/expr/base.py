@@ -49,6 +49,7 @@ class EvalCol:
     values: Any                 # np.ndarray | torch.Tensor; strings: obj array (host)
     validity: Any               # bool array or None (all valid)
     dtype: dt.DataType
+    lengths: Any = None         # device strings: int32 byte lengths
 
     def valid_mask(self, ctx: "EvalContext"):
         if self.validity is None:
@@ -82,7 +83,7 @@ class EvalContext:
             # null-free columns enter evaluation with validity=None so every
             # null-propagation AND drops out of the batch function
             return EvalCol(c.data, None if c.all_valid else c.validity,
-                           c.dtype)
+                           c.dtype, c.lengths)
 
         cols = {n: to_eval(c) for n, c in zip(table.names, table.columns)}
         return EvalContext(True, TorchNamespace(table.device), cols,

@@ -20,7 +20,7 @@ from .predicates import (And, EqualNullSafe, EqualTo, GreaterThan,
                          GreaterThanOrEqual, In, IsNaN, IsNotNull, IsNull,
                          LessThan, LessThanOrEqual, Not, Or)
 
-__all__ = ["Column", "col", "lit", "when", "coalesce",
+__all__ = ["Column", "SortOrder", "col", "lit", "when", "coalesce",
            "sum", "count", "count_star", "min", "max", "avg", "mean", "abs"]
 
 
@@ -118,10 +118,25 @@ class Column:
     def between(self, low, high) -> "Column":
         return (self >= low) & (self <= high)
 
+    def asc(self) -> "SortOrder":
+        return SortOrder(self.expr, ascending=True)
+
+    def desc(self) -> "SortOrder":
+        return SortOrder(self.expr, ascending=False)
+
     def __repr__(self):
         return f"Column({self.expr!r})"
 
     __hash__ = None  # type: ignore[assignment]
+
+
+class SortOrder:
+    def __init__(self, expr: Expression, ascending: bool = True,
+                 nulls_first: bool = None):
+        self.expr = expr
+        self.ascending = ascending
+        # Spark default: nulls first for asc, nulls last for desc
+        self.nulls_first = ascending if nulls_first is None else nulls_first
 
 
 def _to_expr(v: Any) -> Expression:

@@ -1,5 +1,5 @@
 """Logical plan nodes — the port's copy of ``spark_rapids_tpu/plan/logical.py``
-for scan, filter, project and aggregate.
+for scan, filter, project, aggregate and sort.
 
 The logical layer's only jobs are (a) the DataFrame builder API, (b)
 expression resolution, and (c) feeding the physical planner
@@ -14,10 +14,11 @@ from ..columnar import dtypes as dt
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import (Alias, AttributeReference, Expression,
                          resolve_expression)
+from ..expr.functions import SortOrder
 from .schema import Field, Schema
 
 __all__ = ["LogicalPlan", "LogicalScan", "LogicalProject", "LogicalFilter",
-           "LogicalAggregate", "DataSource"]
+           "LogicalAggregate", "LogicalSort", "DataSource"]
 
 
 class DataSource:
@@ -121,6 +122,23 @@ class LogicalAggregate(LogicalPlan):
         fields = [Field(g.name, g.data_type, g.nullable) for g in self.groupings]
         fields += [Field(n, f.data_type, f.nullable) for n, f in self.aggregates]
         return Schema(fields)
+
+
+class LogicalSort(LogicalPlan):
+    def __init__(self, child: LogicalPlan, orders: Sequence[SortOrder],
+                 global_sort: bool = True):
+        self.child = child
+        self.children = (child,)
+        cs = child.schema
+        self.orders = [SortOrder(resolve_expression(o.expr, cs.to_dict(),
+                                                    cs.nullable_dict()),
+                                 o.ascending, o.nulls_first)
+                       for o in orders]
+        self.global_sort = global_sort
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
 
 
 def _named(e: Expression, i: int, prefix: str = "col") -> Expression:

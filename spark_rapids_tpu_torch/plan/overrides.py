@@ -19,6 +19,7 @@ from ..conf import RapidsConf
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.basic import TpuFilterExec, TpuProjectExec
 from ..exec.exchange import TpuLocalExchangeExec
+from ..exec.sort import TpuSortExec
 from ..exec.wholestage import fuse_stages
 from ..expr import aggregates as A
 from ..expr import arithmetic as AR
@@ -29,7 +30,8 @@ from ..expr.cast import Cast, cast_supported
 from ..udf.columnar import ColumnarUDF
 from .meta import register_exec_rule, register_expr_rule, wrap_plan
 from .physical import (CpuFilterExec, CpuHashAggregateExec, CpuProjectExec,
-                       CpuScanExec, PhysicalPlan, ShuffleExchangeExec)
+                       CpuScanExec, CpuSortExec, PhysicalPlan,
+                       ShuffleExchangeExec)
 from .transitions import insert_transitions
 
 __all__ = ["apply_overrides", "explain_plan"]
@@ -37,10 +39,15 @@ __all__ = ["apply_overrides", "explain_plan"]
 #: the fixed-width types of the device batch layout
 _device_common = TypeSig.numeric + TypeSig.of(
     TypeEnum.BOOLEAN, TypeEnum.DATE, TypeEnum.TIMESTAMP, TypeEnum.NULL)
+#: plus strings, as the byte matrix: columns that operators carry, group
+#: by and sort by (no string function is ported yet)
+_device_all = _device_common + TypeSig.of(TypeEnum.STRING)
 
 
 def _register_expr_rules():
-    for cls in (AttributeReference, Literal, Alias,
+    for cls in (AttributeReference, Alias):
+        register_expr_rule(cls, _device_all)
+    for cls in (Literal,
                 AR.Add, AR.Subtract, AR.Multiply, AR.Divide,
                 AR.IntegralDivide, AR.Remainder, AR.Pmod, AR.UnaryMinus,
                 AR.Abs,
@@ -67,20 +74,44 @@ def _register_expr_rules():
 
 def _register_exec_rules():
     register_exec_rule(
-        CpuProjectExec, _device_common,
+        CpuProjectExec, _device_all,
         lambda p, ch, conf, device: TpuProjectExec(ch[0], p.exprs, p.names),
         exprs_fn=lambda p: p.exprs)
     register_exec_rule(
-        CpuFilterExec, _device_common,
+        CpuFilterExec, _device_all,
         lambda p, ch, conf, device: TpuFilterExec(ch[0], p.condition),
         exprs_fn=lambda p: [p.condition])
+
+    def tag_agg(meta, conf):
+        # string keys group by their packed byte words; aggregate inputs
+        # and states stay fixed-width (string min/max is not ported)
+        p: CpuHashAggregateExec = meta.plan
+        in_schema = p.child.schema
+        for s in p.specs:
+            in_cols = s.input_cols if p.mode == "partial" \
+                else [n for (n, _, _) in s.state_fields]
+            for c in in_cols:
+                for r in _device_common.reasons_not_supported(
+                        in_schema.field(c).dtype):
+                    meta.cannot_run(f"aggregate input {c}: {r}")
+            for (n, d, _) in s.state_fields:
+                for r in _device_common.reasons_not_supported(d):
+                    meta.cannot_run(f"aggregate state {n}: {r}")
+
     register_exec_rule(
-        CpuHashAggregateExec, _device_common,
+        CpuHashAggregateExec, _device_all,
         lambda p, ch, conf, device: TpuHashAggregateExec(
-            ch[0], p.key_names, p.specs, p.mode, device))
+            ch[0], p.key_names, p.specs, p.mode, device,
+            conf.min_bucket_rows),
+        tag_fn=tag_agg)
+    register_exec_rule(
+        CpuSortExec, _device_all,
+        lambda p, ch, conf, device: TpuSortExec(
+            ch[0], p.orders, conf.min_bucket_rows, conf.batch_size_bytes),
+        exprs_fn=lambda p: [o.expr for o in p.orders])
     # one device holds the whole exchange output (exec/exchange.py)
     register_exec_rule(
-        ShuffleExchangeExec, _device_common,
+        ShuffleExchangeExec, _device_all,
         lambda p, ch, conf, device: TpuLocalExchangeExec(
             ch[0], p.partitioning, conf.min_bucket_rows))
 

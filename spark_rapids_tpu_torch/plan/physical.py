@@ -1,7 +1,7 @@
 """Physical plan nodes — the host engine and the common plan infrastructure;
 the port of ``spark_rapids_tpu/plan/physical.py`` for the nodes this engine
-plans: scan, project, filter, ungrouped aggregate and the single-partition
-exchange.
+plans: scan, project, filter, sort, hash aggregate and the exchange with
+single, hash and range partitioning.
 
 The host engine (numpy) serves two purposes:
 
@@ -22,12 +22,16 @@ from ..columnar import dtypes as dt
 from ..columnar.host import HostColumn, HostTable
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import EvalContext, Expression
+from ..expr.functions import SortOrder
+from .host_groupby import group_codes, host_group_reduce
 from .schema import Field, Schema
 
 __all__ = [
     "PhysicalPlan", "CpuScanExec", "CpuProjectExec", "CpuFilterExec",
-    "CpuHashAggregateExec", "ShuffleExchangeExec", "SinglePartitioning",
-    "AggSpec", "host_eval_exprs", "empty_result_table",
+    "CpuSortExec", "CpuHashAggregateExec", "ShuffleExchangeExec",
+    "Partitioning", "SinglePartitioning", "HashPartitioning",
+    "RangePartitioning", "AggSpec", "host_eval_exprs", "empty_result_table",
+    "murmur_hash_columns",
 ]
 
 class PhysicalPlan:
@@ -150,6 +154,67 @@ class CpuFilterExec(PhysicalPlan):
 
 
 # ---------------------------------------------------------------------------
+# Sort
+# ---------------------------------------------------------------------------
+def _sort_indices(table: HostTable, orders: Sequence[SortOrder]) -> np.ndarray:
+    """Stable multi-key sort with Spark null ordering. Each order gives an
+    int64 value key in the order's direction and, above it, a null flag
+    key, so no value can collide with a null sentinel."""
+    keys = []
+    ctx = EvalContext.for_host(table)
+    for o in reversed(list(orders)):  # lexsort: last key is primary
+        c = o.expr.eval(ctx)
+        vals = np.asarray(c.values)
+        valid = c.validity if c.validity is not None \
+            else np.ones(len(vals), dtype=bool)
+        if vals.dtype == object:
+            # dense codes in value order
+            codes = np.unique(np.where(valid, vals, ""),
+                              return_inverse=True)[1].reshape(-1) \
+                .astype(np.int64)
+        elif vals.dtype.kind == "f":
+            # DENSE codes: equal values MUST share a code, or a tied float
+            # key never defers to the later sort keys. NaN sorts last, just
+            # above +inf (Spark); -0.0 == 0.0.
+            v = vals.copy()
+            v[v == 0] = 0.0
+            nan = np.isnan(v)
+            _, inv = np.unique(np.where(nan, np.inf, v),
+                               return_inverse=True)
+            codes = inv.reshape(-1).astype(np.int64) * 2 + nan
+        else:
+            codes = vals.astype(np.int64)   # false < true
+        if not o.ascending:
+            codes = ~codes   # -codes - 1: no overflow at the int64 minimum
+        keys.append(np.where(valid, codes, 0))
+        keys.append(valid if o.nulls_first else ~valid)
+    return np.lexsort(keys) if keys else np.arange(table.num_rows)
+
+
+def describe_orders(orders: Sequence[SortOrder]) -> str:
+    return ", ".join(f"{o.expr!r} {'ASC' if o.ascending else 'DESC'}"
+                     for o in orders)
+
+
+class CpuSortExec(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, orders: Sequence[SortOrder]):
+        self.child = child
+        self.children = (child,)
+        self.orders = list(orders)
+        self.schema = child.schema
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        batches = list(self.child.execute(pidx))
+        if not batches:
+            return
+        table = HostTable.concat(batches)
+        yield table.take(_sort_indices(table, self.orders))
+
+    def node_desc(self):
+        return describe_orders(self.orders)
+
+
+# ---------------------------------------------------------------------------
 # Aggregation
 # ---------------------------------------------------------------------------
 class AggSpec:
@@ -180,48 +245,62 @@ def aggregate_columns_ops(specs: Sequence[AggSpec], mode: str
     return out
 
 
-def _check_mode_and_keys(mode: str, key_names: Sequence[str]) -> None:
+def aggregate_schema(child: PhysicalPlan, key_names: Sequence[str],
+                     specs: Sequence[AggSpec]) -> Schema:
+    """Key columns, then every spec's state columns."""
+    return Schema([child.schema.field(k) for k in key_names]
+                  + [Field(n, d, nb) for s in specs
+                     for (n, d, nb) in s.state_fields])
+
+
+def check_mode(mode: str) -> None:
     if mode not in ("partial", "final"):
         raise ValueError(f"aggregate mode {mode!r}")
-    if key_names:
-        raise NotImplementedError(
-            "keyed aggregates are not ported yet (ROADMAP Queue 1 step 4)")
 
 
 class CpuHashAggregateExec(PhysicalPlan):
-    """Ungrouped aggregate over pre-projected input (mode partial|final).
+    """Group-by aggregate over pre-projected input (mode partial|final).
 
-    Partial input: per-spec ``{prefix}_in{k}`` columns. Partial output /
-    final input: per-spec state columns. Final output: state columns merged
-    (the post-projection is a separate CpuProjectExec the planner inserts).
+    Partial input: key cols + per-spec ``{prefix}_in{k}`` columns.
+    Partial output / final input: key cols + per-spec state columns.
+    Final output: key cols + state columns merged (the post-projection is a
+    separate CpuProjectExec the planner inserts).
     """
 
     def __init__(self, child: PhysicalPlan, key_names: List[str],
                  specs: List[AggSpec], mode: str):
-        _check_mode_and_keys(mode, key_names)
+        check_mode(mode)
         self.child = child
         self.children = (child,)
         self.key_names = list(key_names)
         self.specs = specs
         self.mode = mode
-        self.schema = Schema([Field(n, d, nb) for s in specs
-                              for (n, d, nb) in s.state_fields])
+        self.schema = aggregate_schema(child, key_names, specs)
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
         batches = list(self.child.execute(pidx))
+        table = HostTable.concat(batches) if batches else None
         cols_ops = aggregate_columns_ops(self.specs, self.mode)
-        if batches:
-            table = HostTable.concat(batches)
-        else:
+        if table is None or table.num_rows == 0:
+            if self.key_names:
+                yield empty_result_table(self.schema)
+                return
             # grand aggregate over empty input: one null/zero row
             table = HostTable(
                 [c for c, _, _, _ in cols_ops],
                 [HostColumn(self.child.schema.field(c).dtype,
                             _empty_values(self.child.schema.field(c).dtype))
                  for c, _, _, _ in cols_ops])
-        out_cols = []
+        gid, ngroups, rep = group_codes(table, self.key_names)
+        out_cols = [table.column(k).take(rep) for k in self.key_names]
         for in_col, op, _, out_dt in cols_ops:
-            vals, validity = host_reduce(op, table.column(in_col), out_dt)
+            vals, validity = host_group_reduce(op, table.column(in_col), gid,
+                                               ngroups, out_dt)
+            if vals.dtype != object and vals.dtype != out_dt.np_dtype():
+                with np.errstate(invalid="ignore"):
+                    vals = vals.astype(out_dt.np_dtype())
+            if validity is not None and validity.all():
+                validity = None
             out_cols.append(HostColumn(out_dt, vals, validity))
         yield HostTable(self.schema.names, out_cols)
 
@@ -229,65 +308,150 @@ class CpuHashAggregateExec(PhysicalPlan):
         return f"mode={self.mode} keys={self.key_names}"
 
 
-def host_reduce(op: str, col: HostColumn, out_dtype: dt.DataType
-                ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """Whole-column reduction with Spark semantics -> (values[1],
-    validity[1] or None): sum propagates NaN and is null over no values;
-    count counts non-null values; min ignores NaN unless every value is NaN;
-    max returns NaN if any value is NaN (NaN is the largest double)."""
-    valid = col.valid_mask()
-    vals = col.values[valid]
-    has = np.array([len(vals) > 0])
-    np_out = out_dtype.np_dtype()
-    if op == "count":
-        return np.array([len(vals)], dtype=np.int64), None
-    if op == "sum":
-        acc = np.zeros(1, dtype=np_out)
-        with np.errstate(over="ignore", invalid="ignore"):
-            # row-order accumulation, as the JAX package's host engine does
-            np.add.at(acc, np.zeros(len(vals), dtype=np.int64),
-                      vals.astype(np_out))
-        return acc, None if has[0] else has
-    if op not in ("min", "max"):
-        raise ValueError(op)
-    if vals.dtype == object:
-        raise NotImplementedError("string min/max is not ported yet")
-    if not has[0]:
-        return np.zeros(1, dtype=np_out), has
-    red = np.min if op == "min" else np.max
-    if vals.dtype.kind == "f":
-        nan = np.isnan(vals)
-        if op == "max" and nan.any() or op == "min" and nan.all():
-            return np.full(1, np.nan, dtype=np_out), None
-        vals = vals[~nan]
-    return np.asarray([red(vals)], dtype=np_out), None
+# ---------------------------------------------------------------------------
+# Exchange / partitioning
+# ---------------------------------------------------------------------------
+def murmur_hash_columns(table: HostTable, key_names: Sequence[str],
+                        seed: int = 42) -> np.ndarray:
+    """32-bit Murmur3-style hash of key columns (reference:
+    HashFunctions.scala / GpuHashPartitioningBase)."""
+    h = np.full(table.num_rows, seed, dtype=np.uint32)
+    for name in key_names:
+        col = table.column(name)
+        if col.values.dtype == object:
+            k = np.asarray([_murmur_bytes(str(v).encode())
+                            for v in col.values], dtype=np.uint32)
+        else:
+            k = _murmur_fmix(col.values)
+        k = np.where(col.valid_mask(), k, np.uint32(0))
+        h = _murmur_combine(h, k)
+    return h
 
 
-# ---------------------------------------------------------------------------
-# Exchange
-# ---------------------------------------------------------------------------
-class SinglePartitioning:
-    """Every row to one output partition (the ungrouped aggregate's
-    exchange; hash and range partitioning are not ported yet)."""
+def _murmur_fmix(vals: np.ndarray) -> np.ndarray:
+    if vals.dtype == np.bool_:
+        x = vals.astype(np.uint32)
+    elif vals.dtype.kind == "f":
+        x = vals.astype(np.float64).view(np.uint64)
+        x = (x & np.uint64(0xFFFFFFFF)).astype(np.uint32) \
+            ^ (x >> np.uint64(32)).astype(np.uint32)
+    else:
+        x64 = vals.astype(np.int64).view(np.uint64)
+        x = (x64 & np.uint64(0xFFFFFFFF)).astype(np.uint32) \
+            ^ (x64 >> np.uint64(32)).astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    x = (x * np.uint32(0x85EBCA6B)) & np.uint32(0xFFFFFFFF)
+    x ^= x >> np.uint32(13)
+    x = (x * np.uint32(0xC2B2AE35)) & np.uint32(0xFFFFFFFF)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def _murmur_bytes(b: bytes) -> int:
+    h = 0
+    for byte in b:
+        h = (h * 31 + byte) & 0xFFFFFFFF
+    return h
+
+
+def _murmur_combine(h: np.ndarray, k: np.ndarray) -> np.ndarray:
+    h = h ^ k
+    h = (h * np.uint32(5) + np.uint32(0xE6546B64)) & np.uint32(0xFFFFFFFF)
+    return h
+
+
+class Partitioning:
+    num_parts: int = 1
+
+    def partition_indices(self, table: HostTable) -> np.ndarray:
+        raise NotImplementedError
+
+
+class SinglePartitioning(Partitioning):
+    """Every row to one output partition (the ungrouped aggregate's)."""
     num_parts = 1
+
+    def partition_indices(self, table: HostTable) -> np.ndarray:
+        return np.zeros(table.num_rows, dtype=np.int32)
+
+
+class HashPartitioning(Partitioning):
+    def __init__(self, key_names: Sequence[str], num_parts: int):
+        self.key_names = list(key_names)
+        self.num_parts = num_parts
+
+    def partition_indices(self, table: HostTable) -> np.ndarray:
+        h = murmur_hash_columns(table, self.key_names)
+        return (h % np.uint32(self.num_parts)).astype(np.int32)
+
+
+class RangePartitioning(Partitioning):
+    """Sampled-bounds range partitioning (reference: GpuRangePartitioner)."""
+
+    def __init__(self, orders: Sequence[SortOrder], num_parts: int):
+        self.orders = list(orders)
+        self.num_parts = num_parts
+        self._bounds: Optional[HostTable] = None
+
+    def set_bounds_from_sample(self, sample: HostTable):
+        idx = _sort_indices(sample, self.orders)
+        n = len(idx)
+        if n == 0 or self.num_parts <= 1:
+            self._bounds = None
+            return
+        picks = [idx[int(n * (i + 1) / self.num_parts) - 1]
+                 for i in range(self.num_parts - 1)]
+        self._bounds = sample.take(np.asarray(picks, dtype=np.int64))
+
+    def partition_indices(self, table: HostTable) -> np.ndarray:
+        if self._bounds is None or table.num_rows == 0:
+            return np.zeros(table.num_rows, dtype=np.int32)
+        merged = HostTable.concat([table, self._bounds])
+        order = _sort_indices(merged, self.orders)
+        rank = np.empty(len(order), dtype=np.int64)
+        rank[order] = np.arange(len(order))
+        bound_ranks = np.sort(rank[table.num_rows:])
+        row_ranks = rank[:table.num_rows]
+        return np.searchsorted(bound_ranks, row_ranks,
+                               side="left").astype(np.int32)
 
 
 class ShuffleExchangeExec(PhysicalPlan):
-    """Host-side exchange into a single partition."""
+    """Materializing host exchange (the reference's default-Spark-shuffle
+    mode): every map batch is split by ``partitioning`` into the output
+    partitions. A range exchange first samples its whole input for the
+    bounds. The map side runs partition after partition."""
 
-    def __init__(self, child: PhysicalPlan, partitioning: SinglePartitioning):
+    def __init__(self, child: PhysicalPlan, partitioning: Partitioning):
         self.child = child
         self.children = (child,)
         self.partitioning = partitioning
         self.schema = child.schema
+        self._materialized: Optional[List[List[HostTable]]] = None
 
     @property
     def num_partitions(self) -> int:
-        return 1
+        return self.partitioning.num_parts
+
+    def _materialize(self) -> List[List[HostTable]]:
+        inputs = [b for p in range(self.child.num_partitions)
+                  for b in self.child.execute(p)]
+        if isinstance(self.partitioning, RangePartitioning) \
+                and self.partitioning._bounds is None and inputs:
+            self.partitioning.set_bounds_from_sample(HostTable.concat(inputs))
+        out: List[List[HostTable]] = [[] for _ in range(self.num_partitions)]
+        for batch in inputs:
+            pids = self.partitioning.partition_indices(batch)
+            for p in range(self.num_partitions):
+                sel = np.nonzero(pids == p)[0]
+                if len(sel):
+                    out[p].append(batch.take(sel))
+        return out
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
-        for p in range(self.child.num_partitions):
-            yield from self.child.execute(p)
+        if self._materialized is None:
+            self._materialized = self._materialize()
+        yield from self._materialized[pidx]
 
     def node_desc(self):
         return f"{type(self.partitioning).__name__}({self.num_partitions})"

@@ -1,30 +1,34 @@
 """Logical -> host physical planning — the port of
-``spark_rapids_tpu/plan/planner.py`` for scan, filter, project and the
-ungrouped aggregate.
+``spark_rapids_tpu/plan/planner.py`` for scan, filter, project, aggregate
+and sort.
 
 Produces the host plan that the overrides layer (plan/overrides.py) then
 tags and lowers onto the device. Aggregates are planned two-phase (partial
--> exchange -> final -> post-project) like Spark and the reference.
+-> exchange -> final -> post-project) like Spark and the reference; a sort
+of more than one partition gets a range exchange first.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Set
 
-from ..expr.base import Expression
+from ..conf import RapidsConf
+from ..expr.base import AttributeReference, Expression
 from .logical import (LogicalAggregate, LogicalFilter, LogicalPlan,
-                      LogicalProject, LogicalScan)
+                      LogicalProject, LogicalScan, LogicalSort)
 from .physical import (AggSpec, CpuFilterExec, CpuHashAggregateExec,
-                       CpuProjectExec, CpuScanExec, PhysicalPlan,
+                       CpuProjectExec, CpuScanExec, CpuSortExec,
+                       HashPartitioning, PhysicalPlan, RangePartitioning,
                        ShuffleExchangeExec, SinglePartitioning)
 
 __all__ = ["plan_physical"]
 
 
-def plan_physical(logical: LogicalPlan) -> PhysicalPlan:
-    return _plan(logical, required=None)
+def plan_physical(logical: LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
+    return _plan(logical, conf.shuffle_partitions, required=None)
 
 
-def _plan(node: LogicalPlan, required: Optional[Set[str]]) -> PhysicalPlan:
+def _plan(node: LogicalPlan, nparts: int,
+          required: Optional[Set[str]]) -> PhysicalPlan:
     if isinstance(node, LogicalScan):
         cols = None
         if required is not None:
@@ -41,48 +45,66 @@ def _plan(node: LogicalPlan, required: Optional[Set[str]]) -> PhysicalPlan:
             # nobody above needs are dropped (Spark's ColumnPruning rule)
             kept = [e for e in exprs if e.name in required]
             exprs = kept or exprs[:1]  # count(*)-style: keep one column
-        child = _plan(node.child, _refs(exprs))
+        child = _plan(node.child, nparts, _refs(exprs))
         return CpuProjectExec(child, exprs, [e.name for e in exprs])
 
     if isinstance(node, LogicalFilter):
         child_req = None if required is None \
             else required | node.condition.references()
-        return CpuFilterExec(_plan(node.child, child_req), node.condition)
+        return CpuFilterExec(_plan(node.child, nparts, child_req),
+                             node.condition)
 
     if isinstance(node, LogicalAggregate):
         refs = _refs(node.groupings)
         for _, fn in node.aggregates:
             refs |= _refs(fn.input_projection())
-        return plan_aggregate(_plan(node.child, refs), node)
+        return plan_aggregate(_plan(node.child, nparts, refs), node, nparts)
+
+    if isinstance(node, LogicalSort):
+        child_req = None if required is None \
+            else required | _refs(o.expr for o in node.orders)
+        child = _plan(node.child, nparts, child_req)
+        if node.global_sort and child.num_partitions > 1:
+            child = ShuffleExchangeExec(
+                child, RangePartitioning(node.orders, nparts))
+        return CpuSortExec(child, node.orders)
 
     raise NotImplementedError(
         f"{type(node).__name__} is not ported yet (ROADMAP Queue 1)")
 
 
-def plan_aggregate(child: PhysicalPlan, node: LogicalAggregate
-                   ) -> PhysicalPlan:
-    if node.groupings:
-        raise NotImplementedError(
-            "keyed aggregates are not ported yet (ROADMAP Queue 1 step 4)")
-    # 1. pre-projection: aggregate inputs
+def plan_aggregate(child: PhysicalPlan, node: LogicalAggregate,
+                   nparts: int) -> PhysicalPlan:
+    # 1. pre-projection: group keys + aggregate inputs
     specs = [AggSpec(f"_agg{i}", fn)
              for i, (_, fn) in enumerate(node.aggregates)]
-    pre_exprs: List[Expression] = []
-    pre_names: List[str] = []
+    pre_exprs: List[Expression] = list(node.groupings)
+    pre_names: List[str] = [g.name for g in node.groupings]
     for spec in specs:
         for in_name, in_expr in zip(spec.input_cols,
                                     spec.fn.input_projection()):
             pre_exprs.append(in_expr)
             pre_names.append(in_name)
     pre = CpuProjectExec(child, pre_exprs, pre_names)
+    key_names = [g.name for g in node.groupings]
     # 2. partial aggregate, 3. exchange, 4. final merge
-    partial = CpuHashAggregateExec(pre, [], specs, "partial")
-    exchange = ShuffleExchangeExec(partial, SinglePartitioning()) \
-        if partial.num_partitions > 1 else partial
-    final = CpuHashAggregateExec(exchange, [], specs, "final")
-    # 5. post-projection: evaluated aggregate results
-    post_exprs = [spec.fn.evaluate(spec.prefix) for spec in specs]
-    post_names = [out_name for out_name, _ in node.aggregates]
+    partial = CpuHashAggregateExec(pre, key_names, specs, "partial")
+    exchange = partial
+    if partial.num_partitions > 1:
+        part = HashPartitioning(key_names, nparts) if key_names \
+            else SinglePartitioning()
+        exchange = ShuffleExchangeExec(partial, part)
+    final = CpuHashAggregateExec(exchange, key_names, specs, "final")
+    # 5. post-projection: keys + evaluated aggregate results
+    post_exprs: List[Expression] = []
+    post_names: List[str] = []
+    for g in node.groupings:
+        f = final.schema.field(g.name)
+        post_exprs.append(AttributeReference(g.name, f.dtype, f.nullable))
+        post_names.append(g.name)
+    for spec, (out_name, _) in zip(specs, node.aggregates):
+        post_exprs.append(spec.fn.evaluate(spec.prefix))
+        post_names.append(out_name)
     return CpuProjectExec(final, post_exprs, post_names)
 
 

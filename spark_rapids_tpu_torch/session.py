@@ -14,16 +14,16 @@ import torch
 
 from .conf import RapidsConf
 from .expr.base import Alias, AttributeReference, Expression
-from .expr.functions import _to_expr, col as _col
+from .expr.functions import SortOrder, _to_expr, col as _col
 from .io.memory import InMemorySource
 from .plan.logical import (LogicalAggregate, LogicalFilter, LogicalPlan,
-                           LogicalProject, LogicalScan)
+                           LogicalProject, LogicalScan, LogicalSort)
 from .plan.overrides import apply_overrides, explain_plan
 from .plan.physical import PhysicalPlan
 from .plan.planner import plan_physical
 from .plan.schema import Schema
 
-__all__ = ["TorchSession", "DataFrame"]
+__all__ = ["TorchSession", "DataFrame", "GroupedData"]
 
 
 class TorchSession:
@@ -59,7 +59,7 @@ class TorchSession:
 
     def _physical(self, logical: LogicalPlan,
                   device: Optional[bool] = None) -> PhysicalPlan:
-        cpu = plan_physical(logical)
+        cpu = plan_physical(logical, self.conf)
         use_device = self.conf.is_sql_enabled if device is None else device
         if not use_device:
             return cpu
@@ -102,19 +102,19 @@ class DataFrame:
 
     def agg(self, *aggs) -> "DataFrame":
         """Aggregate over all rows (no grouping keys)."""
-        return DataFrame(self.session, LogicalAggregate(
-            self.logical, [], [_to_expr(a) for a in aggs]))
+        return GroupedData(self, []).agg(*aggs)
 
-    def group_by(self, *cols):
-        raise NotImplementedError(
-            "group_by: keyed aggregates are not ported yet "
-            "(ROADMAP Queue 1 step 4, the Q1 slice)")
+    def group_by(self, *cols) -> "GroupedData":
+        return GroupedData(self, [self._col_expr(c) for c in cols])
 
     groupBy = group_by
 
-    def sort(self, *orders, ascending: bool = True):
-        raise NotImplementedError(
-            "sort is not ported yet (ROADMAP Queue 1 step 4, the Q1 slice)")
+    def sort(self, *orders, ascending: bool = True) -> "DataFrame":
+        """A global sort by column names, Columns or ``SortOrder``s (names
+        and Columns sort ``ascending``, with Spark's default null order)."""
+        sos = [o if isinstance(o, SortOrder)
+               else SortOrder(self._col_expr(o), ascending) for o in orders]
+        return DataFrame(self.session, LogicalSort(self.logical, sos))
 
     order_by = orderBy = sort
 
@@ -141,9 +141,22 @@ class DataFrame:
         report — each host node and whether, or why not, it runs on the
         device."""
         if mode == "device":
-            text = explain_plan(plan_physical(self.logical),
+            text = explain_plan(plan_physical(self.logical,
+                                              self.session.conf),
                                 self.session.conf)
         else:
             text = self.session._physical(self.logical).tree_string()
         print(text)
         return text
+
+
+class GroupedData:
+    """``DataFrame.group_by(...)``: the grouping keys, waiting for ``agg``."""
+
+    def __init__(self, df: DataFrame, groupings: List[Expression]):
+        self.df = df
+        self.groupings = groupings
+
+    def agg(self, *aggs) -> DataFrame:
+        return DataFrame(self.df.session, LogicalAggregate(
+            self.df.logical, self.groupings, [_to_expr(a) for a in aggs]))

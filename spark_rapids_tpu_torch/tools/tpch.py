@@ -1,6 +1,6 @@
-"""TPC-H support for the port: the lineitem generator, Q6 and the date
+"""TPC-H support for the port: the lineitem generator, Q1, Q6 and the date
 constants — copied from ``spark_rapids_tpu/tools/tpch.py``, so both engines
-run the same data and the same query.
+run the same data and the same queries.
 
 The generator is numpy, seeded, with dbgen-flavored value domains; prices
 are double (not decimal), the common benchmarking simplification; row
@@ -13,7 +13,7 @@ import pyarrow as pa
 
 from ..columnar import dtypes as dt
 
-__all__ = ["gen_lineitem", "q6"]
+__all__ = ["gen_lineitem", "q1", "q6"]
 
 _EPOCH_1992 = 8035   # days from unix epoch to 1992-01-01
 _DATE_RANGE = 2557   # ~7 years of ship dates
@@ -76,6 +76,28 @@ _D = {
     "1996-04-01": 9587, "1996-12-31": 9861, "1997-01-01": 9862,
     "1998-09-02": 10471,
 }
+
+
+def q1(t):
+    """TPC-H Q1: pricing summary report (grouped aggregate over string
+    keys, then a sort)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    sd = col("l_shipdate").cast(dt.INT)
+    disc_price = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    charge = disc_price * (lit(1.0) + col("l_tax"))
+    return (t["lineitem"]
+            .filter(sd <= lit(_D["1998-09-02"]))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.sum(col("l_extendedprice")).alias("sum_base_price"),
+                 F.sum(disc_price).alias("sum_disc_price"),
+                 F.sum(charge).alias("sum_charge"),
+                 F.avg(col("l_quantity")).alias("avg_qty"),
+                 F.avg(col("l_extendedprice")).alias("avg_price"),
+                 F.avg(col("l_discount")).alias("avg_disc"),
+                 F.count_star().alias("count_order"))
+            .sort("l_returnflag", "l_linestatus"))
 
 
 def q6(t):

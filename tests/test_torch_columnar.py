@@ -134,3 +134,76 @@ def test_jax_batch_through_port_q6_stage():
                                       np.asarray(wc.validity))
         np.testing.assert_allclose(gc.data.numpy(), np.asarray(wc.data),
                                    rtol=1e-12)
+
+
+def _strings(rng, n: int, max_len: int):
+    """Strings of 0..max_len characters, some multi-byte UTF-8, with nulls."""
+    alphabet = list("abcXYZ 0\x00") + ["ü", "ï", "日", "€"]
+    vals = ["".join(rng.choice(alphabet, rng.integers(0, max_len + 1)))
+            for _ in range(n)]
+    return _with_nulls(rng, pa.array(vals, type=pa.string()), 0.2)
+
+
+@pytest.mark.parametrize("max_len", [1, 7, 8, 9, 16, 40])
+@pytest.mark.parametrize("n,min_bucket", [(0, 8), (1, 8), (300, 8),
+                                          (1000, 1024)])
+def test_string_round_trip_and_planes_match_jax(max_len, n, min_bucket):
+    rng = np.random.default_rng(max_len * 1000 + n)
+    arr = _strings(rng, n, max_len)
+    # "t": every value empty; "u": every value of one length (the
+    # upload's fast path), sliced so the Arrow array has an offset
+    fixed = pa.array(["ab\x00ü"] * (n + 3), type=pa.string()).slice(3)
+    table = pa.table({"s": arr, "t": pa.array([""] * n, type=pa.string()),
+                      "u": fixed})
+    t = tdev.DeviceTable.from_host(HostTable.from_arrow(table), min_bucket,
+                                   "cpu")
+    j = jdev.DeviceTable.from_host(JHostTable.from_arrow(table), min_bucket)
+    for tc, jc in zip(t.columns, j.columns):
+        assert tc.data.dtype == torch.uint8 and tc.data.dim() == 2
+        assert tc.lengths.dtype == torch.int32
+        np.testing.assert_array_equal(tc.data.numpy(), np.asarray(jc.data))
+        np.testing.assert_array_equal(tc.lengths.numpy(),
+                                      np.asarray(jc.lengths))
+        np.testing.assert_array_equal(tc.validity.numpy(),
+                                      np.asarray(jc.validity))
+    back = t.to_host().to_arrow()
+    assert back.column("s").to_pylist() == arr.to_pylist()
+    assert back.column("t").to_pylist() == [""] * n
+    assert back.column("u").to_pylist() == ["ab\x00ü"] * n
+
+
+def test_concat_of_string_batches_of_different_widths_matches_jax():
+    rng = np.random.default_rng(9)
+    arrs = [_strings(rng, 50, w) for w in (3, 40, 12)]
+    parts, jparts = [], []
+    for k, arr in enumerate(arrs):
+        table = pa.table({"s": arr, "k": pa.array(np.arange(50) + 100 * k)})
+        keep = rng.random(64) < 0.7
+        t = tdev.DeviceTable.from_host(HostTable.from_arrow(table), 64,
+                                       "cpu")
+        parts.append(t.filter_mask(torch.from_numpy(keep)))
+        j = jdev.DeviceTable.from_host(JHostTable.from_arrow(table), 64)
+        jparts.append(j.filter_mask(jnp.asarray(keep)))
+    assert len({p.column("s").data.shape[1] for p in parts}) == 3
+    got = tdev.concat_device_tables(parts, 64)
+    want = jdev.concat_device_tables(jparts, 64)
+    assert got.column("s").data.shape == tuple(want.column("s").data.shape)
+    assert int(got.num_rows) == int(want.num_rows)
+    np.testing.assert_array_equal(got.row_mask.numpy(),
+                                  np.asarray(want.row_mask))
+    live = got.row_mask.numpy()
+    for name in ("s", "k"):
+        gc, wc = got.column(name), want.column(name)
+        np.testing.assert_array_equal(gc.data.numpy()[live],
+                                      np.asarray(wc.data)[live])
+        np.testing.assert_array_equal(gc.validity.numpy(),
+                                      np.asarray(wc.validity))
+    np.testing.assert_array_equal(got.column("s").lengths.numpy()[live],
+                                  np.asarray(want.column("s").lengths)[live])
+    expect = [v for arr, p in zip(arrs, parts)
+              for v, m in zip(arr.to_pylist(), p.row_mask.numpy()) if m]
+    assert got.to_host().to_arrow().column("s").to_pylist() == expect
+    # shrinking keeps the byte matrix's width and the lengths plane
+    small = tdev.shrink_to_fit(got, 8)
+    assert small.capacity < got.capacity
+    assert small.to_host().to_arrow().column("s").to_pylist() == expect
