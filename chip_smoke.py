@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--sf 1] [--partitions 2]
+    python3 chip_smoke.py [--sf 1] [--q3-sf 1] [--partitions 2]
 
 Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
 
@@ -22,6 +22,16 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    (keys, row order and counts exactly, doubles at rel 1e-9), cold and warm
    walls and a profiler trace. Q1 runs no hand-written kernel: its device
    work is torch ops, and ``axpy`` must launch 0 times on it.
+   Phases 2-4 run with AQE off, the plans they had before AQE was ported.
+5. Q3 phase: TPC-H Q3 (two equi-joins, a keyed aggregate, top 10) over
+   customer, orders and lineitem at ``--q3-sf``, with AQE on (cold, then
+   warm) and off: each result against the host engine and an independent
+   numpy Q3 (keys and row order exactly, revenue at rel 1e-9); the AQE plan
+   node for node, with both joins demoted to broadcast by side swap, and
+   the AQE-off plan's two shuffled hash joins; ``axpy`` launched 0 times;
+   a profiler trace of a warm run, and the device time of each join step
+   (hash build, probe walk, sorted prep, ``searchsorted`` counts, expand)
+   on the run's own join inputs.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -31,6 +41,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
 import subprocess
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+_EPOCH = datetime.date(1970, 1, 1)
 L2_BYTES = 50 * 2**20         # H100 L2 cache
 
 
@@ -322,6 +334,322 @@ def q1_phase(q, li) -> None:
               flush=True)
 
 
+Q3_TREE = """\
+AdaptiveExec [isFinal=True]
+  DeviceToHostExec
+    TpuTakeOrderedExec [n=10]
+      TpuStageReaderExec [local n=1 rows=10 bytes=240]
+        TpuLocalExchangeExec [local n=1]
+          TpuTakeOrderedExec [n=10]
+            TpuProjectExec [l_orderkey, o_orderdate, o_shippriority, revenue]
+              TpuHashAggregateExec [mode=final keys=['l_orderkey', \
+'o_orderdate', 'o_shippriority']]
+                TpuStageReaderExec [local n=1 rows=* bytes=*]
+                  TpuLocalExchangeExec [local n=1]
+                    TpuWholeStage[Project+Project+HashAggregate]
+                      TpuBroadcastHashJoinExec [inner lkeys=['l_orderkey'] \
+rkeys=['o_orderkey']]
+                        TpuStageReaderExec [local n=1 rows={li} bytes={li_b}]
+                          TpuLocalExchangeExec [local n=1]
+                            TpuFilterExec [(cast(col('l_shipdate') as int) \
+> lit(9204))]
+                              HostToDeviceExec
+                                CpuScanExec [InMemory[{li_n} rows] \
+cols=['l_orderkey', 'l_extendedprice', 'l_discount', 'l_shipdate']]
+                        TpuStageReaderExec [local n=1 rows={co} bytes={co_b}]
+                          TpuLocalExchangeExec [local n=1]
+                            TpuProjectExec [c_custkey, c_mktsegment, \
+o_orderkey, o_custkey, o_orderdate, o_shippriority]
+                              TpuBroadcastHashJoinExec [inner \
+lkeys=['o_custkey'] rkeys=['c_custkey']]
+                                TpuStageReaderExec [local n=1 rows={o} \
+bytes={o_b}]
+                                  TpuLocalExchangeExec [local n=1]
+                                    TpuFilterExec [(cast(col('o_orderdate') \
+as int) < lit(9204))]
+                                      HostToDeviceExec
+                                        CpuScanExec [InMemory[{o_n} rows] \
+cols=['o_orderkey', 'o_custkey', 'o_orderdate', 'o_shippriority']]
+                                TpuStageReaderExec [local n=1 rows={c} \
+bytes={c_b}]
+                                  TpuLocalExchangeExec [local n=1]
+                                    TpuFilterExec [(col('c_mktsegment') = \
+lit('BUILDING'))]
+                                      HostToDeviceExec
+                                        CpuScanExec [InMemory[{c_n} rows] \
+cols=['c_custkey', 'c_mktsegment']]"""
+Q3_COLUMNS = ("l_orderkey", "o_orderdate", "o_shippriority", "revenue")
+
+
+def _q3_numpy(customer, orders, lineitem) -> dict:
+    """TPC-H Q3 in numpy alone -> the top 10 rows, and the row counts of
+    each filtered table and of customer x orders (the plan's stages)."""
+    seg = np.asarray(customer.column("c_mktsegment").to_numpy(
+        zero_copy_only=False), dtype=str)
+    custkeys = customer.column("c_custkey").to_numpy()[seg == "BUILDING"]
+    odate = orders.column("o_orderdate").cast("int32").to_numpy()
+    o_keep = odate < 9204
+    co = o_keep & np.isin(orders.column("o_custkey").to_numpy(), custkeys)
+    okey = orders.column("o_orderkey").to_numpy()[co]
+    order = np.argsort(okey, kind="stable")
+    l_keep = lineitem.column("l_shipdate").cast("int32").to_numpy() > 9204
+    lkey = lineitem.column("l_orderkey").to_numpy()[l_keep]
+    pos = np.searchsorted(okey[order], lkey).clip(0, len(okey) - 1)
+    hit = okey[order][pos] == lkey
+    price = lineitem.column("l_extendedprice").to_numpy()[l_keep][hit]
+    disc = lineitem.column("l_discount").to_numpy()[l_keep][hit]
+    revenue = np.bincount(order[pos[hit]], weights=price * (1.0 - disc),
+                          minlength=len(okey))
+    has = np.bincount(order[pos[hit]], minlength=len(okey)) > 0
+    date = odate[co]
+    idx = np.nonzero(has)[0]
+    top = idx[np.lexsort((date[idx], -revenue[idx]))][:10]
+    return {"l_orderkey": okey[top].tolist(),
+            "o_orderdate": date[top].tolist(),
+            "o_shippriority": orders.column("o_shippriority").to_numpy()[co][
+                top].tolist(),
+            "revenue": revenue[top].tolist(),
+            "counts": {"c": int(len(custkeys)), "o": int(o_keep.sum()),
+                       "co": int(co.sum()), "li": int(l_keep.sum())}}
+
+
+def _check_q3(out, want: dict, what: str) -> None:
+    """Keys and row order exactly, revenue at rel 1e-9."""
+    days = [None if d is None else (d - _EPOCH).days
+            for d in out.column("o_orderdate").to_pylist()]
+    got = {"l_orderkey": out.column("l_orderkey").to_pylist(),
+           "o_orderdate": days,
+           "o_shippriority": out.column("o_shippriority").to_pylist()}
+    for c, v in got.items():
+        if v != list(want[c]):
+            raise AssertionError(f"Q3 {what}: {c} {v} != {list(want[c])}")
+    revenue = out.column("revenue").to_pylist()
+    if len(revenue) != len(want["revenue"]):
+        raise AssertionError(f"Q3 {what}: {len(revenue)} rows")
+    for a, b in zip(revenue, want["revenue"]):
+        if a is None or not math.isfinite(a):
+            raise AssertionError(f"Q3 {what}: revenue = {a!r}")
+        _close(a, float(b), f"Q3 {what}: revenue")
+
+
+def _walk_plan(plan):
+    """Every node of a plan, through AQE stage readers into their stages."""
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        yield node
+        stage = getattr(node, "stage", None)
+        stack.extend([stage.inner] if stage is not None else node.children)
+
+
+def _check_q3_plan(plan, counts: dict, sizes: dict) -> None:
+    """The AQE plan that ran, node for node: Q3_TREE with this run's stage
+    rows and bytes (value planes only: 24 B a customer or order row, 28 a
+    lineitem, 48 a customer x orders row), the partial-aggregate stage's
+    counts free; above the scans device nodes only."""
+    from spark_rapids_tpu_torch.exec.base import TpuExec
+    from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
+    from spark_rapids_tpu_torch.plan.aqe import AdaptiveExec
+    from spark_rapids_tpu_torch.plan.physical import CpuScanExec
+    want = Q3_TREE.format(
+        li=counts["li"], li_b=28 * counts["li"], co=counts["co"],
+        co_b=48 * counts["co"], o=counts["o"], o_b=24 * counts["o"],
+        c=counts["c"], c_b=24 * counts["c"], **sizes).splitlines()
+    got = plan.tree_string().splitlines()
+    if len(got) != len(want):
+        raise AssertionError("Q3 AQE plan:\n" + plan.tree_string())
+    for g, w in zip(got, want):
+        head, _, _ = w.partition("rows=*")
+        if g != w and not (w.endswith("rows=* bytes=*]")
+                           and g.startswith(head)):
+            raise AssertionError(f"Q3 AQE plan line {g!r}, expected {w!r}")
+    for node in _walk_plan(plan):
+        if not isinstance(node, (AdaptiveExec, TpuExec, DeviceToHostExec,
+                                 CpuScanExec)):
+            raise AssertionError(f"Q3: {node.node_name()} is not a device "
+                                 "node")
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """Device time of ``fn()`` (the least of ``reps`` calls after a warm-up)
+    between CUDA events. Calls that read the device on the host each round
+    include the gaps those reads leave."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _build_rounds(slot_row, bv, usable) -> int:
+    """Rounds the hash build's insertion took (and, the keys being unique,
+    its self-probe): one more than the latest chain step at which a usable
+    row found its slot."""
+    from spark_rapids_tpu_torch.exec import joins as J
+    T = slot_row.shape[0]
+    h1, step = J.slot_hash(bv, T)
+    held = torch.nonzero(slot_row >= 0).flatten()
+    slot_of = torch.full_like(bv, -1)
+    slot_of[slot_row[held]] = held
+    pending = usable.clone()
+    r = 0
+    while bool(pending.any()):
+        pending &= ((h1 + r * step) & (T - 1)) != slot_of
+        r += 1
+    return r
+
+
+def _q3_join_steps(plan) -> None:
+    """Time each join step on the AQE run's own join inputs: the hash build
+    and the probe walks of both broadcast joins; then, with join 1's sides
+    reversed (orders as a build of repeated keys, the AQE-off plan's case),
+    the sorted prep, the ``searchsorted`` counts and the expand."""
+    from spark_rapids_tpu_torch.columnar.device import (bucket_rows,
+                                                        concat_device_tables)
+    from spark_rapids_tpu_torch.exec import joins as J
+    bhj = [n for n in _walk_plan(plan)
+           if type(n).__name__ == "TpuBroadcastHashJoinExec"]
+    for node in sorted(bhj, key=lambda n: n.left_keys):
+        build = node._broadcast
+        probes = node.left.stage.inner.materialize()
+        bkey = build.column(node.right_keys[0])
+        slot_row, bv, _ = J.build_prep_hash(bkey, build.row_mask)
+        t_build = _event_ms(lambda: J.build_prep_hash(bkey, build.row_mask))
+        t_probe = _event_ms(lambda: [J.pk_hash_probe(
+            p.column(node.left_keys[0]), p.row_mask, slot_row, bv)
+            for p in probes])
+        rounds = _build_rounds(slot_row, bv,
+                               bkey.validity & build.row_mask)
+        print(f"# Q3 join {node.left_keys[0]}={node.right_keys[0]}: hash "
+              f"build of {int(build.num_rows)} rows (capacity "
+              f"{build.capacity}, {rounds} insertion rounds) {t_build:.3f} "
+              f"ms; probe walk of "
+              f"{sum(int(p.num_rows) for p in probes)} rows in {len(probes)} "
+              f"batches {t_probe:.3f} ms", flush=True)
+        if node.left_keys == ["o_custkey"]:
+            orders = concat_device_tables(probes)
+            customers = build
+    okey = orders.column("o_custkey")
+    ckey = customers.column("c_custkey")
+    b_order, sv, nvalid, _ = J.build_prep_sorted(okey, orders.row_mask)
+    t_prep = _event_ms(lambda: J.build_prep_sorted(okey, orders.row_mask))
+    starts, counts = J.probe_count(ckey, customers.row_mask, sv, nvalid)
+    t_count = _event_ms(lambda: J.probe_count(ckey, customers.row_mask, sv,
+                                              nvalid))
+    total = int(torch.where(customers.row_mask, counts, 0).sum())
+    out_cap = bucket_rows(total)
+
+    def expand():
+        pi, bi, valid, matched, _ = J.expand_slots(
+            customers.row_mask, orders.capacity, b_order, starts, counts,
+            out_cap)
+        return J.gather_columns(customers, pi, valid) \
+            + J.gather_columns(orders, bi, matched)
+    t_expand = _event_ms(expand)
+    print(f"# Q3 count path (orders as the build, {int(orders.num_rows)} "
+          f"rows, capacity {orders.capacity}; customers as the probe): "
+          f"sorted prep {t_prep:.3f} ms; searchsorted counts {t_count:.3f} "
+          f"ms; expand of {total} pairs (capacity {out_cap}) {t_expand:.3f} "
+          f"ms", flush=True)
+
+
+def q3_phase(tables: dict, partitions: int) -> None:
+    """Drive TPC-H Q3 on the card with AQE on (cold, warm) and off, each
+    result against the host engine and numpy; the AQE plan node for node
+    and its events; ``axpy`` launched 0 times; a trace of a warm run and
+    the join steps' device times."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    from spark_rapids_tpu_torch.udf.kernels import axpy
+    t0 = time.perf_counter()
+    want = _q3_numpy(tables["customer"], tables["orders"],
+                     tables["lineitem"])
+    t_numpy = time.perf_counter() - t0
+    counts = want["counts"]
+    print(f"# Q3 numpy {t_numpy:.3f} s: {counts['c']} BUILDING customers, "
+          f"{counts['o']} orders and {counts['li']} lineitems pass the "
+          f"filters, {counts['co']} customer x orders rows", flush=True)
+
+    def query(conf):
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True, **conf})
+        return sess, tpch.q3({k: sess.create_dataframe(
+            v, num_partitions=partitions) for k, v in tables.items()})
+
+    sess, q = query({})
+    walls, plans = [], []
+    for _ in ("cold", "warm"):
+        axpy.launches = 0
+        t0 = time.perf_counter()
+        plan = sess._physical(q.logical, True)
+        out = plan.collect().to_arrow()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if axpy.launches != 0:
+            raise AssertionError(f"Q3: axpy launched {axpy.launches} times")
+        _check_q3(out, want, "device (AQE on) vs numpy")
+        plans.append(plan)
+    plan = plans[-1]
+    print(plan.tree_string(), flush=True)
+    sizes = {"li_n": tables["lineitem"].num_rows,
+             "o_n": tables["orders"].num_rows,
+             "c_n": tables["customer"].num_rows}
+    _check_q3_plan(plan, counts, sizes)
+    events = plan.events
+    stage = "materialized stage n=1 rows={} bytes={}"
+    expect = [stage.format(counts["o"], 24 * counts["o"]),
+              stage.format(counts["li"], 28 * counts["li"]),
+              stage.format(counts["c"], 24 * counts["c"]),
+              "demoted inner join to broadcast via side swap (build side "
+              f"{24 * counts['c']}B)",
+              stage.format(counts["co"], 48 * counts["co"]),
+              "demoted inner join to broadcast via side swap (build side "
+              f"{48 * counts['co']}B)"]
+    if events[:6] != expect or len(events) != 8 \
+            or events[7] != stage.format(10, 240) \
+            or not events[6].startswith("materialized stage n=1 rows="):
+        raise AssertionError(f"Q3 AQE events {events}")
+    print("# Q3 AQE events: " + "; ".join(events), flush=True)
+
+    off_sess, off_q = query({"spark.rapids.tpu.aqe.enabled": False})
+    axpy.launches = 0
+    t0 = time.perf_counter()
+    off_plan = off_sess._physical(off_q.logical, True)
+    off = off_plan.collect().to_arrow()
+    torch.cuda.synchronize()
+    t_off = time.perf_counter() - t0
+    if axpy.launches != 0:
+        raise AssertionError(f"Q3 AQE off: axpy launched {axpy.launches}")
+    if off_plan.tree_string().count("TpuShuffledHashJoinExec") != 2:
+        raise AssertionError("Q3 AQE-off plan:\n" + off_plan.tree_string())
+    _check_q3(off, want, "device (AQE off) vs numpy")
+    t0 = time.perf_counter()
+    host = q.collect(device=False)
+    t_host = time.perf_counter() - t0
+    _check_q3(host, want, "host engine vs numpy")
+    host_cols = {c: host.column(c).to_pylist() for c in Q3_COLUMNS}
+    host_cols["o_orderdate"] = [(d - _EPOCH).days
+                                for d in host_cols["o_orderdate"]]
+    _check_q3(off, host_cols, "device (AQE off) vs host engine")
+    _check_q3(out, host_cols, "device (AQE on) vs host engine")
+    print(f"# Q3: device AQE on cold {walls[0]:.3f} s, warm {walls[1]:.3f} "
+          f"s; AQE off {t_off:.3f} s; host engine {t_host:.3f} s; numpy "
+          f"{t_numpy:.3f} s; axpy launches per run 0", flush=True)
+    traced = _profile(q, "Q3")
+    if traced is not None:
+        busy, wall_ms = traced
+        print(f"# Q3 trace: device busy {100 * busy / wall_ms:.1f} %, idle "
+              f"{100 - 100 * busy / wall_ms:.1f} % of the traced warm run",
+              flush=True)
+    _q3_join_steps(plan)
+
+
 def _value(table, name: str) -> float:
     if table.num_rows != 1:
         raise AssertionError(f"expected one result row, got {table.num_rows}")
@@ -340,6 +668,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of lineitem (default 1)")
+    ap.add_argument("--q3-sf", type=float, default=1.0,
+                    help="TPC-H scale factor of Q3's tables (default 1)")
     ap.add_argument("--partitions", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -373,7 +703,8 @@ def main() -> int:
     mask = _q6_mask(li)
     print(f"# Q6 filter keeps {int(mask.sum())} rows", flush=True)
 
-    sess = TorchSession({"spark.rapids.sql.test.enabled": True})
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.tpu.aqe.enabled": False})
     df = sess.create_dataframe(li, num_partitions=args.partitions)
 
     # -- Q6 phase: no hand-written kernel on this path ------------------------
@@ -400,6 +731,17 @@ def main() -> int:
 
     # -- Q1 phase: keyed aggregate over string keys, then a sort -----------
     q1_phase(tpch.q1({"lineitem": df}), li)
+
+    # -- Q3 phase: equi-joins, top-n and AQE's broadcast demotion -----------
+    t0 = time.perf_counter()
+    tables = {"customer": tpch.gen_customer(args.q3_sf, seed=2),
+              "orders": tpch.gen_orders(args.q3_sf, seed=1),
+              "lineitem": li if args.q3_sf == args.sf
+              else tpch.gen_lineitem(args.q3_sf, seed=0)}
+    print(f"# Q3 tables sf={args.q3_sf}: " + ", ".join(
+        f"{k} {v.num_rows} rows" for k, v in tables.items())
+        + f", generated in {time.perf_counter() - t0:.2f} s", flush=True)
+    q3_phase(tables, args.partitions)
 
     t = kern["timings"][1 << 20]
     print(json.dumps({"kernels": [{

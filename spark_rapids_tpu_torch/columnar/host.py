@@ -117,6 +117,11 @@ class HostColumn:
         validity = None if self.validity is None else self.validity[indices]
         return HostColumn(self.dtype, vals, validity)
 
+    def slice(self, start: int, length: int) -> "HostColumn":
+        end = start + length
+        validity = None if self.validity is None else self.validity[start:end]
+        return HostColumn(self.dtype, self.values[start:end], validity)
+
 
 @dataclasses.dataclass
 class HostTable:
@@ -156,6 +161,24 @@ class HostTable:
 
     def take(self, indices: np.ndarray) -> "HostTable":
         return HostTable(list(self.names), [c.take(indices) for c in self.columns])
+
+    def slice(self, start: int, length: int) -> "HostTable":
+        return HostTable(list(self.names),
+                         [c.slice(start, length) for c in self.columns])
+
+    def nbytes(self) -> int:
+        """Value and validity bytes; a string counts its UTF-8 bytes plus a
+        4-byte offset (the JAX package's host-tier stage statistics)."""
+        total = 0
+        for c in self.columns:
+            if c.values.dtype == object:
+                total += sum(len(str(v).encode()) for v in c.values) \
+                    + 4 * len(c.values)
+            else:
+                total += c.values.nbytes
+            if c.validity is not None:
+                total += c.validity.nbytes
+        return total
 
     @staticmethod
     def concat(tables: "Sequence[HostTable]") -> "HostTable":

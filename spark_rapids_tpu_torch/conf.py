@@ -103,6 +103,99 @@ TEST_ENABLED = register_conf(
     "Fail if a query does not fully run on device, scans and exchanges "
     "excepted (reference: RapidsConf.scala:968-989).", False)
 
+BROADCAST_THRESHOLD = register_conf(
+    "spark.rapids.tpu.autoBroadcastJoinThreshold",
+    "Max estimated build-side bytes for broadcast hash join planning "
+    "(Spark's spark.sql.autoBroadcastJoinThreshold analogue; -1 disables).",
+    10 * 1024 * 1024)
+
+JOIN_STRATEGY = register_conf(
+    "spark.rapids.tpu.join.strategy",
+    "Unique-build-key (FK->PK) join algorithm: 'sort' (sorted build keys "
+    "+ searchsorted), 'hash' (open-addressing slot table) or 'auto' "
+    "(= hash). Non-unique builds always take the sorted count/expand path.",
+    "auto", checker=lambda v: None if str(v).lower() in ("auto", "sort", "hash")
+    else "must be auto|sort|hash")
+
+def _not_ported_unless_default(default: Any, step: int
+                               ) -> Callable[[Any], Optional[str]]:
+    """Checker of a conf the engine does not read yet: the default is what
+    it runs, any other value raises naming the ROADMAP step that reads it,
+    so a setting is never silently ignored."""
+    def check(v: Any) -> Optional[str]:
+        if v != default:
+            raise NotImplementedError(
+                f"a value other than {default!r} is not ported yet "
+                f"(ROADMAP Queue 1 step {step})")
+        return None
+    return check
+
+
+AQE_ENABLED = register_conf(
+    "spark.rapids.tpu.aqe.enabled",
+    "Adaptive query execution: re-plan at exchange boundaries using runtime "
+    "partition statistics (join demotion to broadcast, partition coalescing, "
+    "skew-join splitting). Spark's spark.sql.adaptive.enabled analogue.",
+    True)
+
+register_conf(
+    "spark.rapids.tpu.aqe.advisoryPartitionSizeBytes",
+    "Target bytes per shuffle partition after AQE coalescing "
+    "(spark.sql.adaptive.advisoryPartitionSizeInBytes analogue).",
+    64 * 1024 * 1024,
+    checker=_not_ported_unless_default(64 * 1024 * 1024, 10))
+
+AQE_COALESCE_ENABLED = register_conf(
+    "spark.rapids.tpu.aqe.coalescePartitions.enabled",
+    "Merge adjacent small shuffle partitions toward the advisory size "
+    "(spark.sql.adaptive.coalescePartitions.enabled analogue). Not ported "
+    "yet (ROADMAP Queue 1 step 10): a stage of more than one partition is "
+    "left as it is, and AdaptiveExec.events says so.", True)
+
+register_conf(
+    "spark.rapids.tpu.aqe.coalescePartitions.minPartitionNum",
+    "Lower bound on the partition count coalescing may produce.", 1,
+    checker=_not_ported_unless_default(1, 10))
+
+AQE_BROADCAST_BYTES = register_conf(
+    "spark.rapids.tpu.aqe.autoBroadcastJoinThreshold",
+    "Max materialized build-side bytes for AQE join demotion to broadcast; "
+    "-1 disables demotion (spark.sql.adaptive + autoBroadcastJoinThreshold).",
+    10 * 1024 * 1024)
+
+AQE_SKEW_ENABLED = register_conf(
+    "spark.rapids.tpu.aqe.skewJoin.enabled",
+    "Split skewed probe-side partitions of shuffled hash joins "
+    "(spark.sql.adaptive.skewJoin.enabled analogue). Not ported yet "
+    "(ROADMAP Queue 1 step 10): a stage of more than one partition is left "
+    "as it is, and AdaptiveExec.events says so.", True)
+
+register_conf(
+    "spark.rapids.tpu.aqe.skewJoin.skewedPartitionFactor",
+    "A partition is skewed when its bytes exceed this multiple of the "
+    "median partition size (and the threshold below).", 5,
+    checker=_not_ported_unless_default(5, 10))
+
+register_conf(
+    "spark.rapids.tpu.aqe.skewJoin.skewedPartitionThresholdBytes",
+    "Minimum bytes for a partition to be considered skewed.",
+    256 * 1024 * 1024,
+    checker=_not_ported_unless_default(256 * 1024 * 1024, 10))
+
+register_conf(
+    "spark.rapids.tpu.aqe.runtimeFilter.enabled",
+    "When a join demotes to broadcast, push the build side's distinct join "
+    "keys into the probe side's scan as an IN filter. Only a source that "
+    "can prune by statistics takes it (Parquet, ROADMAP Queue 1 step 7); "
+    "the in-memory source cannot, so either value runs the same plan, as "
+    "in the JAX package.", True)
+
+register_conf(
+    "spark.rapids.tpu.aqe.runtimeFilter.maxKeys",
+    "Skip the runtime IN-filter when the build side has more distinct keys "
+    "than this.", 10_000,
+    checker=_not_ported_unless_default(10_000, 7))
+
 
 class RapidsConf:
     """An immutable snapshot of config values (reference ``RapidsConf`` class)."""

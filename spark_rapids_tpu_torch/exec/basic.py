@@ -1,6 +1,6 @@
-"""Basic device operators: Project and Filter — the port of those nodes of
-``spark_rapids_tpu/exec/basic.py`` (reference:
-basicPhysicalOperators.scala:115,313).
+"""Basic device operators: Project, Filter and the local limit — the port of
+those nodes of ``spark_rapids_tpu/exec/basic.py`` (reference:
+basicPhysicalOperators.scala:115,313; limit.scala).
 
 Both are pure per-batch functions — Filter only ANDs the selection mask (no
 gather), so a filter+project chain fuses into one whole-stage node with no
@@ -18,7 +18,8 @@ from ..plan.physical import PhysicalPlan
 from ..plan.schema import Field, Schema
 from .base import TpuExec
 
-__all__ = ["TpuProjectExec", "TpuFilterExec", "eval_exprs_device"]
+__all__ = ["TpuProjectExec", "TpuFilterExec", "TpuLocalLimitExec",
+           "eval_exprs_device"]
 
 
 def eval_exprs_device(table: DeviceTable, exprs: Sequence[Expression],
@@ -93,3 +94,30 @@ class TpuFilterExec(_PerBatchExec):
 
     def node_desc(self):
         return repr(self.condition)
+
+
+class TpuLocalLimitExec(TpuExec):
+    """Per-partition limit: each batch compacts and exposes its first rows
+    up to what is left of ``n``; one host read of the rows kept a batch
+    decides when to stop."""
+
+    def __init__(self, child: PhysicalPlan, n: int):
+        super().__init__()
+        self.child = child
+        self.children = (child,)
+        self.n = n
+        self.schema = child.schema
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        remaining = self.n
+        for batch in self.child_device_batches(pidx):
+            if remaining <= 0:
+                return
+            t = batch.compact()
+            kept = torch.clamp(t.num_rows, max=remaining)
+            mask = torch.arange(t.capacity, dtype=torch.int32,
+                                device=t.device) < kept
+            emitted = int(kept)
+            remaining -= emitted
+            self.account_batch(emitted)
+            yield DeviceTable(t.columns, mask, kept, t.names)

@@ -41,7 +41,13 @@ class TpuLocalExchangeExec(TpuExec):
     def node_desc(self) -> str:
         return "local n=1"
 
-    def _materialize(self) -> List[DeviceTable]:
+    def materialize(self) -> List[DeviceTable]:
+        """Drain the child once; the batches stay on the node."""
+        if self._batches is None:
+            self._batches = self._drain()
+        return self._batches
+
+    def _drain(self) -> List[DeviceTable]:
         out = []
         for p in range(self.child.num_partitions):
             batches = list(self.child_device_batches(p))
@@ -56,6 +62,4 @@ class TpuLocalExchangeExec(TpuExec):
         return out
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
-        if self._batches is None:
-            self._batches = self._materialize()
-        yield from self._batches
+        yield from self.materialize()

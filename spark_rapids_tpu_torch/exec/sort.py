@@ -9,8 +9,12 @@ lexsort gives exactly the permutation of that chain.
 Spark ordering semantics: nulls first/last per order, NaN greater than all
 numbers, -0.0 == 0.0.
 
+``TpuTakeOrderedExec`` is top-n: each batch is sorted and cut to its
+first n rows, and a running state of at most n rows is merged with each
+batch's top by the same sort.
+
 The out-of-core merge for inputs larger than the batch budget waits for
-the spill catalog (ROADMAP Queue 1 step 9); top-n waits for step 6.
+the spill catalog (ROADMAP Queue 1 step 9).
 """
 from __future__ import annotations
 
@@ -18,14 +22,14 @@ from typing import Iterator, List, Sequence
 
 import torch
 
-from ..columnar.device import (DeviceTable, concat_device_tables,
-                               pack_string_key_words)
+from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
+                               concat_device_tables, pack_string_key_words)
 from ..expr.base import EvalContext
 from ..expr.functions import SortOrder
 from ..plan.physical import PhysicalPlan, describe_orders
 from .base import TpuExec
 
-__all__ = ["TpuSortExec", "device_sort_table"]
+__all__ = ["TpuSortExec", "TpuTakeOrderedExec", "device_sort_table"]
 
 _SIGN = -2**63
 
@@ -97,6 +101,53 @@ def device_sort_table(table: DeviceTable, orders: Sequence[SortOrder]
                         device=table.device)
     return DeviceTable(cols, iota < table.num_rows, table.num_rows,
                        table.names)
+
+
+def device_top_n(table: DeviceTable, orders: Sequence[SortOrder], n: int,
+                 cap: int) -> DeviceTable:
+    """The first ``n`` rows of ``table`` in sort order, in at most ``cap``
+    rows of capacity (the bucket of ``n``)."""
+    s = device_sort_table(table, orders)
+    keep = torch.clamp(s.num_rows, max=n)
+    rows = min(cap, s.capacity)
+    mask = torch.arange(rows, dtype=torch.int32, device=s.device) < keep
+    cols = tuple(DeviceColumn(
+        c.data[:rows], torch.logical_and(c.validity[:rows], mask), c.dtype,
+        c.all_valid, None if c.lengths is None else c.lengths[:rows])
+        for c in s.columns)
+    return DeviceTable(cols, mask, keep, s.names)
+
+
+class TpuTakeOrderedExec(TpuExec):
+    """Device top-n (reference: GpuTakeOrderedAndProjectExec, limit.scala):
+    a running top-n folded over the batches, the state at the bucketed
+    n-row capacity."""
+
+    def __init__(self, child: PhysicalPlan, orders: Sequence[SortOrder],
+                 n: int, min_bucket: int):
+        super().__init__()
+        self.child = child
+        self.children = (child,)
+        self.orders = list(orders)
+        self.n = n
+        self.schema = child.schema
+        self.min_bucket = min_bucket
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        cap = bucket_rows(max(self.n, 1), self.min_bucket)
+        state = None
+        for batch in self.child_device_batches(pidx):
+            top = device_top_n(batch, self.orders, self.n, cap)
+            if state is not None:
+                top = device_top_n(concat_device_tables([state, top]),
+                                   self.orders, self.n, cap)
+            state = top
+        if state is not None:
+            self.account_batch()
+            yield state
+
+    def node_desc(self):
+        return f"n={self.n}"
 
 
 class TpuSortExec(TpuExec):

@@ -18,9 +18,10 @@ import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.device import DeviceColumn, DeviceTable
+from ..columnar.device import DeviceColumn, DeviceTable, bucket_width
 from ..columnar.host import HostTable
 from .xp_torch import TorchNamespace
 
@@ -197,7 +198,8 @@ class Literal(Expression):
         n = ctx.num_rows
         string_like = isinstance(self._dtype, (dt.StringType, dt.BinaryType))
         if string_like and ctx.is_device:
-            raise TypeError("string literals are not ported to the device yet")
+            return _device_string_literal(self.value, self._dtype, n,
+                                          xp.device)
         if self.value is None:
             if string_like:
                 return EvalCol(np.empty(n, dtype=object),
@@ -255,6 +257,22 @@ class Alias(Expression):
 
     def __repr__(self):
         return f"{self.child!r} AS {self.alias}"
+
+
+def _device_string_literal(value, dtype: dt.DataType, n: int,
+                           device) -> EvalCol:
+    """A string literal in the device layout: every row the value's bytes,
+    zero-padded to the bucketed width, and its byte length (a null literal
+    is empty and null). The rows are one broadcast row, not n copies."""
+    b = b"" if value is None else (
+        value.encode() if isinstance(value, str) else bytes(value))
+    row = np.zeros(bucket_width(max(len(b), 1)), dtype=np.uint8)
+    row[:len(b)] = np.frombuffer(b, dtype=np.uint8)
+    mat = torch.from_numpy(row).to(device).expand(n, -1)
+    lengths = torch.full((n,), len(b), dtype=torch.int32, device=device)
+    validity = torch.zeros(n, dtype=torch.bool, device=device) \
+        if value is None else None
+    return EvalCol(mat, validity, dtype, lengths)
 
 
 def _infer_literal_type(value: Any) -> dt.DataType:

@@ -47,6 +47,9 @@ class Cast(Expression):
     def with_children(self, children):
         return Cast(children[0], self.to, self.ansi)
 
+    def __repr__(self):
+        return f"cast({self.child!r} as {self.to!r})"
+
     def eval(self, ctx: EvalContext) -> EvalCol:
         c = self.child.eval(ctx)
         src, to = c.dtype, self.to

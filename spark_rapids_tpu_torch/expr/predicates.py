@@ -1,11 +1,17 @@
 """Predicates and comparisons — the port of
-``spark_rapids_tpu/expr/predicates.py`` (string comparisons on the device
-are not ported yet; the host engine compares object arrays).
+``spark_rapids_tpu/expr/predicates.py``.
 
 And/Or implement Kleene three-valued logic; comparisons propagate nulls;
 EqualNullSafe treats null==null as true.
+
+String comparisons: the host engine compares object arrays; the device
+compares the byte matrices lexicographically and then the lengths, so a
+string sorts after its own prefix (and "ab" differs from "ab\\x00", which
+the JAX package's zero-padded compare treats as equal).
 """
 from __future__ import annotations
+
+import torch
 
 from ..columnar import dtypes as dt
 from .arithmetic import _combine_validity, numeric_promote
@@ -15,6 +21,27 @@ from .cast import Cast
 __all__ = ["BinaryComparison", "EqualTo", "EqualNullSafe", "LessThan",
            "LessThanOrEqual", "GreaterThan", "GreaterThanOrEqual",
            "And", "Or", "Not", "IsNull", "IsNotNull", "IsNaN", "In"]
+
+
+def _device_string_cmp(lv: torch.Tensor, llen: torch.Tensor,
+                       rv: torch.Tensor, rlen: torch.Tensor):
+    """Byte-wise lexicographic compare of two (n, w) uint8 matrices with
+    their lengths -> (eq, lt) bool planes: the first differing byte decides,
+    and with none the shorter string is the smaller."""
+    w = max(lv.shape[1], rv.shape[1])
+    if lv.shape[1] < w:
+        lv = torch.nn.functional.pad(lv, (0, w - lv.shape[1]))
+    if rv.shape[1] < w:
+        rv = torch.nn.functional.pad(rv, (0, w - rv.shape[1]))
+    diff = lv.to(torch.int16) - rv.to(torch.int16)
+    neq = diff != 0
+    any_neq = neq.any(dim=1)
+    first = torch.argmax(neq.to(torch.uint8), dim=1, keepdim=True)
+    first_diff = torch.gather(diff, 1, first)[:, 0]
+    same_bytes = torch.logical_not(any_neq)
+    eq = torch.logical_and(same_bytes, llen == rlen)
+    lt = torch.where(any_neq, first_diff < 0, llen < rlen)
+    return eq, lt
 
 
 class BinaryComparison(Expression):
@@ -52,10 +79,18 @@ class BinaryComparison(Expression):
         l = self.left.eval(ctx)
         r = self.right.eval(ctx)
         validity = _combine_validity(ctx, l, r)
+        if ctx.is_device and isinstance(l.dtype, dt.StringType):
+            eq, lt = _device_string_cmp(l.values, l.lengths, r.values,
+                                        r.lengths)
+            return EvalCol(self._from_eq_lt(eq, lt), validity, dt.BOOLEAN)
         return EvalCol(self._compute(ctx, l.values, r.values), validity,
                        dt.BOOLEAN)
 
     def _compute(self, ctx, lv, rv):
+        raise NotImplementedError
+
+    def _from_eq_lt(self, eq, lt):
+        """The comparison from the device string compare's planes."""
         raise NotImplementedError
 
     def __repr__(self):
@@ -68,12 +103,18 @@ class EqualTo(BinaryComparison):
     def _compute(self, ctx, lv, rv):
         return lv == rv
 
+    def _from_eq_lt(self, eq, lt):
+        return eq
+
 
 class LessThan(BinaryComparison):
     symbol = "<"
 
     def _compute(self, ctx, lv, rv):
         return lv < rv
+
+    def _from_eq_lt(self, eq, lt):
+        return lt
 
 
 class LessThanOrEqual(BinaryComparison):
@@ -82,6 +123,9 @@ class LessThanOrEqual(BinaryComparison):
     def _compute(self, ctx, lv, rv):
         return lv <= rv
 
+    def _from_eq_lt(self, eq, lt):
+        return torch.logical_or(eq, lt)
+
 
 class GreaterThan(BinaryComparison):
     symbol = ">"
@@ -89,12 +133,18 @@ class GreaterThan(BinaryComparison):
     def _compute(self, ctx, lv, rv):
         return lv > rv
 
+    def _from_eq_lt(self, eq, lt):
+        return torch.logical_not(torch.logical_or(eq, lt))
+
 
 class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
 
     def _compute(self, ctx, lv, rv):
         return lv >= rv
+
+    def _from_eq_lt(self, eq, lt):
+        return torch.logical_not(lt)
 
 
 class EqualNullSafe(BinaryComparison):

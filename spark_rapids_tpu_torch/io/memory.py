@@ -65,5 +65,10 @@ class InMemorySource(DataSource):
             self._decoded.clear()
         self._decoded[key] = out
 
+    def estimated_size_bytes(self) -> int:
+        """The planner's broadcast estimate: the Arrow table's buffer bytes,
+        as the JAX package reads it, so both plan the same joins."""
+        return self.table.nbytes
+
     def name(self) -> str:
         return f"InMemory[{self.table.num_rows} rows]"

@@ -212,4 +212,6 @@ def replace_children(plan: PhysicalPlan,
     plan.children = tuple(children)
     if hasattr(plan, "child") and len(children) == 1:
         plan.child = children[0]
+    if hasattr(plan, "left") and len(children) == 2:
+        plan.left, plan.right = children
     return plan

@@ -16,10 +16,13 @@ import torch
 
 from ..columnar.dtypes import TypeEnum, TypeSig
 from ..conf import RapidsConf
+from ..conf import JOIN_STRATEGY
 from ..exec.aggregate import TpuHashAggregateExec
-from ..exec.basic import TpuFilterExec, TpuProjectExec
+from ..exec.basic import TpuFilterExec, TpuLocalLimitExec, TpuProjectExec
 from ..exec.exchange import TpuLocalExchangeExec
-from ..exec.sort import TpuSortExec
+from ..exec.joins import (TpuBroadcastHashJoinExec, TpuShuffledHashJoinExec,
+                          join_unsupported_reason)
+from ..exec.sort import TpuSortExec, TpuTakeOrderedExec
 from ..exec.wholestage import fuse_stages
 from ..expr import aggregates as A
 from ..expr import arithmetic as AR
@@ -29,9 +32,12 @@ from ..expr.base import Alias, AttributeReference, Literal
 from ..expr.cast import Cast, cast_supported
 from ..udf.columnar import ColumnarUDF
 from .meta import register_exec_rule, register_expr_rule, wrap_plan
-from .physical import (CpuFilterExec, CpuHashAggregateExec, CpuProjectExec,
-                       CpuScanExec, CpuSortExec, PhysicalPlan,
+from .physical import (CpuCollectLimitExec, CpuFilterExec,
+                       CpuGlobalLimitExec, CpuHashAggregateExec,
+                       CpuLocalLimitExec, CpuProjectExec, CpuScanExec,
+                       CpuSortExec, CpuTakeOrderedExec, PhysicalPlan,
                        ShuffleExchangeExec)
+from .physical_joins import CpuBroadcastHashJoinExec, CpuShuffledHashJoinExec
 from .transitions import insert_transitions
 
 __all__ = ["apply_overrides", "explain_plan"]
@@ -40,20 +46,20 @@ __all__ = ["apply_overrides", "explain_plan"]
 _device_common = TypeSig.numeric + TypeSig.of(
     TypeEnum.BOOLEAN, TypeEnum.DATE, TypeEnum.TIMESTAMP, TypeEnum.NULL)
 #: plus strings, as the byte matrix: columns that operators carry, group
-#: by and sort by (no string function is ported yet)
+#: by, sort by and compare (no other string function is ported yet)
 _device_all = _device_common + TypeSig.of(TypeEnum.STRING)
 
 
 def _register_expr_rules():
-    for cls in (AttributeReference, Alias):
+    for cls in (AttributeReference, Alias, Literal,
+                P.EqualTo, P.GreaterThan, P.GreaterThanOrEqual, P.LessThan,
+                P.LessThanOrEqual, P.In):
         register_expr_rule(cls, _device_all)
-    for cls in (Literal,
-                AR.Add, AR.Subtract, AR.Multiply, AR.Divide,
+    for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Divide,
                 AR.IntegralDivide, AR.Remainder, AR.Pmod, AR.UnaryMinus,
                 AR.Abs,
-                P.EqualTo, P.GreaterThan, P.GreaterThanOrEqual, P.LessThan,
-                P.LessThanOrEqual, P.EqualNullSafe, P.And, P.Or, P.Not,
-                P.IsNull, P.IsNotNull, P.IsNaN, P.In,
+                P.EqualNullSafe, P.And, P.Or, P.Not,
+                P.IsNull, P.IsNotNull, P.IsNaN,
                 C.If, C.CaseWhen, C.Coalesce,
                 A.Sum, A.Min, A.Max, A.Count, A.CountStar, A.Average):
         register_expr_rule(cls, _device_common)
@@ -109,6 +115,38 @@ def _register_exec_rules():
         lambda p, ch, conf, device: TpuSortExec(
             ch[0], p.orders, conf.min_bucket_rows, conf.batch_size_bytes),
         exprs_fn=lambda p: [o.expr for o in p.orders])
+    register_exec_rule(
+        CpuTakeOrderedExec, _device_all,
+        lambda p, ch, conf, device: TpuTakeOrderedExec(
+            ch[0], p.orders, p.n, conf.min_bucket_rows),
+        exprs_fn=lambda p: [o.expr for o in p.orders])
+    # a global or collect limit sits above a single-partition child, where
+    # the local limit's semantics are exactly right (limit.scala)
+    for cls in (CpuLocalLimitExec, CpuGlobalLimitExec, CpuCollectLimitExec):
+        register_exec_rule(
+            cls, _device_all,
+            lambda p, ch, conf, device: TpuLocalLimitExec(ch[0], p.n))
+
+    def tag_join(meta, conf):
+        p = meta.plan
+        reason = join_unsupported_reason(p.how, p.condition, p.left_keys,
+                                         p.right_keys, p.left.schema,
+                                         p.right.schema)
+        if reason is not None:
+            meta.cannot_run(reason)
+
+    for cpu_cls, tpu_cls in ((CpuShuffledHashJoinExec,
+                              TpuShuffledHashJoinExec),
+                             (CpuBroadcastHashJoinExec,
+                              TpuBroadcastHashJoinExec)):
+        register_exec_rule(
+            cpu_cls, _device_all,
+            lambda p, ch, conf, device, tpu_cls=tpu_cls: tpu_cls(
+                ch[0], ch[1], p.left_keys, p.right_keys, p.how, p.condition,
+                p.merge_keys, device, str(conf.get(JOIN_STRATEGY)).lower(),
+                conf.min_bucket_rows, conf.batch_size_bytes),
+            exprs_fn=lambda p: [] if p.condition is None else [p.condition],
+            tag_fn=tag_join)
     # one device holds the whole exchange output (exec/exchange.py)
     register_exec_rule(
         ShuffleExchangeExec, _device_all,

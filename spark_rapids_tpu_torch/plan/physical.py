@@ -1,7 +1,8 @@
 """Physical plan nodes — the host engine and the common plan infrastructure;
 the port of ``spark_rapids_tpu/plan/physical.py`` for the nodes this engine
-plans: scan, project, filter, sort, hash aggregate and the exchange with
-single, hash and range partitioning.
+plans: scan, project, filter, sort, limits, top-n, hash aggregate and the
+exchange with single, hash and range partitioning (the joins are in
+``plan/physical_joins.py``).
 
 The host engine (numpy) serves two purposes:
 
@@ -29,6 +30,8 @@ from .schema import Field, Schema
 __all__ = [
     "PhysicalPlan", "CpuScanExec", "CpuProjectExec", "CpuFilterExec",
     "CpuSortExec", "CpuHashAggregateExec", "ShuffleExchangeExec",
+    "CpuLocalLimitExec", "CpuGlobalLimitExec", "CpuCollectLimitExec",
+    "CpuTakeOrderedExec",
     "Partitioning", "SinglePartitioning", "HashPartitioning",
     "RangePartitioning", "AggSpec", "host_eval_exprs", "empty_result_table",
     "murmur_hash_columns",
@@ -212,6 +215,76 @@ class CpuSortExec(PhysicalPlan):
 
     def node_desc(self):
         return describe_orders(self.orders)
+
+
+# ---------------------------------------------------------------------------
+# Limits and top-n
+# ---------------------------------------------------------------------------
+class CpuLocalLimitExec(PhysicalPlan):
+    """The first ``n`` rows of each partition."""
+
+    def __init__(self, child: PhysicalPlan, n: int):
+        self.child = child
+        self.children = (child,)
+        self.n = n
+        self.schema = child.schema
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        remaining = self.n
+        for batch in self.child.execute(pidx):
+            if remaining <= 0:
+                return
+            if batch.num_rows > remaining:
+                yield batch.slice(0, remaining)
+                return
+            remaining -= batch.num_rows
+            yield batch
+
+
+class CpuGlobalLimitExec(PhysicalPlan):
+    """The first ``n`` rows of a single-partition child."""
+
+    def __init__(self, child: PhysicalPlan, n: int):
+        self.child = child
+        self.children = (child,)
+        self.n = n
+        self.schema = child.schema
+
+    @property
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        yield from CpuLocalLimitExec(self.child, self.n).execute(0)
+
+
+class CpuCollectLimitExec(CpuGlobalLimitExec):
+    """Limit-for-collect: a local limit per partition feeds a
+    single-partition exchange feeding this (reference: CollectLimitExec,
+    limit.scala)."""
+
+
+class CpuTakeOrderedExec(PhysicalPlan):
+    """Top-n: sort the partition's batches and keep the first n rows
+    (reference: GpuTakeOrderedAndProjectExec in limit.scala; the planner
+    stacks two of these around a single-partition exchange)."""
+
+    def __init__(self, child: PhysicalPlan, orders, n: int):
+        self.child = child
+        self.children = (child,)
+        self.orders = list(orders)
+        self.n = n
+        self.schema = child.schema
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        batches = list(self.child.execute(pidx))
+        if not batches:
+            return
+        t = HostTable.concat(batches)
+        yield t.take(_sort_indices(t, self.orders)[:self.n])
+
+    def node_desc(self):
+        return f"n={self.n} orders={len(self.orders)}"
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +506,13 @@ class ShuffleExchangeExec(PhysicalPlan):
     def num_partitions(self) -> int:
         return self.partitioning.num_parts
 
-    def _materialize(self) -> List[List[HostTable]]:
+    def materialize(self) -> List[List[HostTable]]:
+        """Run the map side once -> each output partition's batches."""
+        if self._materialized is None:
+            self._materialized = self._partition()
+        return self._materialized
+
+    def _partition(self) -> List[List[HostTable]]:
         inputs = [b for p in range(self.child.num_partitions)
                   for b in self.child.execute(p)]
         if isinstance(self.partitioning, RangePartitioning) \
@@ -449,9 +528,7 @@ class ShuffleExchangeExec(PhysicalPlan):
         return out
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
-        if self._materialized is None:
-            self._materialized = self._materialize()
-        yield from self._materialized[pidx]
+        yield from self.materialize()[pidx]
 
     def node_desc(self):
         return f"{type(self.partitioning).__name__}({self.num_partitions})"

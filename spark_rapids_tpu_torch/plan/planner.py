@@ -1,11 +1,12 @@
 """Logical -> host physical planning — the port of
-``spark_rapids_tpu/plan/planner.py`` for scan, filter, project, aggregate
-and sort.
+``spark_rapids_tpu/plan/planner.py`` for scan, filter, project, aggregate,
+sort, limit and join.
 
 Produces the host plan that the overrides layer (plan/overrides.py) then
 tags and lowers onto the device. Aggregates are planned two-phase (partial
 -> exchange -> final -> post-project) like Spark and the reference; a sort
-of more than one partition gets a range exchange first.
+of more than one partition gets a range exchange first; a limit over a sort
+becomes top-n; joins are planned by plan/joins_planner.py.
 """
 from __future__ import annotations
 
@@ -13,22 +14,27 @@ from typing import List, Optional, Set
 
 from ..conf import RapidsConf
 from ..expr.base import AttributeReference, Expression
-from .logical import (LogicalAggregate, LogicalFilter, LogicalPlan,
-                      LogicalProject, LogicalScan, LogicalSort)
-from .physical import (AggSpec, CpuFilterExec, CpuHashAggregateExec,
-                       CpuProjectExec, CpuScanExec, CpuSortExec,
-                       HashPartitioning, PhysicalPlan, RangePartitioning,
-                       ShuffleExchangeExec, SinglePartitioning)
+from .joins_planner import plan_join
+from .logical import (LogicalAggregate, LogicalFilter, LogicalJoin,
+                      LogicalLimit, LogicalPlan, LogicalProject, LogicalScan,
+                      LogicalSort)
+from .physical import (AggSpec, CpuCollectLimitExec, CpuFilterExec,
+                       CpuGlobalLimitExec, CpuHashAggregateExec,
+                       CpuLocalLimitExec, CpuProjectExec, CpuScanExec,
+                       CpuSortExec, CpuTakeOrderedExec, HashPartitioning,
+                       PhysicalPlan, RangePartitioning, ShuffleExchangeExec,
+                       SinglePartitioning)
 
 __all__ = ["plan_physical"]
 
 
 def plan_physical(logical: LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
-    return _plan(logical, conf.shuffle_partitions, required=None)
+    return _plan(logical, conf, required=None)
 
 
-def _plan(node: LogicalPlan, nparts: int,
+def _plan(node: LogicalPlan, conf: RapidsConf,
           required: Optional[Set[str]]) -> PhysicalPlan:
+    nparts = conf.shuffle_partitions
     if isinstance(node, LogicalScan):
         cols = None
         if required is not None:
@@ -45,29 +51,54 @@ def _plan(node: LogicalPlan, nparts: int,
             # nobody above needs are dropped (Spark's ColumnPruning rule)
             kept = [e for e in exprs if e.name in required]
             exprs = kept or exprs[:1]  # count(*)-style: keep one column
-        child = _plan(node.child, nparts, _refs(exprs))
+        child = _plan(node.child, conf, _refs(exprs))
         return CpuProjectExec(child, exprs, [e.name for e in exprs])
 
     if isinstance(node, LogicalFilter):
         child_req = None if required is None \
             else required | node.condition.references()
-        return CpuFilterExec(_plan(node.child, nparts, child_req),
+        return CpuFilterExec(_plan(node.child, conf, child_req),
                              node.condition)
 
     if isinstance(node, LogicalAggregate):
         refs = _refs(node.groupings)
         for _, fn in node.aggregates:
             refs |= _refs(fn.input_projection())
-        return plan_aggregate(_plan(node.child, nparts, refs), node, nparts)
+        return plan_aggregate(_plan(node.child, conf, refs), node, nparts)
 
     if isinstance(node, LogicalSort):
         child_req = None if required is None \
             else required | _refs(o.expr for o in node.orders)
-        child = _plan(node.child, nparts, child_req)
+        child = _plan(node.child, conf, child_req)
         if node.global_sort and child.num_partitions > 1:
             child = ShuffleExchangeExec(
                 child, RangePartitioning(node.orders, nparts))
         return CpuSortExec(child, node.orders)
+
+    if isinstance(node, LogicalLimit):
+        if isinstance(node.child, LogicalSort) and node.child.global_sort:
+            # limit-over-sort is top-n: only each partition's top n rows
+            # cross the exchange, not a range-partitioned global sort
+            # (reference: limit.scala GpuTakeOrderedAndProjectExec)
+            sort = node.child
+            child_req = None if required is None \
+                else required | _refs(o.expr for o in sort.orders)
+            child = _plan(sort.child, conf, child_req)
+            local = CpuTakeOrderedExec(child, sort.orders, node.n)
+            if child.num_partitions > 1:
+                single = ShuffleExchangeExec(local, SinglePartitioning())
+                return CpuTakeOrderedExec(single, sort.orders, node.n)
+            return local
+        child = _plan(node.child, conf, required)
+        local = CpuLocalLimitExec(child, node.n)
+        if child.num_partitions > 1:
+            single = ShuffleExchangeExec(local, SinglePartitioning())
+            return CpuCollectLimitExec(single, node.n)
+        return CpuGlobalLimitExec(local, node.n)
+
+    if isinstance(node, LogicalJoin):
+        return plan_join(node, conf, required,
+                         lambda n, req: _plan(n, conf, req), nparts)
 
     raise NotImplementedError(
         f"{type(node).__name__} is not ported yet (ROADMAP Queue 1)")

@@ -2,8 +2,9 @@
 ``spark_rapids_tpu/session.py``.
 
 Holds the RapidsConf and the torch device queries run on, and drives
-logical -> physical -> overrides -> execution. Plans are made without AQE
-(adaptive execution is a later step of the port, ROADMAP Queue 1 step 5).
+logical -> physical -> overrides -> execution. A device plan that holds an
+exchange runs under adaptive execution (plan/aqe.py) unless
+``spark.rapids.tpu.aqe.enabled`` is off.
 """
 from __future__ import annotations
 
@@ -12,14 +13,16 @@ from typing import Dict, List, Optional, Union
 import pyarrow as pa
 import torch
 
-from .conf import RapidsConf
+from .conf import AQE_ENABLED, RapidsConf
 from .expr.base import Alias, AttributeReference, Expression
 from .expr.functions import SortOrder, _to_expr, col as _col
 from .io.memory import InMemorySource
-from .plan.logical import (LogicalAggregate, LogicalFilter, LogicalPlan,
-                           LogicalProject, LogicalScan, LogicalSort)
+from .plan.aqe import AdaptiveExec, walk_plan
+from .plan.logical import (LogicalAggregate, LogicalFilter, LogicalJoin,
+                           LogicalLimit, LogicalPlan, LogicalProject,
+                           LogicalScan, LogicalSort)
 from .plan.overrides import apply_overrides, explain_plan
-from .plan.physical import PhysicalPlan
+from .plan.physical import PhysicalPlan, ShuffleExchangeExec
 from .plan.planner import plan_physical
 from .plan.schema import Schema
 
@@ -63,6 +66,10 @@ class TorchSession:
         use_device = self.conf.is_sql_enabled if device is None else device
         if not use_device:
             return cpu
+        if self.conf.get(AQE_ENABLED) and any(
+                isinstance(n, ShuffleExchangeExec) for n in walk_plan(cpu)):
+            # stages materialize and the rest re-plans at each exchange
+            return AdaptiveExec(cpu, self.conf, self.device)
         return apply_overrides(cpu, self.conf, self.device)
 
     def set_conf(self, key: str, value) -> "TorchSession":
@@ -118,9 +125,21 @@ class DataFrame:
 
     order_by = orderBy = sort
 
-    def join(self, other, on=None, how: str = "inner", condition=None):
-        raise NotImplementedError(
-            "join is not ported yet (ROADMAP Queue 1 step 6)")
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, LogicalLimit(self.logical, n))
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Join ``other`` on same-named columns ``on`` (output once) or on a
+        ``condition`` whose equalities between the two sides are the keys.
+        The device runs inner joins on one fixed-width key; other joins are
+        tagged and run on the host engine."""
+        if isinstance(on, str):
+            on = [on]
+        cond = _to_expr(condition) if condition is not None else None
+        return DataFrame(self.session, LogicalJoin(self.logical,
+                                                   other.logical, on, cond,
+                                                   how))
 
     def _col_expr(self, c) -> Expression:
         return _to_expr(_col(c) if isinstance(c, str) else c)

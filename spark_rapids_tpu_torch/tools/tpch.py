@@ -1,6 +1,7 @@
-"""TPC-H support for the port: the lineitem generator, Q1, Q6 and the date
-constants — copied from ``spark_rapids_tpu/tools/tpch.py``, so both engines
-run the same data and the same queries.
+"""TPC-H support for the port: the lineitem, orders and customer
+generators, Q1, Q3, Q6 and the date constants — copied from
+``spark_rapids_tpu/tools/tpch.py``, so both engines run the same data (byte
+for byte for one seed) and the same queries.
 
 The generator is numpy, seeded, with dbgen-flavored value domains; prices
 are double (not decimal), the common benchmarking simplification; row
@@ -13,10 +14,34 @@ import pyarrow as pa
 
 from ..columnar import dtypes as dt
 
-__all__ = ["gen_lineitem", "q1", "q6"]
+__all__ = ["gen_lineitem", "gen_orders", "gen_customer", "q1", "q3", "q6"]
 
 _EPOCH_1992 = 8035   # days from unix epoch to 1992-01-01
 _DATE_RANGE = 2557   # ~7 years of ship dates
+
+_FILLER = np.array([
+    "carefully", "quickly", "furiously", "slyly", "blithely", "ironic",
+    "regular", "final", "bold", "pending", "express", "silent", "even",
+    "unusual", "daring", "idle", "busy", "brave", "quiet", "ruthless",
+    "deposits", "requests", "packages", "accounts", "instructions", "theodolites",
+    "foxes", "pinto", "beans", "dependencies", "platelets", "excuses", "ideas",
+    "sheaves", "asymptotes", "dugouts", "sauternes", "warthogs", "courts"])
+
+
+def _sentences(rng: np.random.Generator, n: int, words: int = 6,
+               special: "tuple[str, float] | None" = None) -> np.ndarray:
+    """Vectorized random comment strings from a pre-built pool of 128; with
+    probability ``special[1]`` a row gets a pool entry embedding
+    ``special[0]`` (a '<a>%<b>' two-word wildcard phrase)."""
+    pool = np.array([" ".join(rng.choice(_FILLER, words)) for _ in range(128)])
+    out = rng.choice(pool, size=n)
+    if special is not None:
+        phrase, prob = special
+        a, b = phrase.split("%")
+        hit = rng.random(n) < prob
+        mid = rng.choice(_FILLER, n)
+        out = np.where(hit, np.char.add(np.char.add(a + " ", mid), " " + b), out)
+    return out
 
 
 def gen_lineitem(sf: float, seed: int = 0, rows: int | None = None) -> pa.Table:
@@ -68,6 +93,60 @@ def gen_lineitem(sf: float, seed: int = 0, rows: int | None = None) -> pa.Table:
     })
 
 
+def gen_orders(sf: float, seed: int = 1, rows: int | None = None) -> pa.Table:
+    n = rows if rows is not None else int(1_500_000 * sf)
+    rng = np.random.default_rng(seed)
+    orderkey = np.arange(1, n + 1, dtype=np.int64) * 4
+    n_cust = max(n // 5, 1) if rows is not None else max(int(150_000 * sf), 1)
+    custkey = rng.integers(1, n_cust + 1, size=n)
+    totalprice = np.round(rng.uniform(850.0, 560_000.0, size=n), 2)
+    orderdate = (_EPOCH_1992 + rng.integers(0, _DATE_RANGE - 151, size=n)
+                 ).astype(np.int32)
+    orderstatus = rng.choice(np.array(["F", "O", "P"]), size=n)
+    orderpriority = rng.choice(np.array(
+        ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]), size=n)
+    shippriority = np.zeros(n, dtype=np.int32)
+    comment = _sentences(rng, n, special=("special%requests", 0.05))
+    return pa.table({
+        "o_orderkey": pa.array(orderkey),
+        "o_custkey": pa.array(custkey, type=pa.int64()),
+        "o_orderstatus": pa.array(orderstatus),
+        "o_totalprice": pa.array(totalprice),
+        "o_orderdate": pa.array(orderdate, type=pa.int32()).cast(pa.date32()),
+        "o_orderpriority": pa.array(orderpriority),
+        "o_shippriority": pa.array(shippriority),
+        "o_comment": pa.array(comment),
+    })
+
+
+def gen_customer(sf: float, seed: int = 2, rows: int | None = None) -> pa.Table:
+    n = rows if rows is not None else int(150_000 * sf)
+    rng = np.random.default_rng(seed)
+    custkey = np.arange(1, n + 1, dtype=np.int64)
+    nationkey = rng.integers(0, 25, size=n).astype(np.int64)
+    acctbal = np.round(rng.uniform(-999.99, 9999.99, size=n), 2)
+    mktsegment = rng.choice(np.array(
+        ["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"]),
+        size=n)
+    # phone country code = nationkey + 10 (dbgen rule) -> Q22 substring codes
+    p1 = rng.integers(100, 1000, size=n).astype("U3")
+    p2 = rng.integers(100, 1000, size=n).astype("U3")
+    p3 = rng.integers(1000, 10000, size=n).astype("U4")
+    phone = (nationkey + 10).astype("U2")
+    for part in ("-", p1, "-", p2, "-", p3):
+        phone = np.char.add(phone, part)
+    return pa.table({
+        "c_custkey": pa.array(custkey),
+        "c_name": pa.array(np.char.add("Customer#", custkey.astype("U9"))),
+        "c_address": pa.array(_sentences(rng, n, words=3)),
+        "c_nationkey": pa.array(nationkey),
+        "c_phone": pa.array(phone),
+        "c_acctbal": pa.array(acctbal),
+        "c_mktsegment": pa.array(mktsegment),
+        "c_comment": pa.array(_sentences(rng, n)),
+    })
+
+
 # Queries compare dates as days-since-epoch ints via casts.
 _D = {
     "1993-01-01": 8401, "1993-07-01": 8582, "1993-10-01": 8674,
@@ -98,6 +177,25 @@ def q1(t):
                  F.avg(col("l_discount")).alias("avg_disc"),
                  F.count_star().alias("count_order"))
             .sort("l_returnflag", "l_linestatus"))
+
+
+def q3(t):
+    """TPC-H Q3: shipping priority (two equi-joins, a keyed aggregate, then
+    the top 10 by revenue)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    od = col("o_orderdate").cast(dt.INT)
+    sd = col("l_shipdate").cast(dt.INT)
+    cust = t["customer"].filter(col("c_mktsegment") == lit("BUILDING"))
+    orders = t["orders"].filter(od < lit(_D["1995-03-15"]))
+    li = t["lineitem"].filter(sd > lit(_D["1995-03-15"]))
+    joined = (cust.join(orders, condition=(col("c_custkey") == col("o_custkey")))
+                  .join(li, condition=(col("o_orderkey") == col("l_orderkey"))))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (joined.group_by("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum(rev).alias("revenue"))
+            .sort(col("revenue").desc(), col("o_orderdate").asc())
+            .limit(10))
 
 
 def q6(t):

@@ -153,3 +153,61 @@ def test_q1_on_card_equals_host_engine(cuda_device, parts, min_bucket):
             np.testing.assert_allclose(a, b, rtol=1e-9)
         else:
             assert a == b
+
+
+def _key_table(seed: int, n: int, cap: int, distinct: int, device):
+    """A one-key table (int64 keys of ``distinct`` values with the top bit
+    set, nulls, masked-off rows) on ``device``."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(-2**63, 2**63 - 1, distinct)
+    cols = [{"data": rng.choice(pool, cap), "validity": rng.random(cap) > 0.1,
+             "dtype": "bigint", "all_valid": False}]
+    mask = np.zeros(cap, dtype=bool)
+    mask[:n] = rng.random(n) < 0.9
+    return device_table_from_numpy(["k"], cols, mask, mask.sum(), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distinct", [50, 1 << 20])
+def test_join_steps_on_card_equal_cpu(cuda_device, distinct):
+    """The hash prep's slot table and uniqueness, the probe walk, the sorted
+    prep and the counts: exactly the CPU's."""
+    from spark_rapids_tpu_torch.exec import joins as J
+    outs = []
+    for device in ("cpu", cuda_device):
+        build = _key_table(1, 60_000, 1 << 16, distinct, device)
+        probe = _key_table(2, 200_000, 1 << 18, distinct, device)
+        bk, pk = build.column("k"), probe.column("k")
+        slot_row, bv, unique = J.build_prep_hash(bk, build.row_mask)
+        found, bi = J.pk_hash_probe(pk, probe.row_mask, slot_row, bv)
+        b_order, sv, nvalid, sunique = J.build_prep_sorted(bk,
+                                                           build.row_mask)
+        starts, counts = J.probe_count(pk, probe.row_mask, sv, nvalid)
+        outs.append([t.cpu() for t in (slot_row, unique, found, bi, b_order,
+                                       sv, nvalid, sunique, starts, counts)])
+    for got, want in zip(outs[1], outs[0]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aqe", [True, False])
+def test_q3_on_card_equals_host_engine(cuda_device, aqe):
+    sess = TorchSession({"spark.rapids.tpu.batchRowsMinBucket": 1024,
+                         "spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.tpu.autoBroadcastJoinThreshold": -1,
+                         "spark.rapids.tpu.aqe.enabled": aqe,
+                         "spark.rapids.tpu.aqe.autoBroadcastJoinThreshold":
+                             20000})
+    tables = {"customer": tpch.gen_customer(0, rows=300),
+              "orders": tpch.gen_orders(0, rows=3000),
+              "lineitem": tpch.gen_lineitem(0, rows=12000)}
+    q = tpch.q3({k: sess.create_dataframe(v, num_partitions=3)
+                 for k, v in tables.items()})
+    got, want = q.collect(), q.collect(device=False)
+    assert got.schema == want.schema and got.num_rows == want.num_rows == 10
+    for name in got.column_names:
+        a, b = got.column(name).to_pylist(), want.column(name).to_pylist()
+        if isinstance(a[0], float):
+            np.testing.assert_allclose(a, b, rtol=1e-9)
+        else:
+            assert a == b

@@ -79,7 +79,9 @@ def test_pallas_axpy_select_matches_jax_package():
 def test_pallas_axpy_sum_matches_jax_package(parts):
     from spark_rapids_tpu_torch.tools import tpch
     li = tpch.gen_lineitem(0, seed=5, rows=3000)
-    sess = TorchSession({"spark.rapids.tpu.batchRowsMinBucket": 8},
+    # AQE off: explain shows the device plan before the query runs
+    sess = TorchSession({"spark.rapids.tpu.batchRowsMinBucket": 8,
+                         "spark.rapids.tpu.aqe.enabled": False},
                         device="cpu")
     q = sess.create_dataframe(li, num_partitions=parts) \
         .filter(col("l_quantity") < lit(24.0)) \
