@@ -32,6 +32,22 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    a profiler trace of a warm run, and the device time of each join step
    (hash build, probe walk, sorted prep, ``searchsorted`` counts, expand)
    on the run's own join inputs.
+6. joins phase, over Q3's tables and supplier, nation and region at
+   ``--q3-sf``: TPC-H Q4 (a left-semi join on a build of repeated keys),
+   Q5 (six joins, one on two keys) and Q21 (a left-semi and a left-anti
+   join, each with a non-equi residual condition), then left, right and
+   full outer joins of customer and orders, with rows unmatched on both
+   sides, reduced to counts, sums and a checksum of the matched pairs,
+   and Q13's shape without its LIKE filter
+   (``q13_nolike``), each with AQE on (cold, then warm) and off: every
+   result against the host engine and an independent numpy version (keys,
+   row order and counts exactly, sums at rel 1e-9), every plan device
+   nodes only above the scans (no host join), the AQE plan and events
+   printed, ``axpy`` launched 0 times, a trace of a warm run; then the
+   device time of each new join step on the runs' own inputs (join codes
+   of Q5's two-key join, Q4's semi hash build and walk, Q21's sorted prep,
+   counts and ``expand_cond``, the outer expand, tracking and leftover),
+   and the seconds of each phase and of the whole run.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -49,6 +65,7 @@ import sys
 import time
 
 import numpy as np
+import pyarrow as pa
 import torch
 
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
@@ -145,18 +162,18 @@ def _q6_mask(li) -> np.ndarray:
             & (qty < 24.0))
 
 
-def _check_device_plan(q) -> None:
-    """Every node above the scan is a device node or a transition."""
+def _check_device_only(plan, label: str) -> None:
+    """Above the scans, device nodes only (through AQE's stages): no host
+    join, no host stage."""
     from spark_rapids_tpu_torch.exec.base import TpuExec
     from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
+    from spark_rapids_tpu_torch.plan.aqe import AdaptiveExec
     from spark_rapids_tpu_torch.plan.physical import CpuScanExec
-    plan = q.session._physical(q.logical, True)
-    stack = [plan]
-    while stack:
-        node = stack.pop()
-        if not isinstance(node, (TpuExec, DeviceToHostExec, CpuScanExec)):
-            raise AssertionError(f"{node.node_name()} is not a device node")
-        stack.extend(node.children)
+    for node in _walk_plan(plan):
+        if not isinstance(node, (AdaptiveExec, TpuExec, DeviceToHostExec,
+                                 CpuScanExec)):
+            raise AssertionError(f"{label}: {node.node_name()} is not a "
+                                 "device node:\n" + plan.tree_string())
 
 
 def query_phase(q, label: str, column: str, expect: float,
@@ -169,7 +186,7 @@ def query_phase(q, label: str, column: str, expect: float,
     after the warm run."""
     from spark_rapids_tpu_torch.udf.kernels import axpy
     q.explain()
-    _check_device_plan(q)
+    _check_device_only(q.session._physical(q.logical, True), label)
     walls = []
     results = []
     for _ in ("cold", "warm"):
@@ -293,8 +310,8 @@ def q1_phase(q, li) -> None:
     profiler trace of one more warm run."""
     from spark_rapids_tpu_torch.udf.kernels import axpy
     q.explain()
-    _check_device_plan(q)
     plan = q.session._physical(q.logical, True)
+    _check_device_only(plan, "Q1")
     names = []
     while plan is not None:
         names.append(plan.node_name())
@@ -447,10 +464,6 @@ def _check_q3_plan(plan, counts: dict, sizes: dict) -> None:
     rows and bytes (value planes only: 24 B a customer or order row, 28 a
     lineitem, 48 a customer x orders row), the partial-aggregate stage's
     counts free; above the scans device nodes only."""
-    from spark_rapids_tpu_torch.exec.base import TpuExec
-    from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
-    from spark_rapids_tpu_torch.plan.aqe import AdaptiveExec
-    from spark_rapids_tpu_torch.plan.physical import CpuScanExec
     want = Q3_TREE.format(
         li=counts["li"], li_b=28 * counts["li"], co=counts["co"],
         co_b=48 * counts["co"], o=counts["o"], o_b=24 * counts["o"],
@@ -463,11 +476,7 @@ def _check_q3_plan(plan, counts: dict, sizes: dict) -> None:
         if g != w and not (w.endswith("rows=* bytes=*]")
                            and g.startswith(head)):
             raise AssertionError(f"Q3 AQE plan line {g!r}, expected {w!r}")
-    for node in _walk_plan(plan):
-        if not isinstance(node, (AdaptiveExec, TpuExec, DeviceToHostExec,
-                                 CpuScanExec)):
-            raise AssertionError(f"Q3: {node.node_name()} is not a device "
-                                 "node")
+    _check_device_only(plan, "Q3")
 
 
 def _event_ms(fn, reps: int = 3) -> float:
@@ -650,6 +659,460 @@ def q3_phase(tables: dict, partitions: int) -> None:
     _q3_join_steps(plan)
 
 
+# ---------------------------------------------------------------------------
+# Every hash join type: Q4, Q5, Q21, the outer joins and Q13's shape
+# ---------------------------------------------------------------------------
+def _strings(table, name: str) -> np.ndarray:
+    return np.asarray(table.column(name).to_numpy(zero_copy_only=False),
+                      dtype=str)
+
+
+def _days(table, name: str) -> np.ndarray:
+    return table.column(name).cast("int32").to_numpy()
+
+
+def _q4_numpy(t) -> dict:
+    """TPC-H Q4 in numpy alone: orders of 1993-07-01..1993-10-01 with a
+    lineitem committed before it was received, counted by priority."""
+    od = _days(t["orders"], "o_orderdate")
+    li = t["lineitem"]
+    late = _days(li, "l_commitdate") < _days(li, "l_receiptdate")
+    keep = (od >= 8582) & (od < 8674) & np.isin(
+        t["orders"].column("o_orderkey").to_numpy(),
+        np.unique(li.column("l_orderkey").to_numpy()[late]))
+    prio, count = np.unique(_strings(t["orders"], "o_orderpriority")[keep],
+                            return_counts=True)
+    return {"o_orderpriority": prio.tolist(), "order_count": count.tolist()}
+
+
+def _q5_numpy(t) -> dict:
+    """TPC-H Q5 in numpy alone, through the generator's dense keys (order
+    ``4 i`` is row ``i - 1``, customer and supplier ``k`` row ``k - 1``):
+    lineitems of 1994 orders whose supplier shares the customer's nation,
+    in ASIA, revenue by nation, largest first."""
+    o, li = t["orders"], t["lineitem"]
+    od = _days(o, "o_orderdate")
+    oidx = li.column("l_orderkey").to_numpy() // 4 - 1
+    c_nat = t["customer"].column("c_nationkey").to_numpy()[
+        o.column("o_custkey").to_numpy() - 1][oidx]
+    s_nat = t["supplier"].column("s_nationkey").to_numpy()[
+        li.column("l_suppkey").to_numpy() - 1]
+    region = t["nation"].column("n_regionkey").to_numpy()
+    asia = int(np.nonzero(_strings(t["region"], "r_name") == "ASIA")[0][0])
+    keep = ((od >= 8766) & (od < 9131))[oidx] & (c_nat == s_nat) \
+        & (region[s_nat] == asia)
+    price = li.column("l_extendedprice").to_numpy()[keep]
+    disc = li.column("l_discount").to_numpy()[keep]
+    rev = np.bincount(s_nat[keep], weights=price * (1.0 - disc),
+                      minlength=25)
+    nat = np.nonzero(np.bincount(s_nat[keep], minlength=25))[0]
+    nat = nat[np.argsort(-rev[nat], kind="stable")]
+    names = _strings(t["nation"], "n_name")
+    return {"n_name": names[nat].tolist(), "revenue": rev[nat].tolist()}
+
+
+def _q21_numpy(t) -> dict:
+    """TPC-H Q21 in numpy alone: late lineitems of SAUDI ARABIA suppliers
+    on 'F' orders where another supplier of the order has a lineitem
+    (EXISTS) and no other supplier's lineitem is late (NOT EXISTS), counted
+    by supplier name; the 100 largest counts, then names ascending."""
+    li, o, s = t["lineitem"], t["orders"], t["supplier"]
+    okey = li.column("l_orderkey").to_numpy()
+    supp = li.column("l_suppkey").to_numpy()
+    late = _days(li, "l_receiptdate") > _days(li, "l_commitdate")
+    oidx = okey // 4 - 1
+    saudi = int(np.nonzero(_strings(t["nation"], "n_name")
+                           == "SAUDI ARABIA")[0][0])
+    l1 = late & (s.column("s_nationkey").to_numpy()[supp - 1] == saudi) \
+        & (_strings(o, "o_orderstatus") == "F")[oidx]
+    pair = okey * (s.num_rows + 1) + supp
+
+    def others(rows: np.ndarray) -> np.ndarray:
+        """Per lineitem: the lineitems of its order among ``rows`` whose
+        supplier is another."""
+        per_order = np.bincount(oidx[rows], minlength=o.num_rows)[oidx]
+        u, c = np.unique(pair[rows], return_counts=True)
+        pos = np.searchsorted(u, pair).clip(0, max(len(u) - 1, 0))
+        same = np.where(u[pos] == pair, c[pos], 0) if len(u) else 0
+        return per_order - same
+    keep = l1 & (others(np.ones(len(okey), bool)) > 0) & (others(late) == 0)
+    names, count = np.unique(_strings(s, "s_name")[supp[keep] - 1],
+                             return_counts=True)
+    top = np.lexsort((names, -count))[:100]
+    return {"s_name": names[top].tolist(), "numwait": count[top].tolist()}
+
+
+def _q13_numpy(t) -> dict:
+    """Q13's shape without LIKE in numpy alone: orders per customer, then
+    customers per order count, largest counts of customers first."""
+    per_cust = np.bincount(t["orders"].column("o_custkey").to_numpy() - 1,
+                           minlength=t["customer"].num_rows)
+    c_count, custdist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-c_count, -custdist))
+    return {"c_count": c_count[order].tolist(),
+            "custdist": custdist[order].tolist()}
+
+
+def _outer_numpy(t) -> dict:
+    """``how`` -> the row count, the non-null counts of both keys, the
+    price sum and ``sum(o_orderkey * c_custkey)`` over the matched pairs
+    of the outer joins of customer and orders on custkey, in numpy alone.
+    Both sides must hold unmatched rows."""
+    ckey = t["customer"].column("c_custkey").to_numpy()
+    o = t["orders"]
+    okey = o.column("o_custkey").to_numpy()
+    hit = np.isin(okey, ckey)
+    orphans = int((~np.isin(ckey, okey)).sum())
+    matched = int(hit.sum())
+    if orphans == 0 or matched == o.num_rows:
+        raise AssertionError("outer joins: a side without unmatched rows")
+    price = o.column("o_totalprice").to_numpy()
+    check = [int((o.column("o_orderkey").to_numpy()[hit] * okey[hit])
+                 .sum())]
+    one_side = {"rows": [matched + orphans], "n_c": [matched + orphans],
+                "n_o": [matched], "check": check,
+                "price": [float(price[hit].sum())]}
+    return {"left": one_side, "right": one_side,
+            "full": {"rows": [o.num_rows + orphans],
+                     "n_c": [matched + orphans], "n_o": [o.num_rows],
+                     "check": check, "price": [float(price.sum())]}}
+
+
+def _outer_queries() -> dict:
+    """The outer-join phase's queries: ``how`` -> fn(tables) reducing the
+    join of customer and orders on custkey to counts, a sum and a checksum
+    of the matched pairs (a pair of the wrong customer changes it). The
+    right join puts orders on the left, so customers without orders are
+    the build rows it emits at the end; the full join emits orders without
+    their customer so."""
+    from spark_rapids_tpu_torch.expr import functions as F
+    col = F.col
+
+    def reduce(j):
+        return j.agg(F.count_star().alias("rows"),
+                     F.count(col("c_custkey")).alias("n_c"),
+                     F.count(col("o_custkey")).alias("n_o"),
+                     F.sum(col("o_totalprice")).alias("price"),
+                     F.sum(col("o_orderkey") * col("c_custkey"))
+                     .alias("check"))
+
+    def join(t, how):
+        c = t["customer"].select("c_custkey", "c_nationkey")
+        o = t["orders"].select("o_orderkey", "o_custkey", "o_totalprice")
+        on = col("c_custkey") == col("o_custkey")
+        return reduce(o.join(c, how="right", condition=on) if how == "right"
+                      else c.join(o, how=how, condition=on))
+    return {how: (lambda t, how=how: join(t, how))
+            for how in ("left", "right", "full")}
+
+
+def _check_rows(out, want: dict, exact, sums, what: str) -> None:
+    """Columns of ``exact`` equal ``want`` exactly (row order included),
+    those of ``sums`` at rel 1e-9."""
+    for c in exact:
+        got = out.column(c).to_pylist()
+        if got != list(want[c]):
+            raise AssertionError(f"{what}: {c} {got[:20]} != "
+                                 f"{list(want[c])[:20]}")
+    for c in sums:
+        got = out.column(c).to_pylist()
+        if len(got) != len(want[c]):
+            raise AssertionError(f"{what}: {len(got)} rows")
+        for a, b in zip(got, want[c]):
+            if a is None or not math.isfinite(a):
+                raise AssertionError(f"{what}: {c} = {a!r}")
+            _close(a, float(b), f"{what}: {c}")
+
+
+class _JoinRecorder:
+    """While active, each device hash join records in ``node.recorded``
+    each build table it joins (once for a broadcast build) with the probe
+    batches joined to it, so the join steps can be timed on a run's own
+    inputs afterwards."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.exec import joins as J
+        self.cls = J.TpuShuffledHashJoinExec
+        self.real = real = self.cls._probe_join
+        self.nodes = nodes = []
+
+        def record(node, build, probes, seen_box=None):
+            probes = list(probes)
+            if node not in nodes:
+                nodes.append(node)
+                node.recorded = []
+            for b, ps in node.recorded:
+                if b is build:     # a broadcast build: one entry
+                    ps.extend(probes)
+                    break
+            else:
+                node.recorded.append((build, list(probes)))
+            return real(node, build, probes, seen_box)
+        self.cls._probe_join = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._probe_join = self.real
+
+
+def _run_checked(label: str, q, sess, want: dict, exact, sums,
+                 aqe: bool) -> tuple:
+    """One run through ``sess``'s device plan, held against numpy, its plan
+    device nodes only, ``axpy`` launched 0 times -> (result, plan, wall)."""
+    from spark_rapids_tpu_torch.udf.kernels import axpy
+    axpy.launches = 0
+    t0 = time.perf_counter()
+    plan = sess._physical(q.logical, True)
+    out = plan.collect().to_arrow()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if axpy.launches != 0:
+        raise AssertionError(f"{label}: axpy launched {axpy.launches} times")
+    _check_rows(out, want, exact, sums,
+                f"{label} device (AQE {'on' if aqe else 'off'}) vs numpy")
+    _check_device_only(plan, label)
+    if not aqe and "AdaptiveExec" in plan.tree_string():
+        raise AssertionError(f"{label}: AQE ran with AQE off")
+    return out, plan, wall
+
+
+def join_query_phase(label: str, build_query, tables: dict, want: dict,
+                     exact, sums, partitions: int, expect_events=()):
+    """Drive one query on the card with AQE on (cold, then warm) and off,
+    each result against numpy and the host engine, its plans device nodes
+    only, ``axpy`` launched 0 times; print the AQE plan and events (each of
+    ``expect_events`` must begin one of them) and a trace of a warm run.
+    Returns (the warm AQE plan, the session's query)."""
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    def query(conf):
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True, **conf})
+        return sess, build_query({k: sess.create_dataframe(
+            v, num_partitions=partitions) for k, v in tables.items()})
+    sess, q = query({})
+    walls = []
+    for _ in ("cold", "warm"):
+        out, plan, wall = _run_checked(label, q, sess, want, exact, sums,
+                                       True)
+        walls.append(wall)
+    print(plan.tree_string(), flush=True)
+    print(f"# {label} AQE events: " + "; ".join(plan.events), flush=True)
+    for e in expect_events:
+        if not any(ev.startswith(e) for ev in plan.events):
+            raise AssertionError(f"{label}: no AQE event {e!r}")
+    off_sess, off_q = query({"spark.rapids.tpu.aqe.enabled": False})
+    off, off_plan, t_off = _run_checked(label, off_q, off_sess, want, exact,
+                                        sums, False)
+    t0 = time.perf_counter()
+    host = q.collect(device=False)
+    t_host = time.perf_counter() - t0
+    host_cols = {c: host.column(c).to_pylist() for c in host.column_names}
+    _check_rows(host, want, exact, sums, f"{label} host engine vs numpy")
+    for o in (out, off):
+        _check_rows(o, host_cols, exact, sums, f"{label} device vs host "
+                    "engine")
+    print(f"# {label}: {out.num_rows} rows; device AQE on cold "
+          f"{walls[0]:.3f} s, warm {walls[1]:.3f} s; AQE off {t_off:.3f} s "
+          f"(shuffled joins: {off_plan.tree_string().count('Shuffled')}); "
+          f"host engine {t_host:.3f} s; axpy launches per run 0",
+          flush=True)
+    traced = _profile(q, label)
+    if traced is not None:
+        busy, wall_ms = traced
+        print(f"# {label} trace: device busy {100 * busy / wall_ms:.1f} %, "
+              f"idle {100 - 100 * busy / wall_ms:.1f} % of the traced warm "
+              "run", flush=True)
+    return plan, q
+
+
+def _recorded_joins(q, pick, required: bool = True) -> list:
+    """Run ``q`` once more with the join recorder on -> the join nodes that
+    ``pick(node)`` selects, each holding its recorded inputs (at least one
+    unless not ``required``)."""
+    with _JoinRecorder() as rec:
+        q.collect()
+    torch.cuda.synchronize()
+    nodes = [n for n in rec.nodes if pick(n)]
+    if required and not nodes:
+        raise AssertionError("no join recorded for the step timing")
+    return nodes
+
+
+def _sizes(recorded) -> str:
+    """Build rows and capacity, probe rows and batches, over the
+    partitions a join recorded."""
+    return (f"build {sum(int(b.num_rows) for b, _ in recorded)} rows "
+            f"(capacity {'+'.join(str(b.capacity) for b, _ in recorded)}), "
+            f"probe {sum(int(p.num_rows) for _, ps in recorded for p in ps)}"
+            f" rows in {sum(len(ps) for _, ps in recorded)} batches")
+
+
+def _time_q5_codes(q) -> None:
+    """Q5's two-key join (``l_suppkey = s_suppkey AND c_nationkey =
+    s_nationkey``): the join codes of both sides and their counts."""
+    from spark_rapids_tpu_torch.exec import joins as J
+    for node in _recorded_joins(q, lambda n: len(n.left_keys) == 2):
+        def codes():
+            return [J.count_matches(*J.join_codes(
+                [b.column(k) for k in node.right_keys], b.row_mask,
+                [p.column(k) for k in node.left_keys], p.row_mask))
+                for b, ps in node.recorded for p in ps]
+        print(f"# Q5 step: join codes + counts on two keys, "
+              f"{_sizes(node.recorded)}: {_event_ms(codes):.3f} ms",
+              flush=True)
+
+
+def _time_q4_semi(q) -> None:
+    """Q4's left-semi join on a build of repeated keys: the hash build and
+    the probe walk (existence only, so repeated keys keep it one pass)."""
+    from spark_rapids_tpu_torch.exec import joins as J
+    for node in _recorded_joins(q, lambda n: n.how == "left_semi"):
+        keys = [(b.column(node.right_keys[0]), b.row_mask)
+                for b, _ in node.recorded]
+        preps = [J.build_prep_hash(k, m) for k, m in keys]
+        t_build = _event_ms(lambda: [J.build_prep_hash(k, m)
+                                     for k, m in keys])
+        t_walk = _event_ms(lambda: [J.pk_hash_probe(
+            p.column(node.left_keys[0]), p.row_mask, slot_row, bv)
+            for (_, ps), (slot_row, bv, _) in zip(node.recorded, preps)
+            for p in ps])
+        rounds = [_build_rounds(slot_row, bv, k.validity & m)
+                  for (k, m), (slot_row, bv, _) in zip(keys, preps)]
+        print(f"# Q4 step: semi join, {_sizes(node.recorded)}, unique "
+              f"{[bool(u) for _, _, u in preps]}: hash build "
+              f"({rounds} insertion rounds) {t_build:.3f} ms; probe walk "
+              f"{t_walk:.3f} ms", flush=True)
+
+
+def _time_q21_cond(q) -> None:
+    """Q21's semi and anti joins with a residual condition: the sorted
+    prep, the probe counts and ``expand_cond`` (pairs of the referenced
+    columns, the condition, the per-row any)."""
+    from spark_rapids_tpu_torch.columnar.device import bucket_rows
+    from spark_rapids_tpu_torch.exec import joins as J
+    for node in _recorded_joins(q, lambda n: n.condition is not None):
+        keys = [(b.column(node.right_keys[0]), b.row_mask)
+                for b, _ in node.recorded]
+        preps = [J.build_prep_sorted(k, m) for k, m in keys]
+        t_prep = _event_ms(lambda: [J.build_prep_sorted(k, m)
+                                    for k, m in keys])
+        work = [(b, p, b_order, sv, nvalid) for (b, ps), (b_order, sv,
+                                                          nvalid, _)
+                in zip(node.recorded, preps) for p in ps]
+
+        def count():
+            return [J.probe_count(p.column(node.left_keys[0]), p.row_mask,
+                                  sv, nvalid) for _, p, _, sv, nvalid in work]
+        counted = count()
+        t_count = _event_ms(count)
+        totals = [node._slot_total(w[1], c) for w, (_, c) in
+                  zip(work, counted)]
+        caps = [bucket_rows(max(t, 1), node.min_bucket) for t in totals]
+        t_expand = _event_ms(lambda: [list(node._expand_cond(
+            b, p, b_order, st, c, cap, None))
+            for (b, p, b_order, _, _), (st, c), cap in zip(work, counted,
+                                                            caps)])
+        print(f"# Q21 step: {node.how} with condition, "
+              f"{_sizes(node.recorded)}, {sum(totals)} pairs: sorted prep "
+              f"{t_prep:.3f} ms; probe counts {t_count:.3f} ms; expand_cond"
+              f" {t_expand:.3f} ms", flush=True)
+
+
+def _time_outer(queries: dict) -> None:
+    """The outer expand (left: unmatched probe rows inline), the counts
+    with tracking (full) and the leftover (right: build rows no probe row
+    matched, null-padded)."""
+    from spark_rapids_tpu_torch.columnar.device import bucket_rows
+    (left,) = _recorded_joins(queries["left"], lambda n: n.how == "left")
+    work = [(b, p, left._counts(b, p, False)) for b, ps in left.recorded
+            for p in ps]
+    caps = [bucket_rows(max(left._slot_total(p, c[2]), 1), left.min_bucket)
+            for _, p, c in work]
+    t_expand = _event_ms(lambda: [left._expand(b, p, *c[:3], cap, "left")
+                                  for (b, p, c), cap in zip(work, caps)])
+    print(f"# outer step: left expand, {_sizes(left.recorded)}, "
+          f"{sum(caps)} slots of capacity: {t_expand:.3f} ms", flush=True)
+    (full,) = _recorded_joins(queries["full"], lambda n: n.how == "full")
+    t_track = _event_ms(lambda: [full._counts(b, p, True)
+                                 for b, ps in full.recorded for p in ps])
+    print(f"# outer step: full counts with build-row tracking, "
+          f"{_sizes(full.recorded)}: {t_track:.3f} ms", flush=True)
+    # the leftovers: customers without orders (right; none if AQE swapped
+    # it into a left join) and orders without their customer (full)
+    for how in ("right", "full"):
+        for node in _recorded_joins(queries[how], lambda n: n.how == how,
+                                    required=how == "full"):
+            emits = []
+            for b, ps in node.recorded:
+                seen = torch.zeros(b.capacity, dtype=torch.bool,
+                                   device=b.device)
+                for p in ps:
+                    seen |= node._counts(b, p, True)[3]
+                emits.append((b, b.row_mask & ~seen))
+            t_left = _event_ms(lambda: [node.pad_build(b, e)
+                                        for b, e in emits])
+            print(f"# outer step: {how} leftover, "
+                  f"{sum(int(e.sum()) for _, e in emits)} unmatched build "
+                  f"rows, {_sizes(node.recorded)}: {t_left:.3f} ms",
+                  flush=True)
+
+
+def joins_phase(tables: dict, partitions: int) -> None:
+    """TPC-H Q4, Q5 and Q21, then the outer joins and Q13's shape without
+    LIKE, each with AQE on and off against numpy and the host engine; then
+    the new join steps' device times on the runs' own inputs."""
+    from spark_rapids_tpu_torch.tools import tpch
+    t0 = time.perf_counter()
+    wants = {"Q4": _q4_numpy(tables), "Q5": _q5_numpy(tables),
+             "Q21": _q21_numpy(tables)}
+    print(f"# Q4/Q5/Q21 numpy {time.perf_counter() - t0:.3f} s", flush=True)
+    seconds = {}
+    runs = (("Q4", tpch.q4, ("o_orderpriority", "order_count"), (),
+             ("materialized stage",)),
+            ("Q5", tpch.q5, ("n_name",), ("revenue",),
+             ("demoted inner join to broadcast",)),
+            ("Q21", tpch.q21, ("s_name", "numwait"), (),
+             ("materialized stage",)))
+    queries = {}
+    for label, fn, exact, sums, events in runs:
+        t0 = time.perf_counter()
+        _, queries[label] = join_query_phase(label, fn, tables, wants[label],
+                                             exact, sums, partitions, events)
+        seconds[label] = time.perf_counter() - t0
+    # dbgen gives no orders to a customer whose key is a multiple of 3
+    # (TPC-H 4.2.3); this generator draws every customer, so the outer
+    # joins and Q13's shape drop those orders before the upload. The outer
+    # joins also drop the customers whose key ends in 1, so that orders
+    # without their customer meet the full join's leftover
+    o = tables["orders"]
+    o = o.filter(pa.array(o.column("o_custkey").to_numpy() % 3 != 0))
+    q13_tables = {"customer": tables["customer"], "orders": o}
+    c = tables["customer"]
+    outer_tables = {"customer": c.filter(pa.array(
+        c.column("c_custkey").to_numpy() % 10 != 1)), "orders": o}
+    want = _outer_numpy(outer_tables)
+    outer_q = {}
+    for how, fn in _outer_queries().items():
+        t0 = time.perf_counter()
+        _, outer_q[how] = join_query_phase(
+            f"{how} outer join", fn, outer_tables, want[how],
+            ("rows", "n_c", "n_o", "check"), ("price",), partitions)
+        seconds[f"{how} outer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    join_query_phase("q13_nolike", tpch.q13_nolike, q13_tables,
+                     _q13_numpy(q13_tables), ("c_count", "custdist"), (),
+                     partitions)
+    seconds["q13_nolike"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _time_q5_codes(queries["Q5"])
+    _time_q4_semi(queries["Q4"])
+    _time_q21_cond(queries["Q21"])
+    _time_outer(outer_q)
+    seconds["join steps"] = time.perf_counter() - t0
+    print("# join phase seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()), flush=True)
+
+
 def _value(table, name: str) -> float:
     if table.num_rows != 1:
         raise AssertionError(f"expected one result row, got {table.num_rows}")
@@ -669,9 +1132,11 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of lineitem (default 1)")
     ap.add_argument("--q3-sf", type=float, default=1.0,
-                    help="TPC-H scale factor of Q3's tables (default 1)")
+                    help="TPC-H scale factor of the tables of Q3 and "
+                    "the joins phase (default 1)")
     ap.add_argument("--partitions", type=int, default=2)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -693,8 +1158,11 @@ def main() -> int:
     print(f"# kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {native.build_seconds:.2f} s)", flush=True)
 
+    phase_s = {"build": time.perf_counter() - t_start}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
     kern = kernel_phase(gen)
+    phase_s["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     li = tpch.gen_lineitem(args.sf, seed=0)
@@ -708,12 +1176,15 @@ def main() -> int:
     df = sess.create_dataframe(li, num_partitions=args.partitions)
 
     # -- Q6 phase: no hand-written kernel on this path ------------------------
+    t0 = time.perf_counter()
     price = li.column("l_extendedprice").to_numpy()
     disc = li.column("l_discount").to_numpy()
     query_phase(tpch.q6({"lineitem": df}), "Q6", "revenue",
                 float(np.sum(price[mask] * disc[mask])), launches=0)
+    phase_s["Q6"] = time.perf_counter() - t0
 
     # -- UDF phase: one axpy launch per input batch --------------------------
+    t0 = time.perf_counter()
     n = li.num_rows
     per = math.ceil(n / args.partitions)
     batches = sum(max(1, math.ceil(max(0, min(n, (p + 1) * per) - p * per)
@@ -728,9 +1199,12 @@ def main() -> int:
     launches = query_phase(udf_q, "UDF query", "s",
                            float(np.sum(r[mask].astype(np.float64))),
                            launches=batches)
+    phase_s["UDF"] = time.perf_counter() - t0
 
     # -- Q1 phase: keyed aggregate over string keys, then a sort -----------
+    t0 = time.perf_counter()
     q1_phase(tpch.q1({"lineitem": df}), li)
+    phase_s["Q1"] = time.perf_counter() - t0
 
     # -- Q3 phase: equi-joins, top-n and AQE's broadcast demotion -----------
     t0 = time.perf_counter()
@@ -741,7 +1215,23 @@ def main() -> int:
     print(f"# Q3 tables sf={args.q3_sf}: " + ", ".join(
         f"{k} {v.num_rows} rows" for k, v in tables.items())
         + f", generated in {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
     q3_phase(tables, args.partitions)
+    phase_s["Q3"] = time.perf_counter() - t0
+
+    # -- Q4, Q5, Q21 and the outer joins: every join type on the device ----
+    t0 = time.perf_counter()
+    jtables = dict(tables, supplier=tpch.gen_supplier(args.q3_sf, seed=4),
+                   nation=tpch.gen_nation(), region=tpch.gen_region())
+    print(f"# join tables sf={args.q3_sf}: " + ", ".join(
+        f"{k} {v.num_rows} rows" for k, v in jtables.items())
+        + f", ready in {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    joins_phase(jtables, args.partitions)
+    phase_s["joins"] = time.perf_counter() - t0
+    print("# phase seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in phase_s.items())
+        + f"; whole run {time.perf_counter() - t_start:.2f} s", flush=True)
 
     t = kern["timings"][1 << 20]
     print(json.dumps({"kernels": [{

@@ -35,7 +35,7 @@ from .host import HostColumn, HostTable
 __all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "as_torch_dtype",
            "bucket_rows", "bucket_width",
            "concat_device_tables", "pack_string_key_words", "shrink_to_fit",
-           "stable_partition_order", "torch_dtype"]
+           "slice_rows", "stable_partition_order", "torch_dtype"]
 
 _TORCH_DTYPES = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
                  np.dtype(np.int16): torch.int16,
@@ -398,6 +398,31 @@ def shrink_to_fit(table: DeviceTable, min_bucket: Optional[int] = None,
     cols = tuple(c.cut(cap) for c in compacted.columns)
     return DeviceTable(cols, compacted.row_mask[:cap], compacted.num_rows,
                        compacted.names)
+
+
+def slice_rows(table: DeviceTable, start: int, length: int) -> DeviceTable:
+    """The row window ``[start, start + length)`` as a table of capacity
+    ``length`` (the JAX package's ``slice_rows``): ``start`` is clamped to
+    ``[0, capacity - length]`` as ``dynamic_slice`` clamps it, a window past
+    the capacity is zero-padded, and rows past the table's active count are
+    masked off."""
+    start = min(max(int(start), 0), max(table.capacity - length, 0))
+
+    def slc(a: torch.Tensor) -> torch.Tensor:
+        out = a[start:start + length]
+        if length > a.shape[0]:
+            out = torch.nn.functional.pad(
+                out, (0, 0) * (a.dim() - 1) + (0, length - a.shape[0]))
+        return out
+
+    cols = tuple(DeviceColumn(slc(c.data), slc(c.validity), c.dtype,
+                              c.all_valid,
+                              None if c.lengths is None else slc(c.lengths))
+                 for c in table.columns)
+    iota = torch.arange(length, dtype=torch.int32, device=table.device)
+    mask = torch.logical_and(slc(table.row_mask),
+                             (iota + start) < table.num_rows)
+    return DeviceTable(cols, mask, mask.sum(dtype=torch.int32), table.names)
 
 
 def pack_string_key_words(data: torch.Tensor, lengths: torch.Tensor

@@ -1,32 +1,53 @@
-"""Device equi-joins — the port of ``spark_rapids_tpu/exec/joins.py`` for inner
-joins on one fixed-width key (reference: GpuHashJoin.scala:507,
-GpuShuffledHashJoinExec / GpuBroadcastHashJoinExec).
+"""Device equi-joins — the port of ``spark_rapids_tpu/exec/joins.py``
+(reference: GpuHashJoin.scala:507, GpuShuffledHashJoinExec /
+GpuBroadcastHashJoinExec).
 
-The build side is the right child, the probe side the left. Every build key
-maps into int64 by ``monotone_i64`` (order and Spark equality kept: NaN ==
-NaN, -0.0 == 0.0). Per build table the decision sequence is the JAX
-package's:
+Join types ``inner``, ``left``, ``right``, ``full``, ``left_semi`` and
+``left_anti``, on any number of equi-keys of fixed-width, float or string
+type, with an optional residual condition. The build side is the right
+child, the probe side the left. Per build table the decision sequence is
+the JAX package's:
 
-1. the hash prep (``spark.rapids.tpu.join.strategy`` hash, the default) or
-   the sorted prep (``sort``), each of which says whether the build keys
-   are unique;
-2. a unique build joins each probe batch in one pass, probe capacity in and
-   out: an open-addressing slot table walked by double hashing, or a
-   ``searchsorted`` into the sorted keys; the output shrinks to its bucket;
-3. otherwise the sorted prep, ``searchsorted`` start/count per probe row,
-   one host read of the total pairs, and an expand into a bucket of that
-   total.
+1. a single fixed-width key of one type on both sides, no condition, and
+   an inner, left, semi or anti join: the hash prep
+   (``spark.rapids.tpu.join.strategy`` hash, the default: an
+   open-addressing slot table walked by double hashing over
+   ``monotone_i64`` keys) or the sorted prep (``sort``), each of which says
+   whether the build keys are unique. A unique build joins each probe
+   batch in one pass, probe capacity in and out; so do semi and anti joins
+   under the hash prep whatever the build holds (they ask existence only);
+2. otherwise starts and counts per probe row: ``searchsorted`` into the
+   sorted prep for that single key, or, for any other keys, dense join
+   codes over both sides at once (``join_codes``: one lexsort of the
+   concatenated key planes, nulls and inactive rows as unique negative
+   sentinels) and a stable argsort of the build codes. Right and full
+   joins carry a per-build-row ``seen`` mask across the probe batches and
+   emit the build rows no probe row matched at the end, null-padded;
+3. semi and anti joins without a condition keep the probe rows whose count
+   is (not) zero; every other join reads the pair total on the host once
+   per probe batch (a left or full join counts an unmatched row as one
+   slot) and expands into a bucket of that total, or, over the batch
+   budget, in windows of probe rows;
+4. a residual condition filters the inner pairs; for outer, semi and anti
+   joins the pairs are expanded as inner pairs (semi and anti gather only
+   the columns the condition reads), and a probe row whose every pair
+   failed is padded, kept or dropped by the outer/semi/anti rule, while
+   passing pairs mark their build rows seen.
 
 ``lax.while_loop`` becomes a Python loop of rounds with one host read each
 (at most ``T`` rounds), ``jax.ops.segment_min`` a ``scatter_reduce_``
-(``amin``) into a ``cap``-filled plane, ``jnp.lexsort`` the chained stable
-argsort of exec/sort.py. The JAX package's uint32 hash arithmetic rides
-int64 in ``[0, 2**32)`` (shuffle/manager.py), its uint64 bit tricks int64.
+(``amin``) into a ``cap``-filled plane, ``.at[i].max`` on bools a
+``scatter_reduce_`` (``amax``) into int32, ``jnp.lexsort`` the chained
+stable argsort of exec/sort.py. The JAX package's uint32 hash arithmetic
+rides int64 in ``[0, 2**32)`` (shuffle/manager.py), its uint64 key words
+int64 with the sign bit flipped before sorting.
 
-Not ported yet, each raising and naming its ROADMAP Queue 1 step: outer,
-semi, anti and cross joins, residual conditions, and multi-key or
-string-key joins (step 6); the windowed expand of an output over the batch
-budget (step 9); the grace join of a build side over it (steps 8 and 9).
+Not ported yet: joins without equi-keys (the broadcast nested-loop join,
+ROADMAP Queue 1 step 6), whose planning raises; key types the device
+batch does not hold (binary, and decimal and nested types, which the port
+has not yet), which are tagged and run on the host engine (step 8); and
+the grace join of a build side over ``spark.rapids.sql.batchSizeBytes``,
+which raises naming steps 8 and 9.
 """
 from __future__ import annotations
 
@@ -36,7 +57,10 @@ import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
-                               concat_device_tables, shrink_to_fit)
+                               bucket_width, concat_device_tables,
+                               pack_string_key_words, shrink_to_fit,
+                               slice_rows, torch_dtype)
+from ..expr.base import EvalContext, Expression
 from ..plan.logical import _join_schema
 from ..plan.physical import PhysicalPlan
 from ..plan.schema import Schema
@@ -48,13 +72,18 @@ from .sort import lexsort
 __all__ = ["TpuShuffledHashJoinExec", "TpuBroadcastHashJoinExec",
            "join_unsupported_reason", "monotone_i64", "build_prep_hash",
            "pk_hash_probe", "build_prep_sorted", "pk_sorted_probe",
-           "probe_count", "expand_slots", "gather_columns", "slot_hash"]
+           "probe_count", "probe_matched", "join_codes", "count_matches",
+           "build_matched", "expand_slots", "gather_columns",
+           "null_device_column", "slot_hash", "SUPPORTED"]
+
+#: the join types of the device hash join (the JAX package's ``SUPPORTED``)
+SUPPORTED = ("inner", "left", "right", "full", "left_semi", "left_anti")
 
 _I64_MAX = 2**63 - 1
+_I64_MIN = -2**63
 _GOLDEN = 0x9E3779B9
 #: the capacity under which ``T * T`` stays inside int64 (bucket math)
 _MAX_BUILD_CAPACITY = 1 << 30
-
 
 def monotone_i64(v: torch.Tensor) -> torch.Tensor:
     """Order- and equality-preserving map of a key plane into int64 (Spark
@@ -209,7 +238,7 @@ def pk_sorted_probe(key: DeviceColumn, row_mask: torch.Tensor,
 def probe_count(key: DeviceColumn, row_mask: torch.Tensor,
                 sv: torch.Tensor, nvalid: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``probe_count_fn`` without tracking -> (starts, counts): each usable
+    """The counts of ``probe_count_fn`` -> (starts, counts): each usable
     probe row's run of equal keys in ``sv``, clamped to the usable prefix
     (so a probe key equal to the int64-max tail counts only usable rows)."""
     pmask = torch.logical_and(key.validity, row_mask)
@@ -220,14 +249,147 @@ def probe_count(key: DeviceColumn, row_mask: torch.Tensor,
     return starts, counts
 
 
+def probe_matched(key: DeviceColumn, row_mask: torch.Tensor,
+                  sv: torch.Tensor, nvalid: torch.Tensor,
+                  b_order: torch.Tensor) -> torch.Tensor:
+    """The tracking half of ``probe_count_fn(track=True)``: per build row,
+    whether any usable probe row of this batch holds its key (right and
+    full joins), from one sort of the probe keys."""
+    pmask = torch.logical_and(key.validity, row_mask)
+    pv = monotone_i64(key.data)
+    ps = torch.sort(torch.where(pmask, pv, _I64_MAX)).values
+    pn = pmask.sum(dtype=torch.int64)
+    lo = torch.minimum(torch.searchsorted(ps, sv), pn)
+    hi = torch.minimum(torch.searchsorted(ps, sv, right=True), pn)
+    iota = torch.arange(sv.shape[0], dtype=torch.int64, device=sv.device)
+    matched_s = torch.logical_and(hi > lo, iota < nvalid)
+    return torch.zeros_like(matched_s).scatter_(0, b_order, matched_s)
+
+
+# ---------------------------------------------------------------------------
+# General join codes: any tuple of keys
+# ---------------------------------------------------------------------------
+def _concat_key_col(bc: DeviceColumn, pc: DeviceColumn) -> DeviceColumn:
+    """A build/probe key column pair as one column (byte matrices padded to
+    a common width so they stack)."""
+    bdat, pdat = bc.data, pc.data
+    lengths = None
+    if bc.lengths is not None:
+        w = max(bdat.shape[1], pdat.shape[1])
+        bdat = torch.nn.functional.pad(bdat, (0, w - bdat.shape[1]))
+        pdat = torch.nn.functional.pad(pdat, (0, w - pdat.shape[1]))
+        lengths = torch.cat([bc.lengths, pc.lengths])
+    elif bdat.dtype != pdat.dtype:
+        common = torch.promote_types(bdat.dtype, pdat.dtype)
+        bdat, pdat = bdat.to(common), pdat.to(common)
+    return DeviceColumn(torch.cat([bdat, pdat]),
+                        torch.cat([bc.validity, pc.validity]), bc.dtype,
+                        False, lengths)
+
+
+def _column_code_arrays(col: DeviceColumn) -> List[torch.Tensor]:
+    """1-D planes whose tuple equality is Spark key equality for this
+    column (NaN == NaN, -0.0 == 0.0, strings by bytes and length), in an
+    order that sorting by them (least significant last) groups equal keys:
+    a string's int64 words with the sign bit flipped (the JAX package's
+    uint64 order), a float as ``[v with -0 -> 0 and NaN -> +inf, nan
+    flag]``."""
+    v = col.data
+    if col.lengths is not None:
+        return [w ^ _I64_MIN for w in pack_string_key_words(v, col.lengths)]
+    if not _key_type_ok(col.dtype):
+        raise NotImplementedError(
+            f"a join key of {col.dtype!r} is not ported to the device yet "
+            "(ROADMAP Queue 1 step 8)")
+    if v.dtype.is_floating_point:
+        nan = torch.isnan(v)
+        v = torch.where(v == 0, torch.zeros_like(v), v)
+        # NaN -> +inf for a total order; the nan flag keeps real +inf apart
+        v = torch.where(nan, torch.full_like(v, float("inf")), v)
+        return [v, nan.to(torch.uint8)]
+    if v.dtype == torch.bool:
+        return [v.to(torch.uint8)]
+    return [v]
+
+
+def join_codes(bcols: Sequence[DeviceColumn], bactive: torch.Tensor,
+               pcols: Sequence[DeviceColumn], pactive: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_join_codes`` -> (build codes, probe codes): dense int64 codes,
+    equal exactly where the key tuples are equal across both sides; a row
+    that is inactive or has a null key gets the unique sentinel
+    ``-(row + 2)``, so it never matches."""
+    nb = bactive.shape[0]
+    n = nb + pactive.shape[0]
+    device = bactive.device
+    code_arrays: List[torch.Tensor] = []     # major..minor
+    anynull = torch.zeros(n, dtype=torch.bool, device=device)
+    for bc, pc in zip(bcols, pcols):
+        cat = _concat_key_col(bc, pc)
+        code_arrays.extend(_column_code_arrays(cat))
+        anynull = torch.logical_or(anynull, torch.logical_not(cat.validity))
+    usable = torch.logical_and(torch.cat([bactive, pactive]),
+                               torch.logical_not(anynull))
+    # lexsort takes minor..major: the codes reversed, usable rows first
+    order = lexsort(list(reversed(code_arrays))
+                    + [torch.logical_not(usable).to(torch.uint8)])
+    usable_s = usable[order]
+    # a boundary among the sorted usable rows starts a new code
+    same = torch.ones(n, dtype=torch.bool, device=device)
+    for arr in code_arrays:
+        s = arr[order]
+        eq = s == torch.roll(s, 1)
+        eq[0] = False
+        same = torch.logical_and(same, eq)
+    boundary = torch.logical_and(torch.logical_not(same), usable_s)
+    boundary[0] = usable_s[0]
+    gid_sorted = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    gid = torch.empty(n, dtype=torch.int64, device=device) \
+        .scatter_(0, order, gid_sorted)
+    iota = torch.arange(n, dtype=torch.int64, device=device)
+    gid = torch.where(usable, gid, -(iota + 2))
+    return gid[:nb], gid[nb:]
+
+
+def count_matches(bgid: torch.Tensor, pgid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_count_matches`` -> (b_order, starts, counts): the build codes in
+    a stable order (ties keep row order, so each probe row's matches come
+    in build-row order), and each probe row's run of equal codes."""
+    b_order = torch.argsort(bgid, stable=True)
+    b_sorted = bgid[b_order]
+    # a probe sentinel looks for -1, which no build code holds
+    p = torch.where(pgid < 0, -1, pgid)
+    starts = torch.searchsorted(b_sorted, p)
+    ends = torch.searchsorted(b_sorted, p, right=True)
+    counts = torch.where(pgid < 0, 0, ends - starts)
+    return b_order, starts, counts
+
+
+def build_matched(bgid: torch.Tensor, pgid: torch.Tensor) -> torch.Tensor:
+    """``_build_matched``: per build row, whether a probe row of this batch
+    shares its code (right and full joins)."""
+    p_sorted = torch.sort(torch.where(pgid < 0, -1, pgid)).values
+    b = torch.where(bgid < 0, -2, bgid)
+    lo = torch.searchsorted(p_sorted, b)
+    hi = torch.searchsorted(p_sorted, b, right=True)
+    return torch.logical_and(hi > lo, bgid >= 0)
+
+
+# ---------------------------------------------------------------------------
+# Slots, gathers and padding
+# ---------------------------------------------------------------------------
 def expand_slots(probe_mask: torch.Tensor, build_capacity: int,
                  b_order: torch.Tensor, starts: torch.Tensor,
-                 counts: torch.Tensor, out_cap: int):
-    """``_JoinKernels._slots`` for an inner join -> (probe row, build row,
-    valid slot, build matched, total) per output slot: slot ``j`` belongs to
-    the probe row whose run of ``counts`` covers it, and takes the ``k``-th
-    build row of that row's run in ``b_order``."""
-    slot_counts = torch.where(probe_mask, counts, 0)
+                 counts: torch.Tensor, out_cap: int, outer: bool = False):
+    """``_JoinKernels._slots`` -> (probe row, build row, valid slot, build
+    matched, total) per output slot: slot ``j`` belongs to the probe row
+    whose run of slots covers it, and takes the ``k``-th build row of that
+    row's run in ``b_order``. ``outer`` gives an unmatched probe row one
+    slot (``max(counts, 1)``), whose build side is not matched."""
+    slot_counts = torch.maximum(counts, torch.ones_like(counts)) if outer \
+        else counts
+    slot_counts = torch.where(probe_mask, slot_counts, 0)
     cum = torch.cumsum(slot_counts, 0)
     total = cum[-1]
     offsets = cum - slot_counts
@@ -244,54 +406,101 @@ def expand_slots(probe_mask: torch.Tensor, build_capacity: int,
 
 
 def gather_columns(table: DeviceTable, idx: torch.Tensor,
-                    matched: torch.Tensor) -> List[DeviceColumn]:
-    """Every column gathered at ``idx``, null where not ``matched``. The
-    output row mask of an inner join exposes only matched rows, each a
-    real source row, so ``all_valid`` carries over."""
+                   matched: torch.Tensor, keep_all_valid: bool = True
+                   ) -> List[DeviceColumn]:
+    """Every column gathered at ``idx``, null where not ``matched``.
+    ``keep_all_valid`` carries each column's null-freedom promise over,
+    which holds where the output exposes only ``matched`` rows (each a real
+    source row); an outer side exposes rows it pads, and passes False."""
     out = []
     for c in table.columns:
         g = c.gather(idx)
         out.append(g.with_validity(torch.logical_and(g.validity, matched),
-                                   all_valid=c.all_valid))
+                                   all_valid=keep_all_valid and c.all_valid))
     return out
 
 
-def join_unsupported_reason(how: str, condition, left_keys: Sequence[str],
+def null_device_column(dtype: dt.DataType, capacity: int,
+                       device: torch.device) -> DeviceColumn:
+    """``_null_device_column``: an all-null column of ``dtype`` (the padded
+    side of an outer join's unmatched rows)."""
+    validity = torch.zeros(capacity, dtype=torch.bool, device=device)
+    if isinstance(dtype, dt.StringType):
+        return DeviceColumn(
+            torch.zeros((capacity, bucket_width(1)), dtype=torch.uint8,
+                        device=device), validity, dtype, False,
+            torch.zeros(capacity, dtype=torch.int32, device=device))
+    return DeviceColumn(torch.zeros(capacity, dtype=torch_dtype(dtype),
+                                    device=device), validity, dtype, False)
+
+
+def _scatter_any(keep: torch.Tensor, idx: torch.Tensor, size: int
+                 ) -> torch.Tensor:
+    """``zeros(size, bool).at[idx].max(keep)``: whether any slot at each
+    index keeps (``idx`` is clamped in range; slots past the total keep
+    nothing)."""
+    return torch.zeros(size, dtype=torch.int32, device=keep.device) \
+        .scatter_reduce_(0, idx, keep.to(torch.int32), "amax",
+                         include_self=True) > 0
+
+
+def condition_mask(condition: Expression, table: DeviceTable
+                   ) -> torch.Tensor:
+    """``_condition_mask``: the rows of ``table`` whose residual condition
+    is true (null counts as false)."""
+    c = condition.eval(EvalContext.for_device(table))
+    keep = c.values
+    if c.validity is not None:
+        keep = torch.logical_and(keep, c.validity)
+    return torch.logical_and(keep, table.row_mask)
+
+
+def _key_type_ok(d: dt.DataType) -> bool:
+    """A key type whose device plane the join codes read: every type of the
+    port but binary (fixed-width planes, and the string byte matrix)."""
+    return not isinstance(d, dt.BinaryType)
+
+
+def join_unsupported_reason(how: str, left_keys: Sequence[str],
                             right_keys: Sequence[str], left_schema: Schema,
                             right_schema: Schema) -> Optional[str]:
     """Why the device cannot run this hash join yet (naming the ROADMAP
     step), or None."""
-    if how != "inner":
-        return (f"{how} joins on the device are not ported yet (ROADMAP "
-                "Queue 1 step 6)")
-    if condition is not None:
-        return ("join conditions beyond the equi-keys are not ported to the "
-                "device yet (ROADMAP Queue 1 step 6)")
-    if len(left_keys) != 1:
-        return (f"joins on {len(left_keys)} keys are not ported to the "
-                "device yet (ROADMAP Queue 1 step 6)")
-    lt = left_schema.field(left_keys[0]).dtype
-    rt = right_schema.field(right_keys[0]).dtype
-    if lt != rt or isinstance(lt, (dt.StringType, dt.BinaryType)):
-        return (f"a join key of {lt!r} against {rt!r} is not ported to the "
-                "device yet (ROADMAP Queue 1 step 6)")
+    if how not in SUPPORTED:
+        return (f"{how} joins (the broadcast nested-loop join) are not "
+                "ported to the device yet (ROADMAP Queue 1 step 6)")
+    if not left_keys:
+        return ("joins without equi-keys (the broadcast nested-loop join) "
+                "are not ported to the device yet (ROADMAP Queue 1 step 6)")
+    for lk, rk in zip(left_keys, right_keys):
+        lt = left_schema.field(lk).dtype
+        rt = right_schema.field(rk).dtype
+        for t in (lt, rt):
+            if not _key_type_ok(t):
+                return (f"a join key of {t!r} is not ported to the device "
+                        "yet (ROADMAP Queue 1 step 8)")
+        if isinstance(lt, dt.StringType) != isinstance(rt, dt.StringType):
+            return f"a join key of {lt!r} against {rt!r} is not comparable"
     return None
 
 
 class TpuShuffledHashJoinExec(TpuExec):
-    """Inner equi-join of co-partitioned children: partition p of the left
-    (probe) joins partition p of the right (build)."""
+    """Equi-join of co-partitioned children: partition p of the left
+    (probe) joins partition p of the right (build). Right and full joins
+    track a per-build-row ``seen`` mask across probe batches and emit the
+    never-matched build rows null-padded at the end, sound per partition
+    because the hash exchange gives each partition disjoint keys
+    (reference: GpuHashJoin.scala:507 buildSideTrackerOpt)."""
 
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
                  left_keys: Sequence[str], right_keys: Sequence[str],
-                 how: str, condition, merge_keys: bool,
-                 device: torch.device, strategy: str = "hash",
-                 min_bucket: Optional[int] = None,
+                 how: str, condition: Optional[Expression],
+                 merge_keys: bool, device: torch.device,
+                 strategy: str = "hash", min_bucket: Optional[int] = None,
                  batch_bytes: int = 512 * 1024 * 1024):
         super().__init__()
-        reason = join_unsupported_reason(how, condition, left_keys,
-                                         right_keys, left.schema,
-                                         right.schema)
+        reason = join_unsupported_reason(how, left_keys, right_keys,
+                                         left.schema, right.schema)
         if reason is not None:
             raise NotImplementedError(reason)
         self.left, self.right = left, right
@@ -299,6 +508,7 @@ class TpuShuffledHashJoinExec(TpuExec):
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.how = how
+        self.condition = condition
         self.merge_keys = merge_keys
         self.device = device
         self.strategy = "hash" if strategy == "auto" else strategy
@@ -316,18 +526,22 @@ class TpuShuffledHashJoinExec(TpuExec):
     def node_desc(self):
         return f"{self.how} lkeys={self.left_keys} rkeys={self.right_keys}"
 
-    def assemble(self, pcols: List[DeviceColumn], bcols: List[DeviceColumn]
+    def assemble(self, pcols: List[DeviceColumn], bcols: List[DeviceColumn],
+                 key_from_build: bool = False
                  ) -> Tuple[List[DeviceColumn], List[str]]:
-        """Output columns in schema order: ``on`` keys once (from the probe
-        side), then the probe columns, then the build columns."""
+        """Output columns in schema order: ``on`` keys once, then the probe
+        columns, then the build columns. The keys come from the probe side,
+        or with ``key_from_build`` from the build side (right and full
+        leftover rows, whose probe side is null)."""
         lnames = list(self.left.schema.names)
         rnames = list(self.right.schema.names)
         names: List[str] = []
         cols: List[DeviceColumn] = []
         skip_l, skip_r = set(), set()
         if self.merge_keys:
-            for lk in self.left_keys:
-                cols.append(pcols[lnames.index(lk)])
+            for lk, rk in zip(self.left_keys, self.right_keys):
+                cols.append(bcols[rnames.index(rk)] if key_from_build
+                            else pcols[lnames.index(lk)])
                 names.append(lk)
             skip_l, skip_r = set(self.left_keys), set(self.right_keys)
         for n, c in zip(lnames, pcols):
@@ -339,6 +553,31 @@ class TpuShuffledHashJoinExec(TpuExec):
                 names.append(n)
                 cols.append(c)
         return cols, names
+
+    def _table(self, cols, names, mask: torch.Tensor) -> DeviceTable:
+        return DeviceTable(tuple(cols), mask, mask.sum(dtype=torch.int32),
+                           tuple(names))
+
+    def pad_probe(self, probe: DeviceTable, emit: torch.Tensor
+                  ) -> DeviceTable:
+        """Probe rows with an all-null build side (left/full unmatched)."""
+        bcols = [null_device_column(f.dtype, probe.capacity, probe.device)
+                 for f in self.right.schema]
+        pcols = [c.with_validity(torch.logical_and(c.validity, emit),
+                                 all_valid=c.all_valid)
+                 for c in probe.columns]
+        return self._table(*self.assemble(pcols, bcols), emit)
+
+    def pad_build(self, build: DeviceTable, emit: torch.Tensor
+                  ) -> DeviceTable:
+        """Build rows with an all-null probe side (right/full leftover)."""
+        pcols = [null_device_column(f.dtype, build.capacity, build.device)
+                 for f in self.left.schema]
+        bcols = [c.with_validity(torch.logical_and(c.validity, emit),
+                                 all_valid=c.all_valid)
+                 for c in build.columns]
+        return self._table(*self.assemble(pcols, bcols, key_from_build=True),
+                           emit)
 
     # -- execution ------------------------------------------------------------
     def _concat_build(self, batches: List[DeviceTable]) -> DeviceTable:
@@ -362,16 +601,27 @@ class TpuShuffledHashJoinExec(TpuExec):
                 f"spark.rapids.sql.batchSizeBytes={self.batch_bytes}: the "
                 "grace join is not ported yet (ROADMAP Queue 1 steps 8 and "
                 "9)")
-        for probe in self.child_device_batches(pidx):
-            out = self._pk_join(build, probe)
-            if out is None:
-                out = self._expand_join(build, probe)
-            else:
-                # an inner join keeps the probe capacity under a mask: shrink
-                # (one host read) so later operators skip the dead rows
-                out = shrink_to_fit(out, self.min_bucket)
+        track = self.how in ("right", "full")
+        seen_box = [torch.zeros(build.capacity, dtype=torch.bool,
+                                device=build.device)] if track else None
+        for out in self._probe_join(build, self.child_device_batches(pidx),
+                                    seen_box):
             self.account_batch()
             yield out
+        if track:
+            emit = torch.logical_and(build.row_mask,
+                                     torch.logical_not(seen_box[0]))
+            self.account_batch()
+            yield self.pad_build(build, emit)
+
+    def _direct_key_ok(self) -> bool:
+        """One key of one fixed-width type on both sides: the
+        ``monotone_i64`` preps (hash slot table, sorted keys) serve it."""
+        if len(self.left_keys) != 1:
+            return False
+        lt = self.left.schema.field(self.left_keys[0]).dtype
+        rt = self.right.schema.field(self.right_keys[0]).dtype
+        return lt == rt and not isinstance(lt, dt.StringType)
 
     def _prep(self, build: DeviceTable, strategy: str):
         """The build table's prep, computed once per build table (a
@@ -393,13 +643,15 @@ class TpuShuffledHashJoinExec(TpuExec):
 
     def _pk_join(self, build: DeviceTable, probe: DeviceTable
                  ) -> Optional[DeviceTable]:
-        """One pass for a unique build (FK->PK: at most one match a probe
-        row, so the output fits the probe capacity); None when the build
-        keys repeat."""
+        """One pass, probe capacity in and out, for a unique build (FK->PK:
+        at most one match a probe row) or, under the hash prep, a semi or
+        anti join whatever the build holds (the chain walk finds any equal
+        key); None otherwise."""
         key = probe.column(self.left_keys[0])
+        how = self.how
         if self.strategy == "hash":
             slot_row, bv, unique = self._prep(build, "hash")
-            if not unique:
+            if not (unique or how in ("left_semi", "left_anti")):
                 return None
             found, bi = pk_hash_probe(key, probe.row_mask, slot_row, bv)
         else:
@@ -408,13 +660,44 @@ class TpuShuffledHashJoinExec(TpuExec):
                 return None
             found, bi = pk_sorted_probe(key, probe.row_mask, b_order, sv,
                                         nvalid)
-        pcols = [c.with_validity(torch.logical_and(c.validity, found),
+        if how == "left_semi":
+            return probe.filter_mask(found)
+        if how == "left_anti":
+            return probe.filter_mask(torch.logical_not(found))
+        keep = found if how == "inner" else probe.row_mask
+        pcols = [c.with_validity(torch.logical_and(c.validity, keep),
                                  all_valid=c.all_valid)
                  for c in probe.columns]
-        cols, names = self.assemble(pcols, gather_columns(build, bi, found))
-        mask = torch.logical_and(found, probe.row_mask)
-        return DeviceTable(tuple(cols), mask, mask.sum(dtype=torch.int32),
-                           tuple(names))
+        bcols = gather_columns(build, bi, found,
+                               keep_all_valid=how == "inner")
+        return self._table(*self.assemble(pcols, bcols),
+                           torch.logical_and(keep, probe.row_mask))
+
+    def _counts(self, build: DeviceTable, probe: DeviceTable, track: bool):
+        """-> (b_order, starts, counts, this batch's build-row matches or
+        None): ``searchsorted`` into the sorted prep for a direct key, else
+        the join codes of both sides."""
+        if self._direct_key_ok():
+            b_order, sv, nvalid, _ = self._prep(build, "sort")
+            key = probe.column(self.left_keys[0])
+            starts, counts = probe_count(key, probe.row_mask, sv, nvalid)
+            matched = probe_matched(key, probe.row_mask, sv, nvalid,
+                                    b_order) if track else None
+            return b_order, starts, counts, matched
+        bgid, pgid = join_codes(
+            [build.column(k) for k in self.right_keys], build.row_mask,
+            [probe.column(k) for k in self.left_keys], probe.row_mask)
+        b_order, starts, counts = count_matches(bgid, pgid)
+        return b_order, starts, counts, \
+            build_matched(bgid, pgid) if track else None
+
+    def _slot_total(self, probe: DeviceTable, counts: torch.Tensor) -> int:
+        """The output slots of a probe batch, read on the host (the one
+        device wait of the count path): a left or full join without a
+        condition gives an unmatched row one slot."""
+        if self.how in ("left", "full") and self.condition is None:
+            counts = torch.maximum(counts, torch.ones_like(counts))
+        return int(torch.where(probe.row_mask, counts, 0).sum())
 
     def _max_out_rows(self) -> int:
         """Gather-output row budget derived from the byte budget."""
@@ -426,37 +709,168 @@ class TpuShuffledHashJoinExec(TpuExec):
         return max(self.min_bucket or 1,
                    self.batch_bytes // max(row_bytes, 1))
 
-    def _expand_join(self, build: DeviceTable, probe: DeviceTable
-                     ) -> DeviceTable:
-        """Repeated build keys: starts/counts by ``searchsorted`` into the
-        sorted prep, one host read of the pair total, then the expand into a
-        bucket of that total."""
-        b_order, sv, nvalid, _ = self._prep(build, "sort")
-        starts, counts = probe_count(probe.column(self.left_keys[0]),
-                                     probe.row_mask, sv, nvalid)
-        total = int(torch.where(probe.row_mask, counts, 0).sum())
-        if total > self._max_out_rows():
-            raise NotImplementedError(
-                f"a join output of {total} rows is over the batch budget: "
-                "the windowed expand is not ported yet (ROADMAP Queue 1 "
-                "step 9)")
-        out_cap = bucket_rows(max(total, 1), self.min_bucket)
-        pi, bi, valid_slot, build_matched, total_t = expand_slots(
-            probe.row_mask, build.capacity, b_order, starts, counts, out_cap)
+    def _probe_join(self, build: DeviceTable, probes, seen_box=None
+                    ) -> Iterator[DeviceTable]:
+        """``_probe_join``: join each probe batch against one build table.
+        ``seen_box`` (right/full) holds the running per-build-row matched
+        mask, updated in place across batches."""
+        has_cond = self.condition is not None
+        track = seen_box is not None and not has_cond
+        pk_eligible = (not has_cond and self._direct_key_ok()
+                       and self.how in ("inner", "left", "left_semi",
+                                        "left_anti"))
+        for probe in probes:
+            if pk_eligible:
+                out = self._pk_join(build, probe)
+                if out is not None:
+                    if self.how != "left":
+                        # a selective join keeps the probe capacity under
+                        # a mask: shrink (one host read) so later
+                        # operators skip the dead rows
+                        out = shrink_to_fit(out, self.min_bucket)
+                    yield out
+                    continue
+            b_order, starts, counts, matched = self._counts(build, probe,
+                                                            track)
+            if matched is not None:
+                seen_box[0] = torch.logical_or(seen_box[0], matched)
+            if self.how in ("left_semi", "left_anti") and not has_cond:
+                yield probe.filter_mask(counts == 0 if self.how == "left_anti"
+                                        else counts > 0)
+                continue
+            total = self._slot_total(probe, counts)
+            max_out = self._max_out_rows()
+            if total > max_out:
+                # an output over the budget comes in windows of probe rows
+                # (reference: AbstractGpuJoinIterator's split gather)
+                yield from self._windowed_expand(build, probe, total,
+                                                 max_out, seen_box)
+                continue
+            out_cap = bucket_rows(max(total, 1), self.min_bucket)
+            yield from self._expand_one(build, probe, b_order, starts,
+                                        counts, out_cap, seen_box)
+
+    def _windowed_expand(self, build: DeviceTable, probe: DeviceTable,
+                         total: int, max_out: int, seen_box=None
+                         ) -> Iterator[DeviceTable]:
+        """Expand in windows of probe rows sized by the average matches a
+        row, a skewed window over twice the budget split again."""
+        floor = self.min_bucket if self.min_bucket is not None \
+            else bucket_rows(1)
+        probe = probe.compact()
+        nrows = max(1, int(probe.num_rows))
+        avg_mult = max(1.0, total / nrows)
+        wsize = bucket_rows(max(floor, int(max_out / avg_mult)),
+                            self.min_bucket)
+        skip_empty = self.condition is None and self.how in ("inner",
+                                                             "right")
+        start = 0
+        while start < nrows:
+            window = slice_rows(probe, start, wsize)
+            start += wsize
+            b_order, starts, counts, _ = self._counts(build, window, False)
+            wtotal = self._slot_total(window, counts)
+            if wtotal == 0 and skip_empty:
+                continue
+            if wtotal > 2 * max_out and wsize > floor:
+                yield from self._windowed_expand(build, window, wtotal,
+                                                 max_out, seen_box)
+                continue
+            out_cap = bucket_rows(max(wtotal, 1), self.min_bucket)
+            yield from self._expand_one(build, window, b_order, starts,
+                                        counts, out_cap, seen_box)
+
+    def _expand_one(self, build: DeviceTable, probe: DeviceTable,
+                    b_order, starts, counts, out_cap: int, seen_box
+                    ) -> Iterator[DeviceTable]:
+        """One expand of a probe batch or window, after its counts."""
+        if self.condition is None:
+            # right runs as inner here (its leftover rows come at the end),
+            # full as left
+            eff = {"right": "inner", "full": "left"}.get(self.how, self.how)
+            yield self._expand(build, probe, b_order, starts, counts,
+                               out_cap, eff)
+            return
+        if self.how == "inner":
+            out = self._expand(build, probe, b_order, starts, counts,
+                               out_cap, "inner")
+            yield out.filter_mask(condition_mask(self.condition, out))
+            return
+        yield from self._expand_cond(build, probe, b_order, starts, counts,
+                                     out_cap, seen_box)
+
+    def _expand(self, build: DeviceTable, probe: DeviceTable, b_order,
+                starts, counts, out_cap: int, how: str) -> DeviceTable:
+        """``expand_fn`` for ``inner`` and ``left`` (a left join keeps an
+        unmatched probe row inline, its build side null)."""
+        outer = how == "left"
+        pi, bi, valid, matched, total = expand_slots(
+            probe.row_mask, build.capacity, b_order, starts, counts,
+            out_cap, outer)
         cols, names = self.assemble(
-            gather_columns(probe, pi, valid_slot),
-            gather_columns(build, bi, build_matched))
-        return DeviceTable(tuple(cols), valid_slot, total_t.to(torch.int32),
+            gather_columns(probe, pi, valid),
+            gather_columns(build, bi, matched, keep_all_valid=not outer))
+        return DeviceTable(tuple(cols), valid, total.to(torch.int32),
                            tuple(names))
+
+    def _expand_cond(self, build: DeviceTable, probe: DeviceTable, b_order,
+                     starts, counts, out_cap: int, seen_box
+                     ) -> Iterator[DeviceTable]:
+        """``expand_cond_fn``: the candidate pairs expanded as inner pairs
+        and filtered by the condition; a probe row none of whose pairs
+        passed is kept (anti), dropped (semi) or padded with nulls
+        (left/full), and passing pairs mark their build rows seen
+        (right/full)."""
+        how = self.how
+        pi, bi, valid, _, total = expand_slots(
+            probe.row_mask, build.capacity, b_order, starts, counts,
+            out_cap)
+        if how in ("left_semi", "left_anti"):
+            # the pairs carry only the columns the condition reads
+            refs = self.condition.references()
+            lnames = [n for n in self.left.schema.names if n in refs]
+            rnames = [n for n in self.right.schema.names if n in refs]
+            pairs = DeviceTable(
+                tuple(gather_columns(_select(probe, lnames), pi, valid)
+                      + gather_columns(_select(build, rnames), bi, valid)),
+                valid, total.to(torch.int32), tuple(lnames + rnames))
+            any_pass = _scatter_any(condition_mask(self.condition, pairs),
+                                    pi, probe.capacity)
+            yield probe.filter_mask(torch.logical_not(any_pass)
+                                    if how == "left_anti" else any_pass)
+            return
+        cols, names = self.assemble(gather_columns(probe, pi, valid),
+                                    gather_columns(build, bi, valid))
+        pairs = DeviceTable(tuple(cols), valid, total.to(torch.int32),
+                            tuple(names))
+        keep = condition_mask(self.condition, pairs)
+        yield pairs.filter_mask(keep)
+        if how in ("left", "full"):
+            any_pass = _scatter_any(keep, pi, probe.capacity)
+            yield self.pad_probe(probe, torch.logical_and(
+                probe.row_mask, torch.logical_not(any_pass)))
+        if how in ("right", "full"):
+            seen_box[0] = torch.logical_or(
+                seen_box[0], _scatter_any(keep, bi, build.capacity))
+
+
+def _select(table: DeviceTable, names: Sequence[str]) -> DeviceTable:
+    return DeviceTable(tuple(table.column(n) for n in names), table.row_mask,
+                       table.num_rows, tuple(names))
 
 
 class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
     """The build side read whole, once, and joined to every probe partition
-    (reference: GpuBroadcastHashJoinExec). The build table stays on the node
-    for the plan's life (the spill catalog is ROADMAP Queue 1 step 9)."""
+    (reference: GpuBroadcastHashJoinExec). Right and full joins never
+    broadcast their build side: its unmatched rows would repeat per probe
+    partition. The build table stays on the node for the plan's life (the
+    spill catalog is ROADMAP Queue 1 step 9)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
+        if self.how in ("right", "full"):
+            raise ValueError(f"a {self.how} join cannot broadcast its right "
+                             "side")
         self._broadcast: Optional[DeviceTable] = None
 
     def _build_table(self, pidx: int) -> DeviceTable:

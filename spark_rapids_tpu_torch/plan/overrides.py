@@ -129,9 +129,8 @@ def _register_exec_rules():
 
     def tag_join(meta, conf):
         p = meta.plan
-        reason = join_unsupported_reason(p.how, p.condition, p.left_keys,
-                                         p.right_keys, p.left.schema,
-                                         p.right.schema)
+        reason = join_unsupported_reason(p.how, p.left_keys, p.right_keys,
+                                         p.left.schema, p.right.schema)
         if reason is not None:
             meta.cannot_run(reason)
 

@@ -131,9 +131,10 @@ class DataFrame:
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Join ``other`` on same-named columns ``on`` (output once) or on a
-        ``condition`` whose equalities between the two sides are the keys.
-        The device runs inner joins on one fixed-width key; other joins are
-        tagged and run on the host engine."""
+        ``condition`` whose equalities between the two sides are the keys
+        (the rest is the residual condition). The device runs every hash
+        join type on keys of any ported type but binary; a join without
+        equi-keys is not ported yet."""
         if isinstance(on, str):
             on = [on]
         cond = _to_expr(condition) if condition is not None else None

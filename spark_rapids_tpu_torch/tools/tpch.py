@@ -1,5 +1,6 @@
-"""TPC-H support for the port: the lineitem, orders and customer
-generators, Q1, Q3, Q6 and the date constants — copied from
+"""TPC-H support for the port: the lineitem, orders, customer, supplier,
+nation and region generators, Q1, Q3, Q4, Q5, Q6, Q21, Q13's shape without
+its LIKE filter, and the date constants — copied from
 ``spark_rapids_tpu/tools/tpch.py``, so both engines run the same data (byte
 for byte for one seed) and the same queries.
 
@@ -14,7 +15,9 @@ import pyarrow as pa
 
 from ..columnar import dtypes as dt
 
-__all__ = ["gen_lineitem", "gen_orders", "gen_customer", "q1", "q3", "q6"]
+__all__ = ["gen_lineitem", "gen_orders", "gen_customer", "gen_supplier",
+           "gen_nation", "gen_region", "q1", "q3", "q4", "q5", "q6",
+           "q13_nolike", "q21"]
 
 _EPOCH_1992 = 8035   # days from unix epoch to 1992-01-01
 _DATE_RANGE = 2557   # ~7 years of ship dates
@@ -147,6 +150,50 @@ def gen_customer(sf: float, seed: int = 2, rows: int | None = None) -> pa.Table:
     })
 
 
+def gen_supplier(sf: float, seed: int = 4, rows: int | None = None) -> pa.Table:
+    n = rows if rows is not None else int(10_000 * sf)
+    rng = np.random.default_rng(seed)
+    suppkey = np.arange(1, n + 1, dtype=np.int64)
+    nationkey = rng.integers(0, 25, size=n).astype(np.int64)
+    phone = np.char.add((nationkey + 10).astype("U2"), "-555-0100")
+    return pa.table({
+        "s_suppkey": pa.array(suppkey),
+        "s_name": pa.array(np.char.add("Supplier#", suppkey.astype("U9"))),
+        "s_address": pa.array(_sentences(rng, n, words=3)),
+        "s_nationkey": pa.array(nationkey),
+        "s_phone": pa.array(phone),
+        "s_acctbal": pa.array(np.round(rng.uniform(-999.99, 9999.99, size=n), 2)),
+        "s_comment": pa.array(_sentences(
+            rng, n, special=("Customer%Complaints", 0.05))),
+    })
+
+
+_NATIONS = [  # (key, name, regionkey) — dbgen nation table
+    (0, "ALGERIA", 0), (1, "ARGENTINA", 1), (2, "BRAZIL", 1), (3, "CANADA", 1),
+    (4, "EGYPT", 4), (5, "ETHIOPIA", 0), (6, "FRANCE", 3), (7, "GERMANY", 3),
+    (8, "INDIA", 2), (9, "INDONESIA", 2), (10, "IRAN", 4), (11, "IRAQ", 4),
+    (12, "JAPAN", 2), (13, "JORDAN", 4), (14, "KENYA", 0), (15, "MOROCCO", 0),
+    (16, "MOZAMBIQUE", 0), (17, "PERU", 1), (18, "CHINA", 2), (19, "ROMANIA", 3),
+    (20, "SAUDI ARABIA", 4), (21, "VIETNAM", 2), (22, "RUSSIA", 3),
+    (23, "UNITED KINGDOM", 3), (24, "UNITED STATES", 1)]
+
+
+def gen_nation() -> pa.Table:
+    return pa.table({
+        "n_nationkey": pa.array([k for k, _, _ in _NATIONS], type=pa.int64()),
+        "n_name": pa.array([n for _, n, _ in _NATIONS]),
+        "n_regionkey": pa.array([r for _, _, r in _NATIONS], type=pa.int64()),
+    })
+
+
+def gen_region() -> pa.Table:
+    return pa.table({
+        "r_regionkey": pa.array(np.arange(5, dtype=np.int64)),
+        "r_name": pa.array(["AFRICA", "AMERICA", "ASIA", "EUROPE",
+                            "MIDDLE EAST"]),
+    })
+
+
 # Queries compare dates as days-since-epoch ints via casts.
 _D = {
     "1993-01-01": 8401, "1993-07-01": 8582, "1993-10-01": 8674,
@@ -198,6 +245,45 @@ def q3(t):
             .limit(10))
 
 
+def q4(t):
+    """TPC-H Q4: order priority checking (EXISTS -> left-semi join)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    od = col("o_orderdate").cast(dt.INT)
+    li = t["lineitem"].select(
+        col("l_orderkey").alias("lk"),
+        (col("l_commitdate").cast(dt.INT)
+         < col("l_receiptdate").cast(dt.INT)).alias("late"))
+    return (t["orders"]
+            .filter((od >= lit(_D["1993-07-01"])) & (od < lit(_D["1993-10-01"])))
+            .join(li.filter(col("late")), how="left_semi",
+                  condition=col("o_orderkey") == col("lk"))
+            .group_by("o_orderpriority")
+            .agg(F.count_star().alias("order_count"))
+            .sort("o_orderpriority"))
+
+
+def q5(t):
+    """TPC-H Q5: local supplier volume (6-way join)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    od = col("o_orderdate").cast(dt.INT)
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (t["customer"]
+            .join(t["orders"], condition=col("c_custkey") == col("o_custkey"))
+            .filter((od >= lit(_D["1994-01-01"])) & (od < lit(_D["1995-01-01"])))
+            .join(t["lineitem"], condition=col("o_orderkey") == col("l_orderkey"))
+            .join(t["supplier"],
+                  condition=(col("l_suppkey") == col("s_suppkey"))
+                  & (col("c_nationkey") == col("s_nationkey")))
+            .join(t["nation"], condition=col("s_nationkey") == col("n_nationkey"))
+            .join(t["region"], condition=col("n_regionkey") == col("r_regionkey"))
+            .filter(col("r_name") == lit("ASIA"))
+            .group_by("n_name")
+            .agg(F.sum(rev).alias("revenue"))
+            .sort(col("revenue").desc()))
+
+
 def q6(t):
     """TPC-H Q6: forecast revenue change (scan+filter+sum, BASELINE ladder #1)."""
     from ..expr import functions as F
@@ -210,3 +296,52 @@ def q6(t):
                     & (col("l_quantity") < lit(24.0)))
             .agg(F.sum(col("l_extendedprice") * col("l_discount"))
                  .alias("revenue")))
+
+
+def q13_nolike(t):
+    """TPC-H Q13's shape (left outer join, then a count by customer and a
+    count by that count) without its ``o_comment NOT LIKE`` filter, which
+    waits for the device LIKE (ROADMAP Queue 1 step 8)."""
+    from ..expr import functions as F
+    col = F.col
+    orders = t["orders"].select(col("o_custkey").alias("ok_custkey"),
+                                col("o_orderkey"))
+    return (t["customer"]
+            .join(orders, how="left",
+                  condition=col("c_custkey") == col("ok_custkey"))
+            .group_by("c_custkey")
+            .agg(F.count(col("o_orderkey")).alias("c_count"))
+            .group_by("c_count")
+            .agg(F.count_star().alias("custdist"))
+            .sort(col("custdist").desc(), col("c_count").desc()))
+
+
+def q21(t):
+    """TPC-H Q21: suppliers who kept orders waiting (EXISTS + NOT EXISTS with
+    non-equi residuals -> semi/anti joins)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    late = (col("l_receiptdate").cast(dt.INT)
+            > col("l_commitdate").cast(dt.INT))
+    l2 = t["lineitem"].select(col("l_orderkey").alias("l2_orderkey"),
+                              col("l_suppkey").alias("l2_suppkey"))
+    l3 = (t["lineitem"].filter(late)
+          .select(col("l_orderkey").alias("l3_orderkey"),
+                  col("l_suppkey").alias("l3_suppkey")))
+    return (t["supplier"]
+            .join(t["lineitem"].filter(late),
+                  condition=col("s_suppkey") == col("l_suppkey"))
+            .join(t["orders"], condition=col("o_orderkey") == col("l_orderkey"))
+            .filter(col("o_orderstatus") == lit("F"))
+            .join(t["nation"], condition=col("s_nationkey") == col("n_nationkey"))
+            .filter(col("n_name") == lit("SAUDI ARABIA"))
+            .join(l2, how="left_semi",
+                  condition=(col("l_orderkey") == col("l2_orderkey"))
+                  & (col("l2_suppkey") != col("l_suppkey")))
+            .join(l3, how="left_anti",
+                  condition=(col("l_orderkey") == col("l3_orderkey"))
+                  & (col("l3_suppkey") != col("l_suppkey")))
+            .group_by("s_name")
+            .agg(F.count_star().alias("numwait"))
+            .sort(col("numwait").desc(), col("s_name").asc())
+            .limit(100))

@@ -1,15 +1,17 @@
-"""The keyed aggregate's and the sort's torch ops on the card against the
-same functions on the CPU, without the JAX package, so the file runs on the
-card's machine:
+"""The keyed aggregate's, the sort's and the joins' torch ops on the card
+against the same functions on the CPU, without the JAX package, so the file
+runs on the card's machine:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_ops.py
 
-The CPU side is held against the JAX package by tests/test_torch_groupby.py;
-here every test needs the card and skips without one. Grouping planes,
-sort permutations, hashes and key words must be equal exactly; float64
-group sums at rel 1e-12, since ``index_add_`` on the card adds in no fixed
-order."""
+The CPU side is held against the JAX package by tests/test_torch_groupby.py,
+tests/test_torch_joins.py and tests/test_torch_join_types.py; here every
+test needs the card and skips without one. Grouping planes, sort
+permutations, hashes, key words, join codes, counts and join outputs must be
+equal exactly; float64 group sums at rel 1e-12, since ``index_add_`` on the
+card adds in no fixed order."""
 import numpy as np
+import pyarrow as pa
 import pytest
 import torch
 
@@ -34,12 +36,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _planes(seed: int, n: int, cap: int):
+def _planes(seed: int, n: int, cap: int, width: int = 32):
     """Column planes with nulls, NaN, -0.0, +-inf, extreme ints and strings
-    of mixed widths; rows past ``n`` hold stale values."""
+    of mixed lengths in a ``width``-byte matrix; rows past ``n`` hold stale
+    values."""
     rng = np.random.default_rng(seed)
     raw = [_WORDS[i].encode() for i in rng.integers(0, len(_WORDS), cap)]
-    mat = np.zeros((cap, 32), np.uint8)
+    mat = np.zeros((cap, width), np.uint8)
     lengths = np.zeros(cap, np.int32)
     for i, b in enumerate(raw):
         mat[i, :len(b)] = np.frombuffer(b, np.uint8)
@@ -211,3 +214,80 @@ def test_q3_on_card_equals_host_engine(cuda_device, aqe):
             np.testing.assert_allclose(a, b, rtol=1e-9)
         else:
             assert a == b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", [["s"], ["d"], ["s", "d", "i", "b"]])
+def test_join_codes_and_counts_on_card_equal_cpu(cuda_device, keys):
+    """The general join codes (string words of two matrix widths, floats
+    with NaN and -0.0, several keys), the stable counts and the build-row
+    tracking: exactly the CPU's."""
+    from spark_rapids_tpu_torch.exec import joins as J
+    outs = []
+    for device in ("cpu", cuda_device):
+        build = _table(_planes(21, 30_000, 1 << 15), device)
+        probe = _table(_planes(22, 100_000, 1 << 17, width=24), device)
+        bgid, pgid = J.join_codes(
+            [build.column(k) for k in keys], build.row_mask,
+            [probe.column(k) for k in keys], probe.row_mask)
+        outs.append([t.cpu() for t in (bgid, pgid,
+                                       *J.count_matches(bgid, pgid),
+                                       J.build_matched(bgid, pgid))])
+    for got, want in zip(outs[1], outs[0]):
+        assert torch.equal(got, want)
+
+
+def _join_sides(seed: int) -> dict:
+    """Two sides keyed by a string (nulls, empty, multi-byte) and a double
+    (NaN, -0.0, nulls), with many rows to a key."""
+    rng = np.random.default_rng(seed)
+    words = np.array(["", "a", "b", "Spark", "ünïcode", "日本語",
+                      "longer string value", "zz"], dtype=object)
+    floats = np.array([0.0, -0.0, np.nan, 1.5, -2.25])
+
+    def side(n, names):
+        k, k2, v, w = names
+        return pa.table({
+            k: pa.array(rng.choice(words, n), mask=rng.random(n) < 0.05),
+            k2: pa.array(rng.choice(floats, n), mask=rng.random(n) < 0.05),
+            v: rng.integers(-50, 50, n), w: rng.normal(size=n) * 40})
+    return {"l": side(900, ("k", "k2", "a", "x")),
+            "r": side(400, ("rk", "rk2", "b", "y"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full",
+                                 "left_semi", "left_anti"])
+def test_joins_with_conditions_in_windows_on_card_equal_cpu(cuda_device,
+                                                            how,
+                                                            monkeypatch):
+    """Every join type on a string and a float key with a residual
+    condition, over a batch budget small enough that the output comes in
+    windows (``slice_rows`` and ``_windowed_expand``): the card's rows equal
+    the same plan's on the CPU in order, and the host engine's."""
+    from harness import assert_tables_equal
+    from spark_rapids_tpu_torch.exec import joins as J
+    windows = []
+    real = J.TpuShuffledHashJoinExec._windowed_expand
+
+    def spy(self, *args):
+        windows.append(self.how)
+        yield from real(self, *args)
+    monkeypatch.setattr(J.TpuShuffledHashJoinExec, "_windowed_expand", spy)
+    results = []
+    for device in ("cpu", cuda_device):
+        before = len(windows)
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                             "spark.rapids.tpu.batchRowsMinBucket": 64,
+                             "spark.rapids.sql.batchSizeBytes": 96 * 1024},
+                            device=device)
+        t = {k: sess.create_dataframe(v, num_partitions=2)
+             for k, v in _join_sides(5).items()}
+        q = t["l"].join(t["r"], how=how, condition=(
+            F.col("k") == F.col("rk")) & (F.col("k2") == F.col("rk2"))
+            & (F.col("a") > F.col("b")))
+        results.append(q.collect())
+        assert len(windows) > before, "no windowed expand"
+    assert_tables_equal(results[1], results[0])
+    assert_tables_equal(results[1], q.collect(device=False),
+                        ignore_order=True)

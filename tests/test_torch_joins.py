@@ -403,7 +403,8 @@ def test_count_expand_join_output_equals_jax(kind, distinct):
     build, jbuild = _side(rng, "b", 400, 512, kind, distinct)
     probe, jprobe = _side(rng, "p", 700, 1024, kind, distinct)
     node, jnode = _nodes(probe, build, jprobe, jbuild)
-    got = node._expand_join(build, probe)
+    # the hash prep finds the build keys repeat: the count path, one expand
+    (got,) = node._probe_join(build, [probe])
     kern = jnode._kernels
     b_order, sv, nvalid, _ = kern.build_prep_fn()(_key_col(jbuild, "bk"))
     starts, counts, _ = kern.probe_count_fn(False)(
@@ -417,22 +418,34 @@ def test_count_expand_join_output_equals_jax(kind, distinct):
 
 
 def test_out_of_slice_joins_raise_naming_the_roadmap_step():
+    """Every hash join type builds on the device, on multi-key, string,
+    mixed-type keys and with a residual condition; what is still out of the
+    slice raises naming its ROADMAP step: joins without equi-keys (the
+    nested-loop join, step 6) and binary keys (step 8)."""
+    from spark_rapids_tpu_torch.columnar import dtypes as tdt
     rng = np.random.default_rng(0)
     build, jbuild = _side(rng, "b", 6, 8, "int64", 4)
     probe, jprobe = _side(rng, "p", 6, 8, "int64", 4)
     node, _ = _nodes(probe, build, jprobe, jbuild)
     left, right = node.left, node.right
-    for how, cond, lk, rk in [
-            ("left", None, ["pk"], ["bk"]),
-            ("left_anti", None, ["pk"], ["bk"]),
-            ("inner", F.col("pd").expr, ["pk"], ["bk"]),
-            ("inner", None, ["pk", "pi"], ["bk", "bi"]),
-            ("inner", None, ["ps"], ["bs"]),
-            ("inner", None, ["pk"], ["bd"])]:
+    for how in tjoins.SUPPORTED:
+        for cond, lk, rk in [(None, ["pk"], ["bk"]),
+                             (F.col("pd").expr, ["pk"], ["bk"]),
+                             (None, ["pk", "pi"], ["bk", "bi"]),
+                             (None, ["ps"], ["bs"]),
+                             (None, ["pk"], ["bd"])]:
+            tjoins.TpuShuffledHashJoinExec(
+                left, right, lk, rk, how, cond, False, torch.device("cpu"))
+    for how, lk, rk in [("cross", [], []), ("inner", [], [])]:
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 step 6"):
             tjoins.TpuShuffledHashJoinExec(
-                left, right, lk, rk, how, cond, False, torch.device("cpu"))
+                left, right, lk, rk, how, None, False, torch.device("cpu"))
+    binary = type(left)(Schema([Field("pb", tdt.BINARY)]))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 8"):
+        tjoins.TpuShuffledHashJoinExec(binary, binary, ["pb"], ["pb"],
+                                       "inner", None, False,
+                                       torch.device("cpu"))
 
 
 # ---------------------------------------------------------------------------

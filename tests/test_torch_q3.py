@@ -137,13 +137,18 @@ def test_q3_with_no_building_customer_is_empty(tables, shape):
 
 
 def test_out_of_slice_joins_are_tagged_and_run_on_the_host_engine(tables):
-    """A left join and a join with a residual condition are tagged with the
-    ROADMAP step that ports them and run on the host engine, equal to the
-    JAX package; nothing falls back silently."""
+    """A left join and a join with a residual condition, out of the slice
+    when Q3 came, now run on the device (nothing tags them, and
+    ``test.enabled`` lets them run) equal to the host engine and the JAX
+    package. A join on binary keys is still out of the slice: it is tagged
+    with the ROADMAP step that ports it and runs on the host engine;
+    nothing falls back silently."""
     sess = TorchSession(device="cpu")
     jsess = TpuSession({})
+    strict = TorchSession({"spark.rapids.sql.test.enabled": True},
+                          device="cpu")
     outs = []
-    for s, fns, gen in ((sess, F, tpch), (jsess, JF, jtpch)):
+    for s, fns, gen in ((strict, F, tpch), (jsess, JF, jtpch)):
         cust = s.create_dataframe(tables["customer"], num_partitions=2)
         orders = s.create_dataframe(tables["orders"], num_partitions=2)
         col = fns.col
@@ -157,15 +162,28 @@ def test_out_of_slice_joins_are_tagged_and_run_on_the_host_engine(tables):
                           fns.sum(col("c_acctbal")).alias("b"))
                      .sort("c_mktsegment") for q in (left, cond)])
     for q, jq in zip(*outs):
-        report = q.explain("device")
-        assert "ROADMAP Queue 1 step 6" in report
+        joins = [ln for ln in q.explain("device").splitlines()
+                 if "JoinExec" in ln]
+        assert joins and all("will run on the device" in ln for ln in joins)
         got = q.collect()
         assert_tables_equal(got, q.collect(device=False), ignore_order=False)
         assert_tables_equal(got, jq.collect(device=True), ignore_order=False)
-        strict = TorchSession({"spark.rapids.sql.test.enabled": True},
-                              device="cpu")
-        with pytest.raises(AssertionError, match="fell off the device"):
-            strict._physical(q.logical, True).collect()
+    names = pa.array([n.encode() for n in
+                      tables["customer"].column("c_name").to_pylist()],
+                     type=pa.binary())
+    cust = sess.create_dataframe(pa.table({
+        "kb": names, "c_acctbal": tables["customer"].column("c_acctbal")}),
+        num_partitions=2)
+    other = sess.create_dataframe(pa.table({
+        "kb2": names.take(np.arange(0, len(names), 3)),
+        "w": np.arange(len(range(0, len(names), 3)), dtype=np.int64)}))
+    q = cust.join(other, condition=F.col("kb") == F.col("kb2"))
+    assert "ROADMAP Queue 1 step 8" in q.explain("device")
+    got = q.collect()
+    assert got.num_rows == other.collect().num_rows
+    assert_tables_equal(got, q.collect(device=False))
+    with pytest.raises(AssertionError, match="fell off the device"):
+        strict._physical(q.logical, True).collect()
 
 
 def test_aqe_leaves_a_stage_of_many_partitions_as_it_is(tables):
