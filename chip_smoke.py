@@ -6,10 +6,13 @@
 Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
 
 1. kernel phase: each kernel's wrapper against its plain PyTorch version on
-   the card (exact equality for ``axpy``), and the device time per call
-   (CUDA graphs timed with CUDA events) of the kernel, the plain version and
-   one PyTorch library call computing the same function, beside the bound
-   the card's memory rate sets;
+   the card (exact equality for ``axpy`` and ``nfa_match``, the latter on
+   random UTF-8 rows of widths 8, 64 and 256 under Q13's and Q16's LIKE
+   patterns and three regexes, and on its timing inputs), and the device
+   time per call (CUDA graphs timed with CUDA events) of the kernel, the
+   plain version and one PyTorch library call computing the same function
+   where there is one, beside the bound the card's memory rate sets on the
+   bytes that the timed data needs read;
 2. Q6 phase: TPC-H Q6 through ``TorchSession`` on the card, against the
    port's host engine and an independent numpy computation, with cold and
    warm wall times and a profiler trace of one more warm run;
@@ -46,8 +49,19 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    printed, ``axpy`` launched 0 times, a trace of a warm run; then the
    device time of each new join step on the runs' own inputs (join codes
    of Q5's two-key join, Q4's semi hash build and walk, Q21's sorted prep,
-   counts and ``expand_cond``, the outer expand, tracking and leftover),
-   and the seconds of each phase and of the whole run.
+   counts and ``expand_cond``, the outer expand, tracking and leftover).
+7. TPC-H phase, over the joins phase's tables and part and partsupp at
+   ``--q3-sf``: the sixteen queries no earlier phase runs (the fifteen new
+   ones, Q2, Q7-Q12, Q14-Q20 and Q22, and Q13 with its ``NOT LIKE``:
+   scalar subqueries, ``distinct``, date parts, string predicates, LIKE on
+   ``nfa_match``), each with AQE on (cold, then warm) and off, against the
+   host engine by tests/test_tpch_full.py's rules, and Q11, Q13, Q15, Q16
+   and Q22 against numpy (their subqueries' values too); every plan device
+   nodes only above the scans; ``nfa_match`` launched once per batch of the
+   LIKE filter's table on Q13 and Q16 and never elsewhere, and held exactly
+   against its plain version on those filters' own inputs; a trace of a
+   warm run; a summary table; and the seconds of each phase and of the
+   whole run.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -60,6 +74,7 @@ import argparse
 import datetime
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +84,7 @@ import pyarrow as pa
 import torch
 
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+OPS_PER_S = 67e12             # H100 SXM float32 rate outside tensor cores
 _EPOCH = datetime.date(1970, 1, 1)
 L2_BYTES = 50 * 2**20         # H100 L2 cache
 
@@ -143,6 +159,201 @@ def kernel_phase(gen: torch.Generator) -> dict:
               f"{t['plain_ms']:.6f} ms, addcmul {t['library_ms']:.6f} ms, "
               f"bound {t['bound_ms']:.6f} ms (bytes)", flush=True)
     return {"max_abs_err": max_err, "timings": timings}
+
+
+#: characters of the random rows of the NFA check: ASCII, line terminators,
+#: two-, three- and four-byte UTF-8, and the words of the patterns
+_NFA_CHARS = list("abcdeprsqu ixyz019#\n\r") + ["\u00e9", "\u00df",
+                                                 "\u4e2d", "\U0001f600"]
+_NFA_WORDS = ["special", "requests", "Customer", "Complaints", "ab", "c"]
+
+
+def _nfa_rows(n: int, w: int, rng: np.random.Generator):
+    """(values uint8 (n, w), lengths int32 (n,)) of random UTF-8 rows of up
+    to ``w`` bytes, cut at a character boundary: one in eight empty, one
+    in ten ``ab<digits>c`` and one in ten a run of ``ab``/``c`` with an
+    optional ``x`` (whole-row matches of the anchored patterns), the rest
+    random characters and the LIKE patterns' words."""
+    values = np.zeros((n, w), np.uint8)
+    lengths = np.zeros(n, np.int32)
+    for i in range(n):
+        kind = rng.random()
+        if kind < 0.125:
+            continue
+        if kind < 0.225:
+            b = ("ab" + "".join(map(str, rng.integers(0, 10, int(
+                rng.integers(1, 6))))) + "c").encode()
+        elif kind < 0.325:
+            b = ("".join(rng.choice(["ab", "c"], int(rng.integers(1, 7))))
+                 + ("x" if rng.random() < 0.5 else "")).encode()
+        else:
+            target = int(rng.integers(1, w + 1))
+            b = b""
+            while True:
+                part = (_NFA_WORDS[rng.integers(len(_NFA_WORDS))]
+                        if rng.random() < 0.15 else
+                        _NFA_CHARS[rng.integers(len(_NFA_CHARS))]).encode()
+                if len(b) + len(part) > target:
+                    break
+                b += part
+        if len(b) > w:
+            continue
+        values[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lengths[i] = len(b)
+    return values, lengths
+
+
+def _nfa_patterns() -> dict:
+    """label -> DeviceNfa: Q13's and Q16's LIKE patterns as the port
+    compiles them, an anchored regex and a nullable one."""
+    from spark_rapids_tpu_torch.expr.base import AttributeReference, Literal
+    from spark_rapids_tpu_torch.expr.regex import compile_device_nfa
+    from spark_rapids_tpu_torch.expr.strings import Like
+    out = {}
+    for label, pat in (("Q13 LIKE", "%special%requests%"),
+                       ("Q16 LIKE", "%Customer%Complaints%")):
+        out[label] = Like(AttributeReference("s"), Literal(pat)).device_nfa()
+    for pat in ("^ab[0-9]+c$", "^(ab|c)*x?$", "(ab|c)*x?$"):
+        out[pat] = compile_device_nfa(pat)
+    for label, nfa in out.items():
+        if nfa is None:
+            raise AssertionError(f"{label}: outside the device NFA subset")
+    if not (out["^ab[0-9]+c$"].anchored_start
+            and out["^ab[0-9]+c$"].anchored_end
+            and out["^(ab|c)*x?$"].nullable
+            and not out["(ab|c)*x?$"].anchored_start):
+        raise AssertionError("NFA check patterns lost their flags")
+    return out
+
+
+def _nfa_args(nfa, values: torch.Tensor, lengths: torch.Tensor) -> tuple:
+    """The arguments of ``nfa_match`` for one compiled pattern."""
+    cls, masks = nfa.tables(values.device)
+    return (values, lengths, cls, masks, nfa.start_bits, nfa.accept_bits,
+            nfa.anchored_start, nfa.anchored_end, nfa.nullable)
+
+
+def _check_nfa(args: tuple, what: str) -> int:
+    """``nfa_match`` exactly equal to ``nfa_match_reference`` on ``args``;
+    returns the rows that match."""
+    from spark_rapids_tpu_torch.udf.kernels import (nfa_match,
+                                                    nfa_match_reference)
+    got = nfa_match(*args)
+    want = nfa_match_reference(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"nfa_match != nfa_match_reference: {what} "
+                             f"({int((got != want).sum())} rows differ)")
+    return int(got.sum())
+
+
+def _nfa_read_bytes(args: tuple) -> tuple:
+    """(32-byte sectors of the matrix, bytes of it) that ``nfa_match`` must
+    read on this data: each row from its start to the character at which
+    its answer is settled (a find() match unanchored at the end, or a dead
+    state set anchored at the start: the kernel's early exits), else to its
+    length; anchored at the end, also back from its length to the lead byte
+    of its last character."""
+    (values, lengths, cls_of, masks, start_bits, accept_bits,
+     anchored_start, anchored_end, _) = args
+    n, w = values.shape
+    dev = values.device
+    ln = lengths.long().clamp(0, w)
+    pos = torch.arange(w, device=dev)
+    lead = ((values & 0xC0) != 0x80) & (pos[None, :] < ln[:, None])
+    cls = cls_of.long()[values.long()]
+    bit = 1 << torch.arange(masks.shape[1], dtype=torch.int64, device=dev)
+    active = torch.full((n,), start_bits, dtype=torch.int64, device=dev)
+    need = ln.clone()
+    open_ = torch.ones(n, dtype=torch.bool, device=dev)
+    for j in range(w):
+        nxt = (((active[:, None] & masks[cls[:, j]]) != 0).long()
+               * bit).sum(1)
+        if not anchored_start:
+            nxt = nxt | start_bits
+        active = torch.where(lead[:, j], nxt, active)
+        stop = torch.zeros_like(open_)
+        if not anchored_end:
+            stop = (active & accept_bits) != 0
+        if anchored_start:
+            stop = stop | (active == 0)
+        stop = stop & lead[:, j] & open_
+        need = torch.where(stop, j + 1, need)
+        open_ = open_ & ~stop
+    first = torch.arange(n, device=dev) * w        # each row's first byte
+
+    def sectors(lo, hi):                           # row bytes [lo, hi)
+        return torch.where(hi > lo, (first + hi + 31) // 32
+                           - (first + lo) // 32, 0)
+    total = sectors(torch.zeros_like(need), need)
+    read = need.clone()
+    if anchored_end:
+        last = w - 1 - torch.argmax(lead.flip(1).to(torch.int8), dim=1)
+        lo = torch.maximum(torch.where(lead.any(1), last, ln), need)
+        # the sector holding ``need``'s last byte is already counted
+        lo_sec = torch.maximum(lo, (first + need + 31) // 32 * 32 - first)
+        total = total + sectors(lo_sec, ln)
+        read = read + (ln - lo)
+    return int(total.sum()), int(read.sum())
+
+
+def nfa_kernel_phase() -> dict:
+    """``nfa_match`` against ``nfa_match_reference`` on the card, exactly,
+    on random UTF-8 rows of widths 8, 64 and 256 under Q13's and Q16's
+    LIKE patterns, an anchored regex and two nullable ones; then
+    its device time at 1 << 20 rows of width 128 under Q13's pattern (CUDA
+    graphs over inputs larger than L2), held against the plain version on
+    those inputs too, beside the plain version's time and the bound of the
+    bytes that this data makes it read."""
+    from spark_rapids_tpu_torch.udf.kernels import (nfa_match,
+                                                    nfa_match_reference)
+    rng = np.random.default_rng(7)
+    pats = _nfa_patterns()
+    hits = {}
+    for w in (8, 64, 256):
+        v, ln = _nfa_rows(4096, w, rng)
+        v, ln = torch.from_numpy(v).cuda(), torch.from_numpy(ln).cuda()
+        for label, nfa in pats.items():
+            hits[(label, w)] = _check_nfa(_nfa_args(nfa, v, ln),
+                                          f"{label}, width {w}")
+    print("# kernel nfa_match: equal to nfa_match_reference (exact), 4096 "
+          "rows each, matches per (pattern, width): " + ", ".join(
+              f"{k[0]} w{k[1]} {v}" for k, v in hits.items()), flush=True)
+    n, w = 1 << 20, 128
+    nfa = pats["Q13 LIKE"]
+    sets = []
+    base_v, base_ln = _nfa_rows(1 << 14, w, rng)
+    for _ in range(max(1, math.ceil(2 * L2_BYTES / (n * w)))):
+        pick = torch.from_numpy(rng.integers(0, len(base_ln), n)).cuda()
+        v = torch.from_numpy(base_v).cuda()[pick].contiguous()
+        ln = torch.from_numpy(base_ln).cuda()[pick].contiguous()
+        sets.append(_nfa_args(nfa, v, ln))
+    for i, args in enumerate(sets):
+        _check_nfa(args, f"timing set {i}, {n} rows of width {w}")
+    t = {"ms": _graph_ms(nfa_match, sets),
+         "plain_ms": _graph_ms(nfa_match_reference, sets, calls=1,
+                               replays=2),
+         "library_ms": None}
+    # the matrix's sectors this data needs read, the lengths read once and
+    # the bool output written, averaged over the timed sets; at least a
+    # load, a class lookup, a mask lookup and a combine a byte read, at
+    # the card's non-tensor rate
+    read = [_nfa_read_bytes(args) for args in sets]
+    sec = sum(r[0] for r in read) / len(read)
+    used = sum(r[1] for r in read) / len(read)
+    bytes_ms = (32 * sec + 4 * n + n) / MEM_BYTES_PER_S * 1e3
+    ops_ms = 4 * used / OPS_PER_S * 1e3
+    t["bound_ms"] = max(bytes_ms, ops_ms)
+    t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"# kernel nfa_match n={n} w={w} (Q13's pattern, "
+          f"{nfa.tables('cuda')[1].shape[1]} states, "
+          f"{nfa.tables('cuda')[1].shape[0]} byte classes; equal to "
+          f"nfa_match_reference on the timed inputs): kernel "
+          f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, library call "
+          f"none, bound {t['bound_ms']:.6f} ms ({t['bound_by']}; bytes "
+          f"{bytes_ms:.6f} ms for {used / n:.2f} bytes a row in "
+          f"{32 * sec / n:.2f} bytes of sectors out of {w}, operations "
+          f"{ops_ms:.6f} ms)", flush=True)
+    return {"max_abs_err": 0.0, "timings": t}
 
 
 def _q6_predicate(col, lit, dt):
@@ -1113,6 +1324,360 @@ def joins_phase(tables: dict, partitions: int) -> None:
         f"{k} {v:.2f}" for k, v in seconds.items()), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The other fifteen TPC-H queries (scalar subqueries, distinct, date parts,
+# string predicates and LIKE on the nfa_match kernel)
+# ---------------------------------------------------------------------------
+TPCH_NEW = ("q2", "q7", "q8", "q9", "q10", "q11", "q12", "q13", "q14",
+            "q15", "q16", "q17", "q18", "q19", "q20", "q22")
+# tests/test_tpch_full.py's rules: the final sort fixes the row order of
+# _ORDERED; a limit after a sort with ties cuts _LIMITED differently across
+# engines, so only their row counts and sorted float columns compare
+TPCH_ORDERED = {"q1", "q4", "q5", "q7", "q8", "q9", "q12", "q13", "q15",
+                "q16", "q20", "q22"}
+TPCH_LIMITED = {"q2", "q3", "q10", "q18", "q21"}
+
+
+def _same_value(a, b) -> bool:
+    if isinstance(a, float) and isinstance(b, float):
+        if math.isnan(a) or math.isnan(b):
+            return math.isnan(a) and math.isnan(b)
+        return math.isclose(a, b, rel_tol=1e-9, abs_tol=1e-9)
+    return a == b
+
+
+def _sorted_rows(table) -> list:
+    cols = [table.column(c).to_pylist() for c in table.column_names]
+    return sorted(zip(*cols), key=lambda r: tuple(
+        (v is None, "" if v is None else v) for v in r))
+
+
+def _compare_tpch(name: str, out, ref, what: str) -> None:
+    """``out`` against ``ref`` by tests/test_tpch_full.py's rules."""
+    if out.column_names != ref.column_names or out.num_rows != ref.num_rows:
+        raise AssertionError(f"{what}: {out.column_names} x {out.num_rows} "
+                             f"vs {ref.column_names} x {ref.num_rows}")
+    if name in TPCH_LIMITED:
+        for c in out.column_names:
+            if pa.types.is_floating(out.schema.field(c).type):
+                a = np.sort(out.column(c).to_numpy(zero_copy_only=False))
+                b = np.sort(ref.column(c).to_numpy(zero_copy_only=False))
+                if not np.allclose(a, b, rtol=1e-9, atol=0):
+                    raise AssertionError(f"{what}: column {c}")
+        return
+    if name in TPCH_ORDERED:
+        rows_a = list(zip(*[out.column(c).to_pylist()
+                            for c in out.column_names]))
+        rows_b = list(zip(*[ref.column(c).to_pylist()
+                            for c in ref.column_names]))
+    else:
+        rows_a, rows_b = _sorted_rows(out), _sorted_rows(ref)
+    for i, (ra, rb) in enumerate(zip(rows_a, rows_b)):
+        if not all(_same_value(x, y) for x, y in zip(ra, rb)):
+            raise AssertionError(f"{what}: row {i}: {ra} vs {rb}")
+
+
+def _dbgen_orders(t) -> dict:
+    """dbgen gives no orders to a customer whose key is a multiple of 3
+    (TPC-H 4.2.3); this generator draws every customer, so Q13 and Q22,
+    which count customers without orders, drop those orders first."""
+    o = t["orders"]
+    return dict(t, orders=o.filter(pa.array(
+        o.column("o_custkey").to_numpy() % 3 != 0)))
+
+
+def _group_sum(keys: np.ndarray, values: np.ndarray):
+    uniq, inv = np.unique(keys, return_inverse=True)
+    return uniq, np.bincount(inv.reshape(-1), weights=values,
+                             minlength=len(uniq))
+
+
+def _q11_numpy(t) -> dict:
+    """Q11 in numpy alone: German suppliers' stock value per part above a
+    ten-thousandth of the total (the scalar subquery), largest first."""
+    ps, s = t["partsupp"], t["supplier"]
+    nat = s.column("s_nationkey").to_numpy()
+    n = t["nation"]
+    germany = n.column("n_nationkey").to_numpy()[
+        _strings(n, "n_name") == "GERMANY"][0]
+    keep = nat[ps.column("ps_suppkey").to_numpy() - 1] == germany
+    value = (ps.column("ps_supplycost").to_numpy()[keep]
+             * ps.column("ps_availqty").to_numpy()[keep].astype(np.float64))
+    total = float(value.sum())
+    part, per = _group_sum(ps.column("ps_partkey").to_numpy()[keep], value)
+    big = per > total * 0.0001
+    part, per = part[big], per[big]
+    order = np.lexsort((part, -per))
+    return {"scalar": total, "ps_partkey": part[order].tolist(),
+            "value": per[order].tolist()}
+
+
+def _q13_like_numpy(t) -> dict:
+    """Q13 in numpy and Python ``re``: per customer the orders whose
+    comment does not match ``special.*requests``, then customers per count,
+    largest counts of customers first."""
+    rx = re.compile("special.*requests", re.DOTALL)
+    comments = _strings(t["orders"], "o_comment")
+    keep = np.fromiter((rx.search(c) is None for c in comments), bool,
+                       len(comments))
+    per_cust = np.bincount(
+        t["orders"].column("o_custkey").to_numpy()[keep] - 1,
+        minlength=t["customer"].num_rows)
+    c_count, custdist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-c_count, -custdist))
+    return {"c_count": c_count[order].tolist(),
+            "custdist": custdist[order].tolist(),
+            "dropped": int((~keep).sum())}
+
+
+def _q15_numpy(t) -> dict:
+    """Q15 in numpy alone: revenue per supplier over 1996-Q1, its maximum
+    (the scalar subquery) and the suppliers that reach it."""
+    li = t["lineitem"]
+    sd = _days(li, "l_shipdate")
+    keep = (sd >= 9496) & (sd < 9587)
+    rev = (li.column("l_extendedprice").to_numpy()[keep]
+           * (1.0 - li.column("l_discount").to_numpy()[keep]))
+    supp, per = _group_sum(li.column("l_suppkey").to_numpy()[keep], rev)
+    top = per == per.max()
+    return {"scalar": float(per.max()), "s_suppkey": supp[top].tolist(),
+            "total_revenue": per[top].tolist()}
+
+
+def _q16_numpy(t) -> dict:
+    """Q16 in numpy and Python ``re``: distinct suppliers per (brand, type,
+    size) of the qualifying parts, without the suppliers whose comment
+    matches ``Customer.*Complaints``; most suppliers first."""
+    s = t["supplier"]
+    rx = re.compile("Customer.*Complaints", re.DOTALL)
+    bad = {int(k) for k, c in zip(s.column("s_suppkey").to_numpy(),
+                                  _strings(s, "s_comment"))
+           if rx.search(c) is not None}
+    p, ps = t["part"], t["partsupp"]
+    brand, ptype = _strings(p, "p_brand"), _strings(p, "p_type")
+    size = p.column("p_size").to_numpy()
+    ok_part = ((brand != "Brand#45")
+               & ~np.char.startswith(ptype, "MEDIUM POLISHED")
+               & np.isin(size, [49, 14, 23, 45, 19, 3, 36, 9]))
+    pk = ps.column("ps_partkey").to_numpy() - 1
+    sk = ps.column("ps_suppkey").to_numpy()
+    sel = ok_part[pk] & ~np.isin(sk, list(bad))
+    groups: dict = {}
+    for i, k in zip(pk[sel], sk[sel]):
+        groups.setdefault((brand[i], ptype[i], int(size[i])), set()).add(
+            int(k))
+    rows = sorted(((-len(v), b, ty, sz) for (b, ty, sz), v in
+                   groups.items()))
+    return {"p_brand": [r[1] for r in rows], "p_type": [r[2] for r in rows],
+            "p_size": [r[3] for r in rows],
+            "supplier_cnt": [-r[0] for r in rows], "bad": len(bad)}
+
+
+def _q22_numpy(t) -> dict:
+    """Q22 in numpy alone: customers of seven country codes with an above
+    average positive balance (the scalar subquery) and no orders, counted
+    and summed per code."""
+    c = t["customer"]
+    code = np.asarray([p[:2] for p in _strings(c, "c_phone")])
+    bal = c.column("c_acctbal").to_numpy()
+    sel = np.isin(code, ["13", "31", "23", "29", "30", "18", "17"])
+    avg = float(bal[sel & (bal > 0.0)].mean())
+    has_orders = np.zeros(c.num_rows + 1, bool)
+    has_orders[t["orders"].column("o_custkey").to_numpy()] = True
+    keep = sel & (bal > avg) & ~has_orders[c.column("c_custkey").to_numpy()]
+    codes, inv = np.unique(code[keep], return_inverse=True)
+    inv = inv.reshape(-1)
+    return {"scalar": avg, "cntrycode": codes.tolist(),
+            "numcust": np.bincount(inv, minlength=len(codes)).tolist(),
+            "totacctbal": np.bincount(inv, weights=bal[keep],
+                                      minlength=len(codes)).tolist()}
+
+
+#: query -> (numpy version, exact columns, float columns)
+TPCH_NUMPY = {
+    "q11": (_q11_numpy, ("ps_partkey",), ("value",)),
+    "q13": (_q13_like_numpy, ("c_count", "custdist"), ()),
+    "q15": (_q15_numpy, ("s_suppkey",), ("total_revenue",)),
+    "q16": (_q16_numpy, ("p_brand", "p_type", "p_size", "supplier_cnt"),
+            ()),
+    "q22": (_q22_numpy, ("cntrycode", "numcust"), ("totacctbal",)),
+}
+
+
+class _SubqueryRecorder:
+    """While active, records the literal each scalar subquery becomes."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.expr.subquery import ScalarSubquery
+        self.cls = ScalarSubquery
+        self.real = real = ScalarSubquery.to_literal
+        self.values = values = []
+
+        def record(sub, session, device):
+            lit_ = real(sub, session, device)
+            values.append(lit_.value)
+            return lit_
+        ScalarSubquery.to_literal = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.to_literal = self.real
+
+
+def _scan_batches(rows: int, partitions: int) -> int:
+    """Host batches an in-memory table of ``rows`` uploads in (1 << 20 rows
+    a batch, at least one per partition; io/memory.py)."""
+    per = math.ceil(rows / partitions)
+    return sum(max(1, math.ceil(max(0, min(rows, (p + 1) * per) - p * per)
+                                / (1 << 20)))
+               for p in range(partitions))
+
+
+class _NfaRecorder:
+    """While active, records the arguments of every ``nfa_match`` call that
+    ``DeviceNfa.matches`` makes: the LIKE filter's own inputs."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.expr.regex import DeviceNfa
+        self.cls = DeviceNfa
+        self.real = real = DeviceNfa.matches
+        self.calls = calls = []
+
+        def record(nfa, ctx, col):
+            calls.append(_nfa_args(nfa, col.values.contiguous().clone(),
+                                   col.lengths.to(torch.int32).clone()))
+            return real(nfa, ctx, col)
+        DeviceNfa.matches = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.matches = self.real
+
+
+def _tpch_run(name: str, sess, q, aqe: bool, expect_nfa: int,
+              device: str, record_nfa: bool = False) -> tuple:
+    """One device run: (result, plan, wall, subquery values, nfa_match
+    launches, the LIKE filter's ``nfa_match`` arguments when
+    ``record_nfa``); its plan device nodes only, ``nfa_match`` launched
+    ``expect_nfa`` times and ``axpy`` never, counts set to 0 just before
+    and read just after."""
+    import contextlib
+    from spark_rapids_tpu_torch.udf.kernels import axpy, nfa_match
+    nfa_rec = _NfaRecorder() if record_nfa else contextlib.nullcontext()
+    axpy.launches = nfa_match.launches = 0
+    with _SubqueryRecorder() as sub, nfa_rec:
+        t0 = time.perf_counter()
+        plan = sess._physical(q.logical, True)
+        out = plan.collect().to_arrow()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"axpy": axpy.launches, "nfa_match": nfa_match.launches}
+    if launches["axpy"] != 0 or launches["nfa_match"] != expect_nfa:
+        raise AssertionError(
+            f"{name}: axpy launched {launches['axpy']} times, nfa_match "
+            f"{launches['nfa_match']} (expected 0 and {expect_nfa})")
+    _check_device_only(plan, name)
+    if not aqe and "AdaptiveExec" in plan.tree_string():
+        raise AssertionError(f"{name}: AQE ran with AQE off")
+    return (out, plan, wall, sub.values, launches["nfa_match"],
+            nfa_rec.calls if record_nfa else [])
+
+
+def tpch_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
+    """The sixteen TPC-H queries that no earlier phase runs, each with AQE
+    on (cold, then warm) and off, against the host engine by
+    tests/test_tpch_full.py's rules, and Q11, Q13, Q15, Q16 and Q22 also
+    against numpy (the scalar subqueries' values too); every plan device
+    nodes only; ``nfa_match`` launched once per batch of the LIKE filter's
+    table on Q13 (orders) and Q16 (supplier) and never elsewhere, ``axpy``
+    never, and held exactly against ``nfa_match_reference`` on the LIKE
+    filter's own inputs of the cold run; a trace of a warm run. Returns
+    {query: walls and counts}."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    dbgen = _dbgen_orders(tables)
+    like_rows = {"q13": dbgen["orders"].num_rows,
+                 "q16": tables["supplier"].num_rows}
+    summary = {}
+    for name in TPCH_NEW:
+        t_q = time.perf_counter()
+        t = dbgen if name in ("q13", "q22") else tables
+        # the wrappers count kernel launches; a CPU rehearsal launches none
+        expect_nfa = _scan_batches(like_rows[name], partitions) \
+            if name in like_rows and device == "cuda" else 0
+
+        def query(conf, t=t, name=name):
+            sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                                 **conf}, device=device)
+            return sess, tpch.QUERIES[name]({k: sess.create_dataframe(
+                v, num_partitions=partitions) for k, v in t.items()})
+        sess, q = query({})
+        runs = [_tpch_run(name, sess, q, True, expect_nfa, device,
+                          record_nfa=run == "cold" and name in like_rows)
+                for run in ("cold", "warm")]
+        out, plan = runs[-1][0], runs[-1][1]
+        print(plan.tree_string(), flush=True)
+        print(f"# {name} AQE events: " + "; ".join(plan.events), flush=True)
+        off_sess, off_q = query({"spark.rapids.tpu.aqe.enabled": False})
+        off = _tpch_run(name, off_sess, off_q, False, expect_nfa, device)
+        if name in like_rows:
+            # after the counts were read: these launches are not the run's
+            recorded = runs[0][5]
+            runs[0] = runs[0][:5] + ([],)
+            if len(recorded) != _scan_batches(like_rows[name], partitions):
+                raise AssertionError(f"{name}: LIKE filtered "
+                                     f"{len(recorded)} batches")
+            seen = []
+            for i, args in enumerate(recorded):
+                hit = _check_nfa(args, f"{name} LIKE filter batch {i}")
+                seen.append(f"{tuple(args[0].shape)} rows x width, "
+                            f"{hit} match")
+            del recorded, args
+            print(f"# {name} LIKE filter inputs of the cold run: nfa_match "
+                  "equal to nfa_match_reference (exact) on "
+                  + "; ".join(seen), flush=True)
+        t0 = time.perf_counter()
+        host = q.collect(device=False)
+        t_host = time.perf_counter() - t0
+        for r, what in zip(runs + [off], ("AQE on cold", "AQE on warm",
+                                          "AQE off")):
+            _compare_tpch(name, r[0], host, f"{name} device ({what}) vs "
+                          "host engine")
+        note = ""
+        if name in TPCH_NUMPY:
+            fn, exact, sums = TPCH_NUMPY[name]
+            want = fn(t)
+            _check_rows(out, want, exact, sums, f"{name} device vs numpy")
+            _check_rows(host, want, exact, sums, f"{name} host engine vs "
+                        "numpy")
+            if "scalar" in want:
+                for r in runs + [off]:
+                    if len(r[3]) != 1:
+                        raise AssertionError(f"{name}: subqueries {r[3]}")
+                    _close(float(r[3][0]), want["scalar"],
+                           f"{name} scalar subquery vs numpy")
+                note = f"; scalar subquery {runs[0][3][0]!r}"
+            if "dropped" in want:
+                note = f"; LIKE drops {want['dropped']} orders"
+            if "bad" in want:
+                note = f"; LIKE finds {want['bad']} complaint suppliers"
+        traced = _profile(q, name)
+        busy = None if traced is None else 100 * traced[0] / traced[1]
+        summary[name] = {"rows": out.num_rows, "cold_s": runs[0][2],
+                         "warm_s": runs[1][2], "aqe_off_s": off[2],
+                         "host_s": t_host, "busy_pct": busy,
+                         "nfa_launches": runs[1][4]}
+        print(f"# {name}: {out.num_rows} rows; device AQE on cold "
+              f"{runs[0][2]:.3f} s, warm {runs[1][2]:.3f} s; AQE off "
+              f"{off[2]:.3f} s; host engine {t_host:.3f} s; device busy "
+              + ("not measured" if busy is None else f"{busy:.1f} %")
+              + f" of the traced warm run; nfa_match launches in the warm "
+              f"run {runs[1][4]}, axpy 0{note}; "
+              f"{time.perf_counter() - t_q:.2f} s in all", flush=True)
+    return summary
+
+
 def _value(table, name: str) -> float:
     if table.num_rows != 1:
         raise AssertionError(f"expected one result row, got {table.num_rows}")
@@ -1162,6 +1727,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     kern = kernel_phase(gen)
+    nfa = nfa_kernel_phase()
     phase_s["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1229,18 +1795,46 @@ def main() -> int:
     t0 = time.perf_counter()
     joins_phase(jtables, args.partitions)
     phase_s["joins"] = time.perf_counter() - t0
+
+    # -- the other fifteen queries: subqueries, distinct, date parts,
+    #    string predicates and LIKE on the nfa_match kernel ----------------
+    t0 = time.perf_counter()
+    ptables = dict(jtables, part=tpch.gen_part(args.q3_sf, seed=3),
+                   partsupp=tpch.gen_partsupp(args.q3_sf, seed=5))
+    print(f"# part {ptables['part'].num_rows} rows, partsupp "
+          f"{ptables['partsupp'].num_rows} rows at sf={args.q3_sf}, "
+          f"generated in {time.perf_counter() - t0:.2f} s", flush=True)
+    summary = tpch_phase(ptables, args.partitions)
+    phase_s["tpch"] = time.perf_counter() - t0
+    print("# TPC-H summary (s): query rows cold warm aqe_off host busy%",
+          flush=True)
+    for name, r in summary.items():
+        busy = "n/m" if r["busy_pct"] is None else f"{r['busy_pct']:.1f}"
+        print(f"#   {name:4s} {r['rows']:6d} {r['cold_s']:.3f} "
+              f"{r['warm_s']:.3f} {r['aqe_off_s']:.3f} {r['host_s']:.3f} "
+              f"{busy}", flush=True)
     print("# phase seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items())
         + f"; whole run {time.perf_counter() - t_start:.2f} s", flush=True)
 
     t = kern["timings"][1 << 20]
+    tn = nfa["timings"]
     print(json.dumps({"kernels": [{
         "name": "axpy", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/axpy.cu",
         "replaces": "spark_rapids_tpu/udf/examples.py:101",
         "launches": launches, "max_abs_err": kern["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": "bytes", "library_ms": t["library_ms"]}]}), flush=True)
+        "bound_by": "bytes", "library_ms": t["library_ms"]}, {
+        "name": "nfa_match", "route": "cuda",
+        "source": "spark_rapids_tpu_torch/csrc/nfa_match.cu",
+        "replaces": "spark_rapids_tpu/expr/regex.py:459",
+        # read after the warm AQE-on runs of Q13 and Q16
+        "launches": summary["q13"]["nfa_launches"]
+        + summary["q16"]["nfa_launches"],
+        "max_abs_err": nfa["max_abs_err"], "ms": tn["ms"],
+        "plain_ms": tn["plain_ms"], "bound_ms": tn["bound_ms"],
+        "bound_by": tn["bound_by"], "library_ms": None}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

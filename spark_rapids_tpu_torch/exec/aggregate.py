@@ -9,7 +9,9 @@ hash into row-count buckets, and rounds resolve each bucket's
 minimum-index candidate's whole key class until no row is left. Group ids
 come out in order of first appearance, whatever the hash. Per-group
 reductions then run as ``index_add_`` / ``scatter_reduce_`` over the group
-ids, and each group's key is gathered from its first row.
+ids (float sums through a sort and a segmented reduction, so that on the
+card they are the same in every run), and each group's key is gathered
+from its first row.
 
 The partial pass fuses into the whole-stage node above the upload and
 emits one aggregated batch per input batch; the final pass concatenates
@@ -198,12 +200,44 @@ def _hash_group_ids(table: DeviceTable, key_names: List[str]
     return gid, is_rep, is_rep.sum(dtype=torch.int32)
 
 
-def _seg_sum(x: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.Tensor:
-    """Per-group sum; one segment is a plain reduction."""
+def _seg_sum(x: torch.Tensor, gid: torch.Tensor, cap: int,
+             segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """Per-group sum; one segment is a plain reduction. A float sum is
+    ``_seg_sum_sorted``: ``index_add_`` on the card adds with atomics, in
+    an order that changes from run to run, and two evaluations of one sum
+    must agree to the last bit (TPC-H Q15 compares a group's revenue with
+    the maximum of the same revenues, computed by its scalar subquery).
+    ``segments``: ``sorted_segments(gid, cap)``, when the caller has it."""
     if cap == 1:
         return x.sum(0, keepdim=True, dtype=x.dtype)
+    if x.is_floating_point():
+        return _seg_sum_sorted(x, gid, cap, segments)
     return torch.zeros(cap, dtype=x.dtype, device=x.device) \
         .index_add_(0, gid.long(), x)
+
+
+def sorted_segments(gid: torch.Tensor,
+                    cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the rows' stable order by group, each group's row count): one sort
+    that every float sum over the same group ids can share."""
+    g = gid.long()
+    order = torch.argsort(g, stable=True)
+    bounds = torch.searchsorted(
+        g[order], torch.arange(cap + 1, dtype=torch.int64, device=g.device))
+    return order, bounds[1:] - bounds[:-1]
+
+
+def _seg_sum_sorted(x: torch.Tensor, gid: torch.Tensor, cap: int,
+                    segments: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """Per-group sum that is the same in every run: the rows sorted by
+    group (stably), then one segmented reduction over each group's run."""
+    order, lengths = segments if segments is not None \
+        else sorted_segments(gid, cap)
+    return torch.segment_reduce(x[order], "sum", lengths=lengths,
+                                unsafe=True, initial=0)
 
 
 def _seg_extreme(x: torch.Tensor, gid: torch.Tensor, cap: int,
@@ -221,12 +255,15 @@ def _seg_extreme(x: torch.Tensor, gid: torch.Tensor, cap: int,
 
 def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
                     gid: torch.Tensor, cap: int, out_dt: dt.DataType,
-                    counts: Optional[torch.Tensor] = None
+                    counts: Optional[torch.Tensor] = None,
+                    segments: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-group reduction -> (values[cap], has[cap]); ``has`` is False for
     a group no row contributed to (its value is then null). ``counts``, the
     per-group count of ``contrib``, is computed when not given: callers
-    reducing many columns under one mask compute it once.
+    reducing many columns under one mask compute it once, and likewise
+    ``segments`` (``sorted_segments``) for float sums.
 
     Spark rules: NaN is the largest double; sum propagates NaN; masked-off
     rows may hold stale data (even NaN), so they are replaced with the
@@ -243,7 +280,7 @@ def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
                                                 device=vals.device)
     if op == "sum":
         x = torch.where(contrib, vals.to(out_dtype), 0)
-        return _seg_sum(x, gid, cap), has
+        return _seg_sum(x, gid, cap, segments), has
     if op not in ("min", "max"):
         raise NotImplementedError(
             f"aggregate op {op!r} is not ported yet (ROADMAP Queue 1 step 11)")
@@ -303,6 +340,8 @@ class TpuHashAggregateExec(TpuExec):
         cols_ops = aggregate_columns_ops(self.specs, mode or self.mode)
         key_names = self.key_names
         out_names = tuple(self.schema.names)
+        float_sums = any(op == "sum" and torch_dtype(out_dt).is_floating_point
+                         for _, op, _, out_dt in cols_ops)
 
         def contributions(table: DeviceTable, gid: torch.Tensor, cap: int):
             """col -> (contributing rows, their per-group count), the count
@@ -358,11 +397,13 @@ class TpuHashAggregateExec(TpuExec):
                 out_cols.append(g.with_validity(
                     torch.logical_and(g.validity, group_mask)))
             contribution = contributions(table, gid, cap)
+            # one sort of the group ids for every float sum
+            segments = sorted_segments(gid, cap) if float_sums else None
             for in_col, op, _, out_dt in cols_ops:
                 col = table.column(in_col)
                 contrib, counts = contribution(col)
                 vals, has = _reduce_segment(op, col.data, contrib, gid, cap,
-                                            out_dt, counts)
+                                            out_dt, counts, segments)
                 validity = group_mask if op == "count" \
                     else torch.logical_and(has, group_mask)
                 out_cols.append(DeviceColumn(vals, validity, out_dt))

@@ -21,7 +21,10 @@ from .predicates import (And, EqualNullSafe, EqualTo, GreaterThan,
                          LessThan, LessThanOrEqual, Not, Or)
 
 __all__ = ["Column", "SortOrder", "col", "lit", "when", "coalesce",
-           "sum", "count", "count_star", "min", "max", "avg", "mean", "abs"]
+           "sum", "count", "count_star", "min", "max", "avg", "mean", "abs",
+           "substring", "year", "month", "dayofmonth", "dayofweek",
+           "weekday", "dayofyear", "weekofyear", "quarter",
+           "scalar_subquery"]
 
 
 class Column:
@@ -118,6 +121,26 @@ class Column:
     def between(self, low, high) -> "Column":
         return (self >= low) & (self <= high)
 
+    def like(self, pattern: str) -> "Column":
+        from .strings import Like
+        return Column(Like(self.expr, Literal(pattern)))
+
+    def contains(self, needle) -> "Column":
+        from .strings import Contains
+        return Column(Contains(self.expr, _to_expr(needle)))
+
+    def startswith(self, prefix) -> "Column":
+        from .strings import StartsWith
+        return Column(StartsWith(self.expr, _to_expr(prefix)))
+
+    def endswith(self, suffix) -> "Column":
+        from .strings import EndsWith
+        return Column(EndsWith(self.expr, _to_expr(suffix)))
+
+    def substr(self, pos, ln) -> "Column":
+        from .strings import Substring
+        return Column(Substring(self.expr, _to_expr(pos), _to_expr(ln)))
+
     def asc(self) -> "SortOrder":
         return SortOrder(self.expr, ascending=True)
 
@@ -211,3 +234,58 @@ mean = avg
 
 def abs(c) -> Column:  # noqa: A001
     return Column(Abs(_to_expr(c)))
+
+
+# -- strings -------------------------------------------------------------------
+def substring(c, pos, ln) -> Column:
+    from .strings import Substring
+    return Column(Substring(_to_expr(c), _to_expr(pos), _to_expr(ln)))
+
+
+# -- date parts ----------------------------------------------------------------
+def year(c) -> Column:
+    from .datetimes import Year
+    return Column(Year(_to_expr(c)))
+
+
+def month(c) -> Column:
+    from .datetimes import Month
+    return Column(Month(_to_expr(c)))
+
+
+def dayofmonth(c) -> Column:
+    from .datetimes import DayOfMonth
+    return Column(DayOfMonth(_to_expr(c)))
+
+
+def dayofweek(c) -> Column:
+    from .datetimes import DayOfWeek
+    return Column(DayOfWeek(_to_expr(c)))
+
+
+def weekday(c) -> Column:
+    from .datetimes import WeekDay
+    return Column(WeekDay(_to_expr(c)))
+
+
+def dayofyear(c) -> Column:
+    from .datetimes import DayOfYear
+    return Column(DayOfYear(_to_expr(c)))
+
+
+def weekofyear(c) -> Column:
+    from .datetimes import WeekOfYear
+    return Column(WeekOfYear(_to_expr(c)))
+
+
+def quarter(c) -> Column:
+    from .datetimes import Quarter
+    return Column(Quarter(_to_expr(c)))
+
+
+# -- subqueries ----------------------------------------------------------------
+def scalar_subquery(df) -> Column:
+    """One-row one-column subquery, executed before the main query and
+    injected as a scalar (reference: GpuScalarSubquery)."""
+    from .subquery import ScalarSubquery
+    return Column(ScalarSubquery(df.logical))

@@ -53,6 +53,16 @@ class TorchNamespace:
     def ones_like(x: torch.Tensor) -> torch.Tensor:
         return torch.ones_like(x)
 
+    @staticmethod
+    def full_like(x: torch.Tensor, value) -> torch.Tensor:
+        return torch.full_like(x, value)
+
+    def asarray(self, a) -> torch.Tensor:
+        """A numpy array (or tensor) as a tensor on this device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        return torch.as_tensor(a, device=self.device)
+
     # -- elementwise ----------------------------------------------------------
     @staticmethod
     def astype(x: torch.Tensor, dtype) -> torch.Tensor:

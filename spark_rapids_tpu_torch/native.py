@@ -1,9 +1,10 @@
 """Builds and loads the hand-written CUDA kernels (``csrc/*.cu``).
 
-Every source is compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, at first use, and reached through ``ctypes``. The
-library is named by a content hash of the sources, so an edit rebuilds and
-an unchanged tree reuses the last build. A failed build raises with nvcc's
+Every source is compiled by its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects are linked into one shared library with a plain C
+interface, at first use, and reached through ``ctypes``. The library is
+named by a content hash of the sources, so an edit rebuilds and an
+unchanged tree reuses the last build. A failed build raises with nvcc's
 output: there is no path that carries on without the kernels.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ _HERE = Path(__file__).resolve().parent
 _SRC_DIR = _HERE / "csrc"
 _BUILD_DIR = _HERE / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -51,17 +52,34 @@ def _library_path() -> Path:
     return _BUILD_DIR / f"libsrt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Runs the commands side by side; raises with the output of the first
+    that fails, after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def _build(so: Path) -> None:
     global build_seconds
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(_SRC_DIR.glob("*.cu")))]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    sources = sorted(_SRC_DIR.glob("*.cu"))
+    objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr}{proc.stdout}")
+    _run_all([[nvcc, *_NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for src, o in zip(sources, objs)])
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    _run_all([[nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
 
@@ -82,5 +100,12 @@ def load_kernels() -> ctypes.CDLL:
             lib.srt_axpy_f32.argtypes = [ctypes.c_void_p] * 4 + [
                 ctypes.c_int64, ctypes.c_void_p]
             lib.srt_axpy_f32.restype = ctypes.c_int
+            lib.srt_nfa_match.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_uint32,
+                ctypes.c_uint32, ctypes.c_int32, ctypes.c_void_p,
+                ctypes.c_void_p]
+            lib.srt_nfa_match.restype = ctypes.c_int
             _LIB = lib
         return _LIB

@@ -27,7 +27,9 @@ from ..exec.wholestage import fuse_stages
 from ..expr import aggregates as A
 from ..expr import arithmetic as AR
 from ..expr import conditional as C
+from ..expr import datetimes as D
 from ..expr import predicates as P
+from ..expr import strings as S
 from ..expr.base import Alias, AttributeReference, Literal
 from ..expr.cast import Cast, cast_supported
 from ..udf.columnar import ColumnarUDF
@@ -46,8 +48,14 @@ __all__ = ["apply_overrides", "explain_plan"]
 _device_common = TypeSig.numeric + TypeSig.of(
     TypeEnum.BOOLEAN, TypeEnum.DATE, TypeEnum.TIMESTAMP, TypeEnum.NULL)
 #: plus strings, as the byte matrix: columns that operators carry, group
-#: by, sort by and compare (no other string function is ported yet)
+#: by, sort by and compare
 _device_all = _device_common + TypeSig.of(TypeEnum.STRING)
+#: the JAX package's signature of its string functions
+_string = TypeSig.of(TypeEnum.STRING, TypeEnum.BINARY, TypeEnum.INT,
+                     TypeEnum.BOOLEAN)
+#: ... and of its date parts
+_dt_sig = TypeSig.of(TypeEnum.DATE, TypeEnum.TIMESTAMP, TypeEnum.INT,
+                     TypeEnum.LONG, TypeEnum.DOUBLE) + TypeSig.integral
 
 
 def _register_expr_rules():
@@ -76,6 +84,32 @@ def _register_expr_rules():
             meta.cannot_run(f"columnar UDF {meta.expr.udf_name!r} declared "
                             "device_ok=False")
     register_expr_rule(ColumnarUDF, _device_common, tag_fn=tag_columnar_udf)
+    _register_string_rules()
+    for cls in (D.Year, D.Month, D.DayOfMonth, D.DayOfWeek, D.WeekDay,
+                D.DayOfYear, D.WeekOfYear, D.Quarter):
+        register_expr_rule(cls, _dt_sig)
+
+
+def _register_string_rules():
+    """The JAX package's rules (``plan/overrides.py`` string rules) for the
+    string functions ported here, with its tags and reasons."""
+    register_expr_rule(S.Substring, _string + TypeSig.integral)
+    register_expr_rule(S.StartsWith, _string)
+    register_expr_rule(S.EndsWith, _string)
+
+    def tag_contains(meta, conf):
+        if S.literal_value(meta.expr.right) is None:
+            meta.cannot_run("device contains pattern requires a literal")
+    register_expr_rule(S.Contains, _string, tag_fn=tag_contains)
+
+    def tag_like(meta, conf):
+        e: S.Like = meta.expr
+        if S.literal_value(e.pattern) is None:
+            meta.cannot_run("device LIKE requires a literal pattern")
+            return
+        if e.simple_kind() is None and e.device_nfa() is None:
+            meta.cannot_run("LIKE pattern outside the device regex subset")
+    register_expr_rule(S.Like, _string, tag_fn=tag_like)
 
 
 def _register_exec_rules():

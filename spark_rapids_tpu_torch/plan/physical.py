@@ -34,8 +34,12 @@ __all__ = [
     "CpuTakeOrderedExec",
     "Partitioning", "SinglePartitioning", "HashPartitioning",
     "RangePartitioning", "AggSpec", "host_eval_exprs", "empty_result_table",
-    "murmur_hash_columns",
+    "murmur_hash_columns", "PLAN_EXPR_ATTRS",
 ]
+
+#: every attribute a physical node may hold expressions in (bare, in lists,
+#: in ``SortOrder``s) — what the session's subquery pass walks
+PLAN_EXPR_ATTRS = ("exprs", "condition", "orders")
 
 class PhysicalPlan:
     children: Tuple["PhysicalPlan", ...] = ()

@@ -16,13 +16,15 @@ import torch
 from .conf import AQE_ENABLED, RapidsConf
 from .expr.base import Alias, AttributeReference, Expression
 from .expr.functions import SortOrder, _to_expr, col as _col
+from .expr.subquery import ScalarSubquery
 from .io.memory import InMemorySource
 from .plan.aqe import AdaptiveExec, walk_plan
 from .plan.logical import (LogicalAggregate, LogicalFilter, LogicalJoin,
                            LogicalLimit, LogicalPlan, LogicalProject,
                            LogicalScan, LogicalSort)
 from .plan.overrides import apply_overrides, explain_plan
-from .plan.physical import PhysicalPlan, ShuffleExchangeExec
+from .plan.physical import (PLAN_EXPR_ATTRS, PhysicalPlan,
+                            ShuffleExchangeExec)
 from .plan.planner import plan_physical
 from .plan.schema import Schema
 
@@ -64,6 +66,9 @@ class TorchSession:
                   device: Optional[bool] = None) -> PhysicalPlan:
         cpu = plan_physical(logical, self.conf)
         use_device = self.conf.is_sql_enabled if device is None else device
+        # scalar subqueries run first, on the same engine, and enter the
+        # main plan as literals (so AQE plans it with the value in place)
+        _bind_subqueries(cpu, self, device)
         if not use_device:
             return cpu
         if self.conf.get(AQE_ENABLED) and any(
@@ -125,6 +130,12 @@ class DataFrame:
 
     order_by = orderBy = sort
 
+    def distinct(self) -> "DataFrame":
+        """Row dedup = zero-aggregate group-by over all columns (the
+        planner lowers it to the grouped aggregate's key dedup)."""
+        return DataFrame(self.session, LogicalAggregate(
+            self.logical, [self._col_expr(n) for n in self.columns], []))
+
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, LogicalLimit(self.logical, n))
 
@@ -180,3 +191,34 @@ class GroupedData:
     def agg(self, *aggs) -> DataFrame:
         return DataFrame(self.df.session, LogicalAggregate(
             self.df.logical, self.groupings, [_to_expr(a) for a in aggs]))
+
+
+def _bind_subqueries(plan: PhysicalPlan, session: TorchSession,
+                     device: Optional[bool]) -> None:
+    """Run every scalar subquery of ``plan`` (in the session, before the main
+    query — reference: ExecSubqueryExpression / GpuScalarSubquery) and put
+    its value in the plan as a typed literal."""
+
+    def bind(e: Expression) -> Expression:
+        if isinstance(e, ScalarSubquery):
+            return e.to_literal(session, device)
+        if e.children:
+            new = [bind(c) for c in e.children]
+            if any(n is not o for n, o in zip(new, e.children)):
+                e = e.with_children(new)
+        return e
+
+    def bind_any(v):
+        if isinstance(v, Expression):
+            return bind(v)
+        if isinstance(v, list):
+            return [bind_any(x) for x in v]
+        if isinstance(v, SortOrder):  # shared with the exchange's bounds
+            v.expr = bind(v.expr)
+        return v
+
+    for node in walk_plan(plan):
+        for attr in PLAN_EXPR_ATTRS:
+            v = getattr(node, attr, None)
+            if v is not None:
+                setattr(node, attr, bind_any(v))

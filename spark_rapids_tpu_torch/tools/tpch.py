@@ -1,8 +1,11 @@
-"""TPC-H support for the port: the lineitem, orders, customer, supplier,
-nation and region generators, Q1, Q3, Q4, Q5, Q6, Q21, Q13's shape without
-its LIKE filter, and the date constants — copied from
-``spark_rapids_tpu/tools/tpch.py``, so both engines run the same data (byte
-for byte for one seed) and the same queries.
+"""TPC-H support for the port: the generators of all eight tables, the 22
+queries, Q13's shape without its LIKE filter, and the date constants —
+copied from ``spark_rapids_tpu/tools/tpch.py``, so both engines run the same
+data (byte for byte for one seed) and the same queries.
+
+Scalar subqueries (Q11, Q15, Q22) are ``functions.scalar_subquery``: the
+session runs them before the main plan and puts their value in as a
+literal. EXISTS / NOT EXISTS / IN become left-semi / left-anti joins.
 
 The generator is numpy, seeded, with dbgen-flavored value domains; prices
 are double (not decimal), the common benchmarking simplification; row
@@ -15,12 +18,28 @@ import pyarrow as pa
 
 from ..columnar import dtypes as dt
 
-__all__ = ["gen_lineitem", "gen_orders", "gen_customer", "gen_supplier",
-           "gen_nation", "gen_region", "q1", "q3", "q4", "q5", "q6",
-           "q13_nolike", "q21"]
+__all__ = ["gen_lineitem", "gen_orders", "gen_customer", "gen_part",
+           "gen_supplier", "gen_partsupp", "gen_nation", "gen_region",
+           "gen_all", "build_dataframes", "QUERIES", "TABLE_GENERATORS",
+           "q13_nolike"] + [f"q{i}" for i in range(1, 23)]
 
 _EPOCH_1992 = 8035   # days from unix epoch to 1992-01-01
 _DATE_RANGE = 2557   # ~7 years of ship dates
+
+_WORDS = np.array([
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque", "black",
+    "blanched", "blue", "blush", "brown", "burlywood", "burnished", "chartreuse",
+    "chiffon", "chocolate", "coral", "cornflower", "cornsilk", "cream", "cyan",
+    "dark", "deep", "dim", "dodger", "drab", "firebrick", "floral", "forest",
+    "frosted", "gainsboro", "ghost", "goldenrod", "green", "grey", "honeydew",
+    "hot", "indian", "ivory", "khaki", "lace", "lavender", "lawn", "lemon",
+    "light", "lime", "linen", "magenta", "maroon", "medium", "metallic",
+    "midnight", "mint", "misty", "moccasin", "navajo", "navy", "olive",
+    "orange", "orchid", "pale", "papaya", "peach", "peru", "pink", "plum",
+    "powder", "puff", "purple", "red", "rose", "rosy", "royal", "saddle",
+    "salmon", "sandy", "seashell", "sienna", "sky", "slate", "smoke", "snow",
+    "spring", "steel", "tan", "thistle", "tomato", "turquoise", "violet",
+    "wheat", "white", "yellow"])
 
 _FILLER = np.array([
     "carefully", "quickly", "furiously", "slyly", "blithely", "ironic",
@@ -150,6 +169,41 @@ def gen_customer(sf: float, seed: int = 2, rows: int | None = None) -> pa.Table:
     })
 
 
+_TYPE_1 = np.array(["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"])
+_TYPE_2 = np.array(["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"])
+_TYPE_3 = np.array(["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"])
+_CONT_1 = np.array(["SM", "MED", "LG", "JUMBO", "WRAP"])
+_CONT_2 = np.array(["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"])
+
+
+def gen_part(sf: float, seed: int = 3, rows: int | None = None) -> pa.Table:
+    n = rows if rows is not None else int(200_000 * sf)
+    rng = np.random.default_rng(seed)
+    name = rng.choice(_WORDS, size=(n, 5))
+    p_name = name[:, 0]
+    for i in range(1, 5):
+        p_name = np.char.add(np.char.add(p_name, " "), name[:, i])
+    p_type = np.char.add(np.char.add(
+        np.char.add(rng.choice(_TYPE_1, n), " "),
+        np.char.add(rng.choice(_TYPE_2, n), " ")), rng.choice(_TYPE_3, n))
+    container = np.char.add(np.char.add(rng.choice(_CONT_1, n), " "),
+                            rng.choice(_CONT_2, n))
+    mfgr_id = rng.integers(1, 6, size=n)
+    brand = np.char.add(np.char.add("Brand#", mfgr_id.astype("U1")),
+                        rng.integers(1, 6, size=n).astype("U1"))
+    return pa.table({
+        "p_partkey": pa.array(np.arange(1, n + 1, dtype=np.int64)),
+        "p_name": pa.array(p_name),
+        "p_mfgr": pa.array(np.char.add("Manufacturer#", mfgr_id.astype("U1"))),
+        "p_brand": pa.array(brand),
+        "p_type": pa.array(p_type),
+        "p_size": pa.array(rng.integers(1, 51, size=n).astype(np.int32)),
+        "p_container": pa.array(container),
+        "p_retailprice": pa.array(np.round(rng.uniform(900, 2000, size=n), 2)),
+        "p_comment": pa.array(_sentences(rng, n, words=3)),
+    })
+
+
 def gen_supplier(sf: float, seed: int = 4, rows: int | None = None) -> pa.Table:
     n = rows if rows is not None else int(10_000 * sf)
     rng = np.random.default_rng(seed)
@@ -165,6 +219,27 @@ def gen_supplier(sf: float, seed: int = 4, rows: int | None = None) -> pa.Table:
         "s_acctbal": pa.array(np.round(rng.uniform(-999.99, 9999.99, size=n), 2)),
         "s_comment": pa.array(_sentences(
             rng, n, special=("Customer%Complaints", 0.05))),
+    })
+
+
+def gen_partsupp(sf: float, seed: int = 5, rows: int | None = None) -> pa.Table:
+    """4 suppliers per part (dbgen layout); ps_suppkey spread deterministically
+    so (ps_partkey, ps_suppkey) pairs are unique."""
+    n_part = max((rows // 4) if rows is not None else int(200_000 * sf), 1)
+    # supplier domain tracks gen_all's tiny ratios (supplier = partsupp/19.2)
+    n_supp = max(round(rows / 19.2), 4) if rows is not None \
+        else max(int(10_000 * sf), 4)
+    rng = np.random.default_rng(seed)
+    partkey = np.repeat(np.arange(1, n_part + 1, dtype=np.int64), 4)
+    i = np.tile(np.arange(4, dtype=np.int64), n_part)
+    suppkey = ((partkey - 1 + i * max(n_supp // 4, 1)) % n_supp) + 1
+    n = len(partkey)
+    return pa.table({
+        "ps_partkey": pa.array(partkey),
+        "ps_suppkey": pa.array(suppkey),
+        "ps_availqty": pa.array(rng.integers(1, 10_000, size=n).astype(np.int32)),
+        "ps_supplycost": pa.array(np.round(rng.uniform(1.0, 1000.0, size=n), 2)),
+        "ps_comment": pa.array(_sentences(rng, n)),
     })
 
 
@@ -192,6 +267,29 @@ def gen_region() -> pa.Table:
         "r_name": pa.array(["AFRICA", "AMERICA", "ASIA", "EUROPE",
                             "MIDDLE EAST"]),
     })
+
+
+TABLE_GENERATORS = {
+    "lineitem": gen_lineitem, "orders": gen_orders, "customer": gen_customer,
+    "part": gen_part, "supplier": gen_supplier, "partsupp": gen_partsupp,
+    "nation": lambda sf, **kw: gen_nation(), "region": lambda sf, **kw: gen_region(),
+}
+
+_TINY_ROWS = {"lineitem": 3000, "orders": 750, "customer": 150, "part": 120,
+              "supplier": 25, "partsupp": 480}
+
+
+def gen_all(sf: float, tiny: bool = False) -> "dict[str, pa.Table]":
+    """All 8 tables; ``tiny=True`` caps row counts for unit tests."""
+    out = {}
+    for name, g in TABLE_GENERATORS.items():
+        if name in ("nation", "region"):
+            out[name] = g(sf)
+        elif tiny:
+            out[name] = g(sf, rows=_TINY_ROWS[name])
+        else:
+            out[name] = g(sf)
+    return out
 
 
 # Queries compare dates as days-since-epoch ints via casts.
@@ -224,6 +322,31 @@ def q1(t):
                  F.avg(col("l_discount")).alias("avg_disc"),
                  F.count_star().alias("count_order"))
             .sort("l_returnflag", "l_linestatus"))
+
+
+def q2(t):
+    """TPC-H Q2: minimum-cost supplier (correlated min subquery -> groupby +
+    re-join)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    base = (t["part"]
+            .filter((col("p_size") == lit(15)) & col("p_type").endswith("BRASS"))
+            .join(t["partsupp"], condition=col("p_partkey") == col("ps_partkey"))
+            .join(t["supplier"], condition=col("ps_suppkey") == col("s_suppkey"))
+            .join(t["nation"], condition=col("s_nationkey") == col("n_nationkey"))
+            .join(t["region"], condition=col("n_regionkey") == col("r_regionkey"))
+            .filter(col("r_name") == lit("EUROPE")))
+    mincost = (base.group_by("p_partkey")
+               .agg(F.min(col("ps_supplycost")).alias("min_sc"))
+               .select(col("p_partkey").alias("mc_partkey"), col("min_sc")))
+    return (base.join(mincost,
+                      condition=(col("p_partkey") == col("mc_partkey"))
+                      & (col("ps_supplycost") == col("min_sc")))
+            .select("s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+                    "s_address", "s_phone", "s_comment")
+            .sort(col("s_acctbal").desc(), col("n_name").asc(),
+                  col("s_name").asc(), col("p_partkey").asc())
+            .limit(100))
 
 
 def q3(t):
@@ -298,6 +421,168 @@ def q6(t):
                  .alias("revenue")))
 
 
+def q7(t):
+    """TPC-H Q7: volume shipping (nation self-pair, year extraction)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    sd = col("l_shipdate").cast(dt.INT)
+    n1 = t["nation"].select(col("n_nationkey").alias("n1_key"),
+                            col("n_name").alias("supp_nation"))
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("cust_nation"))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (t["supplier"]
+            .join(t["lineitem"], condition=col("s_suppkey") == col("l_suppkey"))
+            .filter((sd >= lit(_D["1995-01-01"])) & (sd <= lit(_D["1996-12-31"])))
+            .join(t["orders"], condition=col("o_orderkey") == col("l_orderkey"))
+            .join(t["customer"], condition=col("c_custkey") == col("o_custkey"))
+            .join(n1, condition=col("s_nationkey") == col("n1_key"))
+            .join(n2, condition=col("c_nationkey") == col("n2_key"))
+            .filter(((col("supp_nation") == lit("FRANCE"))
+                     & (col("cust_nation") == lit("GERMANY")))
+                    | ((col("supp_nation") == lit("GERMANY"))
+                       & (col("cust_nation") == lit("FRANCE"))))
+            .with_column("l_year", F.year(col("l_shipdate")))
+            .with_column("volume", rev)
+            .group_by("supp_nation", "cust_nation", "l_year")
+            .agg(F.sum(col("volume")).alias("revenue"))
+            .sort("supp_nation", "cust_nation", "l_year"))
+
+
+def q8(t):
+    """TPC-H Q8: national market share (conditional aggregate ratio)."""
+    from ..expr import functions as F
+    col, lit, when = F.col, F.lit, F.when
+    od = col("o_orderdate").cast(dt.INT)
+    n1 = t["nation"].select(col("n_nationkey").alias("n1_key"),
+                            col("n_regionkey").alias("n1_region"))
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("nation"))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (t["part"]
+            .filter(col("p_type") == lit("ECONOMY ANODIZED STEEL"))
+            .join(t["lineitem"], condition=col("p_partkey") == col("l_partkey"))
+            .join(t["supplier"], condition=col("l_suppkey") == col("s_suppkey"))
+            .join(t["orders"], condition=col("l_orderkey") == col("o_orderkey"))
+            .filter((od >= lit(_D["1995-01-01"])) & (od <= lit(_D["1996-12-31"])))
+            .join(t["customer"], condition=col("o_custkey") == col("c_custkey"))
+            .join(n1, condition=col("c_nationkey") == col("n1_key"))
+            .join(t["region"], condition=col("n1_region") == col("r_regionkey"))
+            .filter(col("r_name") == lit("AMERICA"))
+            .join(n2, condition=col("s_nationkey") == col("n2_key"))
+            .with_column("o_year", F.year(col("o_orderdate")))
+            .with_column("volume", rev)
+            .with_column("brazil_volume",
+                         when(col("nation") == lit("BRAZIL"), col("volume"))
+                         .otherwise(lit(0.0)))
+            .group_by("o_year")
+            .agg(F.sum(col("brazil_volume")).alias("num"),
+                 F.sum(col("volume")).alias("den"))
+            .with_column("mkt_share", col("num") / col("den"))
+            .select("o_year", "mkt_share")
+            .sort("o_year"))
+
+
+def q9(t):
+    """TPC-H Q9: product type profit measure."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    amount = (col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+              - col("ps_supplycost") * col("l_quantity"))
+    return (t["part"]
+            .filter(col("p_name").contains("green"))
+            .join(t["lineitem"], condition=col("p_partkey") == col("l_partkey"))
+            .join(t["supplier"], condition=col("l_suppkey") == col("s_suppkey"))
+            .join(t["partsupp"],
+                  condition=(col("ps_suppkey") == col("l_suppkey"))
+                  & (col("ps_partkey") == col("l_partkey")))
+            .join(t["orders"], condition=col("l_orderkey") == col("o_orderkey"))
+            .join(t["nation"], condition=col("s_nationkey") == col("n_nationkey"))
+            .with_column("o_year", F.year(col("o_orderdate")))
+            .with_column("amount", amount)
+            .group_by("n_name", "o_year")
+            .agg(F.sum(col("amount")).alias("sum_profit"))
+            .sort(col("n_name").asc(), col("o_year").desc()))
+
+
+def q10(t):
+    """TPC-H Q10: returned item reporting (top 20 customers)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    od = col("o_orderdate").cast(dt.INT)
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (t["customer"]
+            .join(t["orders"], condition=col("c_custkey") == col("o_custkey"))
+            .filter((od >= lit(_D["1993-10-01"])) & (od < lit(_D["1994-01-01"])))
+            .join(t["lineitem"], condition=col("o_orderkey") == col("l_orderkey"))
+            .filter(col("l_returnflag") == lit("R"))
+            .join(t["nation"], condition=col("c_nationkey") == col("n_nationkey"))
+            .group_by("c_custkey", "c_name", "c_acctbal", "c_phone", "n_name",
+                      "c_address", "c_comment")
+            .agg(F.sum(rev).alias("revenue"))
+            .sort(col("revenue").desc(), col("c_custkey").asc())
+            .limit(20))
+
+
+def q11(t):
+    """TPC-H Q11: important stock identification (global-scalar HAVING via
+    scalar subquery, the SQL formulation's shape)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    base = (t["partsupp"]
+            .join(t["supplier"], condition=col("ps_suppkey") == col("s_suppkey"))
+            .join(t["nation"], condition=col("s_nationkey") == col("n_nationkey"))
+            .filter(col("n_name") == lit("GERMANY"))
+            .with_column("value", col("ps_supplycost")
+                         * col("ps_availqty").cast(dt.DOUBLE)))
+    total = F.scalar_subquery(base.agg(F.sum(col("value")).alias("tv")))
+    return (base.group_by("ps_partkey")
+            .agg(F.sum(col("value")).alias("value"))
+            .filter(col("value") > total * lit(0.0001))
+            .select("ps_partkey", "value")
+            .sort(col("value").desc(), col("ps_partkey").asc()))
+
+
+def q12(t):
+    """TPC-H Q12: shipping modes and order priority (conditional counts)."""
+    from ..expr import functions as F
+    col, lit, when = F.col, F.lit, F.when
+    rd = col("l_receiptdate").cast(dt.INT)
+    cd = col("l_commitdate").cast(dt.INT)
+    sd = col("l_shipdate").cast(dt.INT)
+    high = when(col("o_orderpriority").isin("1-URGENT", "2-HIGH"), lit(1)) \
+        .otherwise(lit(0))
+    low = when(col("o_orderpriority").isin("1-URGENT", "2-HIGH"), lit(0)) \
+        .otherwise(lit(1))
+    return (t["lineitem"]
+            .filter(col("l_shipmode").isin("MAIL", "SHIP")
+                    & (cd < rd) & (sd < cd)
+                    & (rd >= lit(_D["1994-01-01"])) & (rd < lit(_D["1995-01-01"])))
+            .join(t["orders"], condition=col("l_orderkey") == col("o_orderkey"))
+            .with_column("high", high).with_column("low", low)
+            .group_by("l_shipmode")
+            .agg(F.sum(col("high")).alias("high_line_count"),
+                 F.sum(col("low")).alias("low_line_count"))
+            .sort("l_shipmode"))
+
+
+def q13(t):
+    """TPC-H Q13: customer distribution (left outer join + double grouping)."""
+    from ..expr import functions as F
+    col = F.col
+    orders = (t["orders"]
+              .filter(~col("o_comment").like("%special%requests%"))
+              .select(col("o_custkey").alias("ok_custkey"), col("o_orderkey")))
+    return (t["customer"]
+            .join(orders, how="left",
+                  condition=col("c_custkey") == col("ok_custkey"))
+            .group_by("c_custkey")
+            .agg(F.count(col("o_orderkey")).alias("c_count"))
+            .group_by("c_count")
+            .agg(F.count_star().alias("custdist"))
+            .sort(col("custdist").desc(), col("c_count").desc()))
+
+
 def q13_nolike(t):
     """TPC-H Q13's shape (left outer join, then a count by customer and a
     count by that count) without its ``o_comment NOT LIKE`` filter, which
@@ -314,6 +599,167 @@ def q13_nolike(t):
             .group_by("c_count")
             .agg(F.count_star().alias("custdist"))
             .sort(col("custdist").desc(), col("c_count").desc()))
+
+
+def q14(t):
+    """TPC-H Q14: promotion effect (conditional ratio over one month)."""
+    from ..expr import functions as F
+    col, lit, when = F.col, F.lit, F.when
+    sd = col("l_shipdate").cast(dt.INT)
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (t["lineitem"]
+            .filter((sd >= lit(_D["1995-09-01"])) & (sd < lit(_D["1995-10-01"])))
+            .join(t["part"], condition=col("l_partkey") == col("p_partkey"))
+            .with_column("rev", rev)
+            .with_column("promo", when(col("p_type").startswith("PROMO"),
+                                       col("rev")).otherwise(lit(0.0)))
+            .agg(F.sum(col("promo")).alias("promo_rev"),
+                 F.sum(col("rev")).alias("total_rev"))
+            .with_column("promo_revenue",
+                         lit(100.0) * col("promo_rev") / col("total_rev"))
+            .select("promo_revenue"))
+
+
+def q15(t):
+    """TPC-H Q15: top supplier (max-scalar via scalar subquery)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    sd = col("l_shipdate").cast(dt.INT)
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    revenue = (t["lineitem"]
+               .filter((sd >= lit(_D["1996-01-01"])) & (sd < lit(_D["1996-04-01"])))
+               .with_column("rev", rev)
+               .group_by("l_suppkey")
+               .agg(F.sum(col("rev")).alias("total_revenue")))
+    maxrev = F.scalar_subquery(
+        revenue.agg(F.max(col("total_revenue")).alias("max_revenue")))
+    return (t["supplier"]
+            .join(revenue, condition=col("s_suppkey") == col("l_suppkey"))
+            .filter(col("total_revenue") == maxrev)
+            .select("s_suppkey", "s_name", "s_address", "s_phone",
+                    "total_revenue")
+            .sort("s_suppkey"))
+
+
+def q16(t):
+    """TPC-H Q16: parts/supplier relationship (NOT IN -> left-anti, count
+    distinct via dedup + count)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    bad_supp = (t["supplier"]
+                .filter(col("s_comment").like("%Customer%Complaints%"))
+                .select(col("s_suppkey").alias("bad_key")))
+    return (t["partsupp"]
+            .join(t["part"], condition=col("ps_partkey") == col("p_partkey"))
+            .filter((col("p_brand") != lit("Brand#45"))
+                    & ~col("p_type").startswith("MEDIUM POLISHED")
+                    & col("p_size").isin(49, 14, 23, 45, 19, 3, 36, 9))
+            .join(bad_supp, how="left_anti",
+                  condition=col("ps_suppkey") == col("bad_key"))
+            .select("p_brand", "p_type", "p_size", "ps_suppkey")
+            .distinct()
+            .group_by("p_brand", "p_type", "p_size")
+            .agg(F.count_star().alias("supplier_cnt"))
+            .sort(col("supplier_cnt").desc(), col("p_brand").asc(),
+                  col("p_type").asc(), col("p_size").asc()))
+
+
+def q17(t):
+    """TPC-H Q17: small-quantity-order revenue (correlated avg subquery)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    avgq = (t["lineitem"].group_by("l_partkey")
+            .agg(F.avg(col("l_quantity")).alias("aq"))
+            .select(col("l_partkey").alias("aq_partkey"),
+                    (lit(0.2) * col("aq")).alias("qty_limit")))
+    return (t["lineitem"]
+            .join(t["part"], condition=col("l_partkey") == col("p_partkey"))
+            .filter((col("p_brand") == lit("Brand#23"))
+                    & (col("p_container") == lit("MED BOX")))
+            .join(avgq, condition=col("l_partkey") == col("aq_partkey"))
+            .filter(col("l_quantity") < col("qty_limit"))
+            .agg(F.sum(col("l_extendedprice")).alias("sum_price"))
+            .with_column("avg_yearly", col("sum_price") / lit(7.0))
+            .select("avg_yearly"))
+
+
+def q18(t):
+    """TPC-H Q18: large volume customer (HAVING -> filter over grouped agg,
+    IN -> left-semi)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    big = (t["lineitem"].group_by("l_orderkey")
+           .agg(F.sum(col("l_quantity")).alias("sum_qty"))
+           .filter(col("sum_qty") > lit(300.0))
+           .select(col("l_orderkey").alias("big_key")))
+    return (t["customer"]
+            .join(t["orders"], condition=col("c_custkey") == col("o_custkey"))
+            .join(big, how="left_semi",
+                  condition=col("o_orderkey") == col("big_key"))
+            .join(t["lineitem"], condition=col("o_orderkey") == col("l_orderkey"))
+            .group_by("c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                      "o_totalprice")
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"))
+            .sort(col("o_totalprice").desc(), col("o_orderdate").asc(),
+                  col("o_orderkey").asc())
+            .limit(100))
+
+
+def q19(t):
+    """TPC-H Q19: discounted revenue (disjunctive join predicate)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    qty = col("l_quantity")
+    sz = col("p_size")
+    c1 = ((col("p_brand") == lit("Brand#12"))
+          & col("p_container").isin("SM CASE", "SM BOX", "SM PACK", "SM PKG")
+          & (qty >= lit(1.0)) & (qty <= lit(11.0))
+          & (sz >= lit(1)) & (sz <= lit(5)))
+    c2 = ((col("p_brand") == lit("Brand#23"))
+          & col("p_container").isin("MED BAG", "MED BOX", "MED PKG", "MED PACK")
+          & (qty >= lit(10.0)) & (qty <= lit(20.0))
+          & (sz >= lit(1)) & (sz <= lit(10)))
+    c3 = ((col("p_brand") == lit("Brand#34"))
+          & col("p_container").isin("LG CASE", "LG BOX", "LG PACK", "LG PKG")
+          & (qty >= lit(20.0)) & (qty <= lit(30.0))
+          & (sz >= lit(1)) & (sz <= lit(15)))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (t["lineitem"]
+            .filter(col("l_shipmode").isin("AIR", "AIR REG")
+                    & (col("l_shipinstruct") == lit("DELIVER IN PERSON")))
+            .join(t["part"], condition=col("p_partkey") == col("l_partkey"))
+            .filter(c1 | c2 | c3)
+            .agg(F.sum(rev).alias("revenue")))
+
+
+def q20(t):
+    """TPC-H Q20: potential part promotion (nested IN -> stacked semi joins)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    sd = col("l_shipdate").cast(dt.INT)
+    qty = (t["lineitem"]
+           .filter((sd >= lit(_D["1994-01-01"])) & (sd < lit(_D["1995-01-01"])))
+           .group_by("l_partkey", "l_suppkey")
+           .agg(F.sum(col("l_quantity")).alias("sq"))
+           .select(col("l_partkey").alias("lq_partkey"),
+                   col("l_suppkey").alias("lq_suppkey"),
+                   (lit(0.5) * col("sq")).alias("half_qty")))
+    forest = (t["part"].filter(col("p_name").startswith("forest"))
+              .select(col("p_partkey").alias("fp_key")))
+    ps = (t["partsupp"]
+          .join(forest, how="left_semi",
+                condition=col("ps_partkey") == col("fp_key"))
+          .join(qty, how="left_semi",
+                condition=(col("ps_partkey") == col("lq_partkey"))
+                & (col("ps_suppkey") == col("lq_suppkey"))
+                & (col("ps_availqty").cast(dt.DOUBLE) > col("half_qty")))
+          .select(col("ps_suppkey").alias("ok_supp")))
+    return (t["supplier"]
+            .join(ps, how="left_semi", condition=col("s_suppkey") == col("ok_supp"))
+            .join(t["nation"], condition=col("s_nationkey") == col("n_nationkey"))
+            .filter(col("n_name") == lit("CANADA"))
+            .select("s_name", "s_address")
+            .sort("s_name"))
 
 
 def q21(t):
@@ -345,3 +791,35 @@ def q21(t):
             .agg(F.count_star().alias("numwait"))
             .sort(col("numwait").desc(), col("s_name").asc())
             .limit(100))
+
+
+def q22(t):
+    """TPC-H Q22: global sales opportunity (substring country codes, global
+    avg via scalar subquery, NOT EXISTS -> anti join)."""
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    cust = (t["customer"]
+            .with_column("cntrycode", F.substring(col("c_phone"), 1, 2))
+            .filter(col("cntrycode").isin(*codes)))
+    avg_bal = F.scalar_subquery(
+        cust.filter(col("c_acctbal") > lit(0.0))
+            .agg(F.avg(col("c_acctbal")).alias("avg_bal")))
+    ord_keys = t["orders"].select(col("o_custkey").alias("ord_custkey"))
+    return (cust
+            .filter(col("c_acctbal") > avg_bal)
+            .join(ord_keys, how="left_anti",
+                  condition=col("c_custkey") == col("ord_custkey"))
+            .group_by("cntrycode")
+            .agg(F.count_star().alias("numcust"),
+                 F.sum(col("c_acctbal")).alias("totacctbal"))
+            .sort("cntrycode"))
+
+
+QUERIES = {f"q{i}": globals()[f"q{i}"] for i in range(1, 23)}
+
+
+def build_dataframes(sess, tables: "dict[str, pa.Table]",
+                     num_partitions: int = 1):
+    return {name: sess.create_dataframe(tbl, num_partitions=num_partitions)
+            for name, tbl in tables.items()}

@@ -8,8 +8,10 @@ The CPU side is held against the JAX package by tests/test_torch_groupby.py,
 tests/test_torch_joins.py and tests/test_torch_join_types.py; here every
 test needs the card and skips without one. Grouping planes, sort
 permutations, hashes, key words, join codes, counts and join outputs must be
-equal exactly; float64 group sums at rel 1e-12, since ``index_add_`` on the
-card adds in no fixed order."""
+equal exactly; float64 group sums at rel 1e-12, since the card adds each
+group's values in another order than the CPU (but in the same order in every
+run). String functions and LIKE (its ``nfa_match`` kernel included) must
+give the CPU's values exactly."""
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -24,6 +26,7 @@ from spark_rapids_tpu_torch.expr import functions as F
 from spark_rapids_tpu_torch.session import TorchSession
 from spark_rapids_tpu_torch.shuffle.manager import fmix_device
 from spark_rapids_tpu_torch.tools import tpch
+from spark_rapids_tpu_torch.udf.kernels import nfa_match
 
 _WORDS = ["", "a", "ab", "ab\x00", "Spark", "ünïcode", "longer string value",
           "日本語", "zz"]
@@ -291,3 +294,104 @@ def test_joins_with_conditions_in_windows_on_card_equal_cpu(cuda_device,
     assert_tables_equal(results[1], results[0])
     assert_tables_equal(results[1], q.collect(device=False),
                         ignore_order=True)
+
+
+@pytest.mark.cuda
+def test_float_group_sums_on_card_are_the_same_every_run(cuda_device):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(900.0, 105_000.0, 1 << 18))
+    gid = torch.from_numpy(rng.integers(0, 10_000, 1 << 18)
+                           .astype(np.int32))
+    runs = [agg._seg_sum(x.to(cuda_device), gid.to(cuda_device), 10_000)
+            for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    np.testing.assert_allclose(runs[0].cpu().numpy(),
+                               agg._seg_sum(x, gid, 10_000).numpy(),
+                               rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_q15_on_card_equals_host_engine(cuda_device):
+    """Q15 keeps the suppliers whose revenue EQUALS the maximum revenue,
+    computed again by its scalar subquery: both sums must agree to the last
+    bit."""
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True})
+    q = tpch.q15({"lineitem": sess.create_dataframe(
+        tpch.gen_lineitem(0.05, seed=0), num_partitions=2),
+        "supplier": sess.create_dataframe(tpch.gen_supplier(0.05, seed=4))})
+    got, want = q.collect(), q.collect(device=False)
+    assert got.num_rows == want.num_rows == 1
+    assert got.column("s_suppkey").to_pylist() \
+        == want.column("s_suppkey").to_pylist()
+
+
+_LIKE_ROWS = ["special requests", "special\nrequests", "x special\r\n"
+              "requests y", "specialrequests", "requests special", "",
+              "Customer Complaints", "Customer\nComplaints",
+              "ünïcode special 日本 requests", "special request"]
+
+
+def _like_frame(sess, table: str, column: str):
+    """A TPC-H table's comments at SF 0.01 plus rows with line terminators
+    and multi-byte characters, in two partitions."""
+    t = (tpch.gen_orders(0.01, seed=1) if table == "orders"
+         else tpch.gen_supplier(0.01, seed=4)).select([column])
+    extra = pa.table({column: _LIKE_ROWS * 20})
+    return sess.create_dataframe(pa.concat_tables([t, extra]),
+                                 num_partitions=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table,column,pattern", [
+    ("orders", "o_comment", "%special%requests%"),
+    ("supplier", "s_comment", "%Customer%Complaints%")])
+def test_like_filters_on_card_equal_cpu(cuda_device, table, column,
+                                        pattern):
+    out = {}
+    for device in (cuda_device, "cpu"):
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True},
+                            device=device)
+        df = _like_frame(sess, table, column)
+        nfa_match.launches = 0
+        out[str(device)] = (df.filter(~F.col(column).like(pattern))
+                            .collect(), df.filter(F.col(column).like(pattern))
+                            .collect())
+        if device != "cpu":
+            assert nfa_match.launches == 4  # one per batch, two queries
+        host = (df.filter(~F.col(column).like(pattern)).collect(device=False),
+                df.filter(F.col(column).like(pattern)).collect(device=False))
+    assert out["cuda"][0].equals(out["cpu"][0])
+    assert out["cuda"][1].equals(out["cpu"][1])
+    assert out["cpu"][0].equals(host[0]) and out["cpu"][1].equals(host[1])
+    assert out["cuda"][1].num_rows > 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,ln", [(1, 2), (0, 3), (-3, 2), (-30, 28),
+                                    (5, 100), (40, 2), (2, -1)])
+def test_substring_on_card_equals_cpu(cuda_device, pos, ln):
+    words = ["13-555-0100", "", "ünïcode", "日本語のテキスト", "a",
+             "x" * 60 + "é"]
+    table = pa.table({"s": words * 50})
+    got = {}
+    for device in (cuda_device, "cpu"):
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True},
+                            device=device)
+        df = sess.create_dataframe(table, num_partitions=2)
+        got[str(device)] = df.select(F.substring(F.col("s"), pos, ln)
+                                     .alias("r")).collect()
+    assert got["cuda"].equals(got["cpu"])
+    assert got["cpu"].column("r").to_pylist() == [
+        _spark_substring(w, pos, ln) for w in words * 50]
+
+
+def _spark_substring(s: str, pos: int, ln: int) -> str:
+    """Spark's substring: 1-based, 0 as 1, negative from the end; a start
+    before the beginning shortens the result."""
+    if ln <= 0:
+        return ""
+    start = pos - 1 if pos > 0 else (0 if pos == 0 else len(s) + pos)
+    if start < 0:
+        ln, start = max(ln + start, 0), 0
+    return s[start:start + ln]

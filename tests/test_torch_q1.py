@@ -241,18 +241,24 @@ def test_host_engine_follows_the_shuffle_partitions_conf():
 
 def test_q1_partial_aggregate_counts_rows_once(monkeypatch):
     """Q1's partial aggregate adds each batch of 500 rows into the groups
-    once per sum (7 float64 passes) and counts them once (1 int64 pass):
-    the count of a null-free projected input, which count(*) and each avg
-    share."""
+    once per sum (7 float64 segmented sums over one sort of the group ids)
+    and counts them once (1 int64 pass): the count of a null-free projected
+    input, which count(*) and each avg share."""
     import torch
     calls = []
     index_add = torch.Tensor.index_add_
+    segment_reduce = torch.segment_reduce
 
     def counting(self, dim, index, source, **kw):
         calls.append((source.dtype, source.shape[0]))
         return index_add(self, dim, index, source, **kw)
 
+    def counting_segments(data, reduce, **kw):
+        calls.append((data.dtype, data.shape[0]))
+        return segment_reduce(data, reduce, **kw)
+
     monkeypatch.setattr(torch.Tensor, "index_add_", counting)
+    monkeypatch.setattr(torch, "segment_reduce", counting_segments)
     sess = TorchSession(_conf(8), device="cpu")
     li = tpch.gen_lineitem(0, seed=0, rows=1000)
     _q1(sess.create_dataframe(li, num_partitions=2)).collect()
