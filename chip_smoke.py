@@ -7,12 +7,18 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
 
 1. kernel phase: each kernel's wrapper against its plain PyTorch version on
    the card (exact equality for ``axpy`` and ``nfa_match``, the latter on
-   random UTF-8 rows of widths 8, 64 and 256 under Q13's and Q16's LIKE
-   patterns and three regexes, and on its timing inputs), and the device
+   both of its paths, the DFA table and the NFA path's successor tables,
+   on random UTF-8 rows, rows of length 0 and of the full width and
+   characters across its 16-byte pieces and 64-byte chunks, at widths 8,
+   16, 64, 256 and 4096, as the whole matrix and as views off 16-byte
+   alignment, under Q13's and Q16's LIKE patterns and six regexes, two of
+   them past the DFA's state cap, and on its timing inputs), and the device
    time per call (CUDA graphs timed with CUDA events) of the kernel, the
    plain version and one PyTorch library call computing the same function
-   where there is one, beside the bound the card's memory rate sets on the
-   bytes that the timed data needs read;
+   where there is one, beside the bound: the bytes that the timed data
+   needs read over the card's memory rate, or for ``nfa_match`` one
+   shared-memory lookup and one byte extraction a byte at those pipes'
+   rates and the SM clock, whichever is longer;
 2. Q6 phase: TPC-H Q6 through ``TorchSession`` on the card, against the
    port's host engine and an independent numpy computation, with cold and
    warm wall times and a profiler trace of one more warm run;
@@ -60,8 +66,11 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    nodes only above the scans; ``nfa_match`` launched once per batch of the
    LIKE filter's table on Q13 and Q16 and never elsewhere, and held exactly
    against its plain version on those filters' own inputs; a trace of a
-   warm run; a summary table; and the seconds of each phase and of the
-   whole run.
+   warm run; a summary table.
+8. Q20 phase: TPC-H Q20 over the same tables with lineitem's (part,
+   supplier) pairs drawn from partsupp's (with the generator's own pairs
+   Q20 finds no supplier), AQE on and off, against the host engine; it
+   fails on 0 rows. Then the seconds of each phase and of the whole run.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -84,7 +93,11 @@ import pyarrow as pa
 import torch
 
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
-OPS_PER_S = 67e12             # H100 SXM float32 rate outside tensor cores
+# lanes a clock an SM of the pipes that nfa_match's step uses (Hopper SM:
+# 32 load/store units, 64 integer lanes): the shared-memory lookup, and the
+# byte's extraction
+LDS_LANES_PER_CLOCK = 32
+INT_LANES_PER_CLOCK = 64
 _EPOCH = datetime.date(1970, 1, 1)
 L2_BYTES = 50 * 2**20         # H100 L2 cache
 
@@ -226,20 +239,29 @@ def _nfa_patterns() -> dict:
     return out
 
 
-def _nfa_args(nfa, values: torch.Tensor, lengths: torch.Tensor) -> tuple:
-    """The arguments of ``nfa_match`` for one compiled pattern."""
+def _nfa_args(nfa, values: torch.Tensor, lengths: torch.Tensor,
+              tables=None) -> tuple:
+    """The arguments of ``nfa_match`` for one compiled pattern, the kernel's
+    tables last (the pattern's own, cached on the ``DeviceNfa``, unless
+    ``tables`` is given); ``nfa_match_reference`` takes all but the last."""
     cls, masks = nfa.tables(values.device)
     return (values, lengths, cls, masks, nfa.start_bits, nfa.accept_bits,
-            nfa.anchored_start, nfa.anchored_end, nfa.nullable)
+            nfa.anchored_start, nfa.anchored_end, nfa.nullable,
+            tables if tables is not None
+            else nfa.kernel_tables(values.device))
+
+
+def _nfa_reference(*args):
+    from spark_rapids_tpu_torch.udf.kernels import nfa_match_reference
+    return nfa_match_reference(*args[:9])
 
 
 def _check_nfa(args: tuple, what: str) -> int:
     """``nfa_match`` exactly equal to ``nfa_match_reference`` on ``args``;
     returns the rows that match."""
-    from spark_rapids_tpu_torch.udf.kernels import (nfa_match,
-                                                    nfa_match_reference)
+    from spark_rapids_tpu_torch.udf.kernels import nfa_match
     got = nfa_match(*args)
-    want = nfa_match_reference(*args)
+    want = _nfa_reference(*args)
     if not torch.equal(got, want):
         raise AssertionError(f"nfa_match != nfa_match_reference: {what} "
                              f"({int((got != want).sum())} rows differ)")
@@ -254,7 +276,7 @@ def _nfa_read_bytes(args: tuple) -> tuple:
     length; anchored at the end, also back from its length to the lead byte
     of its last character."""
     (values, lengths, cls_of, masks, start_bits, accept_bits,
-     anchored_start, anchored_end, _) = args
+     anchored_start, anchored_end, _) = args[:9]
     n, w = values.shape
     dev = values.device
     ln = lengths.long().clamp(0, w)
@@ -296,64 +318,158 @@ def _nfa_read_bytes(args: tuple) -> tuple:
     return int(total.sum()), int(read.sum())
 
 
+def _edge_rows(w: int) -> tuple:
+    """Rows whose multi-byte characters straddle 16-byte pieces and 64-byte
+    chunks, at every alignment around those edges, and rows of length 0
+    and ``w``: (values, lengths)."""
+    rows = [b"", b"q" * w]
+    for edge in (16, 32, 64, 128, 256, 4096):
+        for lead in range(max(0, edge - 4), edge + 1):
+            for ch in ("\u00e9", "\u4e2d", "\U0001f600"):
+                b = (b"q" * lead + ch.encode() + b"requests")[:w]
+                if len(b) == len(b.decode("utf-8", "ignore").encode()):
+                    rows.append(b)
+    values = np.zeros((len(rows), w), np.uint8)
+    lengths = np.zeros(len(rows), np.int32)
+    for i, b in enumerate(rows):
+        values[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lengths[i] = len(b)
+    return values, lengths
+
+
+def _nfa_views(values: np.ndarray, lengths: np.ndarray) -> dict:
+    """The rows on the card as the whole matrix, a view from its second row
+    (8 bytes off 16-byte alignment at w = 8) and a view 5 bytes into a flat
+    buffer (every row off alignment)."""
+    n, w = values.shape
+    v = torch.from_numpy(values).cuda()
+    ln = torch.from_numpy(lengths).cuda()
+    flat = torch.zeros(n * w + 32, dtype=torch.uint8, device="cuda")
+    off = flat[5:5 + n * w].view(n, w)
+    off.copy_(v)
+    return {"whole": (v, ln), "from row 1": (v[1:], ln[1:].contiguous()),
+            "5 bytes off": (off, ln)}
+
+
+def _nfa_time(nfa, sets: list, tables=None) -> float:
+    from spark_rapids_tpu_torch.udf.kernels import nfa_match
+    args = [_nfa_args(nfa, a[0], a[1], tables) for a in sets]
+    return _graph_ms(nfa_match, args)
+
+
+def _sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
 def nfa_kernel_phase() -> dict:
     """``nfa_match`` against ``nfa_match_reference`` on the card, exactly,
-    on random UTF-8 rows of widths 8, 64 and 256 under Q13's and Q16's
-    LIKE patterns, an anchored regex and two nullable ones; then
-    its device time at 1 << 20 rows of width 128 under Q13's pattern (CUDA
-    graphs over inputs larger than L2), held against the plain version on
-    those inputs too, beside the plain version's time and the bound of the
-    bytes that this data makes it read."""
-    from spark_rapids_tpu_torch.udf.kernels import (nfa_match,
-                                                    nfa_match_reference)
+    on both of its paths (the DFA table, and the NFA path's chunked
+    successor tables, forced by a DFA cap of 0), on random UTF-8 rows and
+    on rows of length 0 and ``w`` and with characters across piece and
+    chunk edges, at widths 8, 16, 64, 256 and 4096, as the whole matrix
+    and as two views off 16-byte alignment, under Q13's and Q16's LIKE
+    patterns, an anchored regex, two nullable ones, an unanchored one and
+    two whose DFA exceeds the cap; then its device time at 1 << 20 rows of
+    width 128 under Q13's and Q16's patterns (CUDA graphs over inputs
+    larger than L2), held against the plain version on those inputs too,
+    beside the plain version's time and the bound: the bytes that this
+    data makes it read over the memory rate, or one shared-memory lookup
+    and one byte extraction a byte read, each at its pipe's rate."""
+    from spark_rapids_tpu_torch.expr.regex import compile_device_nfa
+    from spark_rapids_tpu_torch.udf.kernels import nfa_kernel_tables
     rng = np.random.default_rng(7)
     pats = _nfa_patterns()
-    hits = {}
-    for w in (8, 64, 256):
-        v, ln = _nfa_rows(4096, w, rng)
-        v, ln = torch.from_numpy(v).cuda(), torch.from_numpy(ln).cuda()
+    for pat in ("ab", "a[ab][ab][ab][ab][ab][ab]",
+                "(a|b)*a(a|b)(a|b)(a|b)(a|b)(a|b)$"):
+        pats[pat] = compile_device_nfa(pat)
+    nfa_only = {}
+    for label, nfa in pats.items():
+        nfa_only[label] = nfa_kernel_tables(
+            nfa.class_of_byte, nfa.masks, nfa.start_bits, nfa.accept_bits,
+            nfa.anchored_start, nfa.anchored_end, nfa.nullable,
+            dfa_max_states=0).to("cuda")
+        if nfa_only[label].dfa:
+            raise AssertionError(f"{label}: a DFA cap of 0 gave a DFA")
+    paths = {label: "DFA" if nfa.kernel_tables("cuda").dfa else "NFA"
+             for label, nfa in pats.items()}
+    if paths["a[ab][ab][ab][ab][ab][ab]"] != "NFA" \
+            or paths["Q13 LIKE"] != "DFA":
+        raise AssertionError(f"nfa_match paths: {paths}")
+    hits, checks = {}, 0
+    for w in (8, 16, 64, 256, 4096):
+        v, ln = _nfa_rows(4096 if w <= 256 else 512, w, rng)
+        ev, eln = _edge_rows(w)
+        views = _nfa_views(np.concatenate([v, ev]),
+                           np.concatenate([ln, eln]))
         for label, nfa in pats.items():
-            hits[(label, w)] = _check_nfa(_nfa_args(nfa, v, ln),
-                                          f"{label}, width {w}")
-    print("# kernel nfa_match: equal to nfa_match_reference (exact), 4096 "
-          "rows each, matches per (pattern, width): " + ", ".join(
+            for view, (vv, vl) in views.items():
+                for tables in (None, nfa_only[label]):
+                    hit = _check_nfa(_nfa_args(nfa, vv, vl, tables),
+                                     f"{label}, width {w}, {view}, "
+                                     + ("its own path" if tables is None
+                                        else "the NFA path"))
+                    checks += 1
+                    hits[(label, w)] = hit
+    print(f"# kernel nfa_match: equal to nfa_match_reference (exact) in "
+          f"{checks} checks; paths: " + ", ".join(
+              f"{k} {v}" for k, v in paths.items()) + "; matches per "
+          "(pattern, width): " + ", ".join(
               f"{k[0]} w{k[1]} {v}" for k, v in hits.items()), flush=True)
     n, w = 1 << 20, 128
-    nfa = pats["Q13 LIKE"]
-    sets = []
     base_v, base_ln = _nfa_rows(1 << 14, w, rng)
+    sets = []
     for _ in range(max(1, math.ceil(2 * L2_BYTES / (n * w)))):
         pick = torch.from_numpy(rng.integers(0, len(base_ln), n)).cuda()
-        v = torch.from_numpy(base_v).cuda()[pick].contiguous()
-        ln = torch.from_numpy(base_ln).cuda()[pick].contiguous()
-        sets.append(_nfa_args(nfa, v, ln))
-    for i, args in enumerate(sets):
-        _check_nfa(args, f"timing set {i}, {n} rows of width {w}")
-    t = {"ms": _graph_ms(nfa_match, sets),
-         "plain_ms": _graph_ms(nfa_match_reference, sets, calls=1,
-                               replays=2),
-         "library_ms": None}
-    # the matrix's sectors this data needs read, the lengths read once and
-    # the bool output written, averaged over the timed sets; at least a
-    # load, a class lookup, a mask lookup and a combine a byte read, at
-    # the card's non-tensor rate
-    read = [_nfa_read_bytes(args) for args in sets]
-    sec = sum(r[0] for r in read) / len(read)
-    used = sum(r[1] for r in read) / len(read)
-    bytes_ms = (32 * sec + 4 * n + n) / MEM_BYTES_PER_S * 1e3
-    ops_ms = 4 * used / OPS_PER_S * 1e3
-    t["bound_ms"] = max(bytes_ms, ops_ms)
-    t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"# kernel nfa_match n={n} w={w} (Q13's pattern, "
-          f"{nfa.tables('cuda')[1].shape[1]} states, "
-          f"{nfa.tables('cuda')[1].shape[0]} byte classes; equal to "
-          f"nfa_match_reference on the timed inputs): kernel "
-          f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, library call "
-          f"none, bound {t['bound_ms']:.6f} ms ({t['bound_by']}; bytes "
-          f"{bytes_ms:.6f} ms for {used / n:.2f} bytes a row in "
-          f"{32 * sec / n:.2f} bytes of sectors out of {w}, operations "
-          f"{ops_ms:.6f} ms)", flush=True)
-    return {"max_abs_err": 0.0, "timings": t}
+        sets.append((torch.from_numpy(base_v).cuda()[pick].contiguous(),
+                     torch.from_numpy(base_ln).cuda()[pick].contiguous()))
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count \
+        * _sm_clock_hz()
+    out = {}
+    for label in ("Q13 LIKE", "Q16 LIKE"):
+        nfa = pats[label]
+        timed = [_nfa_args(nfa, v, ln) for v, ln in sets]
+        for i, args in enumerate(timed):
+            _check_nfa(args, f"{label} timing set {i}, {n} rows of width "
+                       f"{w}")
+            _check_nfa(_nfa_args(nfa, args[0], args[1], nfa_only[label]),
+                       f"{label} timing set {i}, the NFA path")
+        t = {"ms": _nfa_time(nfa, sets),
+             "nfa_path_ms": _nfa_time(nfa, sets, nfa_only[label]),
+             "plain_ms": _graph_ms(_nfa_reference, timed, calls=1,
+                                   replays=2),
+             "library_ms": None}
+        # the matrix's sectors this data needs read, the lengths read once
+        # and the bool output written, averaged over the timed sets; a
+        # shared-memory lookup and a byte extraction a byte read, on their
+        # pipes
+        read = [_nfa_read_bytes(args) for args in timed]
+        sec = sum(r[0] for r in read) / len(read)
+        used = sum(r[1] for r in read) / len(read)
+        bytes_ms = (32 * sec + 4 * n + n) / MEM_BYTES_PER_S * 1e3
+        ops_ms = max(used / (LDS_LANES_PER_CLOCK * lanes),
+                     used / (INT_LANES_PER_CLOCK * lanes)) * 1e3
+        t["bound_ms"] = max(bytes_ms, ops_ms)
+        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        tab = nfa.kernel_tables("cuda")
+        print(f"# kernel nfa_match n={n} w={w} ({label}: "
+              f"{nfa.masks.shape[1]} NFA states, {nfa.masks.shape[0]} byte "
+              f"classes, a DFA of {tab.n_states} states; equal to "
+              f"nfa_match_reference on the timed inputs on both paths): "
+              f"kernel {t['ms']:.6f} ms, its NFA path "
+              f"{t['nfa_path_ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, "
+              f"library call none, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}; bytes {bytes_ms:.6f} ms for "
+              f"{used / n:.2f} bytes a row in {32 * sec / n:.2f} bytes of "
+              f"sectors out of {w}, operations {ops_ms:.6f} ms at "
+              f"{lanes / 1e9:.1f} G SM-clocks/s), "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound",
+              flush=True)
+        out[label] = t
+    return {"max_abs_err": 0.0, "timings": out["Q13 LIKE"],
+            "q16": out["Q16 LIKE"]}
 
 
 def _q6_predicate(col, lit, dt):
@@ -1678,6 +1794,45 @@ def tpch_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
     return summary
 
 
+def q20_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
+    """TPC-H Q20 on a non-empty result: lineitem rebuilt with its (part,
+    supplier) pairs drawn from partsupp's (the generators draw them
+    independently, and Q20 then finds no supplier), with AQE on and off,
+    each against the host engine by tests/test_tpch_full.py's rules, its
+    plan device nodes only; fails on 0 rows."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    ps, li = tables["partsupp"], tables["lineitem"]
+    pick = np.random.default_rng(20).integers(0, ps.num_rows, li.num_rows)
+    for c, pc in (("l_partkey", "ps_partkey"), ("l_suppkey", "ps_suppkey")):
+        li = li.set_column(li.schema.get_field_index(c), c,
+                           pa.array(ps.column(pc).to_numpy()[pick]))
+    t = dict(tables, lineitem=li)
+    out = {}
+    for aqe in (True, False):
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                             "spark.rapids.tpu.aqe.enabled": aqe},
+                            device=device)
+        q = tpch.q20({k: sess.create_dataframe(v, num_partitions=partitions)
+                      for k, v in t.items()})
+        res, plan, wall = _tpch_run("q20 (pairs from partsupp)", sess, q,
+                                    aqe, 0, device)[:3]
+        t0 = time.perf_counter()
+        host = q.collect(device=False)
+        t_host = time.perf_counter() - t0
+        what = f"q20 (pairs from partsupp, AQE {'on' if aqe else 'off'})"
+        _compare_tpch("q20", res, host, f"{what} device vs host engine")
+        if res.num_rows == 0:
+            raise AssertionError(f"{what}: no row")
+        out[aqe] = {"rows": res.num_rows, "wall_s": wall, "host_s": t_host}
+        print(f"# {what}: {res.num_rows} rows equal to the host engine's; "
+              f"device {wall:.3f} s (cold), host engine {t_host:.3f} s",
+              flush=True)
+        if aqe:
+            print(f"# q20 AQE events: " + "; ".join(plan.events), flush=True)
+    return out
+
+
 def _value(table, name: str) -> float:
     if table.num_rows != 1:
         raise AssertionError(f"expected one result row, got {table.num_rows}")
@@ -1806,6 +1961,11 @@ def main() -> int:
           f"generated in {time.perf_counter() - t0:.2f} s", flush=True)
     summary = tpch_phase(ptables, args.partitions)
     phase_s["tpch"] = time.perf_counter() - t0
+
+    # -- Q20 on rows: lineitem's pairs drawn from partsupp ----------------
+    t0 = time.perf_counter()
+    q20_phase(ptables, args.partitions)
+    phase_s["q20"] = time.perf_counter() - t0
     print("# TPC-H summary (s): query rows cold warm aqe_off host busy%",
           flush=True)
     for name, r in summary.items():

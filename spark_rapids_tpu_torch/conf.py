@@ -3,7 +3,11 @@ with only the keys this engine reads.
 
 A typed registry of ``spark.rapids.*`` entries with docs, defaults and
 validators (reference: ``RapidsConf.scala``, builder DSL at lines 121-299).
-Keys keep the JAX package's names so a configuration carries over.
+Keys keep the JAX package's names so a configuration carries over: every
+key the JAX package registers is either read here or registered with the
+JAX default, and any other value raises, naming the ROADMAP Queue 1 step
+that will read it (``_UNREAD_BY_STEP``). Keys the JAX package does not
+register either (the per-op enable keys among them) are kept as given.
 """
 from __future__ import annotations
 
@@ -44,9 +48,15 @@ class ConfEntry:
         else:
             v = raw
         if self.checker is not None:
-            err = self.checker(v)
+            try:
+                err = self.checker(v)
+            except NotImplementedError as e:
+                raise NotImplementedError(f"{self.key}={raw!r}: {e}") from None
             if err:
                 raise ValueError(f"{self.key}: {err}")
+            normalize = getattr(self.checker, "normalize", None)
+            if normalize is not None and isinstance(v, str):
+                v = normalize(v)
         return v
 
 
@@ -117,17 +127,22 @@ JOIN_STRATEGY = register_conf(
     "auto", checker=lambda v: None if str(v).lower() in ("auto", "sort", "hash")
     else "must be auto|sort|hash")
 
-def _not_ported_unless_default(default: Any, step: int
+def _not_ported_unless_default(default: Any, step: int,
+                               case_free: bool = False
                                ) -> Callable[[Any], Optional[str]]:
     """Checker of a conf the engine does not read yet: the default is what
-    it runs, any other value raises naming the ROADMAP step that reads it,
-    so a setting is never silently ignored."""
+    it runs, any other value (compared after the entry's type conversion,
+    and in lower case where ``case_free``) raises naming the ROADMAP step
+    that reads it, so a setting is never silently ignored."""
     def check(v: Any) -> Optional[str]:
-        if v != default:
+        if (v.lower() if case_free else v) != default:
             raise NotImplementedError(
                 f"a value other than {default!r} is not ported yet "
                 f"(ROADMAP Queue 1 step {step})")
         return None
+    if case_free:
+        # convert() stores the value in lower case, as the JAX entry does
+        check.normalize = str.lower
     return check
 
 
@@ -195,6 +210,167 @@ register_conf(
     "Skip the runtime IN-filter when the build side has more distinct keys "
     "than this.", 10_000,
     checker=_not_ported_unless_default(10_000, 7))
+
+
+#: Every key the JAX package registers that this engine does not read yet,
+#: with the JAX default, by the ROADMAP Queue 1 step that will read it. The
+#: port keeps its own copy (it imports nothing of the JAX package);
+#: tests/test_torch_conf.py holds it equal to the JAX registry.
+_UNREAD_BY_STEP: Dict[int, Dict[str, Any]] = {
+    1: {  # the scan device cache, coalescing after upload, bulk downloads
+        "spark.rapids.tpu.scan.deviceCache.enabled": True,
+        "spark.rapids.tpu.scan.deviceCache.maxBytes": 2 * 1024 ** 3,
+        "spark.rapids.tpu.coalesce.afterUpload.enabled": False,
+        "spark.rapids.tpu.coalesce.targetBytes": 512 * 1024 ** 2,
+        "spark.rapids.tpu.async.enabled": True,
+    },
+    2: {  # the Parquet device scan (and writer)
+        "spark.rapids.tpu.parquet.deviceDecode.enabled": True,
+        "spark.rapids.tpu.parquet.deviceDecode.booleans.enabled": True,
+        "spark.rapids.tpu.parquet.deviceDecode.strings.enabled": True,
+        "spark.rapids.tpu.parquet.deviceWrite.enabled": True,
+        "spark.rapids.sql.format.parquet.reader.type": "COALESCING",
+        "spark.rapids.sql.multiThreadedRead.numThreads": 8,
+        "spark.rapids.sql.reader.batchSizeRows": 2097152,
+        "spark.rapids.tpu.scan.filterPushdown.enabled": True,
+    },
+    3: {  # the grace join and the spill catalog
+        "spark.rapids.memory.host.spillStorageSize": 1024 ** 3,
+        "spark.rapids.memory.gpu.oomSpill.enabled": True,
+        "spark.rapids.tpu.memory.disk.checksum": True,
+        "spark.rapids.tpu.memory.disk.direct": True,
+    },
+    4: {  # decimal128
+        "spark.rapids.sql.decimal128.enabled": True,
+    },
+    5: {  # the relational surface (cache)
+        "spark.rapids.tpu.cache.compressionCodec": "none",
+    },
+    7: {  # memory and robustness
+        "spark.rapids.memory.gpu.allocFraction": 0.9,
+        "spark.rapids.memory.gpu.maxAllocFraction": 1.0,
+        "spark.rapids.tpu.memory.pool.mode": "logical",
+        "spark.rapids.tpu.memory.pool.size": 0,
+        "spark.rapids.tpu.memory.debug": False,
+        "spark.rapids.tpu.oom.arbitration.enabled": True,
+        "spark.rapids.tpu.oom.arbitration.maxWaitSeconds": 30.0,
+        "spark.rapids.tpu.oom.maxRetries": 2,
+        "spark.rapids.tpu.oom.maxSplits": 4,
+        "spark.rapids.tpu.fallback.enabled": True,
+        "spark.rapids.tpu.fallback.quarantine.enabled": True,
+        "spark.rapids.tpu.fallback.quarantine.maxEntries": 256,
+        "spark.rapids.tpu.fallback.quarantine.threshold": 3,
+        "spark.rapids.tpu.fallback.quarantine.ttlSeconds": 86400.0,
+        "spark.rapids.tpu.query.timeoutSeconds": 0.0,
+        "spark.rapids.sql.concurrentGpuTasks": 1,
+        "spark.rapids.tpu.donation.enabled": True,
+        "spark.rapids.tpu.donation.force": False,
+        "spark.rapids.tpu.faults.enabled": False,
+        "spark.rapids.tpu.faults.seed": 0,
+        "spark.rapids.tpu.faults.spec": "",
+    },
+    8: {  # multi-GPU: shuffle tiers, transports, the mesh, task runtime
+        "spark.rapids.tpu.shuffle.mode": "auto",
+        "spark.rapids.tpu.shuffle.cacheWrites": "auto",
+        "spark.rapids.tpu.shuffle.exchangeChunkRows": 524288,
+        "spark.rapids.tpu.shuffle.host.maxProviderRetries": 3,
+        "spark.rapids.tpu.shuffle.host.storeBytes": 256 * 1024 ** 2,
+        "spark.rapids.tpu.shuffle.tcp.chunkBytes": 1024 ** 2,
+        "spark.rapids.tpu.shuffle.tcp.connectTimeout": 10.0,
+        "spark.rapids.tpu.shuffle.tcp.readTimeout": 30.0,
+        "spark.rapids.tpu.shuffle.tcp.retryAttempts": 4,
+        "spark.rapids.tpu.shuffle.tcp.retryBackoffMs": 50.0,
+        "spark.rapids.tpu.shuffle.tcp.retryMaxBackoffMs": 1000.0,
+        "spark.rapids.shuffle.compression.codec": "none",
+        "spark.rapids.shuffle.maxMetadataSize": 1024 ** 3,
+        "spark.rapids.shuffle.transport.class":
+            "spark_rapids_tpu.shuffle.transport.LocalShuffleTransport",
+        "spark.rapids.shuffle.transport.maxReceiveInflightBytes":
+            64 * 1024 ** 2,
+        "spark.rapids.tpu.mesh.stageExecution.enabled": True,
+        "spark.rapids.tpu.task.timeout": 300.0,
+        "spark.rapids.tpu.task.maxFailures": 4,
+        "spark.rapids.tpu.task.respawnWorkers": True,
+        "spark.rapids.tpu.task.maxWorkerRespawns": 2,
+        "spark.rapids.tpu.task.heartbeatInterval": 2.0,
+        "spark.rapids.tpu.task.heartbeatTimeout": 60.0,
+        "spark.rapids.tpu.pipeline.enabled": True,
+        "spark.rapids.tpu.pipeline.prefetchDepth": 2,
+        "spark.rapids.tpu.pipeline.taskPool": 4,
+    },
+    9: {  # breadth: readers, float and agg modes, planner, UDFs,
+          # compile cache, observability
+        "spark.rapids.sql.format.csv.enabled": True,
+        "spark.rapids.sql.format.csv.reader.type": "AUTO",
+        "spark.rapids.sql.format.json.enabled": True,
+        "spark.rapids.sql.format.orc.enabled": True,
+        "spark.rapids.sql.format.orc.reader.type": "AUTO",
+        "spark.rapids.sql.csv.read.bool.enabled": True,
+        "spark.rapids.sql.csv.read.date.enabled": True,
+        "spark.rapids.sql.csv.read.double.enabled": True,
+        "spark.rapids.sql.csv.read.float.enabled": True,
+        "spark.rapids.sql.csv.read.int.enabled": True,
+        "spark.rapids.sql.csv.read.timestamp.enabled": True,
+        "spark.rapids.tpu.csv.deviceDecode.enabled": True,
+        "spark.rapids.tpu.json.deviceDecode.enabled": True,
+        "spark.rapids.tpu.debug.dumpPath": "",
+        "spark.rapids.sql.hasNans": True,
+        "spark.rapids.sql.improvedFloatOps.enabled": True,
+        "spark.rapids.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.tpu.groupby.strategy": "auto",
+        "spark.sql.mapKeyDedupPolicy": "exception",
+        "spark.rapids.sql.mode": "executeongpu",
+        "spark.rapids.sql.test.allowedNonGpu": "",
+        "spark.rapids.sql.optimizer.enabled": False,
+        "spark.rapids.sql.optimizer.deviceSpeedup": 4.0,
+        "spark.rapids.sql.optimizer.transitionWeight": 1.0,
+        "spark.rapids.tpu.sql.udfCompiler.enabled": True,
+        "spark.rapids.tpu.compile.enabled": True,
+        "spark.rapids.tpu.compile.cacheDir": "",
+        "spark.rapids.tpu.compile.warmPool.enabled": True,
+        "spark.rapids.tpu.compile.warmPool.maxSeconds": 30.0,
+        "spark.rapids.tpu.compile.warmPool.maxSignatures": 32,
+        "spark.rapids.tpu.shapeBuckets.growth": 2.0,
+        "spark.rapids.tpu.shapeBuckets.maxWasteFrac": 0.5,
+        "spark.rapids.tpu.shapeBuckets.minRows": 0,
+        "spark.rapids.tpu.debug.assertions": False,
+        "spark.rapids.sql.metrics.level": "MODERATE",
+        "spark.rapids.tpu.metrics.kernelTableSize": 4096,
+        "spark.rapids.tpu.metrics.xlaIntrospection": "lowered",
+        "spark.rapids.tpu.trace.enabled": False,
+        "spark.rapids.tpu.trace.dir": "",
+        "spark.rapids.tpu.trace.bufferSize": 65536,
+        "spark.rapids.tpu.trace.distributed.enabled": True,
+        "spark.rapids.tpu.trace.distributed.dir": "",
+        "spark.rapids.tpu.trace.distributed.clockProbes": 5,
+        "spark.rapids.tpu.eventLog.dir": "",
+        "spark.rapids.tpu.history.dir": "",
+        "spark.rapids.tpu.history.baseline": "",
+        "spark.rapids.tpu.health.enabled": False,
+        "spark.rapids.tpu.health.intervalMs": 1000,
+        "spark.rapids.tpu.health.port": -1,
+        "spark.rapids.tpu.health.reportDir": "",
+        "spark.rapids.tpu.health.stallTimeout": 120.0,
+        "spark.rapids.tpu.movement.enabled": False,
+        "spark.rapids.tpu.movement.ringSize": 4096,
+        "spark.rapids.tpu.memory.profile.enabled": True,
+        "spark.rapids.tpu.memory.profile.ringSize": 4096,
+        "spark.rapids.tpu.shuffle.telemetry.enabled": False,
+        "spark.rapids.tpu.shuffle.telemetry.ringSize": 4096,
+    },
+}
+#: string keys the JAX package compares in lower case
+_CASE_FREE = {"spark.rapids.sql.mode", "spark.sql.mapKeyDedupPolicy",
+              "spark.rapids.shuffle.compression.codec"}
+
+for _step, _keys in _UNREAD_BY_STEP.items():
+    for _key, _default in _keys.items():
+        register_conf(
+            _key, "Read by the JAX package; the port runs its default and "
+            "raises on any other value until ROADMAP Queue 1 step "
+            f"{_step} reads it.", _default,
+            checker=_not_ported_unless_default(_default, _step,
+                                               _key in _CASE_FREE))
 
 
 class RapidsConf:

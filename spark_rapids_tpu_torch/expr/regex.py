@@ -11,7 +11,9 @@ CudfRegexTranspiler:414).
   bits of a uint32, the 256-byte alphabet is compressed to equivalence
   classes, and ``DeviceNfa.matches`` runs it over a string matrix through
   the hand-written CUDA kernel ``nfa_match`` (csrc/nfa_match.cu), one thread
-  per row; on the CPU through its plain version.
+  per row walking a byte-indexed DFA built from the NFA (or, past the DFA's
+  state cap, chunked NFA successor tables); on the CPU through its plain
+  version.
 
 Match semantics follow Java ``Matcher.find()`` (unanchored unless ^/$).
 One difference from the JAX package, on purpose: ``dotall=True`` makes
@@ -22,10 +24,13 @@ Match spans (``match_ends``, regexp_replace/extract) are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Set, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from ..udf.kernels import NfaKernelTables
 
 __all__ = ["RegexUnsupported", "RegexParser", "transpile",
            "compile_device_nfa", "DeviceNfa", "unique_rows"]
@@ -415,6 +420,8 @@ class DeviceNfa:
         #: the tables as tensors, per device (uploaded once)
         self._tables: Dict[torch.device, Tuple[torch.Tensor,
                                                torch.Tensor]] = {}
+        #: the nfa_match kernel's tables, built once, per device
+        self._kernel_tables: Dict[torch.device, "NfaKernelTables"] = {}
 
     def tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(class_of_byte int32 (256,), masks int64 (classes, states)) on
@@ -427,6 +434,19 @@ class DeviceNfa:
                 torch.from_numpy(self.masks.astype(np.int64)).to(device))
         return self._tables[device]
 
+    def kernel_tables(self, device) -> "NfaKernelTables":
+        """The ``nfa_match`` kernel's tables (the byte-indexed DFA, or the
+        NFA path's chunked successor tables) on ``device``, built on the
+        host once per pattern."""
+        from ..udf.kernels import nfa_kernel_tables
+        device = torch.device(device)
+        if device not in self._kernel_tables:
+            self._kernel_tables[device] = nfa_kernel_tables(
+                self.class_of_byte, self.masks, self.start_bits,
+                self.accept_bits, self.anchored_start, self.anchored_end,
+                self.nullable).to(device)
+        return self._kernel_tables[device]
+
     def matches(self, ctx, col) -> torch.Tensor:
         """col: device EvalCol (string). Returns (n,) bool of find()
         matches: the ``nfa_match`` kernel on a CUDA batch, its plain
@@ -434,10 +454,12 @@ class DeviceNfa:
         from ..udf.kernels import nfa_match
         values = col.values.contiguous()
         cls, masks = self.tables(values.device)
+        tabs = self.kernel_tables(values.device) \
+            if values.device.type == "cuda" else None
         return nfa_match(values, col.lengths.to(torch.int32), cls, masks,
                          self.start_bits, self.accept_bits,
                          self.anchored_start, self.anchored_end,
-                         self.nullable)
+                         self.nullable, kernel_tables=tabs)
 
 
 def unique_rows(mat: np.ndarray):

@@ -102,10 +102,11 @@ def load_kernels() -> ctypes.CDLL:
             lib.srt_axpy_f32.restype = ctypes.c_int
             lib.srt_nfa_match.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_uint32,
-                ctypes.c_uint32, ctypes.c_int32, ctypes.c_void_p,
-                ctypes.c_void_p]
+                ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int32,
+                ctypes.c_void_p, ctypes.c_void_p]
             lib.srt_nfa_match.restype = ctypes.c_int
             _LIB = lib
         return _LIB

@@ -18,6 +18,7 @@ from spark_rapids_tpu_torch.expr.base import AttributeReference, Literal
 from spark_rapids_tpu_torch.expr.regex import compile_device_nfa
 from spark_rapids_tpu_torch.expr.strings import Like
 from spark_rapids_tpu_torch.udf.kernels import (axpy, axpy_reference,
+                                                nfa_kernel_tables,
                                                 nfa_match,
                                                 nfa_match_reference)
 
@@ -168,7 +169,8 @@ def test_nfa_match_wrapper_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("bad", ["int8 values", "1-D values", "strided",
                                  "int64 lengths", "short lengths",
-                                 "int32 masks", "33 states"])
+                                 "int32 masks", "33 states",
+                                 "accepting start"])
 def test_nfa_match_wrapper_rejects_bad_inputs(bad):
     values, lengths = _utf8_rows(16, 16, 1)
     args = list(_nfa_args(_nfa("a.b"), values, lengths))
@@ -184,24 +186,85 @@ def test_nfa_match_wrapper_rejects_bad_inputs(bad):
         args[1] = lengths[:8]
     elif bad == "int32 masks":
         args[3] = args[3].to(torch.int32)
+    elif bad == "accepting start":
+        args[5] |= args[4]
     else:
         args[3] = torch.zeros((2, 33), dtype=torch.int64)
     with pytest.raises((TypeError, ValueError)):
         nfa_match(*args)
 
 
+def _edge_rows(w: int):
+    """Rows of length 0 and ``w``, and rows whose multi-byte characters
+    straddle 16-byte pieces and 64-byte chunks at every offset."""
+    rows = [b"", b"q" * w]
+    for edge in (16, 64, 128, 4096):
+        for lead in range(max(0, edge - 4), edge + 1):
+            for ch in ("\u00e9", "\u4e2d", "\U0001f600"):
+                rows.append((b"q" * lead + ch.encode() + b"ab7c")[:w])
+    values = np.zeros((len(rows), w), np.uint8)
+    lengths = np.array([len(b) for b in rows], np.int32)
+    for i, b in enumerate(rows):
+        values[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return torch.from_numpy(values), torch.from_numpy(lengths)
+
+
+def _kernel_paths(nfa, device):
+    """The kernel's own path for ``nfa`` and its NFA path (a DFA cap of 0),
+    as tables on ``device``."""
+    own = nfa_kernel_tables(nfa.class_of_byte, nfa.masks, nfa.start_bits,
+                            nfa.accept_bits, nfa.anchored_start,
+                            nfa.anchored_end, nfa.nullable)
+    nfa_path = nfa_kernel_tables(nfa.class_of_byte, nfa.masks,
+                                 nfa.start_bits, nfa.accept_bits,
+                                 nfa.anchored_start, nfa.anchored_end,
+                                 nfa.nullable, dfa_max_states=0)
+    assert not nfa_path.dfa
+    return {"own": own.to(device), "nfa": nfa_path.to(device)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [8, 64, 256])
+@pytest.mark.parametrize("width", [8, 16, 64, 256, 4096])
 @pytest.mark.parametrize("pattern", _NFA_PATTERNS)
 def test_nfa_match_kernel_matches_plain_version_on_card(cuda_device, width,
                                                         pattern):
-    values, lengths = _utf8_rows(3000, width, width)
+    """Both kernel paths, on random rows plus rows of length 0 and ``w``
+    and characters across piece and chunk edges, as the whole matrix and
+    as views off 16-byte alignment."""
+    values, lengths = _utf8_rows(3000 if width <= 256 else 300, width,
+                                 width)
+    ev, el = _edge_rows(width)
+    values, lengths = torch.cat([values, ev]), torch.cat([lengths, el])
     nfa = _nfa(pattern)
+    want_cpu = nfa_match_reference(*_nfa_args(nfa, values, lengths))
+    n = len(lengths)
+    flat = torch.zeros(n * width + 32, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[5:5 + n * width].view(n, width)
+    shifted.copy_(values.to(cuda_device))
+    dev_v, dev_l = values.to(cuda_device), lengths.to(cuda_device)
+    views = {"whole": (dev_v, dev_l, want_cpu),
+             "from row 1": (dev_v[1:], dev_l[1:].contiguous(),
+                            want_cpu[1:]),
+             "5 bytes off": (shifted, dev_l, want_cpu)}
+    for path, tables in _kernel_paths(nfa, cuda_device).items():
+        for view, (v, ln, want) in views.items():
+            args = _nfa_args(nfa, v, ln)
+            launches = nfa_match.launches
+            got = nfa_match(*args, kernel_tables=tables)
+            torch.cuda.synchronize()
+            assert nfa_match.launches == launches + 1
+            assert torch.equal(got, nfa_match_reference(*args)), (path, view)
+            assert torch.equal(got.cpu(), want), (path, view)
+
+
+@pytest.mark.cuda
+def test_nfa_match_kernel_builds_tables_when_none_given(cuda_device):
+    values, lengths = _utf8_rows(500, 64, 3)
+    nfa = _nfa("%special%requests%")
     args = _nfa_args(nfa, values.to(cuda_device), lengths.to(cuda_device))
-    launches = nfa_match.launches
-    got = nfa_match(*args)
-    torch.cuda.synchronize()
-    assert nfa_match.launches == launches + 1
-    assert torch.equal(got, nfa_match_reference(*args))
-    assert torch.equal(got.cpu(), nfa_match_reference(
-        *_nfa_args(nfa, values, lengths)))
+    assert torch.equal(nfa_match(*args),
+                       nfa_match(*args, kernel_tables=nfa.kernel_tables(
+                           cuda_device)))
+    assert torch.equal(nfa_match(*args).cpu(),
+                       nfa_match_reference(*_nfa_args(nfa, values,
+                                                      lengths)))
