@@ -86,6 +86,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -516,10 +517,10 @@ def query_phase(q, label: str, column: str, expect: float,
     _check_device_only(q.session._physical(q.logical, True), label)
     walls = []
     results = []
-    for _ in ("cold", "warm"):
+    for run in ("cold", "warm"):
         axpy.launches = 0
         t0 = time.perf_counter()
-        results.append(q.collect())
+        results.append(_cached_run(label, run, q.collect)[0])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launched = axpy.launches
@@ -649,10 +650,10 @@ def q1_phase(q, li) -> None:
     want = _q1_numpy(li)
     t_numpy = time.perf_counter() - t0
     walls, results = [], []
-    for _ in ("cold", "warm"):
+    for run in ("cold", "warm"):
         axpy.launches = 0
         t0 = time.perf_counter()
-        results.append(q.collect())
+        results.append(_cached_run("Q1", run, q.collect)[0])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if axpy.launches != 0:
@@ -920,11 +921,11 @@ def q3_phase(tables: dict, partitions: int) -> None:
 
     sess, q = query({})
     walls, plans = [], []
-    for _ in ("cold", "warm"):
+    for run in ("cold", "warm"):
         axpy.launches = 0
         t0 = time.perf_counter()
         plan = sess._physical(q.logical, True)
-        out = plan.collect().to_arrow()
+        out = _cached_run("Q3", run, plan.collect)[0].to_arrow()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if axpy.launches != 0:
@@ -1218,9 +1219,10 @@ def join_query_phase(label: str, build_query, tables: dict, want: dict,
             v, num_partitions=partitions) for k, v in tables.items()})
     sess, q = query({})
     walls = []
-    for _ in ("cold", "warm"):
-        out, plan, wall = _run_checked(label, q, sess, want, exact, sums,
-                                       True)
+    for run in ("cold", "warm"):
+        (out, plan, wall), _ = _cached_run(
+            label, run, lambda: _run_checked(label, q, sess, want, exact,
+                                             sums, True))
         walls.append(wall)
     print(plan.tree_string(), flush=True)
     print(f"# {label} AQE events: " + "; ".join(plan.events), flush=True)
@@ -1729,9 +1731,13 @@ def tpch_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
             return sess, tpch.QUERIES[name]({k: sess.create_dataframe(
                 v, num_partitions=partitions) for k, v in t.items()})
         sess, q = query({})
-        runs = [_tpch_run(name, sess, q, True, expect_nfa, device,
-                          record_nfa=run == "cold" and name in like_rows)
-                for run in ("cold", "warm")]
+        runs, hits = [], []
+        for run in ("cold", "warm"):
+            r, delta = _cached_run(name, run, lambda run=run: _tpch_run(
+                name, sess, q, True, expect_nfa, device,
+                record_nfa=run == "cold" and name in like_rows))
+            runs.append(r)
+            hits.append(delta["hits"])
         out, plan = runs[-1][0], runs[-1][1]
         print(plan.tree_string(), flush=True)
         print(f"# {name} AQE events: " + "; ".join(plan.events), flush=True)
@@ -1783,7 +1789,7 @@ def tpch_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
         summary[name] = {"rows": out.num_rows, "cold_s": runs[0][2],
                          "warm_s": runs[1][2], "aqe_off_s": off[2],
                          "host_s": t_host, "busy_pct": busy,
-                         "nfa_launches": runs[1][4]}
+                         "nfa_launches": runs[1][4], "warm_hits": hits[1]}
         print(f"# {name}: {out.num_rows} rows; device AQE on cold "
               f"{runs[0][2]:.3f} s, warm {runs[1][2]:.3f} s; AQE off "
               f"{off[2]:.3f} s; host engine {t_host:.3f} s; device busy "
@@ -1815,8 +1821,10 @@ def q20_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
                             device=device)
         q = tpch.q20({k: sess.create_dataframe(v, num_partitions=partitions)
                       for k, v in t.items()})
-        res, plan, wall = _tpch_run("q20 (pairs from partsupp)", sess, q,
-                                    aqe, 0, device)[:3]
+        res, plan, wall = _cached_run(
+            f"q20 (pairs from partsupp, AQE {'on' if aqe else 'off'})",
+            "cold", lambda: _tpch_run("q20 (pairs from partsupp)", sess, q,
+                                      aqe, 0, device))[0][:3]
         t0 = time.perf_counter()
         host = q.collect(device=False)
         t_host = time.perf_counter() - t0
@@ -1833,6 +1841,425 @@ def q20_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The scan layer: the upload cache's accounting, the Parquet decode kernels
+# and the Parquet phase
+_CACHE_KEYS = ("hits", "inserts", "bytes")
+
+
+def _cached_run(label: str, run: str, fn):
+    """One run of ``fn`` with the upload cache's accounting: a cold run
+    clears the cache first (so it stays cold), a warm run must be served
+    from it. Prints and returns the run's ``upload_cache_stats()`` delta
+    with ``fn``'s result."""
+    from spark_rapids_tpu_torch.exec.transitions import (clear_upload_cache,
+                                                         upload_cache_stats)
+    if run == "cold":
+        clear_upload_cache()
+    before = upload_cache_stats()
+    out = fn()
+    after = upload_cache_stats()
+    delta = {k: after[k] - before[k] for k in _CACHE_KEYS}
+    if run == "warm" and delta["hits"] == 0:
+        raise AssertionError(f"{label}: the warm run took no upload from "
+                             "the cache")
+    print(f"# {label} {run} run: upload cache hits {delta['hits']}, "
+          f"inserts {delta['inserts']}, bytes {delta['bytes']:+d}",
+          flush=True)
+    return out, delta
+
+
+def _pq_run_table(rng, n: int, width: int, rle_share: float = 0.1):
+    """A seeded hybrid run table of ``n`` outputs at ``width`` bits, built
+    in bulk as the decoder's host half lays one out: bit-packed runs of 512
+    values with an RLE run in place of some, the packed bytes random, R and
+    the blob pow2-padded -> (runs (5, R), packed with the kernel's tail,
+    n_packed, the packed bytes the runs read)."""
+    from spark_rapids_tpu_torch.io.parquet_kernels import pow2_ceil
+    k = -(-n // 512)
+    counts = np.full(k, 512, np.int64)
+    counts[-1] = n - 512 * (k - 1)
+    is_rle = rng.random(k) < rle_share
+    nbytes = np.where(is_rle, 0, -(-counts * width // 8))
+    bit_base = 8 * (np.cumsum(nbytes) - nbytes)
+    r = pow2_ceil(k)
+    runs = np.zeros((5, r), np.int64)
+    runs[0] = n
+    runs[1] = 1
+    runs[0, :k] = np.cumsum(counts) - counts
+    runs[1, :k] = is_rle
+    runs[2, :k] = np.where(is_rle, rng.integers(0, 1 << width, k), 0)
+    runs[3, :k] = np.where(is_rle, 0, bit_base)
+    runs[4, :k] = np.where(is_rle, 0, width)
+    used = int(nbytes.sum())
+    n_packed = pow2_ceil(used)
+    packed = np.zeros(-(-n_packed // 4) * 4 + 4, np.uint8)
+    packed[:used] = rng.integers(0, 256, used)
+    return runs, packed, n_packed, used
+
+
+def _pq_expand_check(rng, cap: int, width: int, rle_share: float) -> tuple:
+    from spark_rapids_tpu_torch.io.parquet_kernels import (
+        pq_expand_hybrid, pq_expand_hybrid_reference)
+    runs, packed, n_packed, used = _pq_run_table(rng, cap, width, rle_share)
+    args = (torch.from_numpy(runs).cuda(), torch.from_numpy(packed).cuda(),
+            n_packed, cap)
+    got = pq_expand_hybrid(*args)
+    want = pq_expand_hybrid_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"pq_expand_hybrid != plain at width {width}")
+    return args, used
+
+
+def _pq_fixed_args(rng, cap: int, nulls: float, d: int, dict_share: float,
+                   dtype=torch.float64) -> tuple:
+    from spark_rapids_tpu_torch.io.parquet_kernels import pow2_ceil
+    valid = rng.random(cap) >= nulls
+    pos = np.cumsum(valid).astype(np.int32) - 1
+    nonnull = int(valid.sum())
+    n_dict = int(nonnull * dict_share)
+    idx = rng.integers(0, d, max(n_dict, 1)).astype(np.int32)
+    dvals = torch.from_numpy(rng.normal(size=pow2_ceil(d))).to(dtype)
+    plain = torch.from_numpy(rng.normal(size=pow2_ceil(nonnull - n_dict))) \
+        .to(dtype)
+    return (torch.from_numpy(valid).cuda(), torch.from_numpy(pos).cuda(),
+            torch.from_numpy(idx).cuda(), dvals.cuda(), plain.cuda(),
+            n_dict)
+
+
+def _pq_ba_args(rng, cap: int, width: int, nulls: float, d: int,
+                dict_share: float) -> tuple:
+    """Byte-array inputs: ``d`` dictionary entries then one plain entry a
+    non-null row past the dictionary's share, at lengths up to ``width``,
+    in one blob with an odd start -> (args, the blob bytes they read)."""
+    valid = rng.random(cap) >= nulls
+    pos = np.cumsum(valid).astype(np.int32) - 1
+    nonnull = int(valid.sum())
+    n_dict = int(nonnull * dict_share)
+    idx = rng.integers(0, d, max(n_dict, 1)).astype(np.int32)
+    entries = d + nonnull - n_dict
+    lens = rng.integers(0, width + 1, entries).astype(np.int32)
+    lens[:min(entries, 1)] = width
+    starts = np.cumsum(lens.astype(np.int64)) - lens + 1
+    blob = rng.integers(0, 256, int(lens.sum()) + 1).astype(np.uint8)
+    cuda = [torch.from_numpy(a).cuda() for a in (valid, pos, idx, starts,
+                                                 lens, blob)]
+    return (*cuda, n_dict, d, width), int(lens.sum())
+
+
+def parquet_kernel_phase() -> dict:
+    """The three Parquet decode kernels against their plain versions on
+    the card, exactly: ``pq_expand_hybrid`` on seeded run tables of 1 << 20
+    outputs at widths 1, 4, 12, 17 and 24 (RLE and bit-packed runs mixed),
+    ``pq_gather_fixed`` for every element size with nulls, dictionary-only,
+    plain-only and mixed, ``pq_gather_byte_array`` at widths 8, 64 and 256
+    likewise, and the host walk ``srt_ba_walk`` against its Python loop;
+    then each kernel's device time at the Parquet scan's shapes (a row
+    group of 1 << 20 rows: definition levels at width 1 and dictionary
+    indices at 4; a dictionary-encoded double column, Q1's l_discount; a
+    dictionary-encoded string column of width 8, Q1's flags, and one of
+    width 64 with plain values) beside the plain version's and the bound:
+    the bytes the call must read and write over the memory rate."""
+    from spark_rapids_tpu_torch.io import parquet_device as pdev
+    from spark_rapids_tpu_torch.io.parquet_kernels import (
+        pq_expand_hybrid, pq_expand_hybrid_reference, pq_gather_byte_array,
+        pq_gather_byte_array_reference, pq_gather_fixed,
+        pq_gather_fixed_reference)
+    rng = np.random.default_rng(11)
+    cap = 1 << 20
+    for width in (1, 4, 12, 17, 24):
+        for share in (0.0, 0.1, 0.9):
+            _pq_expand_check(rng, cap, width, share)
+    for dtype in (torch.bool, torch.int8, torch.int16, torch.int32,
+                  torch.int64, torch.float32, torch.float64):
+        for nulls, share in ((0.0, 1.0), (0.12, 0.0), (0.12, 0.6)):
+            args = _pq_fixed_args(rng, cap, nulls, 100, share, dtype)
+            got = pq_gather_fixed(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, pq_gather_fixed_reference(*args)):
+                raise AssertionError(f"pq_gather_fixed != plain ({dtype}, "
+                                     f"nulls {nulls}, dict {share})")
+    for width in (8, 64, 256):
+        for nulls, share in ((0.0, 1.0), (0.12, 0.0), (0.12, 0.6)):
+            args, _ = _pq_ba_args(rng, 1 << 16, width, nulls, 500, share)
+            got = pq_gather_byte_array(*args)
+            want = pq_gather_byte_array_reference(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"pq_gather_byte_array != plain "
+                                     f"(width {width}, nulls {nulls}, "
+                                     f"dict {share})")
+    lens = rng.integers(0, 200, 200_000)
+    buf = b"".join(int(x).to_bytes(4, "little") + bytes(int(x))
+                   for x in lens)
+    for a, b in zip(pdev._parse_byte_array_stream(buf, len(lens), True),
+                    pdev._parse_byte_array_stream(buf, len(lens), False)):
+        if not np.array_equal(a, b):
+            raise AssertionError("srt_ba_walk != the Python walk")
+    print("# kernel pq_expand_hybrid: equal to its plain version (exact) at "
+          f"{cap} outputs, widths 1/4/12/17/24, RLE shares 0/0.1/0.9; "
+          "pq_gather_fixed: equal (exact) for 1-, 2-, 4- and 8-byte types, "
+          "dictionary-only, plain-only and mixed with 12 % nulls; "
+          "pq_gather_byte_array: equal (exact) at widths 8/64/256 likewise; "
+          "srt_ba_walk equal to the Python walk on 200,000 values",
+          flush=True)
+
+    def timed(label, fn, ref, make):
+        """``make()`` -> (args, the bytes the call must read and write);
+        sets of args past twice L2, each held against the plain version,
+        then timed."""
+        first = make()
+        made = [first] + [make() for _ in range(
+            max(1, math.ceil(2 * L2_BYTES / first[1])) - 1)]
+        sets = [m[0] for m in made]
+        nbytes = sum(m[1] for m in made) / len(made)
+        for args in sets:
+            got, want = fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,)))
+            if not same:
+                raise AssertionError(f"{label}: kernel != plain on the "
+                                     "timed inputs")
+        t = {"ms": _graph_ms(fn, sets),
+             "plain_ms": _graph_ms(ref, sets, calls=1, replays=2),
+             "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "library_ms": None}
+        print(f"# kernel {label}: kernel {t['ms']:.6f} ms, plain "
+              f"{t['plain_ms']:.6f} ms, library call none, bound "
+              f"{t['bound_ms']:.6f} ms (bytes: {nbytes:.0f} read and "
+              f"written), {100 * t['bound_ms'] / t['ms']:.1f} % of the "
+              "bound", flush=True)
+        return t
+
+    def expand_set(width):
+        args, used = _pq_expand_check(rng, cap, width, 0.1)
+        return args, 4 * cap + used + args[0].numel() * 8
+
+    def fixed_set():
+        args = _pq_fixed_args(rng, cap, 0.0, 11, 1.0)
+        return args, cap * (1 + 4 + 8) + 4 * args[5] + 8 * args[3].numel()
+
+    def ba_set(width, d, share):
+        args, blob = _pq_ba_args(rng, cap, width, 0.0, d, share)
+        return args, (cap * (1 + 4) + 4 * args[6] + 12 * args[3].numel()
+                      + blob + cap * (width + 4))
+
+    out = {}
+    for width in (1, 4):
+        out[f"pq_expand_hybrid w{width}"] = timed(
+            f"pq_expand_hybrid {cap} outputs at width {width}",
+            pq_expand_hybrid, pq_expand_hybrid_reference,
+            lambda w=width: expand_set(w))
+    out["pq_gather_fixed"] = timed(
+        f"pq_gather_fixed {cap} float64 rows from an 11-value dictionary",
+        pq_gather_fixed, pq_gather_fixed_reference, fixed_set)
+    for width, d, share in ((8, 3, 1.0), (64, 1000, 0.3)):
+        out[f"pq_gather_byte_array w{width}"] = timed(
+            f"pq_gather_byte_array {cap} rows of width {width} ({d} "
+            f"dictionary values, {round(100 * (1 - share))} % plain)",
+            pq_gather_byte_array, pq_gather_byte_array_reference,
+            lambda w=width, d=d, s=share: ba_set(w, d, s))
+    return out
+
+
+def _nullable_table(n: int) -> pa.Table:
+    """tests/test_parquet_device.py::_write's nine columns, 12 % of each
+    null."""
+    rng = np.random.default_rng(7)
+
+    def null(values, type_=None):
+        return pa.array(values, type=type_, mask=rng.random(n) < 0.12)
+
+    return pa.table({
+        "i64": null(rng.integers(-10**12, 10**12, n), pa.int64()),
+        "i32": null(rng.integers(-2**30, 2**30, n).astype(np.int32)),
+        "f64": null(rng.normal(size=n)),
+        "f32": null(rng.normal(size=n).astype(np.float32)),
+        "b": null(rng.integers(0, 2, n).astype(bool)),
+        "lowcard": null(rng.integers(0, 40, n), pa.int64()),
+        "date": null(rng.integers(0, 20000, n).astype(np.int32)).cast(
+            pa.date32()),
+        "ts": null(rng.integers(0, 2**48, n), pa.int64()).cast(
+            pa.timestamp("us")),
+        "s": null([f"str{i % 11}" for i in range(n)], pa.string())})
+
+
+def _write_parquet(table: pa.Table, directory, files: int) -> int:
+    """``table`` in ``files`` snappy files of row groups of 1,048,576 rows
+    (dictionary at pyarrow's default) -> the row groups written."""
+    import os
+
+    import pyarrow.parquet as pq
+    os.makedirs(directory, exist_ok=True)
+    per = -(-table.num_rows // files)
+    groups = 0
+    for i in range(files):
+        part = table.slice(i * per, per)
+        path = os.path.join(directory, f"part{i}.parquet")
+        pq.write_table(part, path, row_group_size=1 << 20,
+                       compression="snappy")
+        groups += pq.ParquetFile(path).metadata.num_row_groups
+    return groups
+
+
+def _pq_counts() -> dict:
+    from spark_rapids_tpu_torch.io.parquet_kernels import (
+        pq_expand_hybrid, pq_gather_byte_array, pq_gather_fixed)
+    return {f.__name__: f.launches for f in (
+        pq_expand_hybrid, pq_gather_fixed, pq_gather_byte_array)}
+
+
+def _pq_zero() -> None:
+    from spark_rapids_tpu_torch.io.parquet_kernels import (
+        pq_expand_hybrid, pq_gather_byte_array, pq_gather_fixed)
+    for f in (pq_expand_hybrid, pq_gather_fixed, pq_gather_byte_array):
+        f.launches = 0
+
+
+def _scans(plan) -> list:
+    from spark_rapids_tpu_torch.exec.scan import TpuParquetScanExec
+    return [n for n in _walk_plan(plan) if isinstance(n, TpuParquetScanExec)]
+
+
+def _parquet_query(label: str, sess, q, check, device_decode: bool,
+                   device: str = "cuda") -> dict:
+    """A Parquet query cold and warm (kernel counts set to 0 just before
+    each run and read just after), each result held by ``check``; its plan
+    device nodes only above the scans, with ``TpuParquetScanExec`` exactly
+    when ``device_decode``; a trace of one more run. -> walls, busy and the
+    warm run's launches."""
+    walls, launches = [], []
+    for run in ("cold", "warm"):
+        _pq_zero()
+        t0 = time.perf_counter()
+        plan = sess._physical(q.logical, True)
+        out = plan.collect().to_arrow()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(_pq_counts())
+        check(out, f"{label} ({run})")
+        _check_device_only(plan, label)
+        if bool(_scans(plan)) != device_decode:
+            raise AssertionError(f"{label}: TpuParquetScanExec "
+                                 f"{'missing' if device_decode else 'planned'}"
+                                 ":\n" + plan.tree_string())
+        # the wrappers count kernel launches; a CPU rehearsal launches none
+        if device == "cuda" and device_decode \
+                and not (launches[-1]["pq_expand_hybrid"]
+                         and launches[-1]["pq_gather_fixed"]):
+            raise AssertionError(f"{label}: decode kernels launched "
+                                 f"{launches[-1]}")
+        if not device_decode and any(launches[-1].values()):
+            raise AssertionError(f"{label}: decode kernels launched "
+                                 f"{launches[-1]} on the host reader")
+    print(plan.tree_string(), flush=True)
+    traced = _profile(q, label)
+    busy = None if traced is None else 100 * traced[0] / traced[1]
+    print(f"# {label}: cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, device "
+          "busy " + ("not measured" if busy is None else f"{busy:.1f} %")
+          + f" of a traced warm run; decode kernel launches per run "
+          f"{launches[-1]}", flush=True)
+    return {"cold_s": walls[0], "warm_s": walls[1], "busy_pct": busy,
+            "launches": launches[-1]}
+
+
+def parquet_phase(li: pa.Table, orders: pa.Table, workdir: str,
+                  device: str = "cuda") -> dict:
+    """SF1 lineitem (three files) and orders (two files) and a nullable
+    file of nine columns, written by pyarrow (snappy, row groups of
+    1,048,576 rows, dictionary at pyarrow's default); each scanned whole
+    through ``TorchSession.read_parquet`` with pushdown off, column for
+    column equal to pyarrow's read, every column of every row group
+    decoded on the device (``deviceDecodedColumns``); then Q6 with pushdown
+    off (``TpuParquetScanExec``, the decode kernels launched) and on (the
+    host reader: no ``TpuParquetScanExec``, no decode kernel), both equal
+    to numpy's Q6, and Q1 from Parquet against numpy's Q1."""
+    import os
+
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    t0 = time.perf_counter()
+    paths = {"lineitem": os.path.join(workdir, "lineitem"),
+             "orders": os.path.join(workdir, "orders"),
+             "nullable": os.path.join(workdir, "nullable")}
+    groups = {"lineitem": _write_parquet(li, paths["lineitem"], 3),
+              "orders": _write_parquet(orders, paths["orders"], 2),
+              "nullable": _write_parquet(_nullable_table(1 << 20),
+                                         paths["nullable"], 1)}
+    print(f"# parquet files written in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{k} {groups[k]} row groups" for k in paths),
+          flush=True)
+    off = {"spark.rapids.sql.test.enabled": True,
+           "spark.rapids.tpu.scan.filterPushdown.enabled": False}
+    sess = TorchSession(off, device=device)
+    scans = {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        df = sess.read_parquet(path)
+        plan = sess._physical(df.logical, True)
+        _pq_zero()
+        got = plan.collect().to_arrow()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _pq_counts()
+        want = pq.read_table(path)
+        for c in want.column_names:
+            if not got.column(c).combine_chunks().equals(
+                    want.column(c).combine_chunks()):
+                raise AssertionError(f"parquet scan {name}.{c} != pyarrow")
+        (scan,) = _scans(plan)
+        ndev = scan.metrics["deviceDecodedColumns"]
+        if ndev != want.num_columns * groups[name]:
+            raise AssertionError(f"parquet scan {name}: {ndev} columns on "
+                                 f"the device, not {want.num_columns} x "
+                                 f"{groups[name]}")
+        scans[name] = {"wall_s": wall, "rows": got.num_rows,
+                       "launches": launches}
+        print(f"# parquet scan {name}: {got.num_rows} rows x "
+              f"{want.num_columns} columns equal to pyarrow; "
+              f"deviceDecodedColumns {ndev} = {want.num_columns} x "
+              f"{groups[name]} row groups; {wall:.3f} s; kernel launches "
+              f"{launches}", flush=True)
+    mask = _q6_mask(li)
+    price = li.column("l_extendedprice").to_numpy()
+    disc = li.column("l_discount").to_numpy()
+    q6_want = float(np.sum(price[mask] * disc[mask]))
+
+    def q6_check(out, what):
+        _close(_value(out, "revenue"), q6_want, f"Q6 from parquet {what} "
+               "vs numpy")
+
+    q1_want = _q1_numpy(li)
+
+    def q1_check(out, what):
+        _check_q1(out, q1_want, f"from parquet {what} vs numpy")
+
+    runs = {}
+    for label, conf, device_decode in (
+            ("Q6 parquet, pushdown off", off, True),
+            ("Q6 parquet, pushdown on",
+             {"spark.rapids.sql.test.enabled": True}, False)):
+        s = TorchSession(conf, device=device)
+        runs[label] = _parquet_query(
+            label, s, tpch.q6({"lineitem": s.read_parquet(
+                paths["lineitem"])}), q6_check, device_decode, device)
+    s = TorchSession({"spark.rapids.sql.test.enabled": True}, device=device)
+    runs["Q1 parquet"] = _parquet_query(
+        "Q1 parquet", s, tpch.q1({"lineitem": s.read_parquet(
+            paths["lineitem"])}), q1_check, True, device)
+    if device == "cuda" \
+            and not runs["Q1 parquet"]["launches"]["pq_gather_byte_array"]:
+        raise AssertionError("Q1 parquet: pq_gather_byte_array never ran")
+    return {"scans": scans, "runs": runs}
+
+
 def _value(table, name: str) -> float:
     if table.num_rows != 1:
         raise AssertionError(f"expected one result row, got {table.num_rows}")
@@ -1845,6 +2272,30 @@ def _value(table, name: str) -> float:
 def _close(a: float, b: float, what: str) -> None:
     if not math.isclose(a, b, rel_tol=1e-9):
         raise AssertionError(f"{what}: {a!r} vs {b!r} (rel 1e-9)")
+
+
+def _pq_kernel_lines(timings: dict, runs: dict) -> list:
+    """The ``kernels`` line's entries of the three decode kernels:
+    launches read from their counters over the warm runs of Q6 (pushdown
+    off) and Q1 from Parquet; times at the shape the scan gives each most
+    often (definition levels at width 1, a dictionary-encoded double, a
+    string column of width 8)."""
+    src = "spark_rapids_tpu_torch/csrc/parquet_decode.cu"
+    on_path = (runs["Q6 parquet, pushdown off"]["launches"],
+               runs["Q1 parquet"]["launches"])
+    out = []
+    for name, key, line in (
+            ("pq_expand_hybrid", "pq_expand_hybrid w1", 404),
+            ("pq_gather_fixed", "pq_gather_fixed", 429),
+            ("pq_gather_byte_array", "pq_gather_byte_array w8", 457)):
+        t = timings[key]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": f"spark_rapids_tpu/io/parquet_device.py:"
+                    f"{line}", "launches": sum(r[name] for r in on_path),
+                    "max_abs_err": 0.0, "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": None})
+    return out
 
 
 def main() -> int:
@@ -1883,6 +2334,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kern = kernel_phase(gen)
     nfa = nfa_kernel_phase()
+    pqk = parquet_kernel_phase()
     phase_s["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1940,6 +2392,12 @@ def main() -> int:
     q3_phase(tables, args.partitions)
     phase_s["Q3"] = time.perf_counter() - t0
 
+    # -- Parquet: full scans, Q6 (device decode and host reader) and Q1 ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parquet_") as tmp:
+        pq_out = parquet_phase(li, tables["orders"], tmp)
+    phase_s["parquet"] = time.perf_counter() - t0
+
     # -- Q4, Q5, Q21 and the outer joins: every join type on the device ----
     t0 = time.perf_counter()
     jtables = dict(tables, supplier=tpch.gen_supplier(args.q3_sf, seed=4),
@@ -1966,13 +2424,18 @@ def main() -> int:
     t0 = time.perf_counter()
     q20_phase(ptables, args.partitions)
     phase_s["q20"] = time.perf_counter() - t0
-    print("# TPC-H summary (s): query rows cold warm aqe_off host busy%",
-          flush=True)
+    print("# TPC-H summary (s): query rows cold warm aqe_off host busy% "
+          "warm_cache_hits", flush=True)
     for name, r in summary.items():
         busy = "n/m" if r["busy_pct"] is None else f"{r['busy_pct']:.1f}"
         print(f"#   {name:4s} {r['rows']:6d} {r['cold_s']:.3f} "
               f"{r['warm_s']:.3f} {r['aqe_off_s']:.3f} {r['host_s']:.3f} "
-              f"{busy}", flush=True)
+              f"{busy} {r['warm_hits']}", flush=True)
+    print("# Parquet summary (s): query cold warm busy% launches", flush=True)
+    for name, r in pq_out["runs"].items():
+        busy = "n/m" if r["busy_pct"] is None else f"{r['busy_pct']:.1f}"
+        print(f"#   {name}: {r['cold_s']:.3f} {r['warm_s']:.3f} {busy} "
+              f"{r['launches']}", flush=True)
     print("# phase seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items())
         + f"; whole run {time.perf_counter() - t_start:.2f} s", flush=True)
@@ -1994,7 +2457,8 @@ def main() -> int:
         + summary["q16"]["nfa_launches"],
         "max_abs_err": nfa["max_abs_err"], "ms": tn["ms"],
         "plain_ms": tn["plain_ms"], "bound_ms": tn["bound_ms"],
-        "bound_by": tn["bound_by"], "library_ms": None}]}), flush=True)
+        "bound_by": tn["bound_by"], "library_ms": None},
+        *_pq_kernel_lines(pqk, pq_out["runs"])]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

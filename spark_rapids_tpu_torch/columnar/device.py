@@ -35,7 +35,8 @@ from .host import HostColumn, HostTable
 __all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "as_torch_dtype",
            "bucket_rows", "bucket_width",
            "concat_device_tables", "pack_string_key_words", "shrink_to_fit",
-           "slice_rows", "stable_partition_order", "torch_dtype"]
+           "slice_rows", "stable_partition_order", "to_host_batched",
+           "torch_dtype"]
 
 _TORCH_DTYPES = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
                  np.dtype(np.int16): torch.int16,
@@ -234,22 +235,69 @@ class DeviceTable:
 
     def to_host(self) -> HostTable:
         """Download and compact to exactly num_rows host rows."""
-        mask = self.row_mask.cpu().numpy()
-        n = int(self.num_rows)
-        cols = [_download_column(c, mask, n) for c in self.columns]
-        return HostTable(list(self.names), cols)
+        return to_host_batched([self])[0]
 
 
-def _download_column(c: DeviceColumn, mask: np.ndarray, n: int) -> HostColumn:
-    """One column's device->host decode over the active-row mask."""
-    validity = c.validity.cpu().numpy()[mask][:n]
+def _host_column(dtype: dt.DataType, data: np.ndarray, validity: np.ndarray,
+                 lengths: Optional[np.ndarray], mask: np.ndarray,
+                 n: int) -> HostColumn:
+    """A downloaded column's planes -> its host column over the active
+    rows."""
+    validity = validity[mask][:n]
     opt_valid = None if validity.all() else validity
-    vals = c.data.cpu().numpy()[mask][:n]
-    if c.lengths is not None:
-        lengths = c.lengths.cpu().numpy()[mask][:n]
-        return HostColumn(c.dtype, _decode_string_matrix(vals, lengths),
+    vals = data[mask][:n]
+    if lengths is not None:
+        return HostColumn(dtype, _decode_string_matrix(vals,
+                                                       lengths[mask][:n]),
                           opt_valid)
-    return HostColumn(c.dtype, vals, opt_valid)
+    return HostColumn(dtype, vals, opt_valid)
+
+
+def to_host_batched(tables: Sequence["DeviceTable"]) -> List[HostTable]:
+    """Download many device batches together (the JAX package's
+    ``to_host_batched``): every plane of every batch is grouped by dtype,
+    and each group crosses to the host in ONE copy, so a drain waits on the
+    device once per plane type instead of once per plane and batch. Each
+    table then decodes on the host over its active rows."""
+    tables = list(tables)
+    if not tables:
+        return []
+    planes: List[torch.Tensor] = []
+    for t in tables:
+        planes += [t.row_mask, t.num_rows.reshape(1)]
+        for c in t.columns:
+            planes += [c.data, c.validity]
+            if c.lengths is not None:
+                planes.append(c.lengths)
+    # one table (``to_host``) copies plane by plane: a concatenation would
+    # only hold a second copy of its planes on the device
+    bulk = len(tables) > 1
+    groups: dict = {}
+    for i, p in enumerate(planes):
+        groups.setdefault(p.dtype if bulk else i, []).append(i)
+    host: List[Optional[np.ndarray]] = [None] * len(planes)
+    for idx in groups.values():
+        parts = [planes[i].reshape(-1) for i in idx]
+        flat = (torch.cat(parts) if len(parts) > 1 else parts[0]) \
+            .cpu().numpy()
+        pos = 0
+        for i in idx:
+            k = planes[i].numel()
+            host[i] = flat[pos:pos + k].reshape(tuple(planes[i].shape))
+            pos += k
+    out: List[HostTable] = []
+    it = iter(host)
+    for t in tables:
+        mask = next(it)
+        n = int(next(it)[0])
+        cols = []
+        for c in t.columns:
+            data, validity = next(it), next(it)
+            lengths = next(it) if c.lengths is not None else None
+            cols.append(_host_column(c.dtype, data, validity, lengths, mask,
+                                     n))
+        out.append(HostTable(list(t.names), cols))
+    return out
 
 
 def _encode_string_matrix(values: np.ndarray, capacity: int,

@@ -6,16 +6,33 @@ validators (reference: ``RapidsConf.scala``, builder DSL at lines 121-299).
 Keys keep the JAX package's names so a configuration carries over: every
 key the JAX package registers is either read here or registered with the
 JAX default, and any other value raises, naming the ROADMAP Queue 1 step
-that will read it (``_UNREAD_BY_STEP``). Keys the JAX package does not
+that will read it (``_UNREAD_BY_STEP``), by the step's name, which a
+re-anchor of the ROADMAP does not change. Keys the JAX package does not
 register either (the per-op enable keys among them) are kept as given.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
-__all__ = ["ConfEntry", "RapidsConf", "register_conf"]
+__all__ = ["ConfEntry", "RapidsConf", "register_conf", "not_ported"]
 
 _REGISTRY: "Dict[str, ConfEntry]" = {}
+
+#: The open steps of ROADMAP Queue 1, by name: messages name the step that
+#: will port a feature by these, never by a number a re-anchor changes.
+STEP_GRACE_JOIN = "the grace join and the spill catalog"
+STEP_DECIMAL128 = "decimal128"
+STEP_RELATIONAL = "the relational surface"
+STEP_NESTED_LOOP = "nested-loop and cross joins"
+STEP_ROBUSTNESS = "memory and robustness"
+STEP_MULTI_GPU = "multi-GPU"
+STEP_BREADTH = "breadth"
+
+
+def not_ported(step: str) -> str:
+    """The tail of a "not ported yet" message: ``(ROADMAP Queue 1:
+    <step>)``."""
+    return f"(ROADMAP Queue 1: {step})"
 
 
 class ConfEntry:
@@ -97,8 +114,8 @@ BATCH_ROWS_MIN_BUCKET = register_conf(
 BATCH_SIZE_BYTES = register_conf(
     "spark.rapids.sql.batchSizeBytes",
     "Target device batch size in bytes: a sort whose input batches exceed "
-    "it together raises until the out-of-core sort is ported (ROADMAP "
-    "Queue 1 step 9). "
+    "it together raises until the out-of-core sort is ported "
+    f"{not_ported(STEP_GRACE_JOIN)}. "
     "(reference: RapidsConf.scala:425-432)",
     512 * 1024 * 1024, checker=_positive("batch size"))
 
@@ -127,7 +144,7 @@ JOIN_STRATEGY = register_conf(
     "auto", checker=lambda v: None if str(v).lower() in ("auto", "sort", "hash")
     else "must be auto|sort|hash")
 
-def _not_ported_unless_default(default: Any, step: int,
+def _not_ported_unless_default(default: Any, step: str,
                                case_free: bool = False
                                ) -> Callable[[Any], Optional[str]]:
     """Checker of a conf the engine does not read yet: the default is what
@@ -138,7 +155,7 @@ def _not_ported_unless_default(default: Any, step: int,
         if (v.lower() if case_free else v) != default:
             raise NotImplementedError(
                 f"a value other than {default!r} is not ported yet "
-                f"(ROADMAP Queue 1 step {step})")
+                f"{not_ported(step)}")
         return None
     if case_free:
         # convert() stores the value in lower case, as the JAX entry does
@@ -158,19 +175,19 @@ register_conf(
     "Target bytes per shuffle partition after AQE coalescing "
     "(spark.sql.adaptive.advisoryPartitionSizeInBytes analogue).",
     64 * 1024 * 1024,
-    checker=_not_ported_unless_default(64 * 1024 * 1024, 10))
+    checker=_not_ported_unless_default(64 * 1024 * 1024, STEP_MULTI_GPU))
 
 AQE_COALESCE_ENABLED = register_conf(
     "spark.rapids.tpu.aqe.coalescePartitions.enabled",
     "Merge adjacent small shuffle partitions toward the advisory size "
     "(spark.sql.adaptive.coalescePartitions.enabled analogue). Not ported "
-    "yet (ROADMAP Queue 1 step 10): a stage of more than one partition is "
-    "left as it is, and AdaptiveExec.events says so.", True)
+    f"yet {not_ported(STEP_MULTI_GPU)}: a stage of more than one partition "
+    "is left as it is, and AdaptiveExec.events says so.", True)
 
 register_conf(
     "spark.rapids.tpu.aqe.coalescePartitions.minPartitionNum",
     "Lower bound on the partition count coalescing may produce.", 1,
-    checker=_not_ported_unless_default(1, 10))
+    checker=_not_ported_unless_default(1, STEP_MULTI_GPU))
 
 AQE_BROADCAST_BYTES = register_conf(
     "spark.rapids.tpu.aqe.autoBroadcastJoinThreshold",
@@ -182,71 +199,137 @@ AQE_SKEW_ENABLED = register_conf(
     "spark.rapids.tpu.aqe.skewJoin.enabled",
     "Split skewed probe-side partitions of shuffled hash joins "
     "(spark.sql.adaptive.skewJoin.enabled analogue). Not ported yet "
-    "(ROADMAP Queue 1 step 10): a stage of more than one partition is left "
-    "as it is, and AdaptiveExec.events says so.", True)
+    f"{not_ported(STEP_MULTI_GPU)}: a stage of more than one partition is "
+    "left as it is, and AdaptiveExec.events says so.", True)
 
 register_conf(
     "spark.rapids.tpu.aqe.skewJoin.skewedPartitionFactor",
     "A partition is skewed when its bytes exceed this multiple of the "
     "median partition size (and the threshold below).", 5,
-    checker=_not_ported_unless_default(5, 10))
+    checker=_not_ported_unless_default(5, STEP_MULTI_GPU))
 
 register_conf(
     "spark.rapids.tpu.aqe.skewJoin.skewedPartitionThresholdBytes",
     "Minimum bytes for a partition to be considered skewed.",
     256 * 1024 * 1024,
-    checker=_not_ported_unless_default(256 * 1024 * 1024, 10))
+    checker=_not_ported_unless_default(256 * 1024 * 1024,
+                                       STEP_MULTI_GPU))
 
-register_conf(
+AQE_RUNTIME_FILTER = register_conf(
     "spark.rapids.tpu.aqe.runtimeFilter.enabled",
     "When a join demotes to broadcast, push the build side's distinct join "
-    "keys into the probe side's scan as an IN filter. Only a source that "
-    "can prune by statistics takes it (Parquet, ROADMAP Queue 1 step 7); "
-    "the in-memory source cannot, so either value runs the same plan, as "
-    "in the JAX package.", True)
+    "keys into the probe side's host scan as an IN filter (the dynamic-"
+    "partition-pruning analogue: the Parquet reader skips row groups whose "
+    "statistics exclude every build key). A source without statistics "
+    "(the in-memory one) takes none, as in the JAX package.", True)
 
-register_conf(
+AQE_RUNTIME_FILTER_MAX_KEYS = register_conf(
     "spark.rapids.tpu.aqe.runtimeFilter.maxKeys",
     "Skip the runtime IN-filter when the build side has more distinct keys "
-    "than this.", 10_000,
-    checker=_not_ported_unless_default(10_000, 7))
+    "than this.", 10_000)
+
+# -- the scan layer: the upload cache, coalescing and bulk downloads -------
+SCAN_DEVICE_CACHE = register_conf(
+    "spark.rapids.tpu.scan.deviceCache.enabled",
+    "Keep uploaded scan batches device-resident across executions: a source "
+    "that re-yields the same host batch (the in-memory source caches its "
+    "decoded batches) skips the host->device upload. An entry dies with "
+    "its host batch. (reference: ParquetCachedBatchSerializer keeps "
+    "Spark-cached data as device batches)", True)
+
+SCAN_DEVICE_CACHE_MAX_BYTES = register_conf(
+    "spark.rapids.tpu.scan.deviceCache.maxBytes",
+    "Device-byte budget for the scan upload cache; uploads past the budget "
+    "are not cached (data still flows, uncached). 0 disables caching.",
+    2 << 30)
+
+COALESCE_AFTER_UPLOAD = register_conf(
+    "spark.rapids.tpu.coalesce.afterUpload.enabled",
+    "Insert a TpuCoalesceBatchesExec above every host->device upload so "
+    "many small scanned batches stitch into full-size device batches "
+    "before compute (reference: GpuCoalesceBatches above GpuRowToColumnar "
+    "via childrenCoalesceGoal).", False)
+
+COALESCE_TARGET_BYTES = register_conf(
+    "spark.rapids.tpu.coalesce.targetBytes",
+    "Byte-based flush target for TpuCoalesceBatchesExec, alongside the "
+    "row goal: a pending set flushes once its device bytes reach this "
+    "bound even when the row target is far away (reference: the TargetSize "
+    "coalesce goal, GpuCoalesceBatches.scala:93-200). 0 disables the byte "
+    "bound.", 512 * 1024 * 1024,
+    checker=lambda v: None if int(v) >= 0 else "must be >= 0")
+
+ASYNC_ENABLED = register_conf(
+    "spark.rapids.tpu.async.enabled",
+    "The device->host drain accumulates a partition's device batches and "
+    "downloads them in one copy per plane type (columnar/device.py "
+    "to_host_batched). 'false' downloads each batch on its own as it "
+    "arrives.", True)
+
+# -- the Parquet scan ------------------------------------------------------
+PARQUET_DEVICE_DECODE = register_conf(
+    "spark.rapids.tpu.parquet.deviceDecode.enabled",
+    "Decode supported parquet columns on the device (run-table expansion "
+    "and dictionary gather kernels; reference: GpuParquetScanBase device "
+    "decode). Unsupported columns fall back to host decode per column.",
+    True)
+
+PARQUET_DEVICE_DECODE_STRINGS = register_conf(
+    "spark.rapids.tpu.parquet.deviceDecode.strings.enabled",
+    "Decode BYTE_ARRAY (string/binary) parquet columns on device; false "
+    "keeps strings on the per-column host decode.", True)
+
+PARQUET_DEVICE_DECODE_BOOLEANS = register_conf(
+    "spark.rapids.tpu.parquet.deviceDecode.booleans.enabled",
+    "Decode BOOLEAN parquet columns on device; false keeps booleans on "
+    "the per-column host decode.", True)
+
+PARQUET_READER_TYPE = register_conf(
+    "spark.rapids.sql.format.parquet.reader.type",
+    "PERFILE, COALESCING or MULTITHREADED parquet reader strategy "
+    "(reference: RapidsConf.scala:721).", "COALESCING",
+    checker=lambda v: None if v in ("PERFILE", "COALESCING",
+                                    "MULTITHREADED", "AUTO")
+    else f"must be one of PERFILE, COALESCING, MULTITHREADED, AUTO, "
+    f"got {v!r}")
+
+MULTITHREAD_READ_NUM_THREADS = register_conf(
+    "spark.rapids.sql.multiThreadedRead.numThreads",
+    "Thread pool size for the MULTITHREADED file reader and the device "
+    "scan's file read-ahead (reference: GpuParquetScanBase.scala:934).", 8,
+    checker=_positive("threads"))
+
+READER_BATCH_SIZE_ROWS = register_conf(
+    "spark.rapids.sql.reader.batchSizeRows",
+    "Soft cap on rows per batch produced by file scans (reference: "
+    "RapidsConf READER_BATCH_SIZE_ROWS).", 1 << 21,
+    checker=_positive("reader batch rows"))
+
+SCAN_PUSHDOWN = register_conf(
+    "spark.rapids.tpu.scan.filterPushdown.enabled",
+    "Push translatable Filter conjuncts into parquet scans (row-group "
+    "statistics pruning in the host reader). The full filter stays in the "
+    "plan; a scan with a pushed filter stays on the host reader.", True)
 
 
 #: Every key the JAX package registers that this engine does not read yet,
 #: with the JAX default, by the ROADMAP Queue 1 step that will read it. The
 #: port keeps its own copy (it imports nothing of the JAX package);
 #: tests/test_torch_conf.py holds it equal to the JAX registry.
-_UNREAD_BY_STEP: Dict[int, Dict[str, Any]] = {
-    1: {  # the scan device cache, coalescing after upload, bulk downloads
-        "spark.rapids.tpu.scan.deviceCache.enabled": True,
-        "spark.rapids.tpu.scan.deviceCache.maxBytes": 2 * 1024 ** 3,
-        "spark.rapids.tpu.coalesce.afterUpload.enabled": False,
-        "spark.rapids.tpu.coalesce.targetBytes": 512 * 1024 ** 2,
-        "spark.rapids.tpu.async.enabled": True,
-    },
-    2: {  # the Parquet device scan (and writer)
-        "spark.rapids.tpu.parquet.deviceDecode.enabled": True,
-        "spark.rapids.tpu.parquet.deviceDecode.booleans.enabled": True,
-        "spark.rapids.tpu.parquet.deviceDecode.strings.enabled": True,
-        "spark.rapids.tpu.parquet.deviceWrite.enabled": True,
-        "spark.rapids.sql.format.parquet.reader.type": "COALESCING",
-        "spark.rapids.sql.multiThreadedRead.numThreads": 8,
-        "spark.rapids.sql.reader.batchSizeRows": 2097152,
-        "spark.rapids.tpu.scan.filterPushdown.enabled": True,
-    },
-    3: {  # the grace join and the spill catalog
+_UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
+    STEP_GRACE_JOIN: {
         "spark.rapids.memory.host.spillStorageSize": 1024 ** 3,
         "spark.rapids.memory.gpu.oomSpill.enabled": True,
         "spark.rapids.tpu.memory.disk.checksum": True,
         "spark.rapids.tpu.memory.disk.direct": True,
     },
-    4: {  # decimal128
+    STEP_DECIMAL128: {
         "spark.rapids.sql.decimal128.enabled": True,
     },
-    5: {  # the relational surface (cache)
+    STEP_RELATIONAL: {
         "spark.rapids.tpu.cache.compressionCodec": "none",
     },
-    7: {  # memory and robustness
+    STEP_ROBUSTNESS: {
         "spark.rapids.memory.gpu.allocFraction": 0.9,
         "spark.rapids.memory.gpu.maxAllocFraction": 1.0,
         "spark.rapids.tpu.memory.pool.mode": "logical",
@@ -269,7 +352,7 @@ _UNREAD_BY_STEP: Dict[int, Dict[str, Any]] = {
         "spark.rapids.tpu.faults.seed": 0,
         "spark.rapids.tpu.faults.spec": "",
     },
-    8: {  # multi-GPU: shuffle tiers, transports, the mesh, task runtime
+    STEP_MULTI_GPU: {
         "spark.rapids.tpu.shuffle.mode": "auto",
         "spark.rapids.tpu.shuffle.cacheWrites": "auto",
         "spark.rapids.tpu.shuffle.exchangeChunkRows": 524288,
@@ -298,8 +381,9 @@ _UNREAD_BY_STEP: Dict[int, Dict[str, Any]] = {
         "spark.rapids.tpu.pipeline.prefetchDepth": 2,
         "spark.rapids.tpu.pipeline.taskPool": 4,
     },
-    9: {  # breadth: readers, float and agg modes, planner, UDFs,
-          # compile cache, observability
+    STEP_BREADTH: {  # readers and the parquet writer, float and agg
+        # modes, planner, UDFs, compile cache, observability
+        "spark.rapids.tpu.parquet.deviceWrite.enabled": True,
         "spark.rapids.sql.format.csv.enabled": True,
         "spark.rapids.sql.format.csv.reader.type": "AUTO",
         "spark.rapids.sql.format.json.enabled": True,
@@ -367,8 +451,8 @@ for _step, _keys in _UNREAD_BY_STEP.items():
     for _key, _default in _keys.items():
         register_conf(
             _key, "Read by the JAX package; the port runs its default and "
-            "raises on any other value until ROADMAP Queue 1 step "
-            f"{_step} reads it.", _default,
+            f"raises on any other value until ROADMAP Queue 1 ({_step}) "
+            "reads it.", _default,
             checker=_not_ported_unless_default(_default, _step,
                                                _key in _CASE_FREE))
 

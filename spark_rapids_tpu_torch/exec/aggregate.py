@@ -32,6 +32,7 @@ from ..columnar import dtypes as dt
 from ..columnar.device import (DeviceColumn, DeviceTable,
                                concat_device_tables, pack_string_key_words,
                                shrink_to_fit, torch_dtype)
+from ..conf import STEP_BREADTH, STEP_DECIMAL128, not_ported
 from ..plan.physical import (AggSpec, PhysicalPlan, aggregate_columns_ops,
                              aggregate_schema, check_mode)
 from ..plan.schema import Schema
@@ -79,7 +80,8 @@ def _key_code_words(kc: DeviceColumn
     if not isinstance(kc.dtype, _FIXED_WIDTH):
         raise NotImplementedError(
             f"group-by keys of type {kc.dtype!r} are not ported yet (struct "
-            "keys: ROADMAP Queue 1 step 11; decimal keys: step 8)")
+            f"keys: ROADMAP Queue 1: {STEP_BREADTH}; decimal keys: "
+            f"{STEP_DECIMAL128})")
     v = _normalize_float_key(kc.data)
     if v.dtype.is_floating_point:
         nan = torch.isnan(v)
@@ -270,7 +272,7 @@ def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
     identity by ``where`` and never multiplied by the mask."""
     if op in _COLLECT_OPS:
         raise NotImplementedError(
-            f"aggregate op {op!r} is not ported yet (ROADMAP Queue 1 step 11)")
+            f"aggregate op {op!r} is not ported yet {not_ported(STEP_BREADTH)}")
     out_dtype = torch_dtype(out_dt)
     if counts is None:
         counts = _seg_sum(contrib.to(torch.int64), gid, cap)
@@ -283,7 +285,7 @@ def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
         return _seg_sum(x, gid, cap, segments), has
     if op not in ("min", "max"):
         raise NotImplementedError(
-            f"aggregate op {op!r} is not ported yet (ROADMAP Queue 1 step 11)")
+            f"aggregate op {op!r} is not ported yet {not_ported(STEP_BREADTH)}")
     for_min = op == "min"
     # bool as uint8: its extremes 0 and 255 cast back to the JAX package's
     # bool identities (False for max, True for min) in empty groups

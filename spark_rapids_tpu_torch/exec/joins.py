@@ -43,11 +43,12 @@ rides int64 in ``[0, 2**32)`` (shuffle/manager.py), its uint64 key words
 int64 with the sign bit flipped before sorting.
 
 Not ported yet: joins without equi-keys (the broadcast nested-loop join,
-ROADMAP Queue 1 step 6), whose planning raises; key types the device
-batch does not hold (binary, and decimal and nested types, which the port
-has not yet), which are tagged and run on the host engine (step 8); and
-the grace join of a build side over ``spark.rapids.sql.batchSizeBytes``,
-which raises naming steps 8 and 9.
+ROADMAP Queue 1: nested-loop and cross joins), whose planning raises; key
+types the device batch does not hold (binary, and decimal and nested
+types, which the port has not yet), which are tagged and run on the host
+engine (ROADMAP Queue 1: breadth, and decimal128); and the grace join of a
+build side over ``spark.rapids.sql.batchSizeBytes``, which raises naming
+its step (ROADMAP Queue 1: the grace join and the spill catalog).
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
                                bucket_width, concat_device_tables,
                                pack_string_key_words, shrink_to_fit,
                                slice_rows, torch_dtype)
+from ..conf import STEP_BREADTH, STEP_NESTED_LOOP, not_ported
 from ..expr.base import EvalContext, Expression
 from ..plan.logical import _join_schema
 from ..plan.physical import PhysicalPlan
@@ -300,7 +302,7 @@ def _column_code_arrays(col: DeviceColumn) -> List[torch.Tensor]:
     if not _key_type_ok(col.dtype):
         raise NotImplementedError(
             f"a join key of {col.dtype!r} is not ported to the device yet "
-            "(ROADMAP Queue 1 step 8)")
+            + not_ported(STEP_BREADTH))
     if v.dtype.is_floating_point:
         nan = torch.isnan(v)
         v = torch.where(v == 0, torch.zeros_like(v), v)
@@ -468,17 +470,18 @@ def join_unsupported_reason(how: str, left_keys: Sequence[str],
     step), or None."""
     if how not in SUPPORTED:
         return (f"{how} joins (the broadcast nested-loop join) are not "
-                "ported to the device yet (ROADMAP Queue 1 step 6)")
+                f"ported to the device yet {not_ported(STEP_NESTED_LOOP)}")
     if not left_keys:
         return ("joins without equi-keys (the broadcast nested-loop join) "
-                "are not ported to the device yet (ROADMAP Queue 1 step 6)")
+                "are not ported to the device yet "
+                + not_ported(STEP_NESTED_LOOP))
     for lk, rk in zip(left_keys, right_keys):
         lt = left_schema.field(lk).dtype
         rt = right_schema.field(rk).dtype
         for t in (lt, rt):
             if not _key_type_ok(t):
                 return (f"a join key of {t!r} is not ported to the device "
-                        "yet (ROADMAP Queue 1 step 8)")
+                        f"yet {not_ported(STEP_BREADTH)}")
         if isinstance(lt, dt.StringType) != isinstance(rt, dt.StringType):
             return f"a join key of {lt!r} against {rt!r} is not comparable"
     return None
@@ -864,7 +867,8 @@ class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
     (reference: GpuBroadcastHashJoinExec). Right and full joins never
     broadcast their build side: its unmatched rows would repeat per probe
     partition. The build table stays on the node for the plan's life (the
-    spill catalog is ROADMAP Queue 1 step 9)."""
+    spill catalog is ROADMAP Queue 1: the grace join and the spill
+    catalog)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)

@@ -14,7 +14,8 @@ first n rows, and a running state of at most n rows is merged with each
 batch's top by the same sort.
 
 The out-of-core merge for inputs larger than the batch budget waits for
-the spill catalog (ROADMAP Queue 1 step 9).
+the spill catalog (ROADMAP Queue 1: the grace join and the spill
+catalog).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
                                concat_device_tables, pack_string_key_words)
+from ..conf import STEP_GRACE_JOIN, not_ported
 from ..expr.base import EvalContext
 from ..expr.functions import SortOrder
 from ..plan.physical import PhysicalPlan, describe_orders
@@ -170,7 +172,8 @@ class TpuSortExec(TpuExec):
             raise NotImplementedError(
                 f"sort input of {len(batches)} batches exceeds "
                 f"spark.rapids.sql.batchSizeBytes={self.batch_bytes}: the "
-                "out-of-core sort is not ported yet (ROADMAP Queue 1 step 9)")
+                "out-of-core sort is not ported yet "
+                + not_ported(STEP_GRACE_JOIN))
         # FullSortSingleBatch mode
         table = concat_device_tables(batches, self.min_bucket)
         self.account_batch()

@@ -108,5 +108,19 @@ def load_kernels() -> ctypes.CDLL:
                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int32,
                 ctypes.c_void_p, ctypes.c_void_p]
             lib.srt_nfa_match.restype = ctypes.c_int
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+            lib.srt_pq_expand_hybrid.argtypes = [ptr, i32, ptr, i64, i64,
+                                                 ptr, ptr]
+            lib.srt_pq_gather_fixed.argtypes = [
+                i32, ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i64, i64, ptr,
+                ptr]
+            lib.srt_pq_gather_byte_array.argtypes = [
+                ptr, ptr, ptr, i64, ptr, ptr, ptr, i64, i64, i64, i64, i64,
+                i64, i64, ptr, ptr, ptr]
+            for fn in (lib.srt_pq_expand_hybrid, lib.srt_pq_gather_fixed,
+                       lib.srt_pq_gather_byte_array):
+                fn.restype = ctypes.c_int
+            lib.srt_ba_walk.argtypes = [ptr, i64, i64, ptr, ptr]
+            lib.srt_ba_walk.restype = ctypes.c_int64
             _LIB = lib
         return _LIB

@@ -22,32 +22,40 @@ JAX package's: each batch's value planes scaled from its capacity to its
 rows, string matrices at their bucketed widths (validity, lengths and row
 masks not counted), so both engines demote the same joins.
 
+When a join demotes to broadcast (inner and left-semi), the build side's
+distinct keys are pushed into the probe side's host scan as a runtime IN
+filter, when the scan's source prunes by statistics (Parquet) and the path
+from the join to it keeps the key column; a scan already lowered to the
+device (``TpuParquetScanExec``) takes none, as in the JAX package.
+
 Not ported yet, until stages have more than one device partition (ROADMAP
-Queue 1 step 10): skew splitting and partition coalescing. On one device
-every stage is one partition, where neither can fire; a stage of more
-partitions (an exchange the host tier ran) is left as it is, and
-``AdaptiveExec.events`` records that with either enabled. The
-runtime IN-filter pushed into a probe scan needs a source that prunes by
-statistics (Parquet, step 7); the in-memory source has none, and the JAX
-package pushes nothing into it either.
+Queue 1: multi-GPU): skew splitting and partition coalescing. On one
+device every stage is one partition, where neither can fire; a stage of
+more partitions (an exchange the host tier ran) is left as it is, and
+``AdaptiveExec.events`` records that with either enabled.
 """
 from __future__ import annotations
 
+import copy
 from typing import Iterator, List, Optional
 
+import numpy as np
+import pyarrow.dataset as pads
 import torch
 
 from ..columnar.device import DeviceTable
 from ..columnar.host import HostTable
 from ..conf import (AQE_BROADCAST_BYTES, AQE_COALESCE_ENABLED,
-                    AQE_SKEW_ENABLED, RapidsConf)
+                    AQE_RUNTIME_FILTER, AQE_RUNTIME_FILTER_MAX_KEYS,
+                    AQE_SKEW_ENABLED, STEP_MULTI_GPU, RapidsConf, not_ported)
 from ..exec.base import TpuExec
 from ..exec.exchange import TpuLocalExchangeExec
 from ..exec.transitions import DeviceToHostExec
-from ..expr.base import AttributeReference
+from ..expr.base import Alias, AttributeReference
 from .meta import register_exec_rule, replace_children
 from .overrides import _device_all, apply_overrides
-from .physical import CpuProjectExec, PhysicalPlan, ShuffleExchangeExec
+from .physical import (CpuFilterExec, CpuProjectExec, CpuScanExec,
+                       PhysicalPlan, ShuffleExchangeExec)
 from .physical_joins import CpuBroadcastHashJoinExec, CpuShuffledHashJoinExec
 
 __all__ = ["AdaptiveExec", "ShuffleStageExec", "TpuStageReaderExec",
@@ -276,7 +284,7 @@ class AdaptiveExec(PhysicalPlan):
                 self.events.append(
                     f"left stage n={n.num_partitions} as it is: skew "
                     "splitting and partition coalescing are not ported yet "
-                    "(ROADMAP Queue 1 step 10)")
+                    + not_ported(STEP_MULTI_GPU))
 
     def _pick(self, frontier: List[ShuffleExchangeExec],
               plan: PhysicalPlan) -> ShuffleExchangeExec:
@@ -312,6 +320,13 @@ class AdaptiveExec(PhysicalPlan):
                 self.events.append(
                     f"demoted {node.how} join to broadcast (build side "
                     f"{node.right.stats.total_bytes}B <= {threshold}B)")
+                if node.how in ("inner", "left_semi") \
+                        and self.conf.get(AQE_RUNTIME_FILTER):
+                    # dynamic filter (the DPP analogue): probe rows whose
+                    # key is absent from the build side never join; the
+                    # reader prunes them by statistics
+                    self._push_runtime_filter(probe, node.left_keys,
+                                              node.right, node.right_keys)
                 return CpuBroadcastHashJoinExec(
                     probe, node.right, node.left_keys, node.right_keys,
                     node.how, node.condition, node.merge_keys)
@@ -337,3 +352,57 @@ class AdaptiveExec(PhysicalPlan):
             return node
 
         return rewrite(plan)
+
+    def _push_runtime_filter(self, probe: PhysicalPlan, lkeys, build_stage,
+                             rkeys) -> None:
+        """Push the build side's distinct keys into the probe side's host
+        scans as an IN filter: only through nodes that keep the key column
+        as it is (filters and identity projections), and only into a
+        source that takes a filter (Parquet). A scan already lowered to the
+        device is not a ``CpuScanExec`` and takes none."""
+        max_keys = self.conf.get(AQE_RUNTIME_FILTER_MAX_KEYS)
+
+        def scan_for(node, key):
+            """The scan below ``node`` if every step keeps ``key``."""
+            if isinstance(node, CpuScanExec):
+                return node if hasattr(node.source, "push_filter") else None
+            if isinstance(node, CpuFilterExec):
+                return scan_for(node.child, key)
+            if isinstance(node, CpuProjectExec):
+                for e, n in zip(node.exprs, node.names):
+                    if n == key:
+                        inner = e.child if isinstance(e, Alias) else e
+                        if isinstance(inner, AttributeReference) \
+                                and inner.column_name == key:
+                            return scan_for(node.child, key)
+                        return None
+            return None
+
+        candidates = [(lk, rk, scan_for(probe, lk))
+                      for lk, rk in zip(lkeys, rkeys)]
+        candidates = [(lk, rk, s) for lk, rk, s in candidates if s is not None]
+        if not candidates:
+            return
+        # one pass over the build stage collects every key column's values
+        values = {lk: set() for lk, _, _ in candidates}
+        live = {lk for lk, _, _ in candidates}
+        for p in range(build_stage.num_partitions):
+            if not live:
+                break
+            for ht in build_stage.execute(p):
+                for lk, rk, _ in candidates:
+                    if lk not in live:
+                        continue
+                    col = ht.column(rk)
+                    values[lk].update(
+                        np.unique(col.values[col.valid_mask()]).tolist())
+                    if len(values[lk]) > max_keys:
+                        live.discard(lk)  # this key only; others go on
+        for lk, rk, scan in candidates:
+            if lk not in live or not values[lk]:
+                continue
+            src = copy.copy(scan.source)
+            src.push_filter(pads.field(lk).isin(sorted(values[lk])))
+            scan.source = src
+            self.events.append(f"pushed runtime IN-filter on {lk} "
+                               f"({len(values[lk])} keys) into probe scan")

@@ -20,6 +20,7 @@ import pyarrow as pa
 
 from ..columnar import dtypes as dt
 from ..columnar.host import HostColumn, HostTable
+from ..conf import STEP_BREADTH, not_ported
 
 __all__ = ["group_codes", "host_group_reduce", "object_codes"]
 
@@ -123,7 +124,7 @@ def host_group_reduce(op: str, col: HostColumn, gid: np.ndarray, ngroups: int,
     """-> (values[ngroups], validity[ngroups] or None)."""
     if op in _COLLECT_OPS:
         raise NotImplementedError(
-            f"aggregate op {op!r} is not ported yet (ROADMAP Queue 1 step 11)")
+            f"aggregate op {op!r} is not ported yet {not_ported(STEP_BREADTH)}")
     valid = col.valid_mask()
     vals = col.values
     np_out = object if isinstance(out_dtype, (dt.StringType, dt.BinaryType)) \

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Set, Tuple
 
-from ..conf import BROADCAST_THRESHOLD, RapidsConf
+from ..conf import (BROADCAST_THRESHOLD, STEP_NESTED_LOOP, RapidsConf,
+                    not_ported)
 from ..expr.base import Alias, AttributeReference, Expression
 from ..expr.predicates import And, EqualTo
 from .logical import LogicalJoin, LogicalPlan, LogicalScan
@@ -130,7 +131,7 @@ def plan_join(node: LogicalJoin, conf: RapidsConf,
     if not lkeys:
         raise NotImplementedError(
             f"{node.how} join without equi-keys (the broadcast nested-loop "
-            "join) is not ported yet (ROADMAP Queue 1 step 6)")
+            f"join) is not ported yet {not_ported(STEP_NESTED_LOOP)}")
     lreq = rreq = None
     if required is not None:
         refs = set(required) | set(lkeys) | set(rkeys)

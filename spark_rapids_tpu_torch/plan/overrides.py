@@ -15,13 +15,13 @@ from __future__ import annotations
 import torch
 
 from ..columnar.dtypes import TypeEnum, TypeSig
-from ..conf import RapidsConf
-from ..conf import JOIN_STRATEGY
+from ..conf import JOIN_STRATEGY, PARQUET_DEVICE_DECODE, RapidsConf
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.basic import TpuFilterExec, TpuLocalLimitExec, TpuProjectExec
 from ..exec.exchange import TpuLocalExchangeExec
 from ..exec.joins import (TpuBroadcastHashJoinExec, TpuShuffledHashJoinExec,
                           join_unsupported_reason)
+from ..exec.scan import TpuParquetScanExec
 from ..exec.sort import TpuSortExec, TpuTakeOrderedExec
 from ..exec.wholestage import fuse_stages
 from ..expr import aggregates as A
@@ -32,6 +32,7 @@ from ..expr import predicates as P
 from ..expr import strings as S
 from ..expr.base import Alias, AttributeReference, Literal
 from ..expr.cast import Cast, cast_supported
+from ..io.parquet import ParquetSource
 from ..udf.columnar import ColumnarUDF
 from .meta import register_exec_rule, register_expr_rule, wrap_plan
 from .physical import (CpuCollectLimitExec, CpuFilterExec,
@@ -180,6 +181,28 @@ def _register_exec_rules():
                 conf.min_bucket_rows, conf.batch_size_bytes),
             exprs_fn=lambda p: [] if p.condition is None else [p.condition],
             tag_fn=tag_join)
+
+    def tag_scan(meta, conf):
+        # a parquet scan decodes on the device (exec/scan.py); other
+        # sources and a scan with a pushed filter stay on the host reader
+        p: CpuScanExec = meta.plan
+        if not isinstance(p.source, ParquetSource):
+            meta.cannot_run(f"{p.source.name()} decodes host-side (parquet "
+                            "has a device decoder)")
+            return
+        if not conf.get(PARQUET_DEVICE_DECODE):
+            meta.cannot_run("device parquet decode disabled by "
+                            "spark.rapids.tpu.parquet.deviceDecode.enabled")
+            return
+        if p.source.filter_expr is not None:
+            meta.cannot_run("pushed filter uses the host reader's "
+                            "row-group statistics pruning")
+
+    register_exec_rule(
+        CpuScanExec, _device_all,
+        lambda p, ch, conf, device: TpuParquetScanExec(
+            p.source, p.columns, p.schema, conf.min_bucket_rows, device),
+        tag_fn=tag_scan)
     # one device holds the whole exchange output (exec/exchange.py)
     register_exec_rule(
         ShuffleExchangeExec, _device_all,
@@ -208,7 +231,7 @@ def apply_overrides(cpu_plan: PhysicalPlan, conf: RapidsConf,
             print(text)
     if conf.test_enabled:
         for m in meta.walk():
-            # scans decode on the host by design (SURVEY §7.5)
+            # a scan that cannot decode on the device reads on the host
             if not m.can_run and not isinstance(m.plan, CpuScanExec):
                 raise AssertionError(
                     f"[test.enabled] {type(m.plan).__name__} fell off the "

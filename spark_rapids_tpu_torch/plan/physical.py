@@ -37,6 +37,9 @@ __all__ = [
     "murmur_hash_columns", "PLAN_EXPR_ATTRS",
 ]
 
+#: the row goal of the coalesce after an upload (plan/transitions.py)
+DEFAULT_BATCH_ROWS = 1 << 20
+
 #: every attribute a physical node may hold expressions in (bare, in lists,
 #: in ``SortOrder``s) — what the session's subquery pass walks
 PLAN_EXPR_ATTRS = ("exprs", "condition", "orders")

@@ -21,6 +21,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..columnar.host import HostColumn, HostTable
+from ..conf import STEP_NESTED_LOOP, not_ported
 from ..expr.base import EvalContext, Expression
 from .host_groupby import object_codes, unique_rows
 from .logical import _join_schema
@@ -104,7 +105,7 @@ def join_host_tables(lt: HostTable, rt: HostTable, lkeys: Sequence[str],
     if not lkeys:
         raise NotImplementedError(
             "joins without equi-keys (cross and nested-loop joins) are not "
-            "ported yet (ROADMAP Queue 1 step 6)")
+            "ported yet " + not_ported(STEP_NESTED_LOOP))
     li, ri = _inner_pairs(*_key_codes(lt, rt, lkeys, rkeys))
     if condition is not None:
         pairs = _combine(lt, rt, li, ri, lkeys, "inner", False)

@@ -1,6 +1,6 @@
 """Logical -> host physical planning — the port of
 ``spark_rapids_tpu/plan/planner.py`` for scan, filter, project, aggregate,
-sort, limit and join.
+sort, limit and join, with the Parquet scan's filter pushdown.
 
 Produces the host plan that the overrides layer (plan/overrides.py) then
 tags and lowers onto the device. Aggregates are planned two-phase (partial
@@ -10,10 +10,14 @@ becomes top-n; joins are planned by plan/joins_planner.py.
 """
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Set
 
-from ..conf import RapidsConf
+import pyarrow as pa
+
+from ..conf import SCAN_PUSHDOWN, RapidsConf
 from ..expr.base import AttributeReference, Expression
+from ..io.pushdown import push_filter_into_scan
 from .joins_planner import plan_join
 from .logical import (LogicalAggregate, LogicalFilter, LogicalJoin,
                       LogicalLimit, LogicalPlan, LogicalProject, LogicalScan,
@@ -57,8 +61,19 @@ def _plan(node: LogicalPlan, conf: RapidsConf,
     if isinstance(node, LogicalFilter):
         child_req = None if required is None \
             else required | node.condition.references()
-        return CpuFilterExec(_plan(node.child, conf, child_req),
-                             node.condition)
+        child = _plan(node.child, conf, child_req)
+        # scan predicate pushdown (reference: pushed filters -> parquet
+        # row-group pruning). The full filter stays above the scan. The
+        # source is COPIED per plan: the DataFrame's source must not gather
+        # filters across queries.
+        if isinstance(child, CpuScanExec) and conf.get(SCAN_PUSHDOWN):
+            src = copy.copy(child.source)
+            try:
+                if push_filter_into_scan(src, node.condition):
+                    child.source = src
+            except (TypeError, ValueError, pa.ArrowException):
+                pass  # a value Arrow cannot compare: no pushdown
+        return CpuFilterExec(child, node.condition)
 
     if isinstance(node, LogicalAggregate):
         refs = _refs(node.groupings)

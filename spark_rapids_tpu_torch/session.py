@@ -18,6 +18,7 @@ from .expr.base import Alias, AttributeReference, Expression
 from .expr.functions import SortOrder, _to_expr, col as _col
 from .expr.subquery import ScalarSubquery
 from .io.memory import InMemorySource
+from .io.parquet import ParquetSource
 from .plan.aqe import AdaptiveExec, walk_plan
 from .plan.logical import (LogicalAggregate, LogicalFilter, LogicalJoin,
                            LogicalLimit, LogicalPlan, LogicalProject,
@@ -61,6 +62,13 @@ class TorchSession:
             table = pa.Table.from_pandas(data, preserve_index=False)
         return DataFrame(self, LogicalScan(InMemorySource(table,
                                                           num_partitions)))
+
+    def read_parquet(self, paths, num_partitions: Optional[int] = None
+                     ) -> "DataFrame":
+        """A DataFrame over Parquet files (a file, a directory of
+        ``*.parquet`` or a glob; partitioned by file)."""
+        return DataFrame(self, LogicalScan(
+            ParquetSource(paths, self.conf, num_partitions)))
 
     def _physical(self, logical: LogicalPlan,
                   device: Optional[bool] = None) -> PhysicalPlan:

@@ -1,6 +1,6 @@
 """Device-side hashing of the shuffle layer — the port of ``_fmix_device``
 from ``spark_rapids_tpu/shuffle/manager.py``. Device partition ids wait for
-ROADMAP Queue 1 step 8.
+ROADMAP Queue 1: the grace join and the spill catalog.
 
 Torch has no unsigned 32-bit shifts or remainders, so a uint32 value rides
 an int64 tensor in ``[0, 2**32)``: shifts are then logical, and every

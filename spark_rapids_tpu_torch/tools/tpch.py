@@ -585,8 +585,7 @@ def q13(t):
 
 def q13_nolike(t):
     """TPC-H Q13's shape (left outer join, then a count by customer and a
-    count by that count) without its ``o_comment NOT LIKE`` filter, which
-    waits for the device LIKE (ROADMAP Queue 1 step 8)."""
+    count by that count) without its ``o_comment NOT LIKE`` filter."""
     from ..expr import functions as F
     col = F.col
     orders = t["orders"].select(col("o_custkey").alias("ok_custkey"),

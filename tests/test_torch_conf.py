@@ -73,8 +73,8 @@ def test_jax_key_is_read_or_raises_unless_default(key):
         if case_free:
             assert RapidsConf({key: default.upper()}).get(key) == default
     with pytest.raises(NotImplementedError,
-                       match=rf"{re.escape(key)}=.*ROADMAP Queue 1 step "
-                       rf"{_UNREAD[key]}\)"):
+                       match=rf"{re.escape(key)}=.*\(ROADMAP Queue 1: "
+                       rf"{re.escape(_UNREAD[key])}\)"):
         RapidsConf({key: _other_value(default)})
 
 
@@ -87,14 +87,18 @@ def test_unread_table_holds_only_jax_keys():
 @pytest.mark.parametrize("key,value", [
     ("spark.rapids.tpu.shuffle.mode", "host"),
     ("spark.rapids.tpu.shuffle.mode", "bogus"),
-    ("spark.rapids.tpu.coalesce.afterUpload.enabled", True),
-    ("spark.rapids.tpu.coalesce.afterUpload.enabled", "true")])
+    ("spark.rapids.tpu.groupby.strategy", "sort"),
+    ("spark.rapids.tpu.memory.pool.mode", "strict")])
 def test_keys_that_change_the_jax_plan_raise(key, value):
     """``shuffle.mode=host`` puts a host exchange into the JAX plan,
-    ``bogus`` makes the JAX package raise, ``coalesce.afterUpload`` adds
-    ``TpuCoalesceBatchesExec``: the port runs none of them, so it raises."""
+    ``bogus`` makes the JAX package raise, ``groupby.strategy=sort`` takes
+    its sort-based group-by and ``pool.mode=strict`` its strict memory
+    pool: the port runs none of them, so it raises. (The port reads
+    ``coalesce.afterUpload.enabled``: tests/test_torch_upload_cache.py.)"""
     from spark_rapids_tpu_torch.session import TorchSession
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step"):
+    with pytest.raises(NotImplementedError,
+                       match=rf"\(ROADMAP Queue 1: "
+                       rf"{re.escape(_UNREAD[key])}\)"):
         TorchSession({key: value}, device="cpu")
 
 

@@ -421,7 +421,8 @@ def test_out_of_slice_joins_raise_naming_the_roadmap_step():
     """Every hash join type builds on the device, on multi-key, string,
     mixed-type keys and with a residual condition; what is still out of the
     slice raises naming its ROADMAP step: joins without equi-keys (the
-    nested-loop join, step 6) and binary keys (step 8)."""
+    nested-loop join: nested-loop and cross joins) and binary keys
+    (breadth)."""
     from spark_rapids_tpu_torch.columnar import dtypes as tdt
     rng = np.random.default_rng(0)
     build, jbuild = _side(rng, "b", 6, 8, "int64", 4)
@@ -438,11 +439,12 @@ def test_out_of_slice_joins_raise_naming_the_roadmap_step():
                 left, right, lk, rk, how, cond, False, torch.device("cpu"))
     for how, lk, rk in [("cross", [], []), ("inner", [], [])]:
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 step 6"):
+                           match="ROADMAP Queue 1: nested-loop and cross "
+                           "joins"):
             tjoins.TpuShuffledHashJoinExec(
                 left, right, lk, rk, how, None, False, torch.device("cpu"))
     binary = type(left)(Schema([Field("pb", tdt.BINARY)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: breadth"):
         tjoins.TpuShuffledHashJoinExec(binary, binary, ["pb"], ["pb"],
                                        "inner", None, False,
                                        torch.device("cpu"))

@@ -272,7 +272,9 @@ def test_sort_over_the_batch_budget_raises_naming_roadmap():
     sess = TorchSession({"spark.rapids.sql.batchSizeBytes": 1},
                         device="cpu")
     df = sess.create_dataframe(li, num_partitions=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1: the grace join and the spill "
+                       "catalog"):
         df.sort("l_orderkey").collect()
 
 
@@ -280,7 +282,7 @@ def test_join_still_raises_naming_roadmap():
     """Joins without equi-keys (the nested-loop join) are still to port."""
     sess = TorchSession(device="cpu")
     df = sess.create_dataframe(tpch.gen_lineitem(0, seed=0, rows=10))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 6"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1: nested-loop and cross joins"):
         df.join(df.select(F.col("l_tax").alias("t")), how="cross").collect()
 
 

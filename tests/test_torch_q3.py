@@ -178,7 +178,7 @@ def test_out_of_slice_joins_are_tagged_and_run_on_the_host_engine(tables):
         "kb2": names.take(np.arange(0, len(names), 3)),
         "w": np.arange(len(range(0, len(names), 3)), dtype=np.int64)}))
     q = cust.join(other, condition=F.col("kb") == F.col("kb2"))
-    assert "ROADMAP Queue 1 step 8" in q.explain("device")
+    assert "ROADMAP Queue 1: breadth" in q.explain("device")
     got = q.collect()
     assert got.num_rows == other.collect().num_rows
     assert_tables_equal(got, q.collect(device=False))
@@ -189,7 +189,8 @@ def test_out_of_slice_joins_are_tagged_and_run_on_the_host_engine(tables):
 def test_aqe_leaves_a_stage_of_many_partitions_as_it_is(tables):
     """An exchange the device may not run (its conf key off) materializes
     on the host tier in 8 partitions. Coalescing or skew splitting would
-    rewrite such a stage, which waits for ROADMAP step 10: AQE leaves it as
+    rewrite such a stage, which waits for ROADMAP Queue 1: multi-GPU. AQE
+    leaves it as
     it is, says so in its events, and the query equals the host engine
     under the default confs and with both rewrites off."""
     off = {"spark.rapids.sql.exec.ShuffleExchangeExec": False}
@@ -208,16 +209,17 @@ def test_aqe_leaves_a_stage_of_many_partitions_as_it_is(tables):
         assert plan.events[0].startswith("materialized stage n=8 rows=")
         assert "ShuffleStageExec [host n=8" in plan.tree_string()
         note = ("left stage n=8 as it is: skew splitting and partition "
-                "coalescing are not ported yet (ROADMAP Queue 1 step 10)")
+                "coalescing are not ported yet (ROADMAP Queue 1: multi-GPU)")
         assert (note in plan.events) == noted
 
 
 @pytest.mark.parametrize("key,value,step", [
-    ("spark.rapids.tpu.aqe.advisoryPartitionSizeBytes", 1 << 20, 10),
-    ("spark.rapids.tpu.aqe.coalescePartitions.minPartitionNum", 4, 10),
-    ("spark.rapids.tpu.aqe.skewJoin.skewedPartitionFactor", 2, 10),
-    ("spark.rapids.tpu.aqe.skewJoin.skewedPartitionThresholdBytes", 1, 10),
-    ("spark.rapids.tpu.aqe.runtimeFilter.maxKeys", 10, 7)])
+    ("spark.rapids.tpu.aqe.advisoryPartitionSizeBytes", 1 << 20, "multi-GPU"),
+    ("spark.rapids.tpu.aqe.coalescePartitions.minPartitionNum", 4,
+     "multi-GPU"),
+    ("spark.rapids.tpu.aqe.skewJoin.skewedPartitionFactor", 2, "multi-GPU"),
+    ("spark.rapids.tpu.aqe.skewJoin.skewedPartitionThresholdBytes", 1,
+     "multi-GPU")])
 def test_unread_aqe_confs_raise_unless_default(key, value, step):
     """A conf the engine does not read yet takes its default, and any other
     value raises naming the ROADMAP step, never ignored in silence."""
@@ -227,14 +229,15 @@ def test_unread_aqe_confs_raise_unless_default(key, value, step):
     assert TorchSession({key: str(default)}, device="cpu").conf.get(key) \
         == default
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 step {step}"):
+                       match=rf"\(ROADMAP Queue 1: {step}\)"):
         TorchSession({key: value}, device="cpu")
 
 
 def test_cross_join_raises_naming_roadmap(tables):
     sess = TorchSession(device="cpu")
     df = sess.create_dataframe(tables["customer"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 6"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1: nested-loop and cross joins"):
         df.join(df.select("c_name"), how="cross").collect()
 
 
