@@ -72,6 +72,15 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    Q20 finds no supplier), AQE on and off, against the host engine; it
    fails on 0 rows. Then the seconds of each phase and of the whole run.
 
+Between phases 5 and 6 the Parquet phase scans SF1 lineitem, orders and a
+nullable file through the device decode, each equal to pyarrow, and runs
+Q6 (pushdown off and on) and Q1 from Parquet against numpy, with the
+decode kernels' launches counted; for Q6 (pushdown off) and Q1 one more
+warm run under ``host_split()`` prints the decode's host seconds by stage
+and each column's run counts and mean run lengths. The kernel phase holds
+the three decode kernels against their plain versions, the two redesigned
+ones also on their edge cases, and times them.
+
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -1932,7 +1941,8 @@ def _pq_ba_args(rng, cap: int, width: int, nulls: float, d: int,
                 dict_share: float) -> tuple:
     """Byte-array inputs: ``d`` dictionary entries then one plain entry a
     non-null row past the dictionary's share, at lengths up to ``width``,
-    in one blob with an odd start -> (args, the blob bytes they read)."""
+    in one blob with an odd start and the kernel's 16-byte tail -> (args,
+    the blob bytes they read)."""
     valid = rng.random(cap) >= nulls
     pos = np.cumsum(valid).astype(np.int32) - 1
     nonnull = int(valid.sum())
@@ -1942,10 +1952,122 @@ def _pq_ba_args(rng, cap: int, width: int, nulls: float, d: int,
     lens = rng.integers(0, width + 1, entries).astype(np.int32)
     lens[:min(entries, 1)] = width
     starts = np.cumsum(lens.astype(np.int64)) - lens + 1
-    blob = rng.integers(0, 256, int(lens.sum()) + 1).astype(np.uint8)
+    n_blob = int(lens.sum()) + 1
+    blob = np.zeros(n_blob + 16, np.uint8)
+    blob[:n_blob] = rng.integers(0, 256, n_blob)
     cuda = [torch.from_numpy(a).cuda() for a in (valid, pos, idx, starts,
                                                  lens, blob)]
-    return (*cuda, n_dict, d, width), int(lens.sum())
+    return (*cuda, n_blob, n_dict, d, width), int(lens.sum())
+
+
+def _pq_ba_reference(valid, pos, idx, starts, lens, blob, n_blob, n_dict,
+                     d, width):
+    """``pq_gather_byte_array_reference`` on the wrapper's arguments."""
+    from spark_rapids_tpu_torch.io.parquet_kernels import \
+        pq_gather_byte_array_reference
+    return pq_gather_byte_array_reference(valid, pos, idx, starts, lens,
+                                          blob[:n_blob], n_dict, d, width)
+
+
+def _pq_table(rng, counts, is_rle, widths, short: int = 0) -> tuple:
+    """A run table over ``counts`` values a run, bit-packed runs laid one
+    after another (``short`` bytes cut off the end of the packed bytes, so
+    the last values' reads clamp) -> (runs, packed with the kernel's tail,
+    n_packed)."""
+    counts, is_rle = np.asarray(counts, np.int64), np.asarray(is_rle, bool)
+    widths = np.asarray(widths, np.int64)
+    nbits = np.where(is_rle, 0, counts * widths)
+    runs = np.stack([np.cumsum(counts) - counts, is_rle,
+                     np.where(is_rle, rng.integers(0, 1 << 24, len(counts)),
+                              0),
+                     np.where(is_rle, 0, np.cumsum(nbits) - nbits),
+                     np.where(is_rle, 0, widths)]).astype(np.int64)
+    n = max(int(-(-nbits.sum() // 8)) - short, 1)
+    packed = np.zeros(-(-n // 4) * 4 + 4, np.uint8)
+    packed[:n] = rng.integers(0, 256, n)
+    return runs, packed, n
+
+
+def _pq_edge_tables(rng) -> dict:
+    """The expansion's edge cases (name -> ``_pq_table``): tiles of 2048
+    outputs starting inside runs; RLE runs of one value (a tile spans more
+    runs than the kernel's 256-run slice); R a power of two (no padding
+    run), read past its total; widths 0, 1, 17 and 24; reads past
+    n_packed; R past 256 x 32 (two search rounds); runs of 0 values."""
+    k = 1 << 14
+    return {
+        "inside runs": _pq_table(rng, [700] * 12, rng.random(12) < 0.3,
+                                 [5] * 12),
+        "runs of length 1": _pq_table(rng, [1] * 5000, [True] * 5000,
+                                      [0] * 5000),
+        "R a power of two": _pq_table(rng, rng.integers(1, 10, 1024),
+                                      np.arange(1024) % 5 == 1, [7] * 1024),
+        "widths 0/1/17/24": _pq_table(rng, rng.integers(1, 40, 300),
+                                      rng.random(300) < 0.1,
+                                      np.resize([0, 1, 17, 24], 300)),
+        "reads past n_packed": _pq_table(rng, rng.integers(1, 60, 40),
+                                         [False] * 40,
+                                         rng.integers(9, 25, 40), short=5),
+        "two search rounds": _pq_table(rng, rng.integers(1, 4, k),
+                                       rng.random(k) < 0.5,
+                                       rng.integers(0, 25, k)),
+        "runs of 0 values": _pq_table(rng, rng.integers(0, 3, 600),
+                                      rng.random(600) < 0.3, [11] * 600)}
+
+
+def _pq_edge_caps(runs: np.ndarray) -> tuple:
+    """The caps an edge table is expanded at: 1, 3, 5, 4097, its total and
+    2500 past it."""
+    total = int(runs[0, -1] + np.diff(runs[0]).max(initial=1))
+    return 1, 3, 5, 4097, total, total + 2500
+
+
+def _pq_edge_byte_arrays(rng, width: int, cap: int, clamped: bool) -> tuple:
+    """Byte-array inputs at every start offset mod 16 and lengths 0, 15,
+    16, 17, ``width`` and random, dictionary indices past the entries;
+    ``clamped``: some entries reach outside the blob -> numpy (valid, pos,
+    idx, starts, lens, blob with the kernel's tail), n_blob and the
+    dictionary entries."""
+    entries, d_entries = 300, 100
+    valid = rng.random(cap) < 0.88
+    pos = (np.cumsum(valid) - 1).astype(np.int32)
+    idx = rng.integers(-2, 130, 1 << 11).astype(np.int32)
+    lens = np.where(rng.random(entries) < 0.6,
+                    rng.choice(np.array([0, 15, 16, 17, width]), entries),
+                    rng.integers(0, width + 1, entries)).astype(np.int32)
+    starts = np.cumsum(lens.astype(np.int64) + np.arange(entries) % 16) \
+        - lens
+    n_blob = int(starts[-1] + lens[-1])
+    blob = np.zeros(n_blob + 16, np.uint8)
+    blob[:n_blob] = rng.integers(0, 256, n_blob)
+    if clamped:
+        starts[::7] -= 40
+        starts[3::11] += n_blob
+    return (valid, pos, idx, starts, lens, blob), n_blob, d_entries
+
+
+def _pq_sets(make) -> tuple:
+    """``make()`` -> (args, the bytes the call must read and write): sets
+    of args past twice L2 -> (the sets, their mean bytes)."""
+    first = make()
+    made = [first] + [make() for _ in range(
+        max(1, math.ceil(2 * L2_BYTES / first[1])) - 1)]
+    return [m[0] for m in made], sum(m[1] for m in made) / len(made)
+
+
+def _pq_expand_set(rng, width: int, cap: int = 1 << 20) -> tuple:
+    """Timed expansion inputs: 2^20 outputs at ``width`` bits, 10 % RLE."""
+    args, used = _pq_expand_check(rng, cap, width, 0.1)
+    return args, 4 * cap + used + args[0].numel() * 8
+
+
+def _pq_ba_set(rng, width: int, d: int, share: float,
+               cap: int = 1 << 20) -> tuple:
+    """Timed string-gather inputs: 2^20 rows of ``width`` from ``d``
+    dictionary values, ``1 - share`` of them plain."""
+    args, blob = _pq_ba_args(rng, cap, width, 0.0, d, share)
+    return args, (cap * (1 + 4) + 4 * args[7] + 12 * args[3].numel()
+                  + blob + cap * (width + 4))
 
 
 def parquet_kernel_phase() -> dict:
@@ -1954,7 +2076,9 @@ def parquet_kernel_phase() -> dict:
     outputs at widths 1, 4, 12, 17 and 24 (RLE and bit-packed runs mixed),
     ``pq_gather_fixed`` for every element size with nulls, dictionary-only,
     plain-only and mixed, ``pq_gather_byte_array`` at widths 8, 64 and 256
-    likewise, and the host walk ``srt_ba_walk`` against its Python loop;
+    likewise, both redesigned kernels on their edge cases
+    (``_pq_edge_tables``, ``_pq_edge_byte_arrays``), and the host walk
+    ``srt_ba_walk`` against its Python loop;
     then each kernel's device time at the Parquet scan's shapes (a row
     group of 1 << 20 rows: definition levels at width 1 and dictionary
     indices at 4; a dictionary-encoded double column, Q1's l_discount; a
@@ -1964,8 +2088,7 @@ def parquet_kernel_phase() -> dict:
     from spark_rapids_tpu_torch.io import parquet_device as pdev
     from spark_rapids_tpu_torch.io.parquet_kernels import (
         pq_expand_hybrid, pq_expand_hybrid_reference, pq_gather_byte_array,
-        pq_gather_byte_array_reference, pq_gather_fixed,
-        pq_gather_fixed_reference)
+        pq_gather_fixed, pq_gather_fixed_reference)
     rng = np.random.default_rng(11)
     cap = 1 << 20
     for width in (1, 4, 12, 17, 24):
@@ -1984,13 +2107,43 @@ def parquet_kernel_phase() -> dict:
         for nulls, share in ((0.0, 1.0), (0.12, 0.0), (0.12, 0.6)):
             args, _ = _pq_ba_args(rng, 1 << 16, width, nulls, 500, share)
             got = pq_gather_byte_array(*args)
-            want = pq_gather_byte_array_reference(*args)
+            want = _pq_ba_reference(*args)
             torch.cuda.synchronize()
             if not (torch.equal(got[0], want[0])
                     and torch.equal(got[1], want[1])):
                 raise AssertionError(f"pq_gather_byte_array != plain "
                                      f"(width {width}, nulls {nulls}, "
                                      f"dict {share})")
+    # the edge cases of the redesigned kernels, exact (their own seed: the
+    # timed inputs below stay those of earlier runs)
+    erng = np.random.default_rng(12)
+    edge_tables = _pq_edge_tables(erng)
+    for name, (runs, packed, n) in edge_tables.items():
+        r, p = torch.from_numpy(runs).cuda(), torch.from_numpy(packed).cuda()
+        for c in _pq_edge_caps(runs):
+            got = pq_expand_hybrid(r, p, n, c)
+            want = pq_expand_hybrid_reference(r, p, n, c)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"pq_expand_hybrid != plain ({name}, "
+                                     f"cap {c})")
+    for width in (8, 24, 64, 256, 4100):
+        for c in (1, 3, 5, 4097):
+            for clamped in (False, True):
+                arrays, n_blob, d = _pq_edge_byte_arrays(erng, width, c,
+                                                         clamped)
+                arrays = [torch.from_numpy(a).cuda() for a in arrays]
+                for n_dict in (0, 3000, c):
+                    args = (*arrays, n_blob, n_dict, d, width)
+                    got = pq_gather_byte_array(*args)
+                    want = _pq_ba_reference(*args)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(
+                            f"pq_gather_byte_array != plain (width {width}, "
+                            f"cap {c}, n_dict {n_dict}, entries outside the "
+                            f"blob {clamped})")
     lens = rng.integers(0, 200, 200_000)
     buf = b"".join(int(x).to_bytes(4, "little") + bytes(int(x))
                    for x in lens)
@@ -2003,18 +2156,18 @@ def parquet_kernel_phase() -> dict:
           "pq_gather_fixed: equal (exact) for 1-, 2-, 4- and 8-byte types, "
           "dictionary-only, plain-only and mixed with 12 % nulls; "
           "pq_gather_byte_array: equal (exact) at widths 8/64/256 likewise; "
-          "srt_ba_walk equal to the Python walk on 200,000 values",
-          flush=True)
+          "edge cases equal (exact): expansions of "
+          + ", ".join(edge_tables) + " at caps 1/3/5/4097/total/"
+          "total+2500; string gathers at widths 8/24/64/256/4100, caps "
+          "1/3/5/4097, every start offset mod 16, lengths 0/15/16/17/width, "
+          "entries inside and outside the blob; srt_ba_walk equal to the "
+          "Python walk on 200,000 values", flush=True)
 
     def timed(label, fn, ref, make):
         """``make()`` -> (args, the bytes the call must read and write);
         sets of args past twice L2, each held against the plain version,
         then timed."""
-        first = make()
-        made = [first] + [make() for _ in range(
-            max(1, math.ceil(2 * L2_BYTES / first[1])) - 1)]
-        sets = [m[0] for m in made]
-        nbytes = sum(m[1] for m in made) / len(made)
+        sets, nbytes = _pq_sets(make)
         for args in sets:
             got, want = fn(*args), ref(*args)
             torch.cuda.synchronize()
@@ -2035,25 +2188,16 @@ def parquet_kernel_phase() -> dict:
               "bound", flush=True)
         return t
 
-    def expand_set(width):
-        args, used = _pq_expand_check(rng, cap, width, 0.1)
-        return args, 4 * cap + used + args[0].numel() * 8
-
     def fixed_set():
         args = _pq_fixed_args(rng, cap, 0.0, 11, 1.0)
         return args, cap * (1 + 4 + 8) + 4 * args[5] + 8 * args[3].numel()
-
-    def ba_set(width, d, share):
-        args, blob = _pq_ba_args(rng, cap, width, 0.0, d, share)
-        return args, (cap * (1 + 4) + 4 * args[6] + 12 * args[3].numel()
-                      + blob + cap * (width + 4))
 
     out = {}
     for width in (1, 4):
         out[f"pq_expand_hybrid w{width}"] = timed(
             f"pq_expand_hybrid {cap} outputs at width {width}",
             pq_expand_hybrid, pq_expand_hybrid_reference,
-            lambda w=width: expand_set(w))
+            lambda w=width: _pq_expand_set(rng, w))
     out["pq_gather_fixed"] = timed(
         f"pq_gather_fixed {cap} float64 rows from an 11-value dictionary",
         pq_gather_fixed, pq_gather_fixed_reference, fixed_set)
@@ -2061,8 +2205,8 @@ def parquet_kernel_phase() -> dict:
         out[f"pq_gather_byte_array w{width}"] = timed(
             f"pq_gather_byte_array {cap} rows of width {width} ({d} "
             f"dictionary values, {round(100 * (1 - share))} % plain)",
-            pq_gather_byte_array, pq_gather_byte_array_reference,
-            lambda w=width, d=d, s=share: ba_set(w, d, s))
+            pq_gather_byte_array, _pq_ba_reference,
+            lambda w=width, d=d, s=share: _pq_ba_set(rng, w, d, s))
     return out
 
 
@@ -2164,8 +2308,54 @@ def _parquet_query(label: str, sess, q, check, device_decode: bool,
           "busy " + ("not measured" if busy is None else f"{busy:.1f} %")
           + f" of a traced warm run; decode kernel launches per run "
           f"{launches[-1]}", flush=True)
+    split = _host_split_run(label, sess, q, device) if device_decode \
+        else None
     return {"cold_s": walls[0], "warm_s": walls[1], "busy_pct": busy,
-            "launches": launches[-1]}
+            "launches": launches[-1], "split": split}
+
+
+def _host_split_run(label: str, sess, q, device: str) -> dict:
+    """One more warm run under ``host_split()``: prints the host seconds
+    of each stage of the decode (the kernels synchronised, so this run is
+    not a wall to compare) and, per column, its chunks' run counts R and
+    mean run lengths for definition levels and dictionary indices."""
+    from spark_rapids_tpu_torch.io.parquet_device import (SPLIT_STAGES,
+                                                          host_split)
+    with host_split() as split:
+        t0 = time.perf_counter()
+        sess._physical(q.logical, True).collect().to_arrow()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    staged = sum(split[k] for k in SPLIT_STAGES)
+    names = {"pages": "page headers and decompression",
+             "run_tables": "run tables (parse_hybrid)",
+             "count_defined": "_count_defined",
+             "byte_array_walk": "BYTE_ARRAY walk",
+             "staging": "staging buffer host build",
+             "upload": "its host-to-device copy",
+             "kernels": "kernels and ops (synchronised)",
+             "host_decode": "host decode of other columns"}
+    print(f"# {label} host split (one more warm run, {wall:.6f} s; "
+          f"decode_row_group {split['total']:.6f} s over "
+          f"{split['row_groups']} row groups): " + ", ".join(
+              f"{names[k]} {split[k]:.6f} s" for k in SPLIT_STAGES)
+          + f", rest of decode_row_group {split['total'] - staged:.6f} s, "
+          f"outside the decode {wall - split['total']:.6f} s", flush=True)
+    shapes = []
+    for col, chunks in sorted(split["runs"].items()):
+        parts = []
+        for stream in ("defs", "idx"):
+            rs = [r for st, r, _ in chunks if st == stream]
+            if rs:
+                values = sum(v for st, _, v in chunks if st == stream)
+                parts.append(f"{stream} R {min(rs)}-{max(rs)} over "
+                             f"{len(rs)} chunks, mean run "
+                             f"{values / sum(rs):.1f}")
+        shapes.append(f"{col} " + ", ".join(parts))
+    print(f"# {label} run tables: " + "; ".join(shapes), flush=True)
+    split["wall"] = wall
+    return split
 
 
 def parquet_phase(li: pa.Table, orders: pa.Table, workdir: str,

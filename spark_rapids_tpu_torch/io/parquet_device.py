@@ -30,10 +30,14 @@ parse error of the host half. A failure of the device half raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import io as _io
 import struct
-from typing import List, Optional, Tuple
+import threading
+import time
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -50,7 +54,7 @@ from .parquet_kernels import (MAX_BIT_WIDTH, pow2_ceil, pq_expand_hybrid,
 from .parquet_thrift import Encoding, PageType, read_page_header
 
 __all__ = ["chunk_supported", "decode_row_group", "UnsupportedChunk",
-           "DEVICE_DECODED_COLUMNS"]
+           "DEVICE_DECODED_COLUMNS", "host_split", "SPLIT_STAGES"]
 
 #: the scan's metric: columns of a row group decoded on the device
 DEVICE_DECODED_COLUMNS = "deviceDecodedColumns"
@@ -62,6 +66,79 @@ _ENC_OK = {"PLAIN", "RLE", "RLE_DICTIONARY", "PLAIN_DICTIONARY",
 
 class UnsupportedChunk(Exception):
     """Column chunk outside the device decoder's subset."""
+
+
+# ---------------------------------------------------------------------------
+# Where the decode's time goes: counters that only a host_split() block reads
+# ---------------------------------------------------------------------------
+#: the decode's stages, as ``host_split()`` times them: page headers and
+#: decompression; the hybrid streams into run tables; ``_count_defined``;
+#: the BYTE_ARRAY walk; the staging buffer's host build; its copy to the
+#: device; the kernels and the ops between them (synchronised); the host
+#: decode of the columns the device does not take
+SPLIT_STAGES = ("pages", "run_tables", "count_defined", "byte_array_walk",
+                "staging", "upload", "kernels", "host_decode")
+
+_split: Optional[dict] = None
+_split_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def host_split() -> Iterator[dict]:
+    """Times the decode inside the block. Yields a dict: host seconds by
+    stage (``SPLIT_STAGES``, and ``"total"``: the whole of each
+    ``decode_row_group``), ``"row_groups"``, and ``"runs"``: per column, a
+    list of ``(stream, R, values)`` per chunk, where the stream is
+    ``"defs"`` (definition levels) or ``"idx"`` (dictionary indices) and R
+    counts the runs before pow2 padding. Outside such a block nothing is
+    timed or synchronised."""
+    global _split
+    split = dict.fromkeys(SPLIT_STAGES + ("total",), 0.0)
+    split.update(row_groups=0, runs={})
+    with _split_lock:
+        if _split is not None:
+            raise RuntimeError("host_split() blocks do not nest")
+        _split = split
+    try:
+        yield split
+    finally:
+        with _split_lock:
+            _split = None
+
+
+def _clock() -> float:
+    """perf_counter() while a host_split() block is open, else 0.0."""
+    return time.perf_counter() if _split is not None else 0.0
+
+
+def _tally(stage: str, t0: float, device: Optional[torch.device] = None
+           ) -> None:
+    """Adds the seconds since ``t0`` (from ``_clock``) to ``stage``, after
+    the device's queued work where ``device`` is a CUDA device."""
+    split = _split
+    if split is None or not t0:
+        return
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt_s = time.perf_counter() - t0
+    with _split_lock:
+        split[stage] += dt_s
+
+
+def _timed(stage: str):
+    """Decorator: the call's seconds go to ``stage`` in a host_split()."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if _split is None:
+                return fn(*args, **kwargs)
+            t0 = _clock()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _tally(stage, t0)
+        return run
+    return deco
 
 
 def chunk_supported(col_meta, arrow_field, conf=None) -> bool:
@@ -97,6 +174,7 @@ def chunk_supported(col_meta, arrow_field, conf=None) -> bool:
 # ---------------------------------------------------------------------------
 # Host side: pages -> merged run tables
 # ---------------------------------------------------------------------------
+@_timed("pages")
 def _decompress(buf: bytes, codec: str, uncompressed_size: int) -> bytes:
     """A page's bytes through ``pyarrow.decompress``; a codec it refuses or
     a page it cannot inflate raises UnsupportedChunk (host decode)."""
@@ -123,6 +201,7 @@ class _RunTable:
         self.packed = bytearray()
         self.total = 0
 
+    @_timed("run_tables")
     def parse_hybrid(self, buf: bytes, pos: int, end: int, width: int,
                      max_count: int) -> None:
         """One RLE-hybrid stream (parquet format spec): the header varint's
@@ -250,6 +329,7 @@ def _ba_walk_native(buf: bytes, n: int) -> Tuple[np.ndarray, np.ndarray, int]:
     return starts, lens, pos
 
 
+@_timed("byte_array_walk")
 def _parse_byte_array_stream(buf: bytes, n: int, native: bool
                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Walk a PLAIN BYTE_ARRAY stream (u32 length before each value) ->
@@ -273,7 +353,9 @@ def _parse_chunk(raw: bytes, col_meta, nullable: bool,
     end = off + col_meta.total_compressed_size
     pos = off
     while pos < end:
+        t0 = _clock()
         hdr = read_page_header(raw, pos)
+        _tally("pages", t0)
         data_start = pos + hdr.header_bytes
         page = raw[data_start:data_start + hdr.compressed_size]
         pos = data_start + hdr.compressed_size
@@ -358,6 +440,7 @@ def _parse_chunk(raw: bytes, col_meta, nullable: bool,
     return ch
 
 
+@_timed("count_defined")
 def _count_defined(rt: _RunTable, from_entry_total: int) -> int:
     """Non-null count of the definition-level runs after a checkpoint:
     dictionary index streams hold only the non-null values."""
@@ -413,11 +496,17 @@ class _Staging:
         self.size += arr.nbytes + extra
         return len(self.parts) - 1
 
-    def views(self, device: torch.device) -> List[torch.Tensor]:
+    def views(self, device: torch.device, t0: float = 0.0
+              ) -> List[torch.Tensor]:
+        """The device buffer cut into the parts' views; ``t0`` (from
+        ``_clock``): when the host build began, for host_split()."""
         buf = np.zeros(max(self.size, 16), np.uint8)
         for off, arr, _ in self.parts:
             buf[off:off + arr.nbytes] = arr.reshape(-1).view(np.uint8)
+        _tally("staging", t0)
+        t0 = _clock()
         dev = torch.from_numpy(buf).to(device)
+        _tally("upload", t0, device)
         out = []
         for off, arr, extra in self.parts:
             dtype = torch.bool if arr.dtype == np.bool_ \
@@ -445,6 +534,7 @@ def _decode_column_device(ch: _Chunk, out_dtype: dt.DataType, cap: int,
     """-> DeviceColumn of row capacity ``cap`` on ``device``: the chunk's
     host arrays in one copy, then the expansion of its definition levels
     and dictionary indices and the row choice."""
+    t0 = _clock()
     n = ch.num_rows
     n_dict = ch.idx.total if ch.uses_dict else 0
     st = _Staging()
@@ -470,7 +560,9 @@ def _decode_column_device(ch: _Chunk, out_dtype: dt.DataType, cap: int,
                               + [ln.astype(np.int32) for _, ln, _ in parts])
         blob = np.concatenate([np.zeros(0, np.uint8)]
                               + [b for _, _, b in parts])
-        i_starts, i_lens, i_blob = st.add(starts), st.add(lens), st.add(blob)
+        # 16 zero bytes of tail, for the kernel's aligned 16-byte reads
+        i_starts, i_lens = st.add(starts), st.add(lens)
+        i_blob, n_blob = st.add(blob, extra=16), len(blob)
     else:
         npdt = out_dtype.np_dtype()
         if ch.bool_plain and not ch.uses_dict:
@@ -489,7 +581,8 @@ def _decode_column_device(ch: _Chunk, out_dtype: dt.DataType, cap: int,
         dict_vals = np.pad(dict_vals, (0, pow2_ceil(len(dict_vals))
                                        - len(dict_vals)))
         i_dict, i_plain = st.add(dict_vals), st.add(plain)
-    views = st.views(device)
+    views = st.views(device, t0)
+    t0 = _clock()
     levels = _expand(views, defs, cap)
     iota = torch.arange(cap, dtype=torch.int32, device=device)
     validity = torch.logical_and(levels > 0, iota < n)
@@ -502,12 +595,26 @@ def _decode_column_device(ch: _Chunk, out_dtype: dt.DataType, cap: int,
     if string:
         data, lengths = pq_gather_byte_array(
             validity, pos, idx, views[i_starts], views[i_lens],
-            views[i_blob], n_dict, dict_entries, width)
+            views[i_blob], n_blob, n_dict, dict_entries, width)
+        _tally("kernels", t0, device)
         return DeviceColumn(data, validity, out_dtype, all_valid=all_valid,
                             lengths=lengths)
     data = pq_gather_fixed(validity, pos, idx, views[i_dict], views[i_plain],
                            n_dict)
+    _tally("kernels", t0, device)
     return DeviceColumn(data, validity, out_dtype, all_valid=all_valid)
+
+
+def _note_runs(name: str, ch: _Chunk) -> None:
+    """Records the chunk's run tables' shapes in an open host_split()."""
+    split = _split
+    if split is None:
+        return
+    shapes = [("defs", len(ch.defs.out_start), ch.defs.total)]
+    if ch.uses_dict:
+        shapes.append(("idx", len(ch.idx.out_start), ch.idx.total))
+    with _split_lock:
+        split["runs"].setdefault(name, []).extend(shapes)
 
 
 #: what sends a column to the host decode: a chunk outside the subset or a
@@ -524,6 +631,7 @@ def decode_row_group(raw: bytes, pf_metadata, rg: int, arrow_schema,
     """Decode one row group into a DeviceTable on ``device``; a column the
     device decoder does not take decodes on the host (pyarrow) and
     uploads. Returns (DeviceTable, columns decoded on the device)."""
+    t_total = _clock()
     device = torch.device(device)
     rg_meta = pf_metadata.row_group(rg)
     n = rg_meta.num_rows
@@ -553,6 +661,7 @@ def decode_row_group(raw: bytes, pf_metadata, rg: int, arrow_schema,
         except _HOST_DECODE_ERRORS:
             fallback.append(name)
             continue
+        _note_runs(name, ch)
         # outside the try: a failure of the kernels raises
         cols[name] = _decode_column_device(ch, _arrow_to_dtype(field.type),
                                            cap, device)
@@ -560,6 +669,7 @@ def decode_row_group(raw: bytes, pf_metadata, rg: int, arrow_schema,
     if fallback:
         # per-column host decode of the rest (reference: the plugin keeps
         # unsupported columns on the CPU decode path)
+        t0 = _clock()
         import pyarrow.parquet as pq
         t = pq.ParquetFile(_io.BytesIO(raw)).read_row_group(
             rg, columns=fallback)
@@ -567,8 +677,14 @@ def decode_row_group(raw: bytes, pf_metadata, rg: int, arrow_schema,
                                      device, capacity=cap)
         for cname, c in zip(host.names, host.columns):
             cols[cname] = c
+        _tally("host_decode", t0, device)
     mask = torch.arange(cap, device=device) < n
     ordered = tuple(cols[c] for c in columns)
-    return (DeviceTable(ordered, mask,
+    table = DeviceTable(ordered, mask,
                         torch.tensor(n, dtype=torch.int32, device=device),
-                        tuple(columns)), n_device)
+                        tuple(columns))
+    if _split is not None:
+        _tally("total", t_total, device)
+        with _split_lock:
+            _split["row_groups"] += 1
+    return table, n_device

@@ -18,7 +18,9 @@ table's total), whether it is an RLE run, its RLE value, its first bit in
 runs' bytes; ``n_packed`` is its length as the JAX package clamps reads to
 it (``g(k)`` at :419). The kernel reads ``packed`` in aligned 32-bit words,
 so on the card its tensor is 4-byte aligned and holds at least
-``round_up(n_packed, 4) + 4`` bytes.
+``round_up(n_packed, 4) + 4`` bytes. The string gather reads its page bytes
+``blob`` (``n_blob`` of them used) in aligned 16-byte pieces, so ``blob``
+is 16-byte aligned and holds ``n_blob + 16`` bytes, on every device.
 
 A wrapper checks its inputs, then computes the plain version for tensors on
 the CPU, or launches the kernel on the current stream of a CUDA device and
@@ -91,9 +93,9 @@ def pq_expand_hybrid_reference(runs: torch.Tensor, packed: torch.Tensor,
 def pq_expand_hybrid(runs: torch.Tensor, packed: torch.Tensor,
                      n_packed: int, cap: int) -> torch.Tensor:
     """The values at output positions ``0..cap-1`` of a hybrid run table:
-    for each position, its run by a binary search over the runs' first
-    positions, then the run's RLE value or its bit field, LSB first.
-    Returns int32 ``(cap,)`` (values are below 2^24)."""
+    for each position, its run (the last whose first position is at or
+    before it, clamped into the table), then the run's RLE value or its bit
+    field, LSB first. Returns int32 ``(cap,)`` (values are below 2^24)."""
     dev = runs.device
     _check("runs", runs, torch.int64, 2, dev)
     _check("packed", packed, torch.uint8, 1, dev)
@@ -250,12 +252,13 @@ def pq_gather_byte_array_reference(validity: torch.Tensor, pos: torch.Tensor,
 
 def pq_gather_byte_array(validity: torch.Tensor, pos: torch.Tensor,
                          idx: torch.Tensor, starts: torch.Tensor,
-                         lens: torch.Tensor, blob: torch.Tensor, n_dict: int,
-                         dict_entries: int, width: int
+                         lens: torch.Tensor, blob: torch.Tensor, n_blob: int,
+                         n_dict: int, dict_entries: int, width: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The string matrix of a BYTE_ARRAY chunk, straight from its page
-    bytes. The chunk's values are entries of ``blob`` (``starts`` int64 and
-    ``lens`` int32 per entry): its ``dict_entries`` dictionary values first,
+    bytes. The chunk's values are entries of ``blob[:n_blob]`` (``starts``
+    int64 and ``lens`` int32 per entry; a read outside it clamps into it):
+    its ``dict_entries`` dictionary values first,
     then its plain values. Row ``r`` with ``p = pos[r]`` takes dictionary
     entry ``idx[p]`` while ``p < n_dict``, else plain entry ``p - n_dict``;
     a null row, and an index past the entries (a padding row of the JAX
@@ -273,9 +276,12 @@ def pq_gather_byte_array(validity: torch.Tensor, pos: torch.Tensor,
             or not 0 <= dict_entries <= starts.numel() or width < 1 \
             or (n_dict and not idx.numel()):
         raise ValueError("pq_gather_byte_array: inconsistent shapes")
+    if n_blob < 0 or blob.data_ptr() % 16 or blob.numel() < n_blob + 16:
+        raise ValueError("pq_gather_byte_array: blob must be 16-byte "
+                         "aligned and hold n_blob + 16 bytes")
     if dev.type == "cpu":
         return pq_gather_byte_array_reference(validity, pos, idx, starts,
-                                              lens, blob, n_dict,
+                                              lens, blob[:n_blob], n_dict,
                                               dict_entries, width)
     if dev.type != "cuda":
         raise TypeError(f"pq_gather_byte_array: no kernel for device {dev}")
@@ -288,7 +294,7 @@ def pq_gather_byte_array(validity: torch.Tensor, pos: torch.Tensor,
             _launch(pq_gather_byte_array, "srt_pq_gather_byte_array",
                     validity.data_ptr(), pos.data_ptr(), idx.data_ptr(),
                     idx.numel(), starts.data_ptr(), lens.data_ptr(),
-                    blob.data_ptr(), n_dict, dict_entries,
+                    blob.data_ptr(), n_blob, n_dict, dict_entries,
                     pow2_ceil(dict_entries), plain_entries,
                     pow2_ceil(plain_entries), cap, width,
                     data.data_ptr(), lengths.data_ptr())

@@ -116,7 +116,7 @@ def load_kernels() -> ctypes.CDLL:
                 ptr]
             lib.srt_pq_gather_byte_array.argtypes = [
                 ptr, ptr, ptr, i64, ptr, ptr, ptr, i64, i64, i64, i64, i64,
-                i64, i64, ptr, ptr, ptr]
+                i64, i64, i64, ptr, ptr, ptr]
             for fn in (lib.srt_pq_expand_hybrid, lib.srt_pq_gather_fixed,
                        lib.srt_pq_gather_byte_array):
                 fn.restype = ctypes.c_int

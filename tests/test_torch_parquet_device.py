@@ -389,3 +389,67 @@ def test_refused_codec_is_an_unsupported_chunk():
     for codec in ("LZ4", "LZO", "BZ2"):
         with pytest.raises(pdev.UnsupportedChunk, match=codec):
             pdev._decompress(b"not a frame", codec, 64)
+
+
+def test_staged_blob_holds_the_kernels_tail(monkeypatch):
+    """A string chunk's page bytes reach the gather 16-byte aligned with
+    16 bytes past the bytes it uses, as its aligned 16-byte reads need (its
+    wrapper refuses anything less), and those bytes are the chunk's."""
+    from spark_rapids_tpu_torch.io import parquet_device as pdev
+    seen = []
+    gather = pdev.pq_gather_byte_array
+
+    def record(*args):
+        seen.append(args)
+        return gather(*args)
+
+    monkeypatch.setattr(pdev, "pq_gather_byte_array", record)
+    rng = np.random.default_rng(11)
+    n = 3000
+    t = pa.table({"s": pa.array(["v" * int(k) for k in
+                                 rng.integers(0, 40, n)],
+                                mask=rng.random(n) < 0.1)})
+    for kw in ({}, {"use_dictionary": False}):
+        buf = io.BytesIO()
+        pq.write_table(t, buf, **kw)
+        seen.clear()
+        _pf, (got, ndev), (want, _) = _decode_both(buf.getvalue(), ["s"], 64)
+        assert ndev == 1 and len(seen) == 1
+        blob, n_blob = seen[0][5], seen[0][6]
+        assert blob.data_ptr() % 16 == 0
+        assert blob.numel() >= n_blob + 16
+        assert int(seen[0][4].sum()) <= n_blob   # the values' bytes
+        _assert_planes_equal(got, want)
+
+
+def test_host_split_times_each_stage_and_the_run_tables(tmp_path):
+    """``host_split()`` gathers the host seconds of each decode stage and
+    each chunk's run-table shape; outside the block nothing is gathered."""
+    from spark_rapids_tpu_torch.io import parquet_device as pdev
+    p, _ = _write(tmp_path, n=3000, row_group_size=1000)
+    raw = open(p, "rb").read()
+    pf = pq.ParquetFile(io.BytesIO(raw))
+    names = pf.schema_arrow.names
+    with pdev.host_split() as split:
+        for rg in range(pf.metadata.num_row_groups):
+            decode_row_group(raw, pf.metadata, rg, pf.schema_arrow, names,
+                             64, _CPU)
+        with pytest.raises(RuntimeError):
+            with pdev.host_split():
+                pass
+    assert pdev._split is None
+    assert split["row_groups"] == 3
+    for stage in ("pages", "run_tables", "count_defined", "staging",
+                  "upload", "kernels", "total"):
+        assert split[stage] > 0, stage
+    assert sum(split[s] for s in pdev.SPLIT_STAGES) <= split["total"]
+    assert set(split["runs"]) == set(names)
+    for name, shapes in split["runs"].items():
+        streams = [s for s, _, _ in shapes]
+        assert streams.count("defs") == 3, name
+        for _, r, values in shapes:
+            assert 1 <= r <= values
+        assert all(v == 1000 for s, _, v in shapes if s == "defs")
+    before = dict(split)
+    decode_row_group(raw, pf.metadata, 0, pf.schema_arrow, names, 64, _CPU)
+    assert split == before

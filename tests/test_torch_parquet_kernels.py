@@ -9,6 +9,16 @@ seeded raw tables whose reads past the packed bytes clamp. The row choice
 runs for every fixed-width element type and for strings of widths 8, 64
 and 256, dictionary-only, plain-only and mixed, with nulls.
 
+numpy models of the two redesigned kernels (``_expand_model``,
+``_gather_model``) walk their indexing as ``csrc/parquet_decode.cu`` does
+(the tile's search, the run slices, the 8 outputs a thread and their word
+reads; 4 rows a thread, the granule from aligned 16-byte pieces) and are
+held against the plain versions and the JAX functions, on edge cases:
+tiles starting inside runs, tiles spanning more runs than a slice, R a
+power of two read past its total, widths 0 to 24, caps 1, 3, 5 and 4097,
+reads past the packed bytes, rows at every offset mod 16 and of lengths 0,
+15, 16, 17 and the width, entries outside the page bytes.
+
 The JAX comparisons skip where the JAX package is not installed, so on the
 card's machine the file runs as
 
@@ -20,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from spark_rapids_tpu_torch.io import parquet_device as pdev
 from spark_rapids_tpu_torch.io.parquet_kernels import (
     pq_expand_hybrid, pq_expand_hybrid_reference, pq_gather_byte_array,
@@ -345,6 +356,326 @@ def test_byte_array_walk_python_equals_jax(jax_pdev):
 
 
 # ---------------------------------------------------------------------------
+# numpy models of the kernels' indexing (csrc/parquet_decode.cu), walked as
+# the kernels walk them, against the plain versions and the JAX functions
+# ---------------------------------------------------------------------------
+# expand_hybrid_kernel's constants: threads a block, outputs a thread, runs
+# a slice, and the run window at which the tile's search stops
+_THREADS, _PER_THREAD, _SLICE, _WINDOW = 256, 8, 256, 32
+_TILE = _THREADS * _PER_THREAD
+_I64_MAX = 2**63 - 1
+
+
+def _i32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _word(words: np.ndarray, k: int) -> int:
+    if not 0 <= k < len(words):
+        raise AssertionError(f"word {k} read outside the buffer's "
+                             f"{len(words)} words")
+    return int(words[k])
+
+
+def _expand_value(sl, r: int, i: int, packed: np.ndarray, nb: int) -> int:
+    """hybrid_value: output ``i`` of slice run ``r``; ``packed`` is the
+    whole buffer the kernel is given (its tail included)."""
+    start, is_rle, value, bit_base, width = (int(x) for x in sl[:, r])
+    if is_rle:
+        return _i32(value)
+    bit = bit_base + (i - start) * width
+    byte0, shift = bit >> 3, bit & 7
+    if byte0 >= 0 and byte0 + 3 <= nb - 1:
+        words = packed[:len(packed) // 4 * 4].view("<u4")
+        k = bit >> 5
+        pair = _word(words, k) | (_word(words, k + 1) << 32)
+        field = (pair >> (bit & 31)) & 0xFFFFFFFF & (0xFFFFFFFF >> shift)
+    else:
+        dword = sum(int(packed[min(max(byte0 + k, 0), nb - 1)]) << (8 * k)
+                    for k in range(4))
+        field = dword >> shift
+    return _i32(field & (((1 << (width & 0xFFFFFFFF)) - 1) & 0xFFFFFFFF))
+
+
+def _expand_group(sl, r: int, i0: int, packed: np.ndarray, nb: int,
+                  out: np.ndarray) -> bool:
+    """expand_group: a thread's 8 outputs from ``i0``, all in slice run
+    ``r``; -> whether they took the words at 32-bit offsets from the
+    group's first word (else hybrid_value each)."""
+    start, is_rle, value, bit_base, width = (int(x) for x in sl[:, r])
+    if is_rle:
+        out[i0:i0 + _PER_THREAD] = _i32(value)
+        return False
+    bit0 = bit_base + (i0 - start) * width
+    if not (0 <= width <= 32 and bit0 >= 0
+            and ((bit0 + (_PER_THREAD - 1) * width) >> 3) + 3 <= nb - 1):
+        for i in range(i0, i0 + _PER_THREAD):
+            out[i] = _expand_value(sl, r, i, packed, nb)
+        return False
+    words = packed[:len(packed) // 4 * 4].view("<u4")
+    k0, off = bit0 >> 5, bit0 & 31
+    mask = ((1 << width) - 1) & 0xFFFFFFFF
+    for j in range(_PER_THREAD):
+        o = off + j * width
+        pair = _word(words, k0 + (o >> 5)) \
+            | (_word(words, k0 + (o >> 5) + 1) << 32)
+        out[i0 + j] = _i32((pair >> (o & 31)) & 0xFFFFFFFF
+                           & (0xFFFFFFFF >> (o & 7)) & mask)
+    return True
+
+
+def _expand_model(runs: np.ndarray, packed: np.ndarray, n_packed: int,
+                  cap: int, trace: list = None) -> np.ndarray:
+    """expand_hybrid_kernel in numpy, block by block and thread by thread:
+    the tile's search (256 probes a round), the run slices, each thread's
+    8 outputs (in one run: expand_group; else a forward walk, output by
+    output) and the word reads. ``packed`` holds the kernel's tail;
+    ``trace`` gets (search rounds, slices, groups read as words) a
+    block."""
+    R = runs.shape[1]
+    out_start = runs[0]
+    out = np.full(cap, -7, np.int64)
+    for b in range(-(-cap // _TILE)):
+        t0, t1 = b * _TILE, min(b * _TILE + _TILE, cap)
+        lo, span, rounds = 0, R, 0
+        while span > _WINDOW:
+            stride = -(-span // _THREADS)
+            p = lo + np.arange(_THREADS) * stride
+            p = p[p < lo + span]
+            c = int(np.count_nonzero(out_start[p] <= t0))
+            rounds += 1
+            if c == 0:
+                break
+            nlo = lo + (c - 1) * stride
+            span, lo = min(stride, lo + span - nlo), nlo
+        base, frm, slices, groups = lo, t0, 0, 0
+        while True:
+            sl = runs[:, base:base + _SLICE]
+            nxt = int(out_start[base + _SLICE]) if base + _SLICE < R \
+                else _I64_MAX
+            m = max(int(np.count_nonzero(sl[0] < t1)), 1)
+            slices += 1
+            for tid in range(_THREADS):
+                i0 = t0 + tid * _PER_THREAD
+                first = max(i0, frm)
+                stop = min(nxt, t1, i0 + _PER_THREAD)
+                if first >= stop:
+                    continue
+                a, z = 0, m
+                while a < z:
+                    mid = (a + z) >> 1
+                    if sl[0, mid] <= first:
+                        a = mid + 1
+                    else:
+                        z = mid
+                r = max(a - 1, 0)
+                if (out[first:stop] != -7).any():
+                    raise AssertionError(f"outputs {first}..{stop} written "
+                                         "twice")
+                if first == i0 and stop == i0 + _PER_THREAD \
+                        and (r + 1 >= m or sl[0, r + 1] >= stop):
+                    groups += _expand_group(sl, r, i0, packed, n_packed, out)
+                    continue
+                for i in range(first, stop):
+                    while r + 1 < m and sl[0, r + 1] <= i:
+                        r += 1
+                    out[i] = _expand_value(sl, r, i, packed, n_packed)
+            if nxt >= t1:
+                break
+            frm, base = nxt, base + _SLICE
+        if trace is not None:
+            trace.append((rounds, slices, groups))
+    return out.astype(np.int32)
+
+
+#: the expansion's edge cases and the string gather's (chip_smoke.py holds
+#: them, for the card's run)
+_EDGE_TABLES = cs._pq_edge_tables(np.random.default_rng(12))
+
+
+def _edge_table(case: str):
+    """-> (runs, packed with the kernel's tail, n_packed, caps)."""
+    runs, packed, n = _EDGE_TABLES[case]
+    return runs, packed, n, cs._pq_edge_caps(runs)
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_TABLES))
+def test_expand_hybrid_model_equals_plain_and_jax(jax_pdev, case):
+    runs, packed, n, caps = _edge_table(case)
+    jarrays = (runs[0], runs[1].astype(bool), *runs[2:], packed[:n])
+    for cap in caps:
+        trace = []
+        got = _expand_model(runs, packed, n, cap, trace)
+        want = pq_expand_hybrid_reference(torch.from_numpy(runs),
+                                          torch.from_numpy(packed), n, cap)
+        np.testing.assert_array_equal(got, want.numpy())
+        np.testing.assert_array_equal(got, _expand_jax(jax_pdev, jarrays,
+                                                       cap))
+        if cap > _TILE:
+            rounds, slices, groups = np.max(trace, axis=0)
+            if case == "runs of length 1":
+                assert slices >= _TILE // _SLICE   # the chunked walk
+            if case == "two search rounds":
+                assert rounds == 2
+            if case == "inside runs":
+                assert _TILE % 700 and slices == 1 and groups > 0
+
+
+@pytest.mark.parametrize("case", sorted(_PAGE_SETS) + ["clamps"])
+def test_expand_hybrid_model_equals_plain_on_streams(case):
+    """The model on the hybrid streams and clamping tables above."""
+    if case == "clamps":
+        runs, packed, cap = _raw_table(7)
+    else:
+        rng = np.random.default_rng(sorted(_PAGE_SETS).index(case))
+        rt = pdev._RunTable()
+        for n, width in _PAGE_SETS[case]:
+            buf, _ = _hybrid(rng, n, width)
+            rt.parse_hybrid(buf, 0, len(buf), width, n)
+        runs, packed = rt.arrays()
+        cap = 2 * rt.total + 5
+    want = pq_expand_hybrid_reference(torch.from_numpy(runs),
+                                      torch.from_numpy(packed), len(packed),
+                                      cap)
+    np.testing.assert_array_equal(
+        _expand_model(runs, _padded(packed), len(packed), cap), want.numpy())
+
+
+def _low_bytes(v: np.ndarray, n: np.ndarray) -> np.ndarray:
+    n = np.clip(n, 0, 4).astype(np.uint64)
+    return v & ((np.uint64(1) << (np.uint64(8) * n)) - np.uint64(1))
+
+
+def _granules(blob: np.ndarray, n_blob: int, s: np.ndarray,
+              keep: np.ndarray) -> np.ndarray:
+    """granule() for many rows: bytes [s, s + keep) of the blob as four
+    words, from one aligned 16-byte piece and the next one where the bytes
+    cross into it, realigned by a word select and a funnel shift; rows
+    reaching outside [0, n_blob) byte by byte, clamped. -> uint64 (rows, 4)
+    words (each below 2^32)."""
+    words = blob[:len(blob) // 4 * 4].view("<u4").astype(np.uint64)
+    o = np.zeros((len(s), 4), np.uint64)
+    inside = (keep > 0) & (s >= 0) & (s + keep <= n_blob)
+    a = np.where(inside, s & ~15, 0)
+    off = s - a
+    cross = inside & (off + keep > 16)
+    for rows, first in ((inside, 0), (cross, 4)):
+        k = a[rows] // 4 + first
+        if len(k) and k.max() + 3 >= len(words):
+            raise AssertionError("a 16-byte piece read past the blob")
+    w = np.zeros((len(s), 8), np.uint64)
+    for j in range(4):
+        w[inside, j] = words[a[inside] // 4 + j]
+        w[cross, 4 + j] = words[a[cross] // 4 + 4 + j]
+    q = (off >> 2)[:, None]
+    sh = (np.uint64(8) * (off & 3).astype(np.uint64))[:, None]
+    u = np.take_along_axis(w, np.clip(q + np.arange(5), 0, 7), axis=1)
+    pair = u[:, :4] | (u[:, 1:] << np.uint64(32))
+    o[inside] = ((pair >> sh) & np.uint64(0xFFFFFFFF))[inside]
+    for r in np.nonzero((keep > 0) & ~inside & (n_blob > 0))[0]:
+        for j in range(int(keep[r])):
+            b = int(blob[min(max(int(s[r]) + j, 0), n_blob - 1)])
+            o[r, j >> 2] |= np.uint64(b << (8 * (j & 3)))
+    return _low_bytes(o, keep[:, None] - 4 * np.arange(4))
+
+
+def _gather_model(valid, pos, idx, starts, lens, blob, n_blob, n_dict,
+                  d_entries, width):
+    """gather_byte_array_kernel in numpy: 4 rows a thread and one 16-byte
+    granule column; each row's entry through the chain validity, position,
+    dictionary index, start and length; the granule from aligned pieces;
+    the store of its first min(16, width - c0) bytes."""
+    from spark_rapids_tpu_torch.io.parquet_kernels import pow2_ceil
+    cap = len(valid)
+    p_entries = len(starts) - d_entries
+    d_rows, p_rows = pow2_ceil(d_entries), pow2_ceil(p_entries)
+    v, p = valid.astype(bool), pos.astype(np.int64)
+    k = np.zeros(cap, np.int64)
+    dict_row = v & (p < n_dict)
+    if dict_row.any():
+        k[dict_row] = idx[np.clip(p[dict_row], 0, len(idx) - 1)]
+    kk = np.clip(k, 0, d_rows - 1)
+    qq = np.clip(p - n_dict, 0, p_rows - 1)
+    e = np.where(p < n_dict, np.where(kk < d_entries, kk, -1),
+                 np.where(qq < p_entries, d_entries + qq, -1))
+    e = np.where(v, e, -1)
+    has = e >= 0
+    length = np.zeros(cap, np.int64)
+    start = np.zeros(cap, np.int64)
+    length[has], start[has] = lens[e[has]], starts[e[has]]
+    data = np.full((cap, width), 0xAB, np.uint8)   # every byte is stored
+    for c0 in range(0, width, 16):
+        keep = np.clip(np.minimum(length, width) - c0, 0, 16)
+        g = _granules(blob, n_blob, start + c0, keep)
+        nbytes = min(16, width - c0)
+        data[:, c0:c0 + nbytes] = g.astype("<u4").view(np.uint8) \
+            .reshape(cap, 16)[:, :nbytes]
+    return data, length.astype(np.int32)
+
+
+_BA_WIDTHS = (8, 24, 64, 4100)
+_CAPS = (1, 3, 5, 4097)
+
+
+@pytest.mark.parametrize("cap", _CAPS)
+@pytest.mark.parametrize("width", _BA_WIDTHS)
+def test_gather_byte_array_model_equals_plain(width, cap):
+    rng = np.random.default_rng(width + cap)
+    for clamped in (False, True):
+        arrays, n_blob, d_entries = cs._pq_edge_byte_arrays(rng, width, cap,
+                                                            clamped)
+        for n_dict in (0, 3000, cap):
+            got = _gather_model(*arrays, n_blob, n_dict, d_entries, width)
+            want = pq_gather_byte_array_reference(
+                *(torch.from_numpy(a) for a in arrays[:5]),
+                torch.from_numpy(arrays[5][:n_blob]), n_dict, d_entries,
+                width)
+            np.testing.assert_array_equal(got[0], want[0].numpy())
+            np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+@pytest.mark.parametrize("shape", sorted(_SHAPES))
+@pytest.mark.parametrize("width", [8, 64, 256])
+def test_kernel_models_equal_jax_on_chunks(jax_pdev, monkeypatch, width,
+                                           shape):
+    """The decode of a string chunk on the CPU with each kernel call's
+    inputs (as staged, tails included) run through the models: the
+    expansions equal their plain results, and the gather the JAX planes."""
+    calls = []
+
+    def record(fn):
+        def run(*args):
+            out = fn(*args)
+            calls.append((fn, args, out))
+            return out
+        return run
+
+    monkeypatch.setattr(pdev, "pq_expand_hybrid", record(pq_expand_hybrid))
+    monkeypatch.setattr(pdev, "pq_gather_byte_array",
+                        record(pq_gather_byte_array))
+    nulls, dict_share = _SHAPES[shape]
+    n_dict_vals = 50 if dict_share else 0
+    port, jch = _chunks(jax_pdev, "BYTE_ARRAY", 700, nulls, n_dict_vals,
+                        dict_share, width, None,
+                        ba=_ba_parts(width * 3 // 4 + 1))
+    cap = 1024
+    pdev._decode_column_device(port, _port_dtype("STRING"), cap,
+                               torch.device("cpu"))
+    want = jax_pdev._decode_column_device(jch, _jax_dtype("STRING"), cap)
+    assert [c[0] for c in calls][-1] is pq_gather_byte_array
+    for fn, args, out in calls:
+        arrays = [a.numpy() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        if fn is pq_expand_hybrid:
+            np.testing.assert_array_equal(_expand_model(*arrays), out.numpy())
+        else:
+            data, lengths = _gather_model(*arrays)
+            np.testing.assert_array_equal(data, np.asarray(want.data))
+            np.testing.assert_array_equal(lengths, np.asarray(want.lengths))
+
+
+# ---------------------------------------------------------------------------
 # the wrappers on the CPU, and the kernels on the card
 # ---------------------------------------------------------------------------
 def test_wrappers_on_cpu_launch_nothing_and_check_inputs():
@@ -358,7 +689,7 @@ def test_wrappers_on_cpu_launch_nothing_and_check_inputs():
     pq_gather_fixed(v, p, none, torch.zeros(1), torch.arange(4.0), 0)
     pq_gather_byte_array(v, p, none, torch.tensor([0, 1, 2, 3]),
                          torch.ones(4, dtype=torch.int32),
-                         torch.arange(4, dtype=torch.uint8), 0, 0, 8)
+                         torch.arange(20, dtype=torch.uint8), 4, 0, 0, 8)
     assert (pq_expand_hybrid.launches, pq_gather_fixed.launches,
             pq_gather_byte_array.launches) == before
     with pytest.raises(TypeError):
@@ -371,6 +702,25 @@ def test_wrappers_on_cpu_launch_nothing_and_check_inputs():
         pq_gather_fixed(v, p, none, torch.zeros(0), torch.arange(4.0), 0)
 
 
+def test_gather_byte_array_refuses_a_misaligned_or_short_blob():
+    """The kernel reads ``blob`` in aligned 16-byte pieces: the wrapper
+    takes only a 16-byte aligned blob with 16 bytes past its ``n_blob``."""
+    v = torch.ones(4, dtype=torch.bool)
+    p = torch.arange(4, dtype=torch.int32)
+    none = torch.zeros(0, dtype=torch.int32)
+    starts, lens = torch.tensor([0, 1, 2, 3]), torch.ones(4, dtype=torch.int32)
+    blob = torch.arange(64, dtype=torch.uint8)
+    assert blob.data_ptr() % 16 == 0
+    data, _ = pq_gather_byte_array(v, p, none, starts, lens, blob[:20], 4, 0,
+                                   0, 8)
+    assert data[:, 0].tolist() == [0, 1, 2, 3]
+    for bad, n_blob in ((blob[:19], 4), (blob[1:30], 4), (blob[8:40], 4),
+                        (blob[:20], 5), (blob[:20], -1)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pq_gather_byte_array(v, p, none, starts, lens, bad, n_blob, 0, 0,
+                                 8)
+
+
 def _on(device, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in arrays]
@@ -381,8 +731,18 @@ def _padded(packed: np.ndarray) -> np.ndarray:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(_PAGE_SETS) + ["clamps"])
+@pytest.mark.parametrize("case", sorted(_PAGE_SETS) + ["clamps"]
+                         + sorted(_EDGE_TABLES))
 def test_expand_hybrid_kernel_equals_plain(cuda_device, case):
+    if case in _EDGE_TABLES:
+        runs, packed, n, caps = _edge_table(case)
+        r, p = _on(cuda_device, runs, packed)
+        for cap in caps:
+            got = pq_expand_hybrid(r, p, n, cap)
+            want = pq_expand_hybrid_reference(r, p, n, cap)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), cap
+        return
     if case == "clamps":
         runs, packed, cap = _raw_table(7)
     else:
@@ -434,15 +794,32 @@ def test_gather_byte_array_kernel_equals_plain(cuda_device, width):
     starts = (np.cumsum(lens.astype(np.int64) + 3) - lens - 3 + 1)
     blob = rng.integers(0, 256, int(starts[-1] + lens[-1] + 5)) \
         .astype(np.uint8)
+    n_blob = len(blob)   # the kernel's 16-byte tail after it
     v, ps, ix, st, ln, bl = _on(cuda_device, valid, pos, idx, starts, lens,
-                                blob)
+                                np.pad(blob, (0, 16)))
     for nd in (0, 5000, cap):
-        got = pq_gather_byte_array(v, ps, ix, st, ln, bl, nd, d_entries,
-                                   width)
-        want = pq_gather_byte_array_reference(v, ps, ix, st, ln, bl, nd,
-                                              d_entries, width)
+        got = pq_gather_byte_array(v, ps, ix, st, ln, bl, n_blob, nd,
+                                   d_entries, width)
+        want = pq_gather_byte_array_reference(v, ps, ix, st, ln,
+                                              bl[:n_blob], nd, d_entries,
+                                              width)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # every start offset mod 16, lengths 0/15/16/17/width, small caps, and
+    # entries reaching outside the blob
+    for cap in _CAPS:
+        for clamped in (False, True):
+            arrays, n_blob, d_entries = cs._pq_edge_byte_arrays(
+                rng, width, cap, clamped)
+            v, ps, ix, st, ln, bl = _on(cuda_device, *arrays)
+            for nd in (0, 3000, cap):
+                got = pq_gather_byte_array(v, ps, ix, st, ln, bl, n_blob, nd,
+                                           d_entries, width)
+                want = pq_gather_byte_array_reference(
+                    v, ps, ix, st, ln, bl[:n_blob], nd, d_entries, width)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) \
+                    and torch.equal(got[1], want[1]), (cap, clamped, nd)
 
 
 @pytest.mark.cuda
