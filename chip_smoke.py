@@ -70,7 +70,27 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
 8. Q20 phase: TPC-H Q20 over the same tables with lineitem's (part,
    supplier) pairs drawn from partsupp's (with the generator's own pairs
    Q20 finds no supplier), AQE on and off, against the host engine; it
-   fails on 0 rows. Then the seconds of each phase and of the whole run.
+   fails on 0 rows.
+9. grace phase, over the joins phase's tables: Q3, Q5, Q21 and the right
+   and full outer joins with AQE off and ``spark.rapids.sql.batchSizeBytes``
+   lowered (32 MiB; 1 MiB for the outer joins), so their shuffled builds
+   take the grace join, and Q3 with AQE on under 512 KiB, so its broadcast
+   builds are split, each once; every result against numpy and the host
+   engine, the grace joins and their bucket counts printed (none fails).
+10. spill phase: Q3 and a float-key join whose probe keys include -0.0 and
+   NaN payloads, under a spill catalog of 64 MiB of device and of host
+   memory, so the parts go device -> host -> disk and back; both against
+   numpy (and the join against the host engine); spill counts, bytes and
+   rates by tier; a flipped byte in a spilled file must raise
+   ``SpillCorruptionError``.
+11. out-of-core sort: SF1 lineitem by (l_orderkey, l_linenumber) under 64
+   MiB, which must take the out-of-core sort and equal numpy's lexsort.
+12. Q3 at SF10 (only the columns Q3 reads generated): AQE off at the default
+   512 MiB budget must take the grace join; then AQE on; both against
+   numpy; cold and warm walls, peak device and catalog memory, and the
+   device times and call counts of ``device_partition_ids`` and
+   ``_grace_split`` on the build side. Then the seconds of each phase and
+   of the whole run.
 
 Between phases 5 and 6 the Parquet phase scans SF1 lineitem, orders and a
 nullable file through the device decode, each equal to pyarrow, and runs
@@ -863,7 +883,7 @@ def _q3_join_steps(plan) -> None:
     bhj = [n for n in _walk_plan(plan)
            if type(n).__name__ == "TpuBroadcastHashJoinExec"]
     for node in sorted(bhj, key=lambda n: n.left_keys):
-        build = node._broadcast
+        build = node._broadcast_handle().get()
         probes = node.left.stage.inner.materialize()
         bkey = build.column(node.right_keys[0])
         slot_row, bv, _ = J.build_prep_hash(bkey, build.row_mask)
@@ -1395,6 +1415,21 @@ def _time_outer(queries: dict) -> None:
                   flush=True)
 
 
+def _q13_outer_tables(tables: dict) -> tuple:
+    """-> (Q13's shape's tables, the outer joins' tables). dbgen gives no
+    orders to a customer whose key is a multiple of 3 (TPC-H 4.2.3); this
+    generator draws every customer, so both drop those orders before the
+    upload. The outer joins also drop the customers whose key ends in 1,
+    so that orders without their customer meet the full join's
+    leftover."""
+    o = tables["orders"]
+    o = o.filter(pa.array(o.column("o_custkey").to_numpy() % 3 != 0))
+    c = tables["customer"]
+    return ({"customer": c, "orders": o},
+            {"customer": c.filter(pa.array(
+                c.column("c_custkey").to_numpy() % 10 != 1)), "orders": o})
+
+
 def joins_phase(tables: dict, partitions: int) -> None:
     """TPC-H Q4, Q5 and Q21, then the outer joins and Q13's shape without
     LIKE, each with AQE on and off against numpy and the host engine; then
@@ -1417,17 +1452,7 @@ def joins_phase(tables: dict, partitions: int) -> None:
         _, queries[label] = join_query_phase(label, fn, tables, wants[label],
                                              exact, sums, partitions, events)
         seconds[label] = time.perf_counter() - t0
-    # dbgen gives no orders to a customer whose key is a multiple of 3
-    # (TPC-H 4.2.3); this generator draws every customer, so the outer
-    # joins and Q13's shape drop those orders before the upload. The outer
-    # joins also drop the customers whose key ends in 1, so that orders
-    # without their customer meet the full join's leftover
-    o = tables["orders"]
-    o = o.filter(pa.array(o.column("o_custkey").to_numpy() % 3 != 0))
-    q13_tables = {"customer": tables["customer"], "orders": o}
-    c = tables["customer"]
-    outer_tables = {"customer": c.filter(pa.array(
-        c.column("c_custkey").to_numpy() % 10 != 1)), "orders": o}
+    q13_tables, outer_tables = _q13_outer_tables(tables)
     want = _outer_numpy(outer_tables)
     outer_q = {}
     for how, fn in _outer_queries().items():
@@ -2488,6 +2513,510 @@ def _pq_kernel_lines(timings: dict, runs: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The grace join, the spill catalog, the out-of-core sort and Q3 at SF10
+# ---------------------------------------------------------------------------
+GRACE_BUDGET = 32 * 2**20       # batchSizeBytes of the grace and spill runs
+BROADCAST_BUDGET = 512 * 2**10  # ... of the AQE run, under its broadcasts
+OUTER_BUDGET = 2**20            # ... of the outer joins, under customer
+SORT_BUDGET = 64 * 2**20        # ... of the out-of-core sort
+SPILL_LIMIT = 64 * 2**20        # device and host budgets of the spill runs
+Q3_BIG_SF = 10                  # scale factor of the big Q3 phase
+Q3_SF10_COLUMNS = {
+    "customer": ["c_custkey", "c_mktsegment"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+    "lineitem": ["l_orderkey", "l_extendedprice", "l_discount",
+                 "l_shipdate"]}
+
+
+class _GraceRecorder:
+    """While active, records each grace join of the port (its node, build
+    table and ``n_sub``), every ``_grace_split`` (its node, table and keys)
+    and counts the ``device_partition_ids`` calls of the joins. With
+    ``keep``, the tables stay referenced, so the split can be timed on
+    them afterwards."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.exec import joins as J
+        self.J = J
+        cls = J.TpuShuffledHashJoinExec
+        self.real = (cls._grace_build_parts, cls._grace_split,
+                     J.device_partition_ids)
+        real_parts, real_split, real_ids = self.real
+        self.joins, self.splits, self.id_calls = [], [], [0]
+        rec = self
+
+        def parts(node, build, n_sub):
+            rec.joins.append((node, build if rec.keep else None, n_sub))
+            return real_parts(node, build, n_sub)
+
+        def split(node, table, keys, n_sub):
+            rec.splits.append((node, table if rec.keep else None,
+                               list(keys), n_sub))
+            return real_split(node, table, keys, n_sub)
+
+        def ids(*args, **kw):
+            rec.id_calls[0] += 1
+            return real_ids(*args, **kw)
+        cls._grace_build_parts, cls._grace_split = parts, split
+        J.device_partition_ids = ids
+        return self
+
+    def __exit__(self, *exc):
+        cls = self.J.TpuShuffledHashJoinExec
+        cls._grace_build_parts, cls._grace_split = self.real[:2]
+        self.J.device_partition_ids = self.real[2]
+
+    def n_subs(self) -> list:
+        return [n for _, _, n in self.joins]
+
+    def broadcast_splits(self) -> dict:
+        """Broadcast node -> the splits of its build side."""
+        out: dict = {}
+        for node, _, keys, _ in self.splits:
+            if type(node).__name__ == "TpuBroadcastHashJoinExec" \
+                    and keys == node.right_keys:
+                out[id(node)] = out.get(id(node), 0) + 1
+        return out
+
+
+def _host_check(out, q, exact, sums, label: str) -> float:
+    """``out`` against the host engine's run of ``q`` -> its seconds."""
+    t0 = time.perf_counter()
+    host = q.collect(device=False)
+    t_host = time.perf_counter() - t0
+    _check_rows(out, {c: host.column(c).to_pylist()
+                      for c in host.column_names}, exact, sums,
+                f"{label} device vs host engine")
+    return t_host
+
+
+def _grace_run(label: str, sess, q, check) -> tuple:
+    """One device run of ``q`` through ``sess`` under the grace recorder,
+    checked by ``check(out)``; its spill handles released -> (result,
+    wall, recorder)."""
+    with _GraceRecorder() as rec:
+        t0 = time.perf_counter()
+        plan = sess._physical(q.logical, True)
+        out = plan.collect().to_arrow()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        plan.release_spill_handles()
+    check(out)
+    _check_device_only(plan, label)
+    return out, wall, rec
+
+
+def grace_phase(tables: dict, outer_tables: dict, partitions: int) -> dict:
+    """Q3, Q5, Q21 and the right and full outer joins with AQE off under a
+    ``batchSizeBytes`` of 32 MiB (1 MiB for the outer joins, whose builds
+    are customer and orders), so their shuffled builds take the grace
+    join; then Q3 with AQE on under 512 KiB, so its broadcast builds do, each
+    split once. Every result against numpy and the host engine; the grace
+    joins and their bucket counts printed, none at all fails."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    q3_want = _q3_numpy(tables["customer"], tables["orders"],
+                        tables["lineitem"])
+    outer = _outer_numpy(outer_tables)
+    outer_q = _outer_queries()
+    runs = [("Q3", tpch.q3, tables, None, None),
+            ("Q5", tpch.q5, tables, ("n_name",), ("revenue",)),
+            ("Q21", tpch.q21, tables, ("s_name", "numwait"), ()),
+            ("right outer join", outer_q["right"], outer_tables,
+             ("rows", "n_c", "n_o", "check"), ("price",)),
+            ("full outer join", outer_q["full"], outer_tables,
+             ("rows", "n_c", "n_o", "check"), ("price",))]
+    wants = {"Q5": _q5_numpy(tables), "Q21": _q21_numpy(tables),
+             "right outer join": outer["right"],
+             "full outer join": outer["full"]}
+    summary = {}
+    for label, fn, tabs, exact, sums in runs:
+        for aqe, budget in ((False, GRACE_BUDGET), (True, BROADCAST_BUDGET)):
+            if aqe and label != "Q3":
+                continue
+            if "outer" in label:
+                budget = OUTER_BUDGET
+            sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                                 "spark.rapids.tpu.aqe.enabled": aqe,
+                                 "spark.rapids.sql.batchSizeBytes": budget})
+            q = fn({k: sess.create_dataframe(v, num_partitions=partitions)
+                    for k, v in tabs.items()})
+            run = f"{label} (AQE {'on' if aqe else 'off'}, budget {budget})"
+            if label == "Q3":
+                out, wall, rec = _grace_run(
+                    run, sess, q, lambda o: _check_q3(o, q3_want, run))
+                t0 = time.perf_counter()
+                host = q.collect(device=False)
+                t_host = time.perf_counter() - t0
+                host_cols = {c: host.column(c).to_pylist()
+                             for c in Q3_COLUMNS}
+                host_cols["o_orderdate"] = [(d - _EPOCH).days for d in
+                                            host_cols["o_orderdate"]]
+                _check_q3(out, host_cols, f"{run} vs host engine")
+            else:
+                out, wall, rec = _grace_run(
+                    run, sess, q, lambda o: _check_rows(
+                        o, wants[label], exact, sums, f"{run} vs numpy"))
+                t_host = _host_check(out, q, exact, sums, run)
+            if not rec.joins:
+                raise AssertionError(f"{run}: no grace join ran")
+            bsplits = rec.broadcast_splits()
+            if aqe and (not bsplits or set(bsplits.values()) != {1}):
+                raise AssertionError(f"{run}: broadcast builds split "
+                                     f"{bsplits} (each once expected)")
+            summary[run] = {"wall_s": wall, "n_sub": rec.n_subs(),
+                            "splits": len(rec.splits),
+                            "ids": rec.id_calls[0]}
+            print(f"# grace {run}: {out.num_rows} rows, device {wall:.3f} s "
+                  f"(host engine {t_host:.3f} s); grace joins n_sub "
+                  f"{rec.n_subs()}, {len(rec.splits)} splits, "
+                  f"{rec.id_calls[0]} partition-id calls"
+                  + (f", broadcast builds split once each "
+                     f"({len(bsplits)})" if aqe else ""), flush=True)
+    return summary
+
+
+class _SpillTimer:
+    """While active, times (synchronised, host clock) and counts the bytes
+    of every spill to the host (device -> numpy planes), disk read and
+    restore to the device of the spill stores."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.memory import catalog as C
+        from spark_rapids_tpu_torch.memory import stores as S
+        self.C, self.S = C, S
+        self.real = (S._table_to_host_arrays, S._host_arrays_to_table,
+                     S.DiskStore.load)
+        to_host, to_device, load = self.real
+        self.seconds = {"spill": 0.0, "disk_read": 0.0, "restore": 0.0}
+        self.bytes = {"spill": 0, "disk_read": 0, "restore": 0}
+        tm = self
+
+        def timed(kind, fn, size):
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                tm.seconds[kind] += time.perf_counter() - t0
+                tm.bytes[kind] += size(args, out)
+                return out
+            return run
+
+        def planes(arrays) -> int:
+            return sum(a.nbytes for a in arrays.values())
+        spill = timed("spill", to_host, lambda a, o: planes(o[0]))
+        restore = timed("restore", to_device, lambda a, o: planes(a[0]))
+        read = timed("disk_read", load, lambda a, o: planes(o))
+        S._table_to_host_arrays = C._table_to_host_arrays = spill
+        S._host_arrays_to_table = C._host_arrays_to_table = restore
+        S.DiskStore.load = read
+        return self
+
+    def __exit__(self, *exc):
+        to_host, to_device, load = self.real
+        self.S._table_to_host_arrays = self.C._table_to_host_arrays = to_host
+        self.S._host_arrays_to_table = self.C._host_arrays_to_table = \
+            to_device
+        self.S.DiskStore.load = load
+
+    def rates(self) -> str:
+        return ", ".join(
+            f"{k} {self.bytes[k] / 1e9:.3f} GB in {self.seconds[k]:.3f} s"
+            + (f" ({self.bytes[k] / self.seconds[k] / 1e9:.2f} GB/s)"
+               if self.seconds[k] else "") for k in self.seconds)
+
+
+def _float_key_tables(rng) -> tuple:
+    """A float-key join's sides: a build of 2,000,000 distinct keys, 0.0
+    and the canonical NaN among them; a probe of 3,000,000 keys drawn from
+    them (3 % each 0.0 and NaN), half the zeros written as -0.0 and the
+    NaNs as three other payloads, and a tenth absent from the build."""
+    n_b, n_p = 2_000_000, 3_000_000
+    # halves off the integers: no key but bkeys[0] is 0.0
+    bkeys = rng.permutation(n_b).astype(np.float64) * 0.5 - 999.75
+    bkeys[0], bkeys[1] = 0.0, np.nan
+    pick = rng.integers(0, n_b, n_p)
+    special = rng.random(n_p)
+    pick[special < 0.03] = 0
+    pick[(special >= 0.03) & (special < 0.06)] = 1
+    pkeys = bkeys[pick].copy()
+    zero = pkeys == 0
+    pkeys[zero & (rng.random(n_p) < 0.5)] = -0.0
+    payloads = np.array([0x7FF8000000000001, 0xFFF8000000000000,
+                         0x7FF0000000000F00], dtype=np.uint64).view(np.float64)
+    nan = np.isnan(pkeys)
+    pkeys[nan] = payloads[rng.integers(0, 3, int(nan.sum()))]
+    absent = rng.random(n_p) < 0.1
+    pkeys[absent] = 1e9 + np.arange(int(absent.sum()))
+    build = pa.table({"bk": bkeys, "bv": np.arange(n_b, dtype=np.int64)})
+    probe = pa.table({"pk": pkeys, "pv": rng.integers(0, 100, n_p)})
+    matched = ~absent
+    want = {"rows": [int(matched.sum())],
+            "pv": [int(probe.column("pv").to_numpy()[matched].sum())],
+            "bv": [int(pick[matched].sum())],
+            "zeros": [int((pkeys == 0).sum())],
+            "nans": [int(np.isnan(pkeys).sum())]}
+    return build, probe, want
+
+
+def spill_phase(tables: dict, partitions: int, workdir: str) -> None:
+    """The grace join under a spill catalog of ``SPILL_LIMIT`` (64 MiB) of
+    device and of host budget, so its parts go device -> host -> disk and back: Q3
+    with AQE off, and a float-key join whose keys include -0.0 and NaN
+    payloads (held equal to 0.0 and to NaN), each against numpy and the
+    host engine; the spill counts and bytes by tier and the rates. Then a
+    spilled file with one byte flipped must raise ``SpillCorruptionError``
+    on restore."""
+    from spark_rapids_tpu_torch.columnar.device import DeviceTable
+    from spark_rapids_tpu_torch.expr import functions as F
+    from spark_rapids_tpu_torch.memory.catalog import (BufferCatalog,
+                                                       set_catalog)
+    from spark_rapids_tpu_torch.memory.stores import (SpillCorruptionError,
+                                                      StorageTier)
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    conf = {"spark.rapids.sql.test.enabled": True,
+            "spark.rapids.tpu.aqe.enabled": False,
+            "spark.rapids.sql.batchSizeBytes": GRACE_BUDGET}
+    build, probe, fwant = _float_key_tables(np.random.default_rng(9))
+    q3_want = _q3_numpy(tables["customer"], tables["orders"],
+                        tables["lineitem"])
+    cat = BufferCatalog(device_limit=SPILL_LIMIT, host_limit=SPILL_LIMIT,
+                        disk_dir=workdir)
+    set_catalog(cat)
+    try:
+        sess = TorchSession(conf)
+        q3 = tpch.q3({k: sess.create_dataframe(v, num_partitions=partitions)
+                      for k, v in tables.items()})
+        lt = sess.create_dataframe(probe, num_partitions=partitions)
+        rt = sess.create_dataframe(build, num_partitions=partitions)
+        fq = lt.join(rt, condition=F.col("pk") == F.col("bk")).agg(
+            F.count_star().alias("rows"), F.sum(F.col("pv")).alias("pv"),
+            F.sum(F.col("bv")).alias("bv"))
+        with _SpillTimer() as timer:
+            _, w3, r3 = _grace_run("Q3 (spill)", sess, q3,
+                                   lambda o: _check_q3(o, q3_want,
+                                                       "Q3 under spill"))
+            out, wf, rf = _grace_run(
+                "float-key join (spill)", sess, fq,
+                lambda o: _check_rows(o, fwant, ("rows", "pv", "bv"), (),
+                                      "float-key join vs numpy"))
+        if not (r3.joins and rf.joins):
+            raise AssertionError("spill phase: no grace join ran")
+        t_host = _host_check(out, fq, ("rows", "pv", "bv"), (),
+                             "float-key join")
+        st = cat.stats()
+        counts, sizes = st["spill_count"], st["spilled_bytes"]
+        if not (counts[StorageTier.HOST] and counts[StorageTier.DISK]
+                and timer.bytes["disk_read"] and timer.bytes["restore"]):
+            raise AssertionError(f"spill phase: parts did not go device -> "
+                                 f"host -> disk and back: {st}")
+        cat.assert_no_leaks()
+        print(f"# spill: Q3 {w3:.3f} s (n_sub {r3.n_subs()}), float-key "
+              f"join {wf:.3f} s (n_sub {rf.n_subs()}; {fwant['zeros'][0]} "
+              f"probe keys of 0.0, half of them -0.0, {fwant['nans'][0]} "
+              f"NaNs of three payloads; host engine {t_host:.3f} s); "
+              f"spills to host "
+              f"{counts[StorageTier.HOST]} ({sizes[StorageTier.HOST]} B), "
+              f"to disk {counts[StorageTier.DISK]} "
+              f"({sizes[StorageTier.DISK]} B); peak {st['peak_device_bytes']}"
+              f" B; {timer.rates()}", flush=True)
+        # a corrupted spill file must fail its restore
+        li = tables["lineitem"].slice(0, 1 << 20).select(
+            ["l_orderkey", "l_extendedprice"])
+        from spark_rapids_tpu_torch.columnar.host import HostTable
+        table = DeviceTable.from_host(HostTable.from_arrow(li), None,
+                                      sess.device)
+        small = BufferCatalog(device_limit=table.nbytes(), host_limit=0,
+                              disk_dir=workdir)
+        h = small.register(table)
+        other = small.register(DeviceTable.from_host(
+            HostTable.from_arrow(li), None, sess.device))
+        if h.tier != StorageTier.DISK:
+            raise AssertionError("corrupt check: the buffer did not spill "
+                                 "to disk")
+        path = small._buffers[h.buffer_id].disk_path + "/col1.data.npy"
+        with open(path, "r+b") as f:
+            f.seek(1 << 16)
+            b = f.read(1)
+            f.seek(1 << 16)
+            f.write(bytes([b[0] ^ 0xFF]))
+        try:
+            h.get()
+        except SpillCorruptionError as e:
+            print(f"# spill: a flipped byte in a spilled file raised "
+                  f"SpillCorruptionError ({e})", flush=True)
+        else:
+            raise AssertionError("a corrupted spill file restored")
+        h.close()
+        other.close()
+    finally:
+        set_catalog(None)
+
+
+def sort_phase(li: pa.Table, partitions: int) -> None:
+    """SF1 lineitem sorted by (l_orderkey, l_linenumber) under a
+    ``batchSizeBytes`` of 64 MiB: it must take the out-of-core sort, and
+    equal numpy's lexsort row for row on the keys and on every column with
+    the other columns as the last keys."""
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    from spark_rapids_tpu_torch.session import TorchSession
+    cols = ["l_orderkey", "l_linenumber", "l_partkey", "l_extendedprice"]
+    t = li.select(cols)
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.tpu.aqe.enabled": False,
+                         "spark.rapids.sql.batchSizeBytes": SORT_BUDGET})
+    q = sess.create_dataframe(t, num_partitions=partitions).sort(
+        "l_orderkey", "l_linenumber")
+    runs, rounds = [], [0]
+    real_merge, real_sort = TpuSortExec._merge_runs, None
+    from spark_rapids_tpu_torch.exec import sort as S
+    real_sort = S.device_sort_table
+
+    def merge(node, rs):
+        runs.append(len(rs))
+        yield from real_merge(node, rs)
+
+    def sort_table(table, orders):
+        rounds[0] += 1
+        return real_sort(table, orders)
+    TpuSortExec._merge_runs, S.device_sort_table = merge, sort_table
+    try:
+        walls = []
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            out = _cached_run("out-of-core sort", run, q.collect)[0]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        TpuSortExec._merge_runs, S.device_sort_table = real_merge, real_sort
+    if len(runs) != 2:
+        raise AssertionError(f"the sort did not take _out_of_core: {runs}")
+    v = {c: t.column(c).to_numpy() for c in cols}
+    order = np.lexsort((v["l_linenumber"], v["l_orderkey"]))
+    for c in ("l_orderkey", "l_linenumber"):
+        if not np.array_equal(out.column(c).to_numpy(), v[c][order]):
+            raise AssertionError(f"out-of-core sort: {c} out of order")
+    got = {c: out.column(c).to_numpy() for c in cols}
+    full = np.lexsort([v[c] for c in reversed(cols)])
+    gfull = np.lexsort([got[c] for c in reversed(cols)])
+    for c in cols:
+        if not np.array_equal(got[c][gfull], v[c][full]):
+            raise AssertionError(f"out-of-core sort: the rows of {c} differ")
+    print(f"# out-of-core sort of {t.num_rows} rows ({runs[0]} runs, "
+          f"{rounds[0] // 2 - runs[0]} merge rounds a run): cold "
+          f"{walls[0]:.3f} s, warm {walls[1]:.3f} s", flush=True)
+
+
+def q3_sf10_phase(partitions: int) -> dict:
+    """TPC-H Q3 over SF10 customer, orders and lineitem (only the columns
+    Q3 reads generated): AQE off at the default 512 MiB budget must take
+    the grace join (its n_sub printed); then AQE on, with whatever plan it
+    takes. Both against numpy. Cold and warm walls, the peak of
+    ``torch.cuda.max_memory_allocated`` and of the catalog, a trace of one
+    more warm run, and the device times of ``device_partition_ids`` and of
+    one ``_grace_split`` on the build side, with their call counts."""
+    from spark_rapids_tpu_torch.exec.joins import GRACE_SEED
+    from spark_rapids_tpu_torch.exec.transitions import clear_upload_cache
+    from spark_rapids_tpu_torch.memory.catalog import get_catalog, set_catalog
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.shuffle.manager import device_partition_ids
+    from spark_rapids_tpu_torch.tools import tpch
+    t_phase = time.perf_counter()
+    gens = {"customer": (tpch.gen_customer, 2), "orders": (tpch.gen_orders, 1),
+            "lineitem": (tpch.gen_lineitem, 0)}
+    tables = {k: g(Q3_BIG_SF, seed=seed, columns=Q3_SF10_COLUMNS[k])
+              for k, (g, seed) in gens.items()}
+    t_gen = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    want = _q3_numpy(tables["customer"], tables["orders"], tables["lineitem"])
+    t_numpy = time.perf_counter() - t0
+    print(f"# Q3 SF10: " + ", ".join(f"{k} {v.num_rows} rows"
+                                     for k, v in tables.items())
+          + f" generated in {t_gen:.2f} s; numpy {t_numpy:.2f} s; "
+          f"{want['counts']['li']} lineitems and {want['counts']['co']} "
+          "customer x orders rows pass", flush=True)
+    clear_upload_cache()
+    set_catalog(None)
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.tpu.aqe.enabled": False})
+    q = tpch.q3({k: sess.create_dataframe(v, num_partitions=partitions)
+                 for k, v in tables.items()})
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for run in ("cold", "warm"):
+        keep = run == "warm"
+        if run == "cold":
+            clear_upload_cache()
+        with _GraceRecorder(keep=keep) as rec:
+            t0 = time.perf_counter()
+            plan = sess._physical(q.logical, True)
+            out = plan.collect().to_arrow()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            plan.release_spill_handles()
+        _check_q3(out, want, f"SF10 {run} (AQE off)")
+        if not rec.joins:
+            raise AssertionError("Q3 SF10 with AQE off took no grace join")
+    peak = torch.cuda.max_memory_allocated()
+    cat_peak = get_catalog().peak_device_bytes
+    # the lineitem build: the largest grace build of the run
+    node, build, n_sub = max(rec.joins, key=lambda j: j[1].nbytes())
+    keys = node.right_keys
+    hashed = node._grace_keys(build, keys)
+    t_ids = _event_ms(lambda: device_partition_ids(hashed, keys, n_sub,
+                                                   seed=GRACE_SEED))
+    t_split = _event_ms(lambda: node._grace_split(build, keys, n_sub))
+    probes = [(t, k) for n, t, k, _ in rec.splits
+              if n is node and t is not build]
+    t_probe = sum(_event_ms(lambda t=t, k=k: node._grace_split(t, k, n_sub))
+                  for t, k in probes)
+    print(f"# Q3 SF10 AQE off: grace join n_sub {rec.n_subs()}; build "
+          f"{int(build.num_rows)} rows, capacity {build.capacity}, "
+          f"{build.nbytes()} B; cold {walls[0]:.3f} s, warm {walls[1]:.3f} "
+          f"s; torch.cuda.max_memory_allocated {peak} B; catalog peak "
+          f"{cat_peak} B", flush=True)
+    traced = _profile(q, "Q3 SF10")
+    if traced is not None:
+        busy, wall_ms = traced
+        print(f"# Q3 SF10 trace: device busy {100 * busy / wall_ms:.1f} %, "
+              f"idle {100 - 100 * busy / wall_ms:.1f} % of the traced warm "
+              "run", flush=True)
+    print(f"# Q3 SF10 split (warm run's inputs): device_partition_ids "
+          f"{t_ids:.3f} ms a call on the build, {rec.id_calls[0]} calls a "
+          f"run; _grace_split {t_split:.3f} ms on the build, "
+          f"{len(rec.splits)} calls a run ({len(probes)} on probe batches, "
+          f"{t_probe:.3f} ms together); split share of the warm wall "
+          f"{100 * (t_split + t_probe) / 1e3 / walls[1]:.1f} %", flush=True)
+    del rec, node, build, hashed, probes
+    on_sess = TorchSession({"spark.rapids.sql.test.enabled": True})
+    on_q = tpch.q3({k: on_sess.create_dataframe(v, num_partitions=partitions)
+                    for k, v in tables.items()})
+    with _GraceRecorder() as on_rec:
+        t0 = time.perf_counter()
+        on_plan = on_sess._physical(on_q.logical, True)
+        on_out = on_plan.collect().to_arrow()
+        torch.cuda.synchronize()
+        t_on = time.perf_counter() - t0
+        on_plan.release_spill_handles()
+    _check_q3(on_out, want, "SF10 (AQE on)")
+    print(on_plan.tree_string(), flush=True)
+    print(f"# Q3 SF10 AQE on: {t_on:.3f} s (cold for its plan), grace "
+          f"joins n_sub {on_rec.n_subs()}; events: "
+          + "; ".join(on_plan.events), flush=True)
+    clear_upload_cache()
+    print(f"# Q3 SF10 phase {time.perf_counter() - t_phase:.2f} s; host "
+          "engine not run at SF10 (numpy is the reference)", flush=True)
+    return {"cold_s": walls[0], "warm_s": walls[1], "aqe_on_s": t_on,
+            "ids_ms": t_ids, "split_ms": t_split, "peak": peak,
+            "cat_peak": cat_peak}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
@@ -2614,6 +3143,20 @@ def main() -> int:
     t0 = time.perf_counter()
     q20_phase(ptables, args.partitions)
     phase_s["q20"] = time.perf_counter() - t0
+    # -- the grace join, the spill catalog, the out-of-core sort ----------
+    t0 = time.perf_counter()
+    grace_phase(jtables, _q13_outer_tables(jtables)[1], args.partitions)
+    phase_s["grace"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as tmp:
+        spill_phase(tables, args.partitions, tmp)
+    phase_s["spill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sort_phase(li, args.partitions)
+    phase_s["sort"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q3_sf10_phase(args.partitions)
+    phase_s["Q3 SF10"] = time.perf_counter() - t0
     print("# TPC-H summary (s): query rows cold warm aqe_off host busy% "
           "warm_cache_hits", flush=True)
     for name, r in summary.items():

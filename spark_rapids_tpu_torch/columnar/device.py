@@ -32,8 +32,8 @@ import torch
 from . import dtypes as dt
 from .host import HostColumn, HostTable
 
-__all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "as_torch_dtype",
-           "bucket_rows", "bucket_width",
+__all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "append_column",
+           "as_torch_dtype", "bucket_rows", "bucket_width", "drop_column",
            "concat_device_tables", "pack_string_key_words", "shrink_to_fit",
            "slice_rows", "stable_partition_order", "to_host_batched",
            "torch_dtype"]
@@ -471,6 +471,19 @@ def slice_rows(table: DeviceTable, start: int, length: int) -> DeviceTable:
     mask = torch.logical_and(slc(table.row_mask),
                              (iota + start) < table.num_rows)
     return DeviceTable(cols, mask, mask.sum(dtype=torch.int32), table.names)
+
+
+def append_column(table: DeviceTable, name: str, col: DeviceColumn
+                  ) -> DeviceTable:
+    return DeviceTable(table.columns + (col,), table.row_mask,
+                       table.num_rows, table.names + (name,))
+
+
+def drop_column(table: DeviceTable, name: str) -> DeviceTable:
+    i = table.names.index(name)
+    return DeviceTable(table.columns[:i] + table.columns[i + 1:],
+                       table.row_mask, table.num_rows,
+                       table.names[:i] + table.names[i + 1:])
 
 
 def pack_string_key_words(data: torch.Tensor, lengths: torch.Tensor

@@ -20,7 +20,6 @@ _REGISTRY: "Dict[str, ConfEntry]" = {}
 
 #: The open steps of ROADMAP Queue 1, by name: messages name the step that
 #: will port a feature by these, never by a number a re-anchor changes.
-STEP_GRACE_JOIN = "the grace join and the spill catalog"
 STEP_DECIMAL128 = "decimal128"
 STEP_RELATIONAL = "the relational surface"
 STEP_NESTED_LOOP = "nested-loop and cross joins"
@@ -113,10 +112,9 @@ BATCH_ROWS_MIN_BUCKET = register_conf(
 
 BATCH_SIZE_BYTES = register_conf(
     "spark.rapids.sql.batchSizeBytes",
-    "Target device batch size in bytes: a sort whose input batches exceed "
-    "it together raises until the out-of-core sort is ported "
-    f"{not_ported(STEP_GRACE_JOIN)}. "
-    "(reference: RapidsConf.scala:425-432)",
+    "Target device batch size in bytes: a join build side over it takes "
+    "the grace join, and a sort whose input batches exceed it together "
+    "takes the out-of-core sort. (reference: RapidsConf.scala:425-432)",
     512 * 1024 * 1024, checker=_positive("batch size"))
 
 SHUFFLE_PARTITIONS = register_conf(
@@ -312,17 +310,36 @@ SCAN_PUSHDOWN = register_conf(
     "plan; a scan with a pushed filter stays on the host reader.", True)
 
 
+# -- the spill catalog (memory/catalog.py) ---------------------------------
+HOST_SPILL_STORAGE_SIZE = register_conf(
+    "spark.rapids.memory.host.spillStorageSize",
+    "Bytes of host memory used to spill device buffers before disk. "
+    "(reference: RapidsConf.scala:363)", 1024 * 1024 * 1024,
+    checker=_positive("spill storage"))
+
+OOM_SPILL_ENABLED = register_conf(
+    "spark.rapids.memory.gpu.oomSpill.enabled",
+    "Spill lowest-priority buffers when the device budget is exceeded "
+    "(reference: DeviceMemoryEventHandler).", True)
+
+DISK_SPILL_DIRECT = register_conf(
+    "spark.rapids.tpu.memory.disk.direct",
+    "Restore disk-spilled buffers through read-only memory maps copied "
+    "straight to the device (the GPUDirect-Storage analogue; reference: "
+    "RapidsGdsStore). false uses compact npz files.", True)
+
+DISK_SPILL_CHECKSUM = register_conf(
+    "spark.rapids.tpu.memory.disk.checksum",
+    "CRC32-checksum disk-spilled buffers on write and verify them on "
+    "restore; a mismatch raises SpillCorruptionError instead of serving "
+    "silently corrupt rows.", True)
+
+
 #: Every key the JAX package registers that this engine does not read yet,
 #: with the JAX default, by the ROADMAP Queue 1 step that will read it. The
 #: port keeps its own copy (it imports nothing of the JAX package);
 #: tests/test_torch_conf.py holds it equal to the JAX registry.
 _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
-    STEP_GRACE_JOIN: {
-        "spark.rapids.memory.host.spillStorageSize": 1024 ** 3,
-        "spark.rapids.memory.gpu.oomSpill.enabled": True,
-        "spark.rapids.tpu.memory.disk.checksum": True,
-        "spark.rapids.tpu.memory.disk.direct": True,
-    },
     STEP_DECIMAL128: {
         "spark.rapids.sql.decimal128.enabled": True,
     },

@@ -7,9 +7,9 @@ device. Single, hash and range partitioning are all satisfied by one
 partition (all rows of any key land together; the sort above orders its one
 partition), so the exchange never computes partition ids. Each map batch
 is compacted and shrunk to the bucket of its row count first, since
-post-filter and partial-aggregate batches are mostly masked slack. Exchanges
-across devices and device partition ids are later steps of the port
-(ROADMAP Queue 1 steps 8 and 10).
+post-filter and partial-aggregate batches are mostly masked slack.
+Exchanges across devices, which partition rows by ``device_partition_ids``
+(shuffle/manager.py), wait for ROADMAP Queue 1: multi-GPU.
 """
 from __future__ import annotations
 

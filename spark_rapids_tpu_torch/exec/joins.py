@@ -42,16 +42,31 @@ stable argsort of exec/sort.py. The JAX package's uint32 hash arithmetic
 rides int64 in ``[0, 2**32)`` (shuffle/manager.py), its uint64 key words
 int64 with the sign bit flipped before sorting.
 
+The build table is held through a spill-catalog handle and pinned while
+each probe batch joins it. A build side over
+``spark.rapids.sql.batchSizeBytes`` takes the grace join (reference:
+AbstractGpuJoinIterator's sub-partitioning): both sides are bucketed into
+``n_sub = min(64, max(2, ceil(build bytes / budget)))`` parts by the
+partition id of their keys (seed 9001), every part registered with the
+catalog at ``INPUT`` priority so parts spill while others join, and bucket
+``s`` of the probe joins bucket ``s`` of the build; right and full joins
+emit each bucket's unmatched build rows after it, a bucket no probe row
+reached included. Unlike the JAX package, float keys are hashed with -0.0
+as 0.0 and every NaN as one NaN (and an integer key joined to a float key
+as a float), so equal keys always share a bucket. A broadcast build is
+registered once at ``BROADCAST`` priority and split once for every probe
+partition; the plan closes its handles when its query ends.
+
 Not ported yet: joins without equi-keys (the broadcast nested-loop join,
-ROADMAP Queue 1: nested-loop and cross joins), whose planning raises; key
-types the device batch does not hold (binary, and decimal and nested
+ROADMAP Queue 1: nested-loop and cross joins), whose planning raises; and
+key types the device batch does not hold (binary, and decimal and nested
 types, which the port has not yet), which are tagged and run on the host
-engine (ROADMAP Queue 1: breadth, and decimal128); and the grace join of a
-build side over ``spark.rapids.sql.batchSizeBytes``, which raises naming
-its step (ROADMAP Queue 1: the grace join and the spill catalog).
+engine (ROADMAP Queue 1: breadth, and decimal128).
 """
 from __future__ import annotations
 
+import math
+import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -61,12 +76,13 @@ from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
                                bucket_width, concat_device_tables,
                                pack_string_key_words, shrink_to_fit,
                                slice_rows, torch_dtype)
-from ..conf import STEP_BREADTH, STEP_NESTED_LOOP, not_ported
+from ..conf import STEP_BREADTH, STEP_NESTED_LOOP, RapidsConf, not_ported
 from ..expr.base import EvalContext, Expression
+from ..memory.catalog import SpillableDeviceTable, SpillPriorities, get_catalog
 from ..plan.logical import _join_schema
 from ..plan.physical import PhysicalPlan
 from ..plan.schema import Schema
-from ..shuffle.manager import MASK32, fmix_device
+from ..shuffle.manager import MASK32, device_partition_ids, fmix_device
 from .aggregate import _empty_device_table
 from .base import TpuExec
 from .sort import lexsort
@@ -86,6 +102,10 @@ _I64_MIN = -2**63
 _GOLDEN = 0x9E3779B9
 #: the capacity under which ``T * T`` stays inside int64 (bucket math)
 _MAX_BUILD_CAPACITY = 1 << 30
+#: the grace join's partition-id seed (the JAX package's ``_GRACE_SEED``)
+GRACE_SEED = 9001
+#: the most buckets a grace join splits into
+_MAX_GRACE_PARTS = 64
 
 def monotone_i64(v: torch.Tensor) -> torch.Tensor:
     """Order- and equality-preserving map of a key plane into int64 (Spark
@@ -165,10 +185,10 @@ def build_prep_hash(key: DeviceColumn, row_mask: torch.Tensor
     bv = monotone_i64(key.data)
     cap = bv.shape[0]
     if cap > _MAX_BUILD_CAPACITY:
-        raise NotImplementedError(
+        raise ValueError(
             f"a join build of capacity {cap} is over the slot table's "
-            f"{_MAX_BUILD_CAPACITY} rows: the grace join is not ported yet "
-            "(ROADMAP Queue 1 steps 8 and 9)")
+            f"{_MAX_BUILD_CAPACITY} rows, past which the table's int64 "
+            "chain-step arithmetic can overflow")
     T = 1 << (2 * cap - 1).bit_length()
     device = bv.device
     h1, step = slot_hash(bv, T)
@@ -500,7 +520,8 @@ class TpuShuffledHashJoinExec(TpuExec):
                  how: str, condition: Optional[Expression],
                  merge_keys: bool, device: torch.device,
                  strategy: str = "hash", min_bucket: Optional[int] = None,
-                 batch_bytes: int = 512 * 1024 * 1024):
+                 batch_bytes: int = 512 * 1024 * 1024,
+                 conf: Optional[RapidsConf] = None):
         super().__init__()
         reason = join_unsupported_reason(how, left_keys, right_keys,
                                          left.schema, right.schema)
@@ -517,6 +538,7 @@ class TpuShuffledHashJoinExec(TpuExec):
         self.strategy = "hash" if strategy == "auto" else strategy
         self.min_bucket = min_bucket
         self.batch_bytes = batch_bytes
+        self.conf = conf
         on = self.left_keys if merge_keys else None
         self.schema = _join_schema(left.schema, right.schema, on, how)
         #: strategy -> (the build table's row mask, its prep)
@@ -596,26 +618,150 @@ class TpuShuffledHashJoinExec(TpuExec):
         return self._concat_build(
             list(self.right.execute_columnar(pidx)))
 
+    def _catalog(self):
+        return get_catalog(self.conf, self.device)
+
+    def _register_build(self, build: DeviceTable
+                        ) -> Tuple[SpillableDeviceTable, bool]:
+        """-> (the build's spill handle, whether to close it after this
+        partition)."""
+        return self._catalog().register(build,
+                                        SpillPriorities.ACTIVE_ON_DECK), True
+
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
         build = self._build_table(pidx)
         if build.nbytes() > self.batch_bytes:
-            raise NotImplementedError(
-                f"a join build side of {build.nbytes()} bytes is over "
-                f"spark.rapids.sql.batchSizeBytes={self.batch_bytes}: the "
-                "grace join is not ported yet (ROADMAP Queue 1 steps 8 and "
-                "9)")
+            for out in self._grace_join(build, pidx):
+                self.account_batch()
+                yield out
+            return
+        handle, own = self._register_build(build)
+        del build  # the catalog handle owns it from here on
+        try:
+            for out in self._join_parts(handle,
+                                        self.child_device_batches(pidx)):
+                self.account_batch()
+                yield out
+        finally:
+            if own:
+                handle.close()
+
+    def _join_parts(self, handle: SpillableDeviceTable, probes
+                    ) -> Iterator[DeviceTable]:
+        """Join the probe batches against one build handle; a right or full
+        join then emits the build rows no probe row matched (a build no
+        probe batch reached emits all of them)."""
         track = self.how in ("right", "full")
-        seen_box = [torch.zeros(build.capacity, dtype=torch.bool,
-                                device=build.device)] if track else None
-        for out in self._probe_join(build, self.child_device_batches(pidx),
-                                    seen_box):
-            self.account_batch()
-            yield out
+        seen_box = None
         if track:
-            emit = torch.logical_and(build.row_mask,
-                                     torch.logical_not(seen_box[0]))
-            self.account_batch()
-            yield self.pad_build(build, emit)
+            with handle as build:
+                seen_box = [torch.zeros(build.capacity, dtype=torch.bool,
+                                        device=build.device)]
+        yield from self._probe_pinned(handle, probes, seen_box)
+        if track:
+            with handle as build:
+                yield self.pad_build(build, torch.logical_and(
+                    build.row_mask, torch.logical_not(seen_box[0])))
+
+    # -- the grace join (a build side over the batch budget) -----------------
+    def _float_key_pairs(self) -> List[bool]:
+        """Per key pair, whether either side is a float (the pair is then
+        hashed as float64 on both sides)."""
+        return [any(isinstance(s.field(k).dtype, dt.FractionalType)
+                    for s, k in ((self.left.schema, lk),
+                                 (self.right.schema, rk)))
+                for lk, rk in zip(self.left_keys, self.right_keys)]
+
+    def _grace_keys(self, table: DeviceTable, keys: Sequence[str]
+                    ) -> DeviceTable:
+        """The key columns as they are hashed into buckets: a pair with a
+        float side as float64, -0.0 made 0.0 and every NaN the one
+        canonical NaN, so that keys the join holds equal share a bucket."""
+        cols = []
+        for k, as_float in zip(keys, self._float_key_pairs()):
+            c = table.column(k)
+            if as_float:
+                v = c.data.to(torch.float64)
+                v = torch.where(v == 0, torch.zeros_like(v), v)
+                v = torch.where(torch.isnan(v), torch.full_like(v, math.nan),
+                                v)
+                c = DeviceColumn(v, c.validity, dt.DOUBLE, c.all_valid)
+            cols.append(c)
+        return DeviceTable(tuple(cols), table.row_mask, table.num_rows,
+                           tuple(keys))
+
+    def _grace_split(self, table: DeviceTable, keys: Sequence[str],
+                     n_sub: int) -> Tuple[List[DeviceTable], List[int]]:
+        """-> (bucket ``s`` of ``table`` for each ``s < n_sub``, each
+        bucket's row count). A bucket holds the active rows whose partition
+        id is ``s``, in their order in ``table``, compacted into the bucket
+        of its row count (the JAX package's ``shrink_to_fit(filter_mask(pid
+        == s))``, capacities included): one stable sort by id, then one
+        gather a bucket; the counts cross to the host in one copy."""
+        pid = device_partition_ids(self._grace_keys(table, keys), keys,
+                                   n_sub, seed=GRACE_SEED)
+        pid = torch.where(table.row_mask, pid, n_sub)  # inactive rows last
+        order = torch.argsort(pid, stable=True)
+        counts = torch.bincount(pid, minlength=n_sub + 1)[:n_sub].tolist()
+        floor = self.min_bucket if self.min_bucket is not None \
+            else bucket_rows(1)
+        parts = []
+        start = 0
+        for n in counts:
+            cap = table.capacity if table.capacity <= floor \
+                else min(bucket_rows(max(n, 1), self.min_bucket),
+                         table.capacity)
+            idx = torch.zeros(cap, dtype=torch.int64, device=table.device)
+            idx[:n] = order[start:start + n]
+            start += n
+            mask = torch.arange(cap, device=table.device) < n
+            cols = tuple(g.with_validity(torch.logical_and(g.validity, mask),
+                                         all_valid=g.all_valid)
+                         for g in (c.gather(idx) for c in table.columns))
+            parts.append(DeviceTable(cols, mask, torch.tensor(
+                n, dtype=torch.int32, device=table.device), table.names))
+        return parts, counts
+
+    def _grace_build_parts(self, build: DeviceTable, n_sub: int
+                           ) -> Tuple[List[SpillableDeviceTable], bool]:
+        """-> (the build buckets' spill handles, whether to close them after
+        this partition)."""
+        catalog = self._catalog()
+        parts, _ = self._grace_split(build, self.right_keys, n_sub)
+        return [catalog.register(t, SpillPriorities.INPUT)
+                for t in parts], True
+
+    def _grace_join(self, build: DeviceTable, pidx: int
+                    ) -> Iterator[DeviceTable]:
+        """``_grace_join``: bucket both sides by key, then join bucket by
+        bucket (every part held by the spill catalog)."""
+        catalog = self._catalog()
+        n_sub = min(_MAX_GRACE_PARTS,
+                    max(2, math.ceil(build.nbytes() / self.batch_bytes)))
+        build_parts, own_build = self._grace_build_parts(build, n_sub)
+        del build
+        track = self.how in ("right", "full")
+        probe_parts: List[List[SpillableDeviceTable]] = \
+            [[] for _ in range(n_sub)]
+        try:
+            for probe in self.child_device_batches(pidx):
+                parts, counts = self._grace_split(probe, self.left_keys,
+                                                  n_sub)
+                for s, (t, n) in enumerate(zip(parts, counts)):
+                    if n:
+                        probe_parts[s].append(
+                            catalog.register(t, SpillPriorities.INPUT))
+            for s in range(n_sub):
+                if probe_parts[s] or track:
+                    yield from self._join_parts(
+                        build_parts[s], _pinned(probe_parts[s]))
+        finally:
+            if own_build:
+                for h in build_parts:
+                    h.close()
+            for hs in probe_parts:
+                for h in hs:
+                    h.close()
 
     def _direct_key_ok(self) -> bool:
         """One key of one fixed-width type on both sides: the
@@ -711,6 +857,14 @@ class TpuShuffledHashJoinExec(TpuExec):
             row_bytes += 1  # validity
         return max(self.min_bucket or 1,
                    self.batch_bytes // max(row_bytes, 1))
+
+    def _probe_pinned(self, build_handle: SpillableDeviceTable, probes,
+                      seen_box=None) -> Iterator[DeviceTable]:
+        """``_probe_join`` over a build held by the spill catalog: the
+        build is pinned while each probe batch joins it."""
+        for probe in probes:
+            with build_handle as build:
+                yield from self._probe_join(build, [probe], seen_box)
 
     def _probe_join(self, build: DeviceTable, probes, seen_box=None
                     ) -> Iterator[DeviceTable]:
@@ -862,24 +1016,58 @@ def _select(table: DeviceTable, names: Sequence[str]) -> DeviceTable:
                        table.num_rows, tuple(names))
 
 
+def _pinned(handles: Sequence[SpillableDeviceTable]
+            ) -> Iterator[DeviceTable]:
+    """Each handle's table, pinned while the consumer holds it."""
+    for h in handles:
+        with h as t:
+            yield t
+
+
 class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
     """The build side read whole, once, and joined to every probe partition
     (reference: GpuBroadcastHashJoinExec). Right and full joins never
     broadcast their build side: its unmatched rows would repeat per probe
-    partition. The build table stays on the node for the plan's life (the
-    spill catalog is ROADMAP Queue 1: the grace join and the spill
-    catalog)."""
+    partition. The build table is registered once with the spill catalog
+    at ``BROADCAST`` priority, and a build over the batch budget is split
+    for the grace join once, for every partition; the plan closes both
+    when its query ends (``release_spill_handles``)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         if self.how in ("right", "full"):
             raise ValueError(f"a {self.how} join cannot broadcast its right "
                              "side")
-        self._broadcast: Optional[DeviceTable] = None
+        self._bc_handle: Optional[SpillableDeviceTable] = None
+        self._bc_grace_parts: Optional[List[SpillableDeviceTable]] = None
+        self._bc_lock = threading.Lock()
+
+    def _broadcast_handle(self) -> SpillableDeviceTable:
+        """The broadcast build's spill handle, built on first use."""
+        with self._bc_lock:
+            if self._bc_handle is None:
+                table = self._concat_build(
+                    [b for p in range(self.right.num_partitions)
+                     for b in self.right.execute_columnar(p)])
+                self._bc_handle = self._catalog().register(
+                    table, SpillPriorities.BROADCAST)
+                self._own_spill_handle(self._bc_handle)
+            return self._bc_handle
 
     def _build_table(self, pidx: int) -> DeviceTable:
-        if self._broadcast is None:
-            self._broadcast = self._concat_build(
-                [b for p in range(self.right.num_partitions)
-                 for b in self.right.execute_columnar(p)])
-        return self._broadcast
+        return self._broadcast_handle().get()
+
+    def _register_build(self, build: DeviceTable
+                        ) -> Tuple[SpillableDeviceTable, bool]:
+        return self._broadcast_handle(), False
+
+    def _grace_build_parts(self, build: DeviceTable, n_sub: int
+                           ) -> Tuple[List[SpillableDeviceTable], bool]:
+        """Split the broadcast once; the parts serve every partition."""
+        with self._bc_lock:
+            if self._bc_grace_parts is None:
+                parts, _ = super()._grace_build_parts(build, n_sub)
+                for h in parts:
+                    self._own_spill_handle(h)
+                self._bc_grace_parts = parts
+            return self._bc_grace_parts, False

@@ -13,27 +13,39 @@ numbers, -0.0 == 0.0.
 first n rows, and a running state of at most n rows is merged with each
 batch's top by the same sort.
 
-The out-of-core merge for inputs larger than the batch budget waits for
-the spill catalog (ROADMAP Queue 1: the grace join and the spill
-catalog).
+``TpuSortExec`` sorts its input as one batch while the input's batches
+together stay within ``spark.rapids.sql.batchSizeBytes``. A larger input
+takes the out-of-core sort (reference: GpuSortExec's OutOfCoreSort,
+GpuSortExec.scala:69): each batch is sorted into a run registered with the
+spill catalog, and the runs merge in rounds. A round concatenates the carry
+of the last round, the next chunk of each run, and each unfinished run's
+next unseen row as a sentinel, sorts them, and emits every row before the
+first sentinel: no row still unseen can sort before it. The rest is
+carried.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
-                               concat_device_tables, pack_string_key_words)
-from ..conf import STEP_GRACE_JOIN, not_ported
+from ..columnar import dtypes as dt
+from ..columnar.device import (DeviceColumn, DeviceTable, append_column,
+                               bucket_rows, concat_device_tables, drop_column,
+                               pack_string_key_words, shrink_to_fit,
+                               slice_rows)
+from ..conf import RapidsConf
 from ..expr.base import EvalContext
 from ..expr.functions import SortOrder
+from ..memory.catalog import SpillPriorities, SpillableDeviceTable, get_catalog
 from ..plan.physical import PhysicalPlan, describe_orders
 from .base import TpuExec
 
 __all__ = ["TpuSortExec", "TpuTakeOrderedExec", "device_sort_table"]
 
 _SIGN = -2**63
+#: the out-of-core merge's sentinel column (the JAX package's name)
+_SENT = "__ooc_sentinel"
 
 
 def _order_keys(table: DeviceTable, orders: Sequence[SortOrder]
@@ -154,7 +166,8 @@ class TpuTakeOrderedExec(TpuExec):
 
 class TpuSortExec(TpuExec):
     def __init__(self, child: PhysicalPlan, orders: Sequence[SortOrder],
-                 min_bucket: int, batch_bytes: int):
+                 min_bucket: int, batch_bytes: int,
+                 conf: Optional[RapidsConf] = None):
         super().__init__()
         self.child = child
         self.children = (child,)
@@ -162,6 +175,7 @@ class TpuSortExec(TpuExec):
         self.schema = child.schema
         self.min_bucket = min_bucket
         self.batch_bytes = batch_bytes
+        self.conf = conf
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
         batches = list(self.child_device_batches(pidx))
@@ -169,15 +183,92 @@ class TpuSortExec(TpuExec):
             return
         if len(batches) > 1 \
                 and sum(b.nbytes() for b in batches) > self.batch_bytes:
-            raise NotImplementedError(
-                f"sort input of {len(batches)} batches exceeds "
-                f"spark.rapids.sql.batchSizeBytes={self.batch_bytes}: the "
-                "out-of-core sort is not ported yet "
-                + not_ported(STEP_GRACE_JOIN))
+            yield from self._out_of_core(batches)
+            return
         # FullSortSingleBatch mode
         table = concat_device_tables(batches, self.min_bucket)
         self.account_batch()
         yield device_sort_table(table, self.orders)
+
+    # -- OutOfCoreSort mode ---------------------------------------------------
+    def _out_of_core(self, batches: List[DeviceTable]
+                     ) -> Iterator[DeviceTable]:
+        """Sort each batch into a run held by the spill catalog, then merge
+        the runs (``_out_of_core``)."""
+        catalog = get_catalog(self.conf, batches[0].device)
+        runs: List[Tuple[SpillableDeviceTable, int]] = []
+        try:
+            sorted_bs = [device_sort_table(b, self.orders) for b in batches]
+            # every run's count in one host copy
+            counts = torch.stack([b.num_rows for b in sorted_bs]).tolist()
+            for b, n in zip(sorted_bs, counts):
+                if n:
+                    runs.append((catalog.register(b, SpillPriorities.INPUT),
+                                 n))
+            del sorted_bs  # the catalog holds the runs: it may spill them
+            yield from self._merge_runs(runs)
+        finally:
+            for run, _ in runs:
+                run.close()
+
+    def _merge_runs(self, runs: List[Tuple[SpillableDeviceTable, int]]
+                    ) -> Iterator[DeviceTable]:
+        """``_merge_runs``: rounds of carry + one chunk of each run + a
+        sentinel row of each unfinished run, sorted; the rows before the
+        first sentinel are emitted, the rest (sentinels dropped) carried.
+        One host copy a round reads the emit and carry counts."""
+        if not runs:
+            return
+        k = len(runs)
+        target_rows = max(n for _, n in runs)
+        chunk = bucket_rows(max(self.min_bucket, target_rows // k),
+                            self.min_bucket)
+        cursors = [0] * k
+        carry: Optional[DeviceTable] = None
+        while carry is not None or any(c < n for c, (_, n) in
+                                       zip(cursors, runs)):
+            inputs: List[DeviceTable] = []
+            flags: List[bool] = []
+            if carry is not None:
+                inputs.append(carry)
+                flags.append(False)
+            for i, (run, nrows) in enumerate(runs):
+                if cursors[i] >= nrows:
+                    continue
+                with run as t:
+                    inputs.append(slice_rows(t, cursors[i], chunk))
+                    flags.append(False)
+                    cursors[i] = min(cursors[i] + chunk, nrows)
+                    if cursors[i] < nrows:  # the next unseen row
+                        inputs.append(slice_rows(t, cursors[i], 1))
+                        flags.append(True)
+            tagged = [append_column(t, _SENT, DeviceColumn(
+                torch.full((t.capacity,), f, dtype=torch.bool,
+                           device=t.device),
+                torch.ones(t.capacity, dtype=torch.bool, device=t.device),
+                dt.BOOLEAN, True)) for t, f in zip(inputs, flags)]
+            merged = concat_device_tables(tagged, self.min_bucket)
+            sorted_m = device_sort_table(merged, self.orders)
+            sent = torch.logical_and(sorted_m.column(_SENT).data,
+                                     sorted_m.row_mask)
+            iota = torch.arange(sorted_m.capacity, dtype=torch.int32,
+                                device=sorted_m.device)
+            # the first sentinel's row; every row while there is none
+            emit_dev = torch.minimum(
+                torch.where(sent, iota, sorted_m.capacity).amin(),
+                sorted_m.num_rows)
+            rest_mask = torch.logical_and(
+                iota >= emit_dev,
+                torch.logical_not(sorted_m.column(_SENT).data))
+            rest = drop_column(sorted_m.filter_mask(rest_mask), _SENT)
+            emit_n, rest_n = torch.stack([emit_dev.to(torch.int32),
+                                          rest.num_rows]).tolist()
+            if emit_n > 0:
+                out = drop_column(sorted_m.filter_mask(iota < emit_n), _SENT)
+                self.account_batch(rows=emit_n)
+                yield shrink_to_fit(out, self.min_bucket, num_rows=emit_n)
+            carry = shrink_to_fit(rest, self.min_bucket, num_rows=rest_n) \
+                if rest_n else None
 
     def node_desc(self):
         return describe_orders(self.orders)

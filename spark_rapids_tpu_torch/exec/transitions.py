@@ -12,23 +12,26 @@ The upload cache keeps each source batch's upload device-resident across
 executions, as the JAX package does: a source that re-yields the same host
 batch (the in-memory source caches its decoded batches) is served without
 an upload. A cached ``DeviceTable`` is shared by every later run, so no
-operator writes into the tensors of an input batch. Not ported: the
-cache's registration with the buffer catalog for device OOM (ROADMAP Queue
-1: the grace join and the spill catalog), so the byte budget alone bounds
-it; and the exclusive-ownership marks that let a fused stage donate its
-input buffers (ROADMAP Queue 1: memory and robustness).
+operator writes into the tensors of an input batch. Its byte budget bounds
+it, and it registers with the buffer catalog: ``handle_device_oom`` drops
+it (``clear_upload_cache`` is an OOM callback), and its bytes count in the
+catalog's device use and peak. Not ported: the exclusive-ownership marks
+that let a fused stage donate its input buffers (ROADMAP Queue 1: memory
+and robustness).
 """
 from __future__ import annotations
 
 import threading
 import weakref
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import torch
 
 from ..columnar.device import (DeviceTable, concat_device_tables,
                                to_host_batched)
 from ..columnar.host import HostTable
+from ..conf import RapidsConf
+from ..memory.catalog import get_catalog
 from ..plan.physical import PhysicalPlan
 from .base import NUM_OUTPUT_BATCHES, TpuExec
 
@@ -54,6 +57,8 @@ _CACHED_BYTES = 0          # running device-byte total of cached uploads
 _CACHE_HITS = 0
 _CACHE_INSERTS = 0
 _CACHE_EVICTIONS = 0
+#: a weak reference to the buffer catalog the cache last registered with
+_HOOKED = None
 
 
 def _drop_entry(key: int) -> None:
@@ -86,12 +91,32 @@ def upload_cache_stats() -> dict:
                 "evictions": _CACHE_EVICTIONS}
 
 
+def _cached_bytes() -> int:
+    with _UPLOAD_LOCK:
+        return _CACHED_BYTES
+
+
+def _hook_oom(conf: Optional[RapidsConf], device: torch.device) -> None:
+    """Register the cache with the process buffer catalog, once per
+    catalog: dropped on device OOM, its bytes in the catalog's device use
+    and peak. Called outside ``_UPLOAD_LOCK`` (the lock order is catalog,
+    then cache)."""
+    global _HOOKED
+    cat = get_catalog(conf, device)
+    if _HOOKED is None or _HOOKED() is not cat:
+        cat.register_oom_callback(clear_upload_cache)
+        cat.register_external_bytes("upload_cache", _cached_bytes)
+        _HOOKED = weakref.ref(cat)
+    cat.note_external_change()
+
+
 class HostToDeviceExec(TpuExec):
     """Uploads each host batch into a bucketed device batch on ``device``,
     through the upload cache when ``cache_max_bytes`` is above 0."""
 
     def __init__(self, child: PhysicalPlan, min_bucket: int,
-                 device: torch.device, cache_max_bytes: int = 0):
+                 device: torch.device, cache_max_bytes: int = 0,
+                 conf: Optional[RapidsConf] = None):
         super().__init__()
         self.child = child
         self.children = (child,)
@@ -99,6 +124,7 @@ class HostToDeviceExec(TpuExec):
         self.min_bucket = min_bucket
         self.device = device
         self.cache_max_bytes = cache_max_bytes
+        self.conf = conf
         self.metrics[UPLOAD_BYTES] = 0
         self.metrics[UPLOAD_CACHE_HITS] = 0
 
@@ -123,6 +149,7 @@ class HostToDeviceExec(TpuExec):
         dtb = DeviceTable.from_host(batch, self.min_bucket, self.device)
         nbytes = dtb.nbytes()
         self.metrics[UPLOAD_BYTES] += nbytes
+        cached = False
         with _UPLOAD_LOCK:
             # past the budget: served uncached, nothing evicted
             if _CACHED_BYTES + nbytes <= self.cache_max_bytes:
@@ -138,6 +165,9 @@ class HostToDeviceExec(TpuExec):
                     entry[1][inner] = dtb
                     _CACHED_BYTES += nbytes
                     _CACHE_INSERTS += 1
+                    cached = True
+        if cached:
+            _hook_oom(self.conf, self.device)
         return dtb
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:

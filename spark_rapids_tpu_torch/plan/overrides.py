@@ -148,7 +148,8 @@ def _register_exec_rules():
     register_exec_rule(
         CpuSortExec, _device_all,
         lambda p, ch, conf, device: TpuSortExec(
-            ch[0], p.orders, conf.min_bucket_rows, conf.batch_size_bytes),
+            ch[0], p.orders, conf.min_bucket_rows, conf.batch_size_bytes,
+            conf),
         exprs_fn=lambda p: [o.expr for o in p.orders])
     register_exec_rule(
         CpuTakeOrderedExec, _device_all,
@@ -178,7 +179,7 @@ def _register_exec_rules():
             lambda p, ch, conf, device, tpu_cls=tpu_cls: tpu_cls(
                 ch[0], ch[1], p.left_keys, p.right_keys, p.how, p.condition,
                 p.merge_keys, device, str(conf.get(JOIN_STRATEGY)).lower(),
-                conf.min_bucket_rows, conf.batch_size_bytes),
+                conf.min_bucket_rows, conf.batch_size_bytes, conf),
             exprs_fn=lambda p: [] if p.condition is None else [p.condition],
             tag_fn=tag_join)
 

@@ -15,6 +15,7 @@ expose ``execute_columnar(pidx) -> Iterator[DeviceTable]``.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +52,39 @@ class PhysicalPlan:
     @property
     def num_partitions(self) -> int:
         return self.children[0].num_partitions if self.children else 1
+
+    def _own_spill_handle(self, handle) -> None:
+        """Track a spill-catalog handle this node registered for its output
+        (a broadcast build, its grace parts). ``release_spill_handles``
+        closes it when the query's collect ends; a finalizer closes it when
+        the node is collected, for a plan never released. A finalizer runs
+        at most once, so the two cannot close a handle twice."""
+        self.__dict__.setdefault("_spill_finalizers", []).append(
+            weakref.finalize(self, handle.close))
+
+    def release_spill_handles(self) -> int:
+        """Close every spill handle that this finished plan tree owns,
+        walking ``children`` and the edges AQE's nodes keep outside them
+        (``inner``, ``stage``, ``_final``, ``child``). Safe to call more
+        than once. -> the number of handles closed."""
+        closed = 0
+        seen = set()
+        stack: List[PhysicalPlan] = [self]
+        while stack:
+            node = stack.pop()
+            if id(node) in seen:
+                continue
+            seen.add(id(node))
+            for fin in node.__dict__.get("_spill_finalizers", ()):
+                if fin.alive:
+                    fin()
+                    closed += 1
+            stack.extend(getattr(node, "children", ()))
+            for attr in ("inner", "stage", "_final", "child"):
+                v = getattr(node, attr, None)
+                if isinstance(v, PhysicalPlan):
+                    stack.append(v)
+        return closed
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
         raise NotImplementedError(type(self).__name__)
@@ -412,7 +446,11 @@ def _murmur_fmix(vals: np.ndarray) -> np.ndarray:
     if vals.dtype == np.bool_:
         x = vals.astype(np.uint32)
     elif vals.dtype.kind == "f":
-        x = vals.astype(np.float64).view(np.uint64)
+        # Spark's key equality holds -0.0 == 0.0 and NaN == NaN, so they
+        # hash alike (the JAX host engine hashes the raw bits)
+        v = vals.astype(np.float64)
+        v = np.where(np.isnan(v), np.nan, np.where(v == 0, 0.0, v))
+        x = v.view(np.uint64)
         x = (x & np.uint64(0xFFFFFFFF)).astype(np.uint32) \
             ^ (x >> np.uint64(32)).astype(np.uint32)
     else:

@@ -40,7 +40,7 @@ def insert_transitions(plan: PhysicalPlan, conf: RapidsConf,
             c2 = walk(c)
             if isinstance(node, TpuExec) and not isinstance(c2, TpuExec):
                 c2 = HostToDeviceExec(c2, conf.min_bucket_rows, device,
-                                      cache_max_bytes=cache_bytes)
+                                      cache_max_bytes=cache_bytes, conf=conf)
                 if conf.get(COALESCE_AFTER_UPLOAD):
                     c2 = TpuCoalesceBatchesExec(
                         c2, target_rows=DEFAULT_BATCH_ROWS,

@@ -169,8 +169,13 @@ class DataFrame:
         """Run the query: on the session's device (``device=True``, the
         default when SQL is enabled) or on the host engine
         (``device=False``)."""
-        return self.session._physical(self.logical, device).collect() \
-            .to_arrow()
+        plan = self.session._physical(self.logical, device)
+        try:
+            return plan.collect().to_arrow()
+        finally:
+            # the plan is single-use: close its spill-registered outputs
+            # (broadcast builds, grace parts) now rather than at GC
+            plan.release_spill_handles()
 
     def to_pandas(self, device: Optional[bool] = None):
         return self.collect(device).to_pandas()

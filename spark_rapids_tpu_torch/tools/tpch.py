@@ -66,7 +66,24 @@ def _sentences(rng: np.random.Generator, n: int, words: int = 6,
     return out
 
 
-def gen_lineitem(sf: float, seed: int = 0, rows: int | None = None) -> pa.Table:
+def _built(cols: dict, columns) -> "pa.Table | None":
+    """The table of ``columns`` once a generator has built all of them,
+    else None. A generator checks before the draws of its string columns,
+    which come after every other draw: skipping them leaves each column
+    before them as the whole table holds it."""
+    if columns is not None and all(c in cols for c in columns):
+        return pa.table({c: cols[c] for c in columns})
+    return None
+
+
+def _select(table: pa.Table, columns) -> pa.Table:
+    return table if columns is None else table.select(list(columns))
+
+
+def gen_lineitem(sf: float, seed: int = 0, rows: int | None = None,
+                 columns=None) -> pa.Table:
+    """``columns``, when given, builds only those columns (each equal to
+    the whole table's)."""
     n = rows if rows is not None else int(6_000_000 * sf)
     rng = np.random.default_rng(seed)
     # key domains follow the spec ratios; when ``rows`` overrides the scale
@@ -90,13 +107,7 @@ def gen_lineitem(sf: float, seed: int = 0, rows: int | None = None) -> pa.Table:
     shipdate = (_EPOCH_1992 + rng.integers(0, _DATE_RANGE, size=n)).astype(np.int32)
     commitdate = shipdate + rng.integers(-30, 31, size=n).astype(np.int32)
     receiptdate = shipdate + rng.integers(1, 31, size=n).astype(np.int32)
-    returnflag = rng.choice(np.array(["A", "N", "R"]), size=n)
-    linestatus = np.where(shipdate > _EPOCH_1992 + 1460, "O", "F")
-    shipmode = rng.choice(np.array(
-        ["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK"]), size=n)
-    shipinstruct = rng.choice(np.array(
-        ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]), size=n)
-    return pa.table({
+    numeric = {
         "l_orderkey": pa.array(orderkey, type=pa.int64()),
         "l_partkey": pa.array(partkey, type=pa.int64()),
         "l_suppkey": pa.array(suppkey, type=pa.int64()),
@@ -105,17 +116,36 @@ def gen_lineitem(sf: float, seed: int = 0, rows: int | None = None) -> pa.Table:
         "l_extendedprice": pa.array(extendedprice),
         "l_discount": pa.array(discount),
         "l_tax": pa.array(tax),
-        "l_returnflag": pa.array(returnflag),
-        "l_linestatus": pa.array(linestatus),
         "l_shipdate": pa.array(shipdate, type=pa.int32()).cast(pa.date32()),
         "l_commitdate": pa.array(commitdate, type=pa.int32()).cast(pa.date32()),
         "l_receiptdate": pa.array(receiptdate, type=pa.int32()).cast(pa.date32()),
+    }
+    early = _built(numeric, columns)
+    if early is not None:
+        return early
+    returnflag = rng.choice(np.array(["A", "N", "R"]), size=n)
+    linestatus = np.where(shipdate > _EPOCH_1992 + 1460, "O", "F")
+    shipmode = rng.choice(np.array(
+        ["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK"]), size=n)
+    shipinstruct = rng.choice(np.array(
+        ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]), size=n)
+    n8 = ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+          "l_quantity", "l_extendedprice", "l_discount", "l_tax"]
+    return _select(pa.table({
+        **{c: numeric[c] for c in n8},
+        "l_returnflag": pa.array(returnflag),
+        "l_linestatus": pa.array(linestatus),
+        "l_shipdate": numeric["l_shipdate"],
+        "l_commitdate": numeric["l_commitdate"],
+        "l_receiptdate": numeric["l_receiptdate"],
         "l_shipinstruct": pa.array(shipinstruct),
         "l_shipmode": pa.array(shipmode),
-    })
+    }), columns)
 
 
-def gen_orders(sf: float, seed: int = 1, rows: int | None = None) -> pa.Table:
+def gen_orders(sf: float, seed: int = 1, rows: int | None = None,
+               columns=None) -> pa.Table:
+    """``columns`` as in ``gen_lineitem``."""
     n = rows if rows is not None else int(1_500_000 * sf)
     rng = np.random.default_rng(seed)
     orderkey = np.arange(1, n + 1, dtype=np.int64) * 4
@@ -124,24 +154,35 @@ def gen_orders(sf: float, seed: int = 1, rows: int | None = None) -> pa.Table:
     totalprice = np.round(rng.uniform(850.0, 560_000.0, size=n), 2)
     orderdate = (_EPOCH_1992 + rng.integers(0, _DATE_RANGE - 151, size=n)
                  ).astype(np.int32)
+    numeric = {
+        "o_orderkey": pa.array(orderkey),
+        "o_custkey": pa.array(custkey, type=pa.int64()),
+        "o_totalprice": pa.array(totalprice),
+        "o_orderdate": pa.array(orderdate, type=pa.int32()).cast(pa.date32()),
+        "o_shippriority": pa.array(np.zeros(n, dtype=np.int32)),
+    }
+    early = _built(numeric, columns)
+    if early is not None:
+        return early
     orderstatus = rng.choice(np.array(["F", "O", "P"]), size=n)
     orderpriority = rng.choice(np.array(
         ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]), size=n)
-    shippriority = np.zeros(n, dtype=np.int32)
     comment = _sentences(rng, n, special=("special%requests", 0.05))
-    return pa.table({
-        "o_orderkey": pa.array(orderkey),
-        "o_custkey": pa.array(custkey, type=pa.int64()),
+    return _select(pa.table({
+        "o_orderkey": numeric["o_orderkey"],
+        "o_custkey": numeric["o_custkey"],
         "o_orderstatus": pa.array(orderstatus),
-        "o_totalprice": pa.array(totalprice),
-        "o_orderdate": pa.array(orderdate, type=pa.int32()).cast(pa.date32()),
+        "o_totalprice": numeric["o_totalprice"],
+        "o_orderdate": numeric["o_orderdate"],
         "o_orderpriority": pa.array(orderpriority),
-        "o_shippriority": pa.array(shippriority),
+        "o_shippriority": numeric["o_shippriority"],
         "o_comment": pa.array(comment),
-    })
+    }), columns)
 
 
-def gen_customer(sf: float, seed: int = 2, rows: int | None = None) -> pa.Table:
+def gen_customer(sf: float, seed: int = 2, rows: int | None = None,
+                 columns=None) -> pa.Table:
+    """``columns`` as in ``gen_lineitem``."""
     n = rows if rows is not None else int(150_000 * sf)
     rng = np.random.default_rng(seed)
     custkey = np.arange(1, n + 1, dtype=np.int64)
@@ -150,6 +191,12 @@ def gen_customer(sf: float, seed: int = 2, rows: int | None = None) -> pa.Table:
     mktsegment = rng.choice(np.array(
         ["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"]),
         size=n)
+    early = _built({"c_custkey": pa.array(custkey),
+                    "c_nationkey": pa.array(nationkey),
+                    "c_acctbal": pa.array(acctbal),
+                    "c_mktsegment": pa.array(mktsegment)}, columns)
+    if early is not None:
+        return early
     # phone country code = nationkey + 10 (dbgen rule) -> Q22 substring codes
     p1 = rng.integers(100, 1000, size=n).astype("U3")
     p2 = rng.integers(100, 1000, size=n).astype("U3")
@@ -157,7 +204,7 @@ def gen_customer(sf: float, seed: int = 2, rows: int | None = None) -> pa.Table:
     phone = (nationkey + 10).astype("U2")
     for part in ("-", p1, "-", p2, "-", p3):
         phone = np.char.add(phone, part)
-    return pa.table({
+    return _select(pa.table({
         "c_custkey": pa.array(custkey),
         "c_name": pa.array(np.char.add("Customer#", custkey.astype("U9"))),
         "c_address": pa.array(_sentences(rng, n, words=3)),
@@ -166,7 +213,7 @@ def gen_customer(sf: float, seed: int = 2, rows: int | None = None) -> pa.Table:
         "c_acctbal": pa.array(acctbal),
         "c_mktsegment": pa.array(mktsegment),
         "c_comment": pa.array(_sentences(rng, n)),
-    })
+    }), columns)
 
 
 _TYPE_1 = np.array(["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"])

@@ -395,3 +395,115 @@ def _spark_substring(s: str, pos: int, ln: int) -> str:
     if start < 0:
         ln, start = max(ln + start, 0), 0
     return s[start:start + ln]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 7, 64])
+def test_partition_ids_on_card_equal_cpu(cuda_device, parts):
+    """``device_partition_ids`` on every key type and on all of them
+    combined, seeds 42 and 9001: the card's ids equal the CPU's (the CPU's
+    are held bit-equal to the JAX package's by
+    tests/test_torch_partition_ids.py)."""
+    from spark_rapids_tpu_torch.shuffle.manager import device_partition_ids
+    planes = _planes(3, 900, 1024)
+    cpu, card = _table(planes, "cpu"), _table(planes, cuda_device)
+    for keys in (["s"], ["d"], ["i"], ["b"], ["s", "d", "i", "b"]):
+        for seed in (42, 9001):
+            assert torch.equal(
+                device_partition_ids(card, keys, parts, seed).cpu(),
+                device_partition_ids(cpu, keys, parts, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full",
+                                 "left_semi", "left_anti"])
+def test_grace_joins_on_card_equal_cpu(cuda_device, how, monkeypatch):
+    """Every join type on a string and a float key (NaN, -0.0, nulls) with
+    a build over a 16 KiB ``batchSizeBytes``: the grace join runs on both
+    devices, with the same bucket counts, and the card's rows equal the
+    CPU's in order, and the host engine's."""
+    from harness import assert_tables_equal
+    from spark_rapids_tpu_torch.exec import joins as J
+    n_subs = []
+    real = J.TpuShuffledHashJoinExec._grace_build_parts
+
+    def spy(self, build, n_sub):
+        n_subs.append(n_sub)
+        return real(self, build, n_sub)
+    monkeypatch.setattr(J.TpuShuffledHashJoinExec, "_grace_build_parts", spy)
+    results, subs = [], []
+    for device in ("cpu", cuda_device):
+        del n_subs[:]
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                             "spark.rapids.tpu.batchRowsMinBucket": 64,
+                             "spark.rapids.sql.batchSizeBytes": 16 * 1024,
+                             "spark.rapids.tpu.aqe.enabled": False,
+                             "spark.rapids.tpu.autoBroadcastJoinThreshold":
+                                 -1}, device=device)
+        t = {k: sess.create_dataframe(v, num_partitions=2)
+             for k, v in _join_sides(9).items()}
+        q = t["l"].join(t["r"], how=how, condition=(
+            F.col("k") == F.col("rk")) & (F.col("k2") == F.col("rk2")))
+        results.append(q.collect())
+        subs.append(list(n_subs))
+    assert subs[0] and subs[0] == subs[1]
+    assert_tables_equal(results[1], results[0], ignore_order=False)
+    assert_tables_equal(results[1], q.collect(device=False))
+
+
+@pytest.mark.cuda
+def test_out_of_core_sort_on_card_equals_cpu(cuda_device, monkeypatch):
+    """A sort over a 64 KiB budget merges its runs on the card exactly as
+    on the CPU."""
+    rounds = []
+    real = srt.TpuSortExec._merge_runs
+
+    def spy(self, runs):
+        rounds.append(len(runs))
+        yield from real(self, runs)
+    monkeypatch.setattr(srt.TpuSortExec, "_merge_runs", spy)
+    li = tpch.gen_lineitem(0, seed=0, rows=20000).select(
+        ["l_orderkey", "l_linenumber", "l_extendedprice", "l_shipmode"])
+    results = []
+    for device in ("cpu", cuda_device):
+        sess = TorchSession({"spark.rapids.tpu.batchRowsMinBucket": 64,
+                             "spark.rapids.sql.batchSizeBytes": 64 * 1024},
+                            device=device)
+        results.append(sess.create_dataframe(li, num_partitions=4).sort(
+            F.col("l_orderkey").desc(), "l_linenumber").collect())
+    assert rounds == [4, 4]
+    assert results[0].equals(results[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direct", [True, False])
+def test_spill_round_trip_on_card(cuda_device, tmp_path, direct):
+    """A card table spilled to the host and to disk comes back to the card
+    plane for plane, bit for bit (its doubles hold NaN)."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.memory.catalog import BufferCatalog
+    from spark_rapids_tpu_torch.memory.stores import StorageTier
+    table = _table(_planes(4, 900, 1024), cuda_device)
+    size = table.nbytes()
+    cat = BufferCatalog(RapidsConf({
+        "spark.rapids.tpu.memory.disk.direct": direct}),
+        device_limit=size, host_limit=size, disk_dir=str(tmp_path),
+        device=cuda_device)
+    hs = [cat.register(_table(_planes(4, 900, 1024), cuda_device))
+          for _ in range(3)]
+    assert [h.tier for h in hs] == [StorageTier.DISK, StorageTier.HOST,
+                                    StorageTier.DEVICE]
+    for h in hs:
+        back = h.get()
+        assert back.device == table.device
+        for a, b in zip(back.columns, table.columns):
+            if a.data.is_floating_point():
+                assert torch.equal(a.data.view(torch.int64),
+                                   b.data.view(torch.int64))
+            else:
+                assert torch.equal(a.data, b.data)
+            assert torch.equal(a.validity, b.validity)
+        assert torch.equal(back.row_mask, table.row_mask)
+    for h in hs:
+        h.close()
+    cat.assert_no_leaks()

@@ -554,22 +554,32 @@ def test_output_over_the_batch_budget_comes_in_windows(how, monkeypatch):
         assert True in nested
 
 
-def test_build_side_over_the_batch_budget_raises_naming_the_grace_join():
-    """A build side over ``batchSizeBytes`` needs the grace join, which is
-    not ported yet: the device join raises, it never falls back in
-    silence."""
+@pytest.mark.parametrize("how", ["left_anti", "left_semi", "inner"])
+def test_build_side_over_the_batch_budget_takes_the_grace_join(
+        monkeypatch, how):
+    """A build side over ``batchSizeBytes`` takes the grace join (both
+    sides bucketed by key, joined bucket by bucket): the port's device
+    rows equal its host engine's and the JAX package's, which takes its
+    grace join too."""
     t = pa.table({"k": np.arange(5000), "v": np.arange(5000) * 0.5})
-    sess = TorchSession({"spark.rapids.sql.batchSizeBytes": 32 * 1024,
-                         "spark.rapids.tpu.autoBroadcastJoinThreshold": -1,
-                         "spark.rapids.tpu.aqe.enabled": False},
-                        device="cpu")
-    df = sess.create_dataframe(t, num_partitions=2)
-    q = df.join(df.select(F.col("k").alias("k2")),
-                condition=F.col("k") == F.col("k2"), how="left_anti")
-    with pytest.raises(NotImplementedError,
-                       match="grace join is not ported yet .ROADMAP Queue 1 "
-                             "steps 8 and 9"):
-        q.collect()
+    conf = {"spark.rapids.sql.batchSizeBytes": 32 * 1024,
+            "spark.rapids.tpu.autoBroadcastJoinThreshold": -1,
+            "spark.rapids.tpu.aqe.enabled": False}
+    builds = []
+    real = tjoins.TpuShuffledHashJoinExec._grace_join
+
+    def spy(self, build, pidx):
+        builds.append(build.nbytes())
+        yield from real(self, build, pidx)
+    monkeypatch.setattr(tjoins.TpuShuffledHashJoinExec, "_grace_join", spy)
+
+    def query(fns, tables):
+        df = tables["t"]
+        return df.join(df.select(fns.col("k").alias("k2")),
+                       condition=fns.col("k") == fns.col("k2"), how=how)
+    got = _check(query, {"t": t}, conf)
+    assert builds and all(b > 32 * 1024 for b in builds)
+    assert got.num_rows == (0 if how == "left_anti" else 5000)
 
 
 def test_join_codes_keep_subnormals_apart_from_zero():

@@ -267,15 +267,32 @@ def test_q1_partial_aggregate_counts_rows_once(monkeypatch):
     assert partial.count(torch.float64) == 14
 
 
-def test_sort_over_the_batch_budget_raises_naming_roadmap():
+def test_sort_over_the_batch_budget_takes_the_out_of_core_sort(monkeypatch):
+    """A sort whose input batches pass ``batchSizeBytes`` together runs the
+    out-of-core sort (sorted runs in the spill catalog, merged in rounds):
+    its rows equal the JAX package's in order (the same merge), and the
+    host engine's as a multiset, in the keys' order."""
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
     li = tpch.gen_lineitem(0, seed=0, rows=3000)
-    sess = TorchSession({"spark.rapids.sql.batchSizeBytes": 1},
-                        device="cpu")
-    df = sess.create_dataframe(li, num_partitions=3)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1: the grace join and the spill "
-                       "catalog"):
-        df.sort("l_orderkey").collect()
+    conf = {**_conf(8), "spark.rapids.sql.batchSizeBytes": 1}
+    sess = TorchSession(conf, device="cpu")
+    calls = []
+    real = TpuSortExec._merge_runs
+
+    def spy(self, runs):
+        calls.append(len(runs))
+        yield from real(self, runs)
+    monkeypatch.setattr(TpuSortExec, "_merge_runs", spy)
+    q = sess.create_dataframe(li, num_partitions=3).sort("l_orderkey")
+    got = q.collect()
+    assert calls == [3]
+    jsess = TpuSession({**conf, "spark.rapids.tpu.aqe.enabled": False})
+    want = jsess.create_dataframe(li, num_partitions=3).sort(
+        "l_orderkey").collect(device=True)
+    assert_tables_equal(got, want, ignore_order=False)
+    keys = got.column("l_orderkey").to_numpy()
+    assert (np.diff(keys) >= 0).all() and len(keys) == 3000
+    assert_tables_equal(got, q.collect(device=False))
 
 
 def test_join_still_raises_naming_roadmap():
