@@ -89,8 +89,19 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    512 MiB budget must take the grace join; then AQE on; both against
    numpy; cold and warm walls, peak device and catalog memory, and the
    device times and call counts of ``device_partition_ids`` and
-   ``_grace_split`` on the build side. Then the seconds of each phase and
-   of the whole run.
+   ``_grace_split`` on the build side.
+13. decimal phase (PR 10): Q1 and Q6 over ``decimal_lineitem`` (lineitem's
+   money and quantity columns as DECIMAL(12,2)) with AQE off and on, cold
+   and warm: device nodes only above the scans, results equal to exact
+   int64 references of the scaled values as decimals, the decimal kernels'
+   launches read around the warm runs (``d128_mul_rescaled`` and
+   ``d128_segment_sum`` must launch), a trace of a warm run, and the host
+   engine on 600,000 rows; then a DECIMAL(25,2) key column of 1M rows
+   grouped by, sorted by and joined on (the join under a 512 KiB budget, so
+   the grace join buckets the key's partition ids) against numpy; then Q6
+   decimal from a Parquet file pyarrow wrote (the decimal chunks take the
+   host decode) against the in-memory run. Then the seconds of each phase
+   and of the whole run.
 
 Between phases 5 and 6 the Parquet phase scans SF1 lineitem, orders and a
 nullable file through the device decode, each equal to pyarrow, and runs
@@ -99,7 +110,14 @@ decode kernels' launches counted; for Q6 (pushdown off) and Q1 one more
 warm run under ``host_split()`` prints the decode's host seconds by stage
 and each column's run counts and mean run lengths. The kernel phase holds
 the three decode kernels against their plain versions, the two redesigned
-ones also on their edge cases, and times them.
+ones also on their edge cases, and times them; and the three decimal128
+kernels (``csrc/decimal128.cu``) against theirs, limbs and overflow flags
+bit for bit at 2^20 rows on random values of 1..38 digits and on edge rows
+(0, +-1, +-(10^38 - 1), exact halves at scale drops 1, 9, 10, 18, 19 and
+38, products past 2^127 and near 10^76, rescales into overflow; sums at cap
+1, 6 and 2^16, a group of only nulls, a sum passing 10^38 and coming back,
+a group of 2^20 rows of +(10^38 - 1) whose total needs more than 128 bits),
+the segment sum three times by bits, and times each against its bound.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -3017,6 +3035,579 @@ def q3_sf10_phase(partitions: int) -> dict:
             "cat_peak": cat_peak}
 
 
+# ---------------------------------------------------------------------------
+# Decimals (PR 10): the three decimal128 kernels, Q1 and Q6 over
+# DECIMAL(12,2), a wide decimal key, and Q6 decimal from Parquet
+# ---------------------------------------------------------------------------
+#: the scale drops the kernel checks cover (exact halves at each)
+D128_DROPS = (1, 9, 10, 18, 19, 38)
+_P38 = 10 ** 38 - 1
+D128_ROWS = 1 << 20
+
+
+def d128_random(rng, n: int, min_digits: int = 1, max_digits: int = 38,
+                wide: bool = True) -> np.ndarray:
+    """``n`` random decimals of ``min_digits..max_digits`` digits (uniform
+    in the digit count), each sign half the time: ``(n, 2)`` int64 limbs
+    ``[hi, lo]``, or with ``wide=False`` (at most 18 digits) scaled int64.
+    Built in numpy from 64-bit words: a value under 10^d is ``lo < 10^d``
+    for d <= 19, else ``hi < floor(10^d / 2^64)`` over a full ``lo``."""
+    digits = rng.integers(min_digits, max_digits + 1, n)
+    lo_small = rng.integers(0, np.array([10 ** min(d, 19) for d in
+                                         range(39)], np.uint64)[digits],
+                            dtype=np.uint64)
+    lo_full = rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64, endpoint=True)
+    hi_cap = np.array([max((10 ** d) >> 64, 1) for d in range(39)],
+                      np.uint64)[digits]
+    big = digits > 19
+    lo = np.where(big, lo_full, lo_small)
+    hi = np.where(big, rng.integers(0, hi_cap, dtype=np.uint64), 0) \
+        .astype(np.uint64)
+    neg = rng.random(n) < 0.5
+    if not wide:
+        if max_digits > 18:
+            raise ValueError("scaled int64 holds at most 18 digits")
+        v = lo.astype(np.int64)
+        return np.where(neg, -v, v)
+    nlo = ~lo + np.uint64(1)
+    nhi = ~hi + (nlo == 0).astype(np.uint64)
+    return np.stack([np.where(neg, nhi, hi), np.where(neg, nlo, lo)],
+                    axis=1).view(np.int64)
+
+
+def d128_edge_ints() -> list:
+    """0, +-1, +-(10^38 - 1), and at each scale drop k an exact half
+    (``q * 10^k + 10^k / 2``) and its two neighbours, of both signs."""
+    out = [0, 1, -1, _P38, -_P38]
+    for k in D128_DROPS:
+        half = 5 * 10 ** (k - 1)
+        for q in (0, 1, 7, (10 ** (38 - k) - 1) // 2):
+            for v in (q * 10 ** k + half + d for d in (-1, 0, 1)):
+                if 0 < v <= _P38:
+                    out += [v, -v]
+    return out
+
+
+def _limbs(values) -> np.ndarray:
+    from spark_rapids_tpu_torch.expr.decimal128 import limbs_from_py_ints
+    return limbs_from_py_ints(list(values), len(values))
+
+
+def d128_mul_cases(rng, n: int) -> list:
+    """(label, a, b, a wide, b wide, scale drop, precision), each operand
+    ``(n, 2)`` limbs or (not wide) scaled int64: random operands of 1..38
+    digits at every drop; decimal64 operands (Q6's and Q1's shapes); and
+    the edge rows: every pair of edge values, exact halves divided at their
+    own drop, products past 2^127 and near 10^76."""
+    a, b = d128_random(rng, n), d128_random(rng, n)
+    cases = [(f"random drop {drop}", a, b, True, True, drop, 38)
+             for drop in (0,) + D128_DROPS]
+    cases.append(("decimal64 x decimal64 (Q6 revenue)",
+                  d128_random(rng, n, 1, 12, False),
+                  d128_random(rng, n, 1, 12, False), False, False, 0, 25))
+    cases.append(("limbs x decimal64 (Q1 charge)", d128_random(rng, n, 1, 26),
+                  d128_random(rng, n, 1, 13, False), True, False, 0, 38))
+    edges = d128_edge_ints()
+    pairs = [(x, y) for x in edges for y in edges]
+    a = _limbs([x for x, _ in pairs])
+    b = _limbs([y for _, y in pairs])
+    for drop in (0,) + D128_DROPS:
+        cases.append((f"edge pairs drop {drop}", a, b, True, True, drop, 38))
+    halves = _limbs(edges)
+    ones = _limbs([1 if i % 2 else -1 for i in range(len(edges))])
+    for drop in D128_DROPS:
+        cases.append((f"edge halves drop {drop}", halves, ones, True, True,
+                      drop, 38))
+    big = [_P38, -_P38, 2 ** 64, 2 ** 100, 10 ** 37, 13 * 10 ** 36]
+    cases.append(("past 2^127 and near 10^76", _limbs(big),
+                  _limbs(big[::-1]), True, True, 0, 38))
+    return cases
+
+
+def d128_rescale_cases(rng, n: int) -> list:
+    """(label, values, wide, from scale, to scale, precision): random values
+    scaled up (into overflow) and down at every drop, decimal64 values
+    widened (Q1's sum inputs, k = 0), and the edge rows."""
+    cases = []
+    vals = d128_random(rng, n)
+    for k in D128_DROPS:
+        cases.append((f"random down {k}", vals, True, k, 0, 38))
+        cases.append((f"random up {k}", vals, True, 0, k, 38))
+    cases.append(("decimal64 to (22,2)", d128_random(rng, n, 1, 12, False),
+                  False, 2, 2, 22))
+    cases.append(("decimal64 up 4", d128_random(rng, n, 1, 18, False), False,
+                  2, 6, 38))
+    edges = _limbs(d128_edge_ints())
+    for k in D128_DROPS:
+        cases.append((f"edges down {k}", edges, True, k, 0, 38))
+        cases.append((f"edges up {k} into overflow", edges, True, 0, k, 38))
+    cases.append(("edges checked at 20 digits", edges, True, 3, 3, 20))
+    return cases
+
+
+def d128_segment_sum_cases(rng, n: int) -> list:
+    """(label, values, wide, contrib, gid, cap, precision): cap 1 (Q6), 6
+    (Q1's groups) with a group of only nulls and a group whose sum passes
+    10^38 and comes back, 2^16 random groups, int64 values, one group of
+    ``n`` rows of +(10^38 - 1) (a total past 2^128) and one whose total is
+    exactly -2^128."""
+    cases = []
+    vals = d128_random(rng, n)
+    contrib = rng.random(n) < 0.9
+    cases.append(("cap 1", vals, True, contrib,
+                  np.zeros(n, np.int32), 1, 38))
+    gid = rng.integers(0, 6, n).astype(np.int32)
+    c6 = contrib & (gid != 5)                     # group 5: only nulls
+    v6 = vals.copy()
+    g4 = np.nonzero(gid == 4)[0][:8]              # up past 10^38, back
+    v6[g4] = _limbs([9 * 10 ** 37] * 4 + [-9 * 10 ** 37] * 3 + [-12345])
+    c6[g4] = True
+    gid[np.nonzero(gid == 4)[0][8:]] = 3          # group 4: those 8 only
+    cases.append(("cap 6", v6, True, c6, gid, 6, 38))
+    cases.append(("cap 65536", vals, True, contrib,
+                  rng.integers(0, 1 << 16, n).astype(np.int64), 1 << 16,
+                  38))
+    cases.append(("decimal64 values, cap 6",
+                  d128_random(rng, n, 1, 18, False), False, contrib,
+                  rng.integers(0, 6, n).astype(np.int32), 6, 28))
+    cases.append(("one group of +(10^38 - 1)",
+                  np.tile(_limbs([_P38]), (n, 1)), True, np.ones(n, bool),
+                  np.zeros(n, np.int32), 1, 38))
+    # limbs no decimal holds, but a kernel must take them as the plain
+    # version does: the 192-bit total's sign word decides the flag
+    low = np.zeros((n, 2), np.int64)
+    low[:2] = _limbs([-2 ** 127, -2 ** 127])
+    cases.append(("a total of exactly -2^128", low, True, np.ones(n, bool),
+                  np.zeros(n, np.int32), 1, 38))
+    return cases
+
+
+def d128_tensor(values: np.ndarray, wide: bool, device) -> torch.Tensor:
+    """A case's operand on ``device``: ``(n, 2)`` limbs when ``wide``,
+    else ``(n,)`` scaled int64."""
+    if values.ndim != (2 if wide else 1):
+        raise ValueError(f"operand of shape {values.shape}, wide={wide}")
+    return torch.from_numpy(np.ascontiguousarray(values)).to(device)
+
+
+def _d128_equal(label: str, got, want) -> None:
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            bad = int((g != w).reshape(g.shape[0], -1).any(1).sum())
+            raise AssertionError(f"{label}: kernel != plain version on "
+                                 f"{bad} rows")
+
+
+def _d128_timing(label: str, fn, plain, sets, nbytes: int) -> dict:
+    t = {"ms": _graph_ms(fn, sets), "plain_ms": _graph_ms(plain, sets),
+         "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "library_ms": None}
+    print(f"# kernel {label}: kernel {t['ms']:.6f} ms, plain "
+          f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms (bytes), "
+          f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; library "
+          "call: none (PyTorch has no 128-bit integer type)", flush=True)
+    return t
+
+
+def decimal_kernel_phase(device="cuda") -> dict:
+    """Each decimal128 kernel against its plain version, limbs and flags
+    bit for bit, on the cases above at ``D128_ROWS`` rows (the segment sum
+    three times, compared by bits), then each timed at 2^20 rows in the
+    shapes Q1 and Q6 give it."""
+    from spark_rapids_tpu_torch.expr import decimal128 as d
+    rng = np.random.default_rng(10)
+    n = D128_ROWS
+    t0 = time.perf_counter()
+    checked = 0
+    made: dict = {}
+
+    def tensor(values, wide: bool) -> torch.Tensor:
+        """``d128_tensor``, once per array (cases share their operands)."""
+        if id(values) not in made:
+            made[id(values)] = (values, d128_tensor(values, wide, device))
+        return made[id(values)][1]
+
+    for label, a, b, wa, wb, drop, p in d128_mul_cases(rng, n):
+        ta, tb = tensor(a, wa), tensor(b, wb)
+        _d128_equal(f"d128_mul_rescaled {label}",
+                    d.d128_mul_rescaled(ta, tb, drop, p),
+                    d.d128_mul_rescaled_reference(ta, tb, drop, p))
+        checked += 1
+    for label, v, wide, fs, ts, p in d128_rescale_cases(rng, n):
+        tv = tensor(v, wide)
+        _d128_equal(f"d128_rescale {label}", d.d128_rescale(tv, fs, ts, p),
+                    d.d128_rescale_reference(tv, fs, ts, p))
+        checked += 1
+    for label, v, wide, c, g, cap, p in d128_segment_sum_cases(rng, n):
+        tv = tensor(v, wide)
+        tc = torch.from_numpy(c).to(device)
+        tg = torch.from_numpy(g).to(device)
+        want = d.d128_segment_sum_reference(tv, tc, tg, cap, p)
+        for run in range(3):  # the same bits every run
+            _d128_equal(f"d128_segment_sum {label} (run {run + 1})",
+                        d.d128_segment_sum(tv, tc, tg, cap, p), want)
+        if label.startswith("one group") and not bool(want[1][0]):
+            raise AssertionError("a total past 2^128 did not overflow")
+        checked += 1
+    torch.cuda.synchronize()
+    made.clear()
+    print(f"# kernel decimal128: {checked} cases, each kernel equal to its "
+          f"plain version bit for bit (limbs and flags) at {n} rows, the "
+          f"segment sum in 3 runs each; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    timings = {}
+    kinds = {"mul": (d.d128_mul_rescaled, d.d128_mul_rescaled_reference),
+             "rescale": (d.d128_rescale, d.d128_rescale_reference),
+             "segment_sum": (d.d128_segment_sum,
+                             d.d128_segment_sum_reference)}
+    for key, label, kind, sets, extra, nbytes in d128_timed_shapes(
+            rng, n, device):
+        fn, plain = kinds[kind]
+        timings[key] = _d128_timing(
+            label, lambda *a, fn=fn, extra=extra: fn(*a, *extra),
+            lambda *a, plain=plain, extra=extra: plain(*a, *extra), sets,
+            nbytes)
+    return timings
+
+
+def d128_timed_shapes(rng, n: int, device) -> list:
+    """(key, label, kind, argument sets, trailing arguments, bytes) of each
+    decimal kernel's timed shape, Q1's and Q6's: a product of limbs and
+    int64 (Q1's charge) and of two int64 (Q6's revenue), a rescale (a sum
+    input, k = 0) and the segment sum at cap 6 (Q1's groups) and 1 (Q6).
+    The sets exceed L2 (the first tensors, then copies rolled along their
+    rows); the bytes are each input read once and each output written
+    once."""
+
+    def sets(*tensors):
+        each = sum(t.numel() * t.element_size() for t in tensors)
+        k = max(2, math.ceil(4 * L2_BYTES / each))
+        return [tuple(t.roll(7919 * i, 0) for t in tensors)
+                for i in range(k)]
+
+    def i64(digits):
+        return d128_tensor(d128_random(rng, n, 1, digits, False), False,
+                           device)
+
+    def limbs(digits):
+        return d128_tensor(d128_random(rng, n, 1, digits), True, device)
+
+    gid6 = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)) \
+        .to(device)
+    gid1 = torch.zeros(n, dtype=torch.int32, device=device)
+    contrib = torch.from_numpy(rng.random(n) < 0.98).to(device)
+    sums = [(a, contrib) for (a,) in sets(limbs(30))]
+    return [
+        ("d128_mul_rescaled",
+         "d128_mul_rescaled n=2^20 limbs x int64 (Q1 charge)", "mul",
+         sets(limbs(26), i64(13)), (0, 38), (16 + 8 + 16 + 1) * n),
+        ("d128_mul_rescaled q6",
+         "d128_mul_rescaled n=2^20 int64 x int64 (Q6 revenue)", "mul",
+         sets(i64(12), i64(3)), (0, 25), (8 + 8 + 16 + 1) * n),
+        ("d128_rescale",
+         "d128_rescale n=2^20 limbs (26,4) -> (36,4) (Q1 sum input)",
+         "rescale", sets(limbs(26)), (4, 4, 36), (16 + 16 + 1) * n),
+        ("d128_segment_sum",
+         "d128_segment_sum n=2^20 limbs, cap 6 (Q1's groups)",
+         "segment_sum", [(a, c, gid6) for a, c in sums], (6, 38),
+         (16 + 1 + 4) * n + 17 * 6),
+        ("d128_segment_sum cap 1",
+         "d128_segment_sum n=2^20 limbs, cap 1 (Q6)", "segment_sum",
+         [(a, c, gid1) for a, c in sums], (1, 38), (16 + 1 + 4) * n + 17)]
+
+
+def _d128_counts() -> dict:
+    from spark_rapids_tpu_torch.expr import decimal128 as d
+    return {f.__name__: f.launches for f in (
+        d.d128_mul_rescaled, d.d128_rescale, d.d128_segment_sum)}
+
+
+def _d128_zero() -> None:
+    from spark_rapids_tpu_torch.expr import decimal128 as d
+    for f in (d.d128_mul_rescaled, d.d128_rescale, d.d128_segment_sum):
+        f.launches = 0
+
+
+def _cents(table, name: str) -> np.ndarray:
+    """A DECIMAL(12,2) column's scaled ints (its Arrow buffer's low words;
+    no nulls in the generated data)."""
+    from spark_rapids_tpu_torch.columnar.host import decimal_words
+    return decimal_words(table.column(name).combine_chunks())[:, 0].copy()
+
+
+def d128_q1_reference(dli) -> dict:
+    """Q1 decimal in exact numpy int64 over the scaled values: group ->
+    (sum_qty, sum_base_price at scale 2, sum_disc_price at scale 4,
+    sum_charge at scale 6, count)."""
+    keep = _days(dli, "l_shipdate") <= 10471
+    price, disc = _cents(dli, "l_extendedprice"), _cents(dli, "l_discount")
+    qty, tax = _cents(dli, "l_quantity"), _cents(dli, "l_tax")
+    dp = price * (100 - disc)
+    charge = dp * (100 + tax)
+    flag, status = _strings(dli, "l_returnflag"), _strings(dli, "l_linestatus")
+    out = {}
+    for key in sorted(set(zip(flag[keep], status[keep]))):
+        m = keep & (flag == key[0]) & (status == key[1])
+        out[key] = (int(qty[m].sum()), int(price[m].sum()), int(dp[m].sum()),
+                    int(charge[m].sum()), int(m.sum()))
+    return out
+
+
+def d128_q6_reference(dli) -> int:
+    """Q6 decimal's revenue at scale 4, in exact numpy int64."""
+    days = _days(dli, "l_shipdate")
+    disc, qty = _cents(dli, "l_discount"), _cents(dli, "l_quantity")
+    m = (days >= 8766) & (days < 9131) & (disc >= 5) & (disc <= 7) \
+        & (qty < 2400)
+    return int((_cents(dli, "l_extendedprice")[m] * disc[m]).sum())
+
+
+def _unscaled(v, scale: int) -> int:
+    import decimal
+    ctx = decimal.Context(prec=100)
+    return int(v.scaleb(scale, context=ctx))
+
+
+def check_q1_decimal(out, want: dict, what: str) -> None:
+    keys = list(zip(out.column("l_returnflag").to_pylist(),
+                    out.column("l_linestatus").to_pylist()))
+    if keys != list(want):
+        raise AssertionError(f"{what}: groups {keys} != {list(want)}")
+    for i, key in enumerate(keys):
+        got = (_unscaled(out.column("sum_qty")[i].as_py(), 2),
+               _unscaled(out.column("sum_base_price")[i].as_py(), 2),
+               _unscaled(out.column("sum_disc_price")[i].as_py(), 4),
+               _unscaled(out.column("sum_charge")[i].as_py(), 6),
+               out.column("count_order")[i].as_py())
+        if got != want[key]:
+            raise AssertionError(f"{what} {key}: {got} != {want[key]}")
+
+
+def check_q6_decimal(out, want: int, what: str) -> None:
+    if out.num_rows != 1:
+        raise AssertionError(f"{what}: {out.num_rows} rows")
+    got = _unscaled(out.column("revenue")[0].as_py(), 4)
+    if got != want:
+        raise AssertionError(f"{what}: revenue {got} != {want} (scale 4)")
+
+
+def decimal_query_phase(li, partitions: int, host_rows: int = 600_000,
+                        device: str = "cuda") -> dict:
+    """Q1 and Q6 over ``decimal_lineitem(li)``, AQE off and on, cold and
+    warm: plans device nodes only above the scans, the results equal to the
+    exact int64 references as decimals, the launch counters read around
+    the warm runs (``d128_mul_rescaled`` and ``d128_segment_sum`` must
+    launch), a trace of a warm run; the host engine on ``host_rows`` rows
+    against the device on the same rows."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    t0 = time.perf_counter()
+    dli = tpch.decimal_lineitem(li)
+    want1, want6 = d128_q1_reference(dli), d128_q6_reference(dli)
+    biggest = int((_cents(dli, "l_extendedprice") * 100 * 110).max())
+    print(f"# decimal lineitem: {dli.num_rows} rows re-typed and referenced "
+          f"in {time.perf_counter() - t0:.2f} s; the largest charge a row "
+          f"{biggest} scaled units, times {dli.num_rows} rows = "
+          f"{biggest * dli.num_rows:.3e} < 2^63 = {2 ** 63:.3e}: the int64 "
+          f"reference cannot overflow", flush=True)
+    if biggest * dli.num_rows >= 2 ** 63:
+        raise AssertionError("the int64 reference could overflow")
+    out = {}
+    for aqe in (False, True):
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                             "spark.rapids.tpu.aqe.enabled": aqe},
+                            device=device)
+        t = {"lineitem": sess.create_dataframe(dli,
+                                               num_partitions=partitions)}
+        for name, q, check, want in (
+                ("q1_decimal", tpch.q1_decimal(t), check_q1_decimal, want1),
+                ("q6_decimal", tpch.q6_decimal(t), check_q6_decimal, want6)):
+            label = f"{name} AQE {'on' if aqe else 'off'}"
+            walls, counts = [], []
+            for run in ("cold", "warm"):
+                _d128_zero()
+                t1 = time.perf_counter()
+                plan = sess._physical(q.logical, True)
+                res = _cached_run(label, run, plan.collect)[0].to_arrow()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+                counts.append(_d128_counts())
+                check(res, want, f"{label} {run}")
+                _check_device_only(plan, label)
+            warm = counts[1]
+            # the wrappers count kernel launches; a CPU rehearsal has none
+            if device != "cpu" and not (warm["d128_mul_rescaled"]
+                                        and warm["d128_segment_sum"]):
+                raise AssertionError(f"{label}: decimal kernels not on the "
+                                     f"path: {warm}")
+            if aqe:
+                print(plan.tree_string(), flush=True)
+                print(f"# {label} events: " + "; ".join(plan.events),
+                      flush=True)
+            busy = _profile(q, label)
+            out[label] = {"cold_s": walls[0], "warm_s": walls[1],
+                          "launches": warm, "busy": busy}
+            print(f"# {label}: cold {walls[0]:.3f} s, warm {walls[1]:.3f} "
+                  f"s, exact against the int64 reference; warm launches "
+                  f"{warm}", flush=True)
+    small = dli.slice(0, host_rows)
+    sess = TorchSession({"spark.rapids.tpu.aqe.enabled": False},
+                        device=device)
+    t = {"lineitem": sess.create_dataframe(small, num_partitions=partitions)}
+    for name, q, check, want in (
+            ("q1_decimal", tpch.q1_decimal(t), check_q1_decimal,
+             d128_q1_reference(small)),
+            ("q6_decimal", tpch.q6_decimal(t), check_q6_decimal,
+             d128_q6_reference(small))):
+        t1 = time.perf_counter()
+        host = q.collect(device=False)
+        t_host = time.perf_counter() - t1
+        check(host, want, f"{name} host engine ({host_rows} rows)")
+        dev = q.collect()
+        if not dev.equals(host):
+            raise AssertionError(f"{name}: device != host engine at "
+                                 f"{host_rows} rows")
+        print(f"# {name} host engine at {host_rows} rows: {t_host:.3f} s, "
+              "equal to the device and the int64 reference", flush=True)
+    return out
+
+
+def decimal_key_phase(partitions: int, rows: int = 1 << 20,
+                      device: str = "cuda") -> None:
+    """A DECIMAL(25,2) key column: group by it, sort by it and join on it
+    (the join's build under a 512 KiB batch budget, so the grace join
+    buckets it by the key's partition ids), each against numpy."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.host import HostColumn, decimal_words
+    from spark_rapids_tpu_torch.expr import functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(25)
+    n_keys = 50_000
+    # distinct keys of up to 25 digits, both signs; rank = order of value
+    key_ints = (rng.permutation(n_keys).astype(object) - n_keys // 2) \
+        * (10 ** 19 + 7) + 3
+    rank = np.empty(n_keys, np.int64)
+    rank[np.argsort(key_ints)] = np.arange(n_keys)
+    kidx = rng.integers(0, n_keys, rows)
+    x = rng.integers(0, 1000, rows)
+    d25 = dt.DecimalType(25, 2)
+    left = pa.table({"k": HostColumn(d25, key_ints[kidx]).to_arrow(),
+                     "x": x})
+    right = pa.table({"rk": HostColumn(d25, key_ints).to_arrow(),
+                      "y": np.arange(n_keys, dtype=np.int64)})
+    words = decimal_words(right.column("rk").combine_chunks())
+    by_words = {(int(lo), int(hi)): i for i, (lo, hi) in enumerate(words)}
+
+    def key_index(arr) -> np.ndarray:
+        w = decimal_words(arr.combine_chunks())
+        return np.array([by_words[(int(lo), int(hi))] for lo, hi in w],
+                        dtype=np.int64)
+
+    t0 = time.perf_counter()
+    conf = {"spark.rapids.sql.test.enabled": True,
+            "spark.rapids.tpu.aqe.enabled": False}
+    sess = TorchSession(conf, device=device)
+    ldf = sess.create_dataframe(left, num_partitions=partitions)
+    col = F.col
+    grouped = ldf.group_by("k").agg(F.count_star().alias("n"),
+                                    F.sum(col("x")).alias("sx"))
+    plan = sess._physical(grouped.logical, True)
+    g = plan.collect().to_arrow()
+    _check_device_only(plan, "decimal key group-by")
+    counts = np.bincount(kidx, minlength=n_keys)
+    sums = np.bincount(kidx, weights=x, minlength=n_keys).astype(np.int64)
+    idx = key_index(g.column("k"))
+    if len(idx) != int((counts > 0).sum()) \
+            or not np.array_equal(g.column("n").to_numpy(), counts[idx]) \
+            or not np.array_equal(g.column("sx").to_numpy(), sums[idx]):
+        raise AssertionError("decimal key group-by != numpy")
+    ordered = ldf.sort(col("k").desc(), col("x").asc())
+    plan = sess._physical(ordered.logical, True)
+    s = plan.collect().to_arrow()
+    _check_device_only(plan, "decimal key sort")
+    order = np.lexsort((x, -rank[kidx]))
+    if not np.array_equal(key_index(s.column("k")), kidx[order]) \
+            or not np.array_equal(s.column("x").to_numpy(), x[order]):
+        raise AssertionError("decimal key sort != numpy's lexsort")
+    jsess = TorchSession(dict(conf, **{
+        "spark.rapids.tpu.autoBroadcastJoinThreshold": -1,
+        "spark.rapids.sql.batchSizeBytes": 512 * 1024}), device=device)
+    joined = jsess.create_dataframe(left, num_partitions=partitions).join(
+        jsess.create_dataframe(right, num_partitions=partitions),
+        condition=col("k") == col("rk")) \
+        .agg(F.count_star().alias("n"), F.sum(col("y")).alias("sy"),
+             F.sum(col("x") * col("y")).alias("sxy"))
+    out, wall, rec = _grace_run("decimal key join", jsess, joined,
+                                lambda o: None)
+    # y is the key's index: sum(y) and sum(x * y) over the matches
+    want = (rows, int(kidx.sum()), int((x * kidx).sum()))
+    got = (out.column("n")[0].as_py(), out.column("sy")[0].as_py(),
+           out.column("sxy")[0].as_py())
+    if got != want:
+        raise AssertionError(f"decimal key join: {got} != {want}")
+    if not rec.n_subs() or not rec.id_calls[0]:
+        raise AssertionError("decimal key join: no grace join ran")
+    print(f"# decimal key (25,2), {rows} rows, {n_keys} keys: group-by, "
+          f"sort and join equal to numpy; the join's grace n_sub "
+          f"{rec.n_subs()}, partition-id calls {rec.id_calls[0]}, "
+          f"{wall:.3f} s; phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
+def decimal_parquet_phase(li, workdir, partitions: int,
+                          device: str = "cuda") -> None:
+    """Q6 decimal from a Parquet file pyarrow wrote: the decimal chunks take
+    the host decode, and the answer equals the in-memory run's."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    dli = tpch.decimal_lineitem(li.select(
+        ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+         "l_shipdate"]))
+    path = f"{workdir}/decimal_lineitem.parquet"
+    t0 = time.perf_counter()
+    pq.write_table(dli, path, row_group_size=1 << 20)
+    t_write = time.perf_counter() - t0
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.tpu.aqe.enabled": False},
+                        device=device)
+    t0 = time.perf_counter()
+    from_file = tpch.q6_decimal({"lineitem": sess.read_parquet(path)}) \
+        .collect()
+    t_file = time.perf_counter() - t0
+    in_mem = tpch.q6_decimal({"lineitem": sess.create_dataframe(
+        dli, num_partitions=partitions)}).collect()
+    check_q6_decimal(from_file, d128_q6_reference(dli), "Q6 decimal Parquet")
+    if not from_file.equals(in_mem):
+        raise AssertionError("Q6 decimal from Parquet != in memory")
+    print(f"# Q6 decimal from Parquet ({dli.num_rows} rows, written in "
+          f"{t_write:.2f} s): {t_file:.3f} s, equal to the in-memory run "
+          "and the int64 reference", flush=True)
+
+
+def _d128_kernel_lines(timings: dict, runs: dict) -> list:
+    """The ``kernels`` line's entries of the three decimal128 kernels:
+    launches over the warm runs of Q1 and Q6 decimal with AQE off; times
+    at Q1's shapes (charge's product, a sum input, the grouped sum)."""
+    launches = {k: sum(runs[f"{q} AQE off"]["launches"][k]
+                       for q in ("q1_decimal", "q6_decimal"))
+                for k in ("d128_mul_rescaled", "d128_rescale",
+                          "d128_segment_sum")}
+    lines = []
+    for name, line in (("d128_mul_rescaled", 327), ("d128_rescale", 310),
+                       ("d128_segment_sum", 395)):
+        t = timings[name]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/decimal128.cu",
+            "replaces": f"spark_rapids_tpu/expr/decimal128.py:{line}",
+            "launches": launches[name], "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
@@ -3054,6 +3645,7 @@ def main() -> int:
     kern = kernel_phase(gen)
     nfa = nfa_kernel_phase()
     pqk = parquet_kernel_phase()
+    d128k = decimal_kernel_phase()
     phase_s["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3157,6 +3749,13 @@ def main() -> int:
     t0 = time.perf_counter()
     q3_sf10_phase(args.partitions)
     phase_s["Q3 SF10"] = time.perf_counter() - t0
+    # -- decimals: Q1 and Q6 over DECIMAL(12,2), a wide key, Parquet -------
+    t0 = time.perf_counter()
+    d128_runs = decimal_query_phase(li, args.partitions)
+    decimal_key_phase(args.partitions)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as tmp:
+        decimal_parquet_phase(li, tmp, args.partitions)
+    phase_s["decimal"] = time.perf_counter() - t0
     print("# TPC-H summary (s): query rows cold warm aqe_off host busy% "
           "warm_cache_hits", flush=True)
     for name, r in summary.items():
@@ -3191,7 +3790,8 @@ def main() -> int:
         "max_abs_err": nfa["max_abs_err"], "ms": tn["ms"],
         "plain_ms": tn["plain_ms"], "bound_ms": tn["bound_ms"],
         "bound_by": tn["bound_by"], "library_ms": None},
-        *_pq_kernel_lines(pqk, pq_out["runs"])]}), flush=True)
+        *_pq_kernel_lines(pqk, pq_out["runs"]),
+        *_d128_kernel_lines(d128k, d128_runs)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,10 @@ two engines can be compared directly:
 4. **Strings as a byte matrix**: a ``(capacity, width)`` uint8 plane (each
    value left-aligned, zero-padded) plus an int32 ``lengths`` plane. The
    width is per batch, ``bucket_width`` of its longest value.
+5. **Decimals** as scaled int64 up to 18 digits, and beyond as a
+   ``(capacity, 2)`` int64 plane of limbs ``[hi, lo]`` with no lengths
+   (expr/decimal128.py). A 2-D plane is a string when its column has
+   ``lengths``, else a limb pair: every path that handles one asks that.
 
 ``num_rows`` is a 0-d int32 tensor on the batch's device: batch functions
 never turn it into a Python int, so they never wait on the device. The host
@@ -30,7 +34,7 @@ import pyarrow as pa
 import torch
 
 from . import dtypes as dt
-from .host import HostColumn, HostTable
+from .host import HostColumn, HostTable, decimal_words
 
 __all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "append_column",
            "as_torch_dtype", "bucket_rows", "bucket_width", "drop_column",
@@ -250,6 +254,10 @@ def _host_column(dtype: dt.DataType, data: np.ndarray, validity: np.ndarray,
         return HostColumn(dtype, _decode_string_matrix(vals,
                                                        lengths[mask][:n]),
                           opt_valid)
+    if dt.is_d128(dtype):
+        # the signed hi limb makes the composition the signed value
+        from ..expr.decimal128 import limbs_to_py_ints
+        return HostColumn(dtype, limbs_to_py_ints(vals), opt_valid)
     return HostColumn(dtype, vals, opt_valid)
 
 
@@ -379,11 +387,29 @@ def _upload_column(hc: HostColumn, capacity: int,
         return DeviceColumn(torch.from_numpy(mat).to(device),
                             torch.from_numpy(validity).to(device), hc.dtype,
                             all_valid, torch.from_numpy(lengths).to(device))
+    if dt.is_d128(hc.dtype):
+        return DeviceColumn(torch.from_numpy(_host_limbs(hc, capacity))
+                            .to(device),
+                            torch.from_numpy(validity).to(device), hc.dtype,
+                            all_valid)
     vals = np.zeros(capacity, dtype=hc.dtype.np_dtype())
     vals[:n] = hc.values
     return DeviceColumn(torch.from_numpy(vals).to(device),
                         torch.from_numpy(validity).to(device), hc.dtype,
                         all_valid)
+
+
+def _host_limbs(hc: HostColumn, capacity: int) -> np.ndarray:
+    """A wide decimal column's ``(capacity, 2)`` int64 limbs ``[hi, lo]``:
+    from the Arrow buffer it was read from when it has one, else from its
+    Python ints."""
+    if hc.arrow is not None:
+        words = decimal_words(hc.arrow)
+        limbs = np.zeros((capacity, 2), dtype=np.int64)
+        limbs[:len(words)] = words[:, ::-1]
+        return limbs
+    from ..expr.decimal128 import limbs_from_py_ints
+    return limbs_from_py_ints(hc.values, capacity)
 
 
 def concat_device_tables(tables: Sequence[DeviceTable],

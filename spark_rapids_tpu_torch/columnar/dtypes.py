@@ -1,17 +1,24 @@
 """Data types and the TypeSig capability algebra.
 
 The port's copy of ``spark_rapids_tpu/columnar/dtypes.py``, cut down to the
-flat types the engine carries: the device-supported ones are the fixed-width
-types (booleans, integers, floats, dates, timestamps). Strings ride the host
-engine only; decimals and nested types are not ported yet (ROADMAP Queue 1).
+flat types the engine carries: the fixed-width types (booleans, integers,
+floats, dates, timestamps), strings as a byte matrix, and decimals. Nested
+types are not ported yet (ROADMAP Queue 1: breadth).
 
 Device mapping (torch tensors, one per plane):
   - integers map to int8/16/32/64, floats to float32/64, BOOLEAN to bool
   - DATE is days-since-epoch int32; TIMESTAMP is micros-since-epoch int64
+  - DECIMAL(p<=18, s) is the scaled value as int64; DECIMAL(19..38, s) is a
+    ``(capacity, 2)`` int64 plane of limbs ``[hi, lo]``, the value being
+    ``hi * 2**64 + uint64(lo)`` (expr/decimal128.py). On the host, the
+    wider tier is an object array of Python ints.
 """
 from __future__ import annotations
 
+import re
 from typing import Iterable
+
+import dataclasses
 
 import numpy as np
 
@@ -19,7 +26,7 @@ __all__ = [
     "DataType", "IntegralType", "FractionalType",
     "BooleanType", "ByteType", "ShortType", "IntegerType", "LongType",
     "FloatType", "DoubleType", "StringType", "BinaryType", "DateType",
-    "TimestampType", "NullType",
+    "TimestampType", "NullType", "DecimalType", "is_d128",
     "BOOLEAN", "BYTE", "SHORT", "INT", "LONG", "FLOAT", "DOUBLE", "STRING",
     "BINARY", "DATE", "TIMESTAMP", "NULL",
     "TypeSig", "TypeEnum", "from_simple_name",
@@ -43,7 +50,7 @@ class DataType:
 
     @property
     def is_numeric(self) -> bool:
-        return isinstance(self, (IntegralType, FractionalType))
+        return isinstance(self, (IntegralType, FractionalType, DecimalType))
 
     @property
     def is_integral(self) -> bool:
@@ -90,6 +97,41 @@ class BinaryType(DataType):
     simple_name = "binary"
 
 
+@dataclasses.dataclass(frozen=True, eq=True)
+class DecimalType(DataType):
+    """DECIMAL(precision, scale): scaled int64 up to 18 digits, two int64
+    limbs beyond (the value plane's numpy dtype is int64 in both tiers, as
+    in the JAX package)."""
+    precision: int = 10
+    scale: int = 0
+
+    MAX_INT64_PRECISION = 18
+    MAX_PRECISION_128 = 38
+
+    def __post_init__(self):
+        if not 1 <= self.precision <= 38:
+            raise ValueError(f"bad decimal precision {self.precision}")
+        if not 0 <= self.scale <= self.precision:
+            raise ValueError(f"bad decimal scale {self.scale}")
+
+    @property
+    def simple_name(self):  # type: ignore[override]
+        return f"decimal({self.precision},{self.scale})"
+
+    def np_dtype(self) -> np.dtype:
+        return np.dtype(np.int64)
+
+    def __repr__(self):
+        return self.simple_name
+
+
+def is_d128(t: DataType) -> bool:
+    """True for decimals stored as two int64 limbs on the device (precision
+    beyond the scaled-int64 tier)."""
+    return isinstance(t, DecimalType) \
+        and t.precision > DecimalType.MAX_INT64_PRECISION
+
+
 # Singletons
 BOOLEAN = BooleanType()
 BYTE = ByteType()
@@ -115,7 +157,11 @@ def from_simple_name(name: str) -> DataType:
     try:
         return _BY_NAME[name]
     except KeyError:
-        raise TypeError(f"data type {name!r} is not ported yet") from None
+        pass
+    m = re.fullmatch(r"decimal\((\d+),(\d+)\)", name)
+    if m:
+        return DecimalType(int(m.group(1)), int(m.group(2)))
+    raise TypeError(f"data type {name!r} is not ported yet")
 
 
 class TypeEnum:
@@ -132,6 +178,7 @@ class TypeEnum:
     DATE = "DATE"
     TIMESTAMP = "TIMESTAMP"
     NULL = "NULL"
+    DECIMAL = "DECIMAL"
 
 
 def _enum_of(d: DataType) -> str:
@@ -144,34 +191,48 @@ def _enum_of(d: DataType) -> str:
                       (TypeEnum.BINARY, BinaryType),
                       (TypeEnum.DATE, DateType),
                       (TypeEnum.TIMESTAMP, TimestampType),
-                      (TypeEnum.NULL, NullType)):
+                      (TypeEnum.NULL, NullType),
+                      (TypeEnum.DECIMAL, DecimalType)):
         if isinstance(d, cls):
             return enum
     raise TypeError(f"unknown data type {d!r}")
 
 
 class TypeSig:
-    """Immutable set of supported types.
+    """Immutable set of supported types, with the widest decimal precision
+    it admits.
 
     Mirrors the algebra of the reference's ``TypeSig`` (TypeChecks.scala:166):
     ``+`` union, ``-`` removal, and ``is_supported``/``reasons_not_supported``
-    used at tag time.
+    used at tag time. Decimals pass up to 18 digits unless a rule raises the
+    gate to 38 with ``with_decimal128`` (the DECIMAL_128 tier).
     """
 
-    __slots__ = ("_types",)
+    __slots__ = ("_types", "_max_decimal_precision")
 
-    def __init__(self, types: Iterable[str] = ()):
+    def __init__(self, types: Iterable[str] = (),
+                 max_decimal_precision: int =
+                 DecimalType.MAX_INT64_PRECISION):
         self._types = frozenset(types)
+        self._max_decimal_precision = max_decimal_precision
 
     @staticmethod
     def of(*enums: str) -> "TypeSig":
         return TypeSig(enums)
 
     def __add__(self, other: "TypeSig") -> "TypeSig":
-        return TypeSig(self._types | other._types)
+        return TypeSig(self._types | other._types,
+                       max(self._max_decimal_precision,
+                           other._max_decimal_precision))
 
     def __sub__(self, other: "TypeSig") -> "TypeSig":
-        return TypeSig(self._types - other._types)
+        return TypeSig(self._types - other._types,
+                       self._max_decimal_precision)
+
+    def with_decimal128(self) -> "TypeSig":
+        """The same types with the decimal gate raised to 38 digits: the
+        ops whose device code takes two-limb columns opt in per rule."""
+        return TypeSig(self._types, DecimalType.MAX_PRECISION_128)
 
     def is_supported(self, d: DataType) -> bool:
         return not self.reasons_not_supported(d)
@@ -179,6 +240,10 @@ class TypeSig:
     def reasons_not_supported(self, d: DataType) -> list:
         if _enum_of(d) not in self._types:
             return [f"{d!r} is not ported to the device yet"]
+        if isinstance(d, DecimalType) \
+                and d.precision > self._max_decimal_precision:
+            return [f"{d!r} exceeds max supported decimal precision "
+                    f"{self._max_decimal_precision}"]
         return []
 
     def describe(self) -> str:
@@ -195,4 +260,4 @@ class TypeSig:
 TypeSig.integral = TypeSig.of(TypeEnum.BYTE, TypeEnum.SHORT, TypeEnum.INT,
                               TypeEnum.LONG)
 TypeSig.fp = TypeSig.of(TypeEnum.FLOAT, TypeEnum.DOUBLE)
-TypeSig.numeric = TypeSig.integral + TypeSig.fp
+TypeSig.numeric = TypeSig.integral + TypeSig.fp + TypeSig.of(TypeEnum.DECIMAL)

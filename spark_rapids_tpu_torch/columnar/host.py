@@ -6,6 +6,12 @@ Fixed-width types are numpy arrays; strings stay numpy object arrays so the
 host engine can compute on them directly. A string column decoded from
 Arrow keeps its Arrow array, so the upload encodes the device byte matrix
 straight from Arrow's buffers.
+
+Decimals hold their scaled integers: int64 up to 18 digits, an object
+array of Python ints beyond (exact host arithmetic). They are read from the
+Arrow decimal128 buffer (little-endian 64-bit word pairs) in one pass, not
+a ``Decimal`` a row, and a wide column fresh from Arrow keeps its Arrow
+array so the upload reads its limbs from that buffer too.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ def _arrow_to_dtype(t: pa.DataType) -> dt.DataType:
                     (pa.types.is_timestamp, dt.TIMESTAMP)):
         if pred(t):
             return d
+    if pa.types.is_decimal(t):
+        return dt.DecimalType(t.precision, t.scale)
     raise TypeError(f"arrow type {t} is not ported yet")
 
 
@@ -44,7 +52,59 @@ _TO_ARROW = {dt.BOOLEAN: pa.bool_(), dt.BYTE: pa.int8(), dt.SHORT: pa.int16(),
 
 
 def _dtype_to_arrow(d: dt.DataType) -> pa.DataType:
+    if isinstance(d, dt.DecimalType):
+        return pa.decimal128(d.precision, d.scale)
     return _TO_ARROW[d]
+
+
+def decimal_words(arr: pa.Array) -> np.ndarray:
+    """A decimal128 Arrow array without nulls -> its ``(n, 2)`` int64
+    words ``[lo, hi]`` (the buffer as it lies, little-endian)."""
+    n = len(arr)
+    buf = arr.buffers()[1]
+    if buf is None or not n:
+        return np.zeros((n, 2), dtype=np.int64)
+    return np.frombuffer(buf, dtype=np.int64, count=2 * (n + arr.offset)) \
+        .reshape(-1, 2)[arr.offset:]
+
+
+def _arrow_decimal_values(arr: pa.Array, d: "dt.DecimalType"):
+    """-> (values, the decimal128(38, s) array they came from): the scaled
+    ints of a decimal column, nulls as 0 (the JAX package's cast and fill),
+    int64 up to 18 digits, an object array of Python ints beyond."""
+    ints = arr.cast(pa.decimal128(38, d.scale)).fill_null(0)
+    words = decimal_words(ints)
+    if not dt.is_d128(d):
+        return words[:, 0].copy(), ints
+    hi = words[:, 1].astype(object)
+    lo = words[:, 0].view(np.uint64).astype(object)
+    values = np.empty(len(words), dtype=object)
+    values[:] = hi * (1 << 64) + lo
+    return values, ints
+
+
+def _decimal_to_arrow(col: "HostColumn") -> pa.Array:
+    """A decimal column -> its Arrow decimal128 array, built from the
+    values' 64-bit words (exact at any precision; nulls hold 0)."""
+    n = len(col.values)
+    valid = col.valid_mask()
+    words = np.zeros((n, 2), dtype=np.int64)
+    if col.values.dtype == object:
+        vals = np.where(valid, col.values, 0)
+        words[:, 0] = (vals & 0xFFFFFFFFFFFFFFFF).astype(np.uint64) \
+            .view(np.int64)
+        words[:, 1] = ((vals >> 64) & 0xFFFFFFFFFFFFFFFF).astype(np.uint64) \
+            .view(np.int64)
+    else:
+        v = np.where(valid, col.values.astype(np.int64), 0)
+        words[:, 0] = v
+        words[:, 1] = v >> 63
+    bitmap = None
+    if col.validity is not None:
+        bitmap = pa.py_buffer(np.packbits(valid, bitorder="little")
+                              .tobytes())
+    return pa.Array.from_buffers(_dtype_to_arrow(col.dtype), n,
+                                 [bitmap, pa.py_buffer(words.tobytes())])
 
 
 @dataclasses.dataclass
@@ -53,8 +113,9 @@ class HostColumn:
     dtype: dt.DataType
     values: np.ndarray          # fixed width: typed array; string: object array of str
     validity: Optional[np.ndarray] = None   # bool array, None means all-valid
-    #: the Arrow array the values were decoded from (string columns fresh
-    #: off a scan); the upload reads its buffers instead of re-encoding
+    #: the Arrow array the values were decoded from (string columns, and
+    #: wide decimals as decimal128(38, s) with nulls filled, fresh off a
+    #: scan); the upload reads its buffers instead of re-encoding
     arrow: Optional[pa.Array] = dataclasses.field(default=None, repr=False,
                                                   compare=False)
 
@@ -84,6 +145,10 @@ class HostColumn:
             if validity is not None:
                 values[~validity] = "" if isinstance(d, dt.StringType) else b""
             return HostColumn(d, values, validity, arr)
+        elif isinstance(d, dt.DecimalType):
+            values, ints = _arrow_decimal_values(arr, d)
+            return HostColumn(d, values, validity,
+                              ints if dt.is_d128(d) else None)
         elif isinstance(d, dt.DateType):
             values = np.asarray(arr.cast(pa.int32()).fill_null(0))
         elif isinstance(d, dt.TimestampType):
@@ -104,6 +169,8 @@ class HostColumn:
             if mask is not None:
                 vals = [None if m else v for v, m in zip(vals, mask)]
             return pa.array(vals, type=at)
+        if isinstance(self.dtype, dt.DecimalType):
+            return _decimal_to_arrow(self)
         if isinstance(self.dtype, dt.DateType):
             return pa.array(self.values.astype(np.int32), type=pa.int32(),
                             mask=mask).cast(pa.date32())

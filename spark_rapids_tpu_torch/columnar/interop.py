@@ -50,6 +50,8 @@ def device_table_from_numpy(names: Sequence[str],
             lengths = _tensor(c["lengths"], torch.int32, device)
             ok = data.dim() == 2 and data.shape[0] == cap \
                 and lengths.shape == (cap,)
+        elif dt.is_d128(d):  # limbs [hi, lo]: a 2-D plane without lengths
+            ok = data.shape == (cap, 2)
         else:
             ok = data.shape == (cap,)
         if not ok or validity.shape != (cap,):

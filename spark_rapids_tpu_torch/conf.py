@@ -20,7 +20,6 @@ _REGISTRY: "Dict[str, ConfEntry]" = {}
 
 #: The open steps of ROADMAP Queue 1, by name: messages name the step that
 #: will port a feature by these, never by a number a re-anchor changes.
-STEP_DECIMAL128 = "decimal128"
 STEP_RELATIONAL = "the relational surface"
 STEP_NESTED_LOOP = "nested-loop and cross joins"
 STEP_ROBUSTNESS = "memory and robustness"
@@ -335,14 +334,20 @@ DISK_SPILL_CHECKSUM = register_conf(
     "silently corrupt rows.", True)
 
 
+DECIMAL128_ENABLED = register_conf(
+    "spark.rapids.sql.decimal128.enabled",
+    "Run DECIMAL(19..38) on the device as two-limb int64 columns "
+    "(add/sub/mul, comparisons, sum/count aggregates, sort, group-by and "
+    "join keys, casts). When off, wide decimals fall back to the host "
+    "engine's exact object-int path (reference: the DECIMAL_128 TypeSig "
+    "tier, TypeChecks.scala:465).", True)
+
+
 #: Every key the JAX package registers that this engine does not read yet,
 #: with the JAX default, by the ROADMAP Queue 1 step that will read it. The
 #: port keeps its own copy (it imports nothing of the JAX package);
 #: tests/test_torch_conf.py holds it equal to the JAX registry.
 _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
-    STEP_DECIMAL128: {
-        "spark.rapids.sql.decimal128.enabled": True,
-    },
     STEP_RELATIONAL: {
         "spark.rapids.tpu.cache.compressionCodec": "none",
     },

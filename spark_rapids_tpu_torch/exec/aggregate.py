@@ -21,6 +21,16 @@ bucket of its group count.
 Torch lacks shifts, remainders and order on unsigned integers, so the
 JAX package's uint64 key words ride int64 tensors bit for bit and its
 uint32 hash arithmetic rides int64 in ``[0, 2**32)`` (shuffle/manager.py).
+
+Decimals: a decimal64 key or value is an int64 plane; a wide decimal
+(p > 18) key groups by its two key words (``d128_key_words``), and its sum
+runs on the ``d128_segment_sum`` kernel (count needs no values; any other
+op over a wide decimal is tagged to the host). An overflowed sum is null.
+Unlike the JAX package, an overflowed partial sum also makes its group's
+final sum null: its null state row carries a mark in its limbs (10^38, a
+value no valid state holds), and the final merge reads it, where the JAX
+package skips the row as if the partition held none of the group's rows
+(Spark's merge: ``bufferOverflow || inputOverflow`` gives null).
 """
 from __future__ import annotations
 
@@ -32,7 +42,10 @@ from ..columnar import dtypes as dt
 from ..columnar.device import (DeviceColumn, DeviceTable,
                                concat_device_tables, pack_string_key_words,
                                shrink_to_fit, torch_dtype)
-from ..conf import STEP_BREADTH, STEP_DECIMAL128, not_ported
+from ..conf import STEP_BREADTH, not_ported
+from ..expr.decimal128 import (SUM_OVERFLOW_MARK, d128_key_words,
+                               d128_overflows, d128_segment_sum,
+                               limbs_from_py_ints)
 from ..plan.physical import (AggSpec, PhysicalPlan, aggregate_columns_ops,
                              aggregate_schema, check_mode)
 from ..plan.schema import Schema
@@ -49,7 +62,9 @@ _BIG = 2**62
 _COLLECT_OPS = frozenset(
     {"collect_list", "collect_set", "merge_lists", "merge_sets"})
 _FIXED_WIDTH = (dt.BooleanType, dt.IntegralType, dt.FractionalType,
-                dt.DateType, dt.TimestampType, dt.NullType)
+                dt.DateType, dt.TimestampType, dt.NullType, dt.DecimalType)
+#: the limbs of ``SUM_OVERFLOW_MARK`` (see the module docstring)
+_MARK_LIMBS = limbs_from_py_ints([SUM_OVERFLOW_MARK], 1)[0].tolist()
 
 
 def _minmax_identity(dtype: torch.dtype, for_min: bool):
@@ -74,14 +89,16 @@ def _key_code_words(kc: DeviceColumn
                     ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
     """Column -> (1-D equality words most-significant first, optional NaN
     flag). Strings pack 8 bytes per word plus the length as the last word;
-    floats map -0.0 to 0.0 and NaN to inf (the NaN flag keeps it apart)."""
+    a wide decimal gives its two key words; floats map -0.0 to 0.0 and NaN
+    to inf (the NaN flag keeps it apart)."""
     if isinstance(kc.dtype, dt.StringType):
         return pack_string_key_words(kc.data, kc.lengths), None
+    if dt.is_d128(kc.dtype):
+        return d128_key_words(kc.data), None
     if not isinstance(kc.dtype, _FIXED_WIDTH):
         raise NotImplementedError(
-            f"group-by keys of type {kc.dtype!r} are not ported yet (struct "
-            f"keys: ROADMAP Queue 1: {STEP_BREADTH}; decimal keys: "
-            f"{STEP_DECIMAL128})")
+            f"group-by keys of type {kc.dtype!r} are not ported yet "
+            + not_ported(STEP_BREADTH))
     v = _normalize_float_key(kc.data)
     if v.dtype.is_floating_point:
         nan = torch.isnan(v)
@@ -255,11 +272,33 @@ def _seg_extreme(x: torch.Tensor, gid: torch.Tensor, cap: int,
                          include_self=True)
 
 
+def _d128_sum(vals: torch.Tensor, contrib: torch.Tensor, gid: torch.Tensor,
+              cap: int, out_dt: dt.DecimalType, has: torch.Tensor,
+              merge_active: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A wide-decimal sum on the kernel -> (limbs[cap], validity[cap]): an
+    overflowed group is null and holds ``SUM_OVERFLOW_MARK``. ``merge_active``
+    (a final merge's row mask) makes a group null whose marked null state
+    row it holds."""
+    limbs, over = d128_segment_sum(vals.contiguous(), contrib.contiguous(),
+                                   gid.contiguous(), cap, out_dt.precision)
+    if merge_active is not None:
+        marked = torch.logical_and(
+            torch.logical_and(merge_active, torch.logical_not(contrib)),
+            d128_overflows(vals, out_dt.precision))
+        over = torch.logical_or(
+            over, _seg_sum(marked.to(torch.int64), gid, cap) > 0)
+    mark = torch.tensor(_MARK_LIMBS, dtype=torch.int64, device=vals.device)
+    limbs = torch.where(over[:, None], mark, limbs)
+    return limbs, torch.logical_and(has, torch.logical_not(over))
+
+
 def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
                     gid: torch.Tensor, cap: int, out_dt: dt.DataType,
                     counts: Optional[torch.Tensor] = None,
                     segments: Optional[Tuple[torch.Tensor,
-                                             torch.Tensor]] = None
+                                             torch.Tensor]] = None,
+                    merge_active: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-group reduction -> (values[cap], has[cap]); ``has`` is False for
     a group no row contributed to (its value is then null). ``counts``, the
@@ -269,7 +308,9 @@ def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
 
     Spark rules: NaN is the largest double; sum propagates NaN; masked-off
     rows may hold stale data (even NaN), so they are replaced with the
-    identity by ``where`` and never multiplied by the mask."""
+    identity by ``where`` and never multiplied by the mask. A wide-decimal
+    sum is null where it overflows; ``merge_active``, the row mask of a
+    final merge, lets it read its inputs' overflow marks."""
     if op in _COLLECT_OPS:
         raise NotImplementedError(
             f"aggregate op {op!r} is not ported yet {not_ported(STEP_BREADTH)}")
@@ -280,6 +321,10 @@ def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
     if op == "count":
         return counts.to(out_dtype), torch.ones(cap, dtype=torch.bool,
                                                 device=vals.device)
+    if dt.is_d128(out_dt):
+        if op != "sum":
+            raise TypeError(f"decimal128 aggregate op {op!r} is host-only")
+        return _d128_sum(vals, contrib, gid, cap, out_dt, has, merge_active)
     if op == "sum":
         x = torch.where(contrib, vals.to(out_dtype), 0)
         return _seg_sum(x, gid, cap, segments), has
@@ -340,6 +385,7 @@ class TpuHashAggregateExec(TpuExec):
         """One batch -> its aggregated batch. ``mode`` defaults to this
         node's; the merge of running states uses ``"final"``."""
         cols_ops = aggregate_columns_ops(self.specs, mode or self.mode)
+        merging = (mode or self.mode) == "final"
         key_names = self.key_names
         out_names = tuple(self.schema.names)
         float_sums = any(op == "sum" and torch_dtype(out_dt).is_floating_point
@@ -368,12 +414,12 @@ class TpuHashAggregateExec(TpuExec):
             for in_col, op, _, out_dt in cols_ops:
                 col = table.column(in_col)
                 contrib, counts = contribution(col)
-                val, has = _reduce_segment(op, col.data, contrib, gid, 1,
-                                           out_dt, counts)
+                val, has = _reduce_segment(
+                    op, col.data, contrib, gid, 1, out_dt, counts,
+                    merge_active=table.row_mask if merging else None)
                 # state row 0 of a fixed small capacity, built on the device
                 # (no host read of the reduced values)
-                vals = torch.zeros(_STATE_CAPACITY, dtype=val.dtype,
-                                   device=val.device)
+                vals = val.new_zeros((_STATE_CAPACITY,) + val.shape[1:])
                 vals[:1] = val
                 validity = torch.zeros(_STATE_CAPACITY, dtype=torch.bool,
                                        device=val.device)
@@ -404,8 +450,9 @@ class TpuHashAggregateExec(TpuExec):
             for in_col, op, _, out_dt in cols_ops:
                 col = table.column(in_col)
                 contrib, counts = contribution(col)
-                vals, has = _reduce_segment(op, col.data, contrib, gid, cap,
-                                            out_dt, counts, segments)
+                vals, has = _reduce_segment(
+                    op, col.data, contrib, gid, cap, out_dt, counts,
+                    segments, table.row_mask if merging else None)
                 validity = group_mask if op == "count" \
                     else torch.logical_and(has, group_mask)
                 out_cols.append(DeviceColumn(vals, validity, out_dt))
@@ -465,6 +512,9 @@ def _empty_device_table(schema: Schema, cap: int,
                 torch.zeros((cap, 8), dtype=torch.uint8, device=device),
                 validity, d,
                 lengths=torch.zeros(cap, dtype=torch.int32, device=device))
+        if dt.is_d128(d):
+            return DeviceColumn(torch.zeros((cap, 2), dtype=torch.int64,
+                                            device=device), validity, d)
         return DeviceColumn(torch.zeros(cap, dtype=torch_dtype(d),
                                         device=device), validity, d)
 

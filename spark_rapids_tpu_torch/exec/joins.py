@@ -57,11 +57,16 @@ as a float), so equal keys always share a bucket. A broadcast build is
 registered once at ``BROADCAST`` priority and split once for every probe
 partition; the plan closes its handles when its query ends.
 
+Decimal keys join on the device: a decimal64 key as its int64 plane, a
+wide one by its two key words (``d128_key_words``, as the JAX package's
+join codes read it; its override tag keeps keys past 18 digits on the host,
+the port's does not), and the grace join buckets them as they are (no -0.0
+or NaN to fold).
+
 Not ported yet: joins without equi-keys (the broadcast nested-loop join,
 ROADMAP Queue 1: nested-loop and cross joins), whose planning raises; and
-key types the device batch does not hold (binary, and decimal and nested
-types, which the port has not yet), which are tagged and run on the host
-engine (ROADMAP Queue 1: breadth, and decimal128).
+key types the device batch does not hold (binary and nested types), which
+are tagged and run on the host engine (ROADMAP Queue 1: breadth).
 """
 from __future__ import annotations
 
@@ -78,6 +83,7 @@ from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
                                slice_rows, torch_dtype)
 from ..conf import STEP_BREADTH, STEP_NESTED_LOOP, RapidsConf, not_ported
 from ..expr.base import EvalContext, Expression
+from ..expr.decimal128 import d128_key_words
 from ..memory.catalog import SpillableDeviceTable, SpillPriorities, get_catalog
 from ..plan.logical import _join_schema
 from ..plan.physical import PhysicalPlan
@@ -313,12 +319,14 @@ def _column_code_arrays(col: DeviceColumn) -> List[torch.Tensor]:
     """1-D planes whose tuple equality is Spark key equality for this
     column (NaN == NaN, -0.0 == 0.0, strings by bytes and length), in an
     order that sorting by them (least significant last) groups equal keys:
-    a string's int64 words with the sign bit flipped (the JAX package's
-    uint64 order), a float as ``[v with -0 -> 0 and NaN -> +inf, nan
-    flag]``."""
+    a string's (or a wide decimal's) int64 words with the sign bit flipped
+    (the JAX package's uint64 order), a float as ``[v with -0 -> 0 and NaN
+    -> +inf, nan flag]``."""
     v = col.data
     if col.lengths is not None:
         return [w ^ _I64_MIN for w in pack_string_key_words(v, col.lengths)]
+    if dt.is_d128(col.dtype):
+        return [w ^ _I64_MIN for w in d128_key_words(v)]
     if not _key_type_ok(col.dtype):
         raise NotImplementedError(
             f"a join key of {col.dtype!r} is not ported to the device yet "
@@ -452,6 +460,10 @@ def null_device_column(dtype: dt.DataType, capacity: int,
             torch.zeros((capacity, bucket_width(1)), dtype=torch.uint8,
                         device=device), validity, dtype, False,
             torch.zeros(capacity, dtype=torch.int32, device=device))
+    if dt.is_d128(dtype):
+        return DeviceColumn(torch.zeros((capacity, 2), dtype=torch.int64,
+                                        device=device), validity, dtype,
+                            False)
     return DeviceColumn(torch.zeros(capacity, dtype=torch_dtype(dtype),
                                     device=device), validity, dtype, False)
 
@@ -502,7 +514,8 @@ def join_unsupported_reason(how: str, left_keys: Sequence[str],
             if not _key_type_ok(t):
                 return (f"a join key of {t!r} is not ported to the device "
                         f"yet {not_ported(STEP_BREADTH)}")
-        if isinstance(lt, dt.StringType) != isinstance(rt, dt.StringType):
+        if isinstance(lt, dt.StringType) != isinstance(rt, dt.StringType) \
+                or dt.is_d128(lt) != dt.is_d128(rt):
             return f"a join key of {lt!r} against {rt!r} is not comparable"
     return None
 
@@ -764,13 +777,15 @@ class TpuShuffledHashJoinExec(TpuExec):
                     h.close()
 
     def _direct_key_ok(self) -> bool:
-        """One key of one fixed-width type on both sides: the
-        ``monotone_i64`` preps (hash slot table, sorted keys) serve it."""
+        """One key of one fixed-width type on both sides (not a wide
+        decimal's limb pair): the ``monotone_i64`` preps (hash slot table,
+        sorted keys) serve it."""
         if len(self.left_keys) != 1:
             return False
         lt = self.left.schema.field(self.left_keys[0]).dtype
         rt = self.right.schema.field(self.right_keys[0]).dtype
-        return lt == rt and not isinstance(lt, dt.StringType)
+        return lt == rt and not isinstance(lt, dt.StringType) \
+            and not dt.is_d128(lt)
 
     def _prep(self, build: DeviceTable, strategy: str):
         """The build table's prep, computed once per build table (a

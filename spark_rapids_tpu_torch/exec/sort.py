@@ -36,6 +36,7 @@ from ..columnar.device import (DeviceColumn, DeviceTable, append_column,
                                slice_rows)
 from ..conf import RapidsConf
 from ..expr.base import EvalContext
+from ..expr.decimal128 import d128_key_words
 from ..expr.functions import SortOrder
 from ..memory.catalog import SpillPriorities, SpillableDeviceTable, get_catalog
 from ..plan.physical import PhysicalPlan, describe_orders
@@ -68,10 +69,13 @@ def _order_keys(table: DeviceTable, orders: Sequence[SortOrder]
                 nan_key = torch.logical_not(nan)
             keys.append(nan_key.to(torch.uint8))
             keys.append(v)
-        elif v.dim() == 2:  # string: packed words, most significant first
-            # the sign flip turns the words' unsigned order into torch's
-            # signed order; bit inversion then reverses it
-            words = [w ^ _SIGN for w in pack_string_key_words(v, c.lengths)]
+        elif c.lengths is not None or dt.is_d128(c.dtype):
+            # a string's packed words or a wide decimal's key words, most
+            # significant first: the sign flip turns their unsigned order
+            # into torch's signed order; bit inversion then reverses it
+            words = pack_string_key_words(v, c.lengths) \
+                if c.lengths is not None else d128_key_words(v)
+            words = [w ^ _SIGN for w in words]
             if not o.ascending:
                 words = [~w for w in words]
             keys.extend(reversed(words))   # least significant word first

@@ -56,11 +56,19 @@ class AggregateFunction(Expression):
         return True
 
 
+def _sum_result_type(t: dt.DataType) -> dt.DataType:
+    if isinstance(t, dt.DecimalType):
+        # Spark: sum(decimal(p, s)) = decimal(min(p + 10, 38), s); past 18
+        # digits the state is a limb plane on the device
+        return dt.DecimalType(
+            min(t.precision + 10, dt.DecimalType.MAX_PRECISION_128), t.scale)
+    return dt.DOUBLE if isinstance(t, dt.FractionalType) else dt.LONG
+
+
 class Sum(AggregateFunction):
     @property
     def data_type(self):
-        t = self.child.data_type
-        return dt.DOUBLE if isinstance(t, dt.FractionalType) else dt.LONG
+        return _sum_result_type(self.child.data_type)
 
     def input_projection(self):
         return [Cast(self.child, self.data_type)

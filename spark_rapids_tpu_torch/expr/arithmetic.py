@@ -1,27 +1,58 @@
 """Arithmetic expressions — the port of ``spark_rapids_tpu/expr/arithmetic.py``
-without the decimal and bitwise operators (not ported yet).
+without the bitwise operators (ROADMAP Queue 1: breadth).
 
-Numeric promotion follows Spark's binary arithmetic coercion; nulls
-propagate; integer division by zero yields null (non-ANSI mode), float
-division follows IEEE.
+Numeric promotion follows Spark's binary arithmetic coercion, decimals
+included (DecimalPrecision: the add and multiply rules, capped at 38
+digits); nulls propagate; integer division by zero yields null (non-ANSI
+mode), float division follows IEEE. Decimal results past their precision
+are null (CheckOverflow). On the device a wide decimal (p > 18) is a limb
+plane (expr/decimal128.py): add and subtract are torch ops on its digits, a
+product goes through the ``d128_mul_rescaled`` kernel unless both operands
+are decimal64 and it fits int64. The host engine computes wide decimals
+exactly on Python ints.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from ..columnar import dtypes as dt
 from .base import EvalCol, EvalContext, Expression
-from .cast import Cast
+from .cast import Cast, obj_array, rescale_py_half_up
 
 __all__ = ["BinaryArithmetic", "Add", "Subtract", "Multiply", "Divide",
            "IntegralDivide", "Remainder", "UnaryMinus", "Abs", "Pmod",
-           "numeric_promote"]
+           "numeric_promote", "adjust_decimal"]
 
 _NUMERIC_ORDER = [dt.BYTE, dt.SHORT, dt.INT, dt.LONG, dt.FLOAT, dt.DOUBLE]
+
+
+def adjust_decimal(precision: int, scale: int) -> dt.DecimalType:
+    """Spark's DecimalPrecision.adjustPrecisionScale: cap at 38 digits,
+    sacrificing scale down to min(scale, 6) to keep integral digits."""
+    if precision <= dt.DecimalType.MAX_PRECISION_128:
+        return dt.DecimalType(precision, scale)
+    int_digits = precision - scale
+    min_scale = min(scale, 6)
+    adj_scale = max(dt.DecimalType.MAX_PRECISION_128 - int_digits, min_scale)
+    return dt.DecimalType(dt.DecimalType.MAX_PRECISION_128, adj_scale)
 
 
 def numeric_promote(a: dt.DataType, b: dt.DataType) -> dt.DataType:
     """Least common numeric type (Spark's binary arithmetic coercion)."""
     if a == b:
         return a
+    if isinstance(a, dt.DecimalType) or isinstance(b, dt.DecimalType):
+        if isinstance(a, dt.DecimalType) and isinstance(b, dt.DecimalType):
+            # Spark's add/sub rule: s = max(s1, s2),
+            # p = max(p1 - s1, p2 - s2) + s + 1, adjusted to the 38 cap
+            scale = max(a.scale, b.scale)
+            prec = max(a.precision - a.scale, b.precision - b.scale) \
+                + scale + 1
+            return adjust_decimal(prec, scale)
+        other = b if isinstance(a, dt.DecimalType) else a
+        if other in (dt.FLOAT, dt.DOUBLE):
+            return dt.DOUBLE
+        return a if isinstance(a, dt.DecimalType) else b
     ia = _NUMERIC_ORDER.index(a) if a in _NUMERIC_ORDER else None
     ib = _NUMERIC_ORDER.index(b) if b in _NUMERIC_ORDER else None
     if ia is None or ib is None:
@@ -91,10 +122,25 @@ class BinaryArithmetic(Expression):
         return f"({self.left!r} {self.symbol} {self.right!r})"
 
 
+def _d128_addsub(ctx, lv, rv, out: dt.DecimalType, sub: bool):
+    """Two-limb add/sub with overflow -> null (coerce casts both operands
+    to ``out``; |a|, |b| < 10^38 keeps the 128-bit sum from wrapping)."""
+    if ctx.is_device:
+        from .decimal128 import d128_add, d128_overflows, d128_sub
+        s = d128_sub(lv, rv) if sub else d128_add(lv, rv)
+        return s, d128_overflows(s, out.precision)
+    py = [int(a) - int(b) if sub else int(a) + int(b)
+          for a, b in zip(lv, rv)]
+    over = np.array([abs(v) >= 10 ** out.precision for v in py], dtype=bool)
+    return obj_array(py), over
+
+
 class Add(BinaryArithmetic):
     symbol = "+"
 
     def _compute(self, ctx, lv, rv):
+        if dt.is_d128(self.data_type):
+            return _d128_addsub(ctx, lv, rv, self.data_type, sub=False)
         return lv + rv, None
 
 
@@ -102,14 +148,59 @@ class Subtract(BinaryArithmetic):
     symbol = "-"
 
     def _compute(self, ctx, lv, rv):
+        if dt.is_d128(self.data_type):
+            return _d128_addsub(ctx, lv, rv, self.data_type, sub=True)
         return lv - rv, None
 
 
 class Multiply(BinaryArithmetic):
     symbol = "*"
 
+    def result_type(self, lt, rt):
+        if isinstance(lt, dt.DecimalType) and isinstance(rt, dt.DecimalType):
+            # Spark's multiply rule: p = p1 + p2 + 1, s = s1 + s2, adjusted
+            return adjust_decimal(lt.precision + rt.precision + 1,
+                                  lt.scale + rt.scale)
+        return numeric_promote(lt, rt)
+
+    def coerce(self) -> "Expression":
+        lt, rt = self.left.data_type, self.right.data_type
+        if isinstance(lt, dt.DecimalType) and isinstance(rt, dt.DecimalType):
+            # the operands keep their own scales (the product's scale is
+            # s1 + s2); the generic coerce would cast them to the output's
+            node = type(self)(self.left, self.right)
+            node._out_type = self.result_type(lt, rt)
+            return node
+        return super().coerce()
+
     def _compute(self, ctx, lv, rv):
-        return lv * rv, None
+        out = self.data_type
+        lt, rt = self.left.data_type, self.right.data_type
+        if not (isinstance(out, dt.DecimalType)
+                and isinstance(lt, dt.DecimalType)
+                and isinstance(rt, dt.DecimalType)):
+            return lv * rv, None
+        drop = max(lt.scale + rt.scale - out.scale, 0)
+        if ctx.is_device:
+            if not (dt.is_d128(out) or dt.is_d128(lt) or dt.is_d128(rt)) \
+                    and lt.precision + rt.precision <= 18:
+                return lv * rv, None    # the product < 10^18: exact int64
+            from .decimal128 import d128_mul_rescaled, d128_to_i64
+            # a decimal64 operand goes to the kernel as scaled int64
+            limbs, over = d128_mul_rescaled(lv.contiguous(), rv.contiguous(),
+                                            drop, out.precision)
+            if dt.is_d128(out):
+                return limbs, over
+            v64, over2 = d128_to_i64(limbs)
+            return v64, ctx.xp.logical_or(over, over2)
+        py = [rescale_py_half_up(int(a) * int(b), drop, 0)
+              for a, b in zip(lv, rv)]
+        over = np.array([abs(v) >= 10 ** out.precision for v in py],
+                        dtype=bool)
+        if dt.is_d128(out):
+            return obj_array(py), over
+        return np.array([0 if o else v for v, o in zip(py, over)],
+                        dtype=np.int64), over
 
 
 class Divide(BinaryArithmetic):
@@ -184,6 +275,13 @@ class UnaryMinus(Expression):
 
     def eval(self, ctx: EvalContext) -> EvalCol:
         c = self.child.eval(ctx)
+        if dt.is_d128(self.data_type):
+            if ctx.is_device:
+                from .decimal128 import d128_neg
+                return EvalCol(d128_neg(c.values), c.validity,
+                               self.data_type)
+            return EvalCol(obj_array([-int(v) for v in c.values]),
+                           c.validity, self.data_type)
         return EvalCol(-c.values, c.validity, self.data_type)
 
 
@@ -198,4 +296,11 @@ class Abs(Expression):
 
     def eval(self, ctx: EvalContext) -> EvalCol:
         c = self.child.eval(ctx)
+        if dt.is_d128(self.data_type):
+            if ctx.is_device:
+                from .decimal128 import d128_abs
+                return EvalCol(d128_abs(c.values), c.validity,
+                               self.data_type)
+            return EvalCol(obj_array([abs(int(v)) for v in c.values]),
+                           c.validity, self.data_type)
         return EvalCol(ctx.xp.abs(c.values), c.validity, self.data_type)

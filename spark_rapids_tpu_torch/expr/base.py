@@ -204,6 +204,9 @@ class Literal(Expression):
             if string_like:
                 return EvalCol(np.empty(n, dtype=object),
                                np.zeros(n, dtype=bool), self._dtype)
+            if dt.is_d128(self._dtype) and ctx.is_device:
+                return EvalCol(xp.zeros((n, 2), dtype=xp.int64),
+                               xp.zeros(n, dtype=bool), self._dtype)
             return EvalCol(xp.zeros(n, dtype=self._dtype.np_dtype()),
                            xp.zeros(n, dtype=bool), self._dtype)
         if string_like:
@@ -221,6 +224,17 @@ class Literal(Expression):
         elif isinstance(self._dtype, dt.DateType) \
                 and isinstance(v, datetime.date):
             v = (v - datetime.date(1970, 1, 1)).days
+        elif isinstance(self._dtype, dt.DecimalType):
+            # the scaled integer, as decimal columns hold it
+            v = _decimal_unscaled(v, self._dtype.scale)
+            if dt.is_d128(self._dtype):
+                if ctx.is_device:
+                    from .decimal128 import limbs_from_py_ints
+                    limb = xp.asarray(limbs_from_py_ints([v], 1))
+                    return EvalCol(limb.expand(n, 2), None, self._dtype)
+                values = np.empty(n, dtype=object)
+                values[:] = v
+                return EvalCol(values, None, self._dtype)
         return EvalCol(xp.full((n,), v, dtype=self._dtype.np_dtype()), None,
                        self._dtype)
 
@@ -275,6 +289,19 @@ def _device_string_literal(value, dtype: dt.DataType, n: int,
     return EvalCol(mat, validity, dtype, lengths)
 
 
+def _decimal_unscaled(value, scale: int) -> int:
+    """A decimal literal's value as its integer at ``scale``: a Decimal is
+    scaled exactly (the JAX package's ``int(v.scaleb(scale))`` rounds past
+    28 digits, the default context's precision); an int is taken as
+    already scaled, as the JAX package takes it (a scalar subquery's
+    decimal result)."""
+    import decimal
+    if isinstance(value, decimal.Decimal):
+        ctx = decimal.Context(prec=100, Emax=999, Emin=-999)
+        return int(value.scaleb(scale, context=ctx))
+    return int(value)
+
+
 def _infer_literal_type(value: Any) -> dt.DataType:
     if value is None:
         return dt.NULL
@@ -293,6 +320,12 @@ def _infer_literal_type(value: Any) -> dt.DataType:
         return dt.TIMESTAMP
     if isinstance(value, datetime.date):
         return dt.DATE
+    import decimal
+    if isinstance(value, decimal.Decimal):
+        _, digits, exp = value.as_tuple()
+        scale = max(-exp, 0) if isinstance(exp, int) else 0
+        precision = max(len(digits), scale + 1)
+        return dt.DecimalType(min(precision, 38), min(scale, 38))
     raise TypeError(f"literal {value!r} is of a type not ported yet")
 
 

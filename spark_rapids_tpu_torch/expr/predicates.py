@@ -7,7 +7,9 @@ EqualNullSafe treats null==null as true.
 String comparisons: the host engine compares object arrays; the device
 compares the byte matrices lexicographically and then the lengths, so a
 string sorts after its own prefix (and "ab" differs from "ab\\x00", which
-the JAX package's zero-padded compare treats as equal).
+the JAX package's zero-padded compare treats as equal). Wide decimals
+compare their limbs on the device (expr/decimal128.py ``d128_eq`` and
+``d128_lt``), and Python ints on the host.
 """
 from __future__ import annotations
 
@@ -83,6 +85,12 @@ class BinaryComparison(Expression):
             eq, lt = _device_string_cmp(l.values, l.lengths, r.values,
                                         r.lengths)
             return EvalCol(self._from_eq_lt(eq, lt), validity, dt.BOOLEAN)
+        if ctx.is_device and dt.is_d128(l.dtype):
+            # limb planes (coerce gave both sides one decimal type)
+            from .decimal128 import d128_eq, d128_lt
+            return EvalCol(self._from_eq_lt(d128_eq(l.values, r.values),
+                                            d128_lt(l.values, r.values)),
+                           validity, dt.BOOLEAN)
         return EvalCol(self._compute(ctx, l.values, r.values), validity,
                        dt.BOOLEAN)
 

@@ -99,3 +99,8 @@ class TorchNamespace:
     @staticmethod
     def floor_divide(a, b) -> torch.Tensor:
         return torch.floor_divide(a, b)
+
+    @staticmethod
+    def round(a) -> torch.Tensor:
+        """Round half to even, as ``numpy.round``."""
+        return torch.round(a)

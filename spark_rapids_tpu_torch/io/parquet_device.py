@@ -162,7 +162,11 @@ def chunk_supported(col_meta, arrow_field, conf=None) -> bool:
     try:
         d = _arrow_to_dtype(t)
     except TypeError:
-        return False  # a type the port does not hold (decimal, ...)
+        return False  # a type the port does not hold (binary, nested, ...)
+    if isinstance(d, dt.DecimalType):
+        # as the JAX package (io/parquet_device.py:89): a decimal chunk
+        # takes the host decode (columnar/host.py reads its Arrow buffer)
+        return False
     if pa.types.is_timestamp(t) and t.unit != "us":
         return False  # the raw values are in another unit than the plane's
     if isinstance(d, (dt.StringType, dt.BinaryType)):

@@ -122,5 +122,14 @@ def load_kernels() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.srt_ba_walk.argtypes = [ptr, i64, i64, ptr, ptr]
             lib.srt_ba_walk.restype = ctypes.c_int64
+            lib.srt_d128_mul_rescaled.argtypes = [
+                ptr, i32, ptr, i32, i64, i32, i32, ptr, ptr, ptr]
+            lib.srt_d128_rescale.argtypes = [ptr, i32, i64, i32, i32, ptr,
+                                             ptr, ptr]
+            lib.srt_d128_segment_sum.argtypes = [
+                ptr, i32, ptr, ptr, i32, i64, i64, i32, ptr, ptr, ptr, ptr]
+            for fn in (lib.srt_d128_mul_rescaled, lib.srt_d128_rescale,
+                       lib.srt_d128_segment_sum):
+                fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB

@@ -149,7 +149,9 @@ def _tag_stage(meta, conf):
         meta.cannot_run("stage materialized on the host tier")
 
 
-register_exec_rule(ShuffleStageExec, _device_all,
+# wide decimals read back as they were written (the JAX package's
+# ``with_decimal128()`` reader signature)
+register_exec_rule(ShuffleStageExec, _device_all.with_decimal128(),
                    lambda p, ch, conf, device: TpuStageReaderExec(p),
                    tag_fn=_tag_stage)
 

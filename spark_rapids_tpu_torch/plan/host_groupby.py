@@ -8,6 +8,8 @@ path (exec/aggregate.py):
 
 - null keys form their own group; NaN keys group together; -0.0 == 0.0
 - sum propagates NaN; all-null group -> null sum, 0 count
+- a wide decimal sums exactly on Python ints and is null past its
+  precision, also when a partial state it merges overflowed
 - min ignores NaN unless all values are NaN; max returns NaN if any NaN
   (total order: -inf < ... < inf < NaN)
 """
@@ -62,12 +64,17 @@ def unique_rows(mat: np.ndarray):
 
 
 def object_codes(vals: np.ndarray) -> np.ndarray:
-    """Codes for an object array of str (or bytes): equal values share a
-    code, in first-seen order. Arrow's hash table compares lengths as well
-    as bytes, so values that differ only by an embedded NUL byte ("ab" vs
+    """Codes for an object array of str (or bytes), or of Python ints (a
+    wide decimal): equal values share a code, strings in first-seen order,
+    ints in value order. Arrow's hash table compares lengths as well as
+    bytes, so values that differ only by an embedded NUL byte ("ab" vs
     "ab\\x00") stay apart."""
     if len(vals) == 0:
         return np.zeros(0, dtype=np.int64)
+    if isinstance(vals[0], (int, np.integer)):
+        from ..expr.decimal128 import limbs_from_py_ints
+        return unique_rows(limbs_from_py_ints(vals, len(vals)))[2] \
+            .astype(np.int64)
     arr = pa.array(vals, type=pa.binary() if isinstance(vals[0], bytes)
                    else pa.string())
     return arr.dictionary_encode().indices.to_numpy().astype(np.int64)
@@ -118,10 +125,34 @@ def group_codes(table: HostTable, key_names: Sequence[str]
     return gid, len(rep), rep
 
 
+def _d128_sum(vals: np.ndarray, valid: np.ndarray, gid: np.ndarray,
+              ngroups: int, out_dtype: "dt.DecimalType", has: np.ndarray,
+              merging: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact Python-int sums; a group past the precision is null and holds
+    ``SUM_OVERFLOW_MARK``, and a final merge (``merging``) makes a group null
+    whose marked null state row it holds (the JAX package's host engine
+    skips that row as empty)."""
+    bound = 10 ** out_dtype.precision
+    accs = [0] * ngroups
+    for i in np.nonzero(valid)[0]:
+        accs[gid[i]] += int(vals[i])
+    over = np.array([abs(a) >= bound for a in accs], dtype=bool)
+    if merging:
+        for i in np.nonzero(~valid)[0]:
+            if abs(int(vals[i])) >= bound:
+                over[gid[i]] = True
+    out = np.empty(ngroups, dtype=object)
+    from ..expr.decimal128 import SUM_OVERFLOW_MARK
+    out[:] = [SUM_OVERFLOW_MARK if o else a for a, o in zip(accs, over)]
+    return out, np.logical_and(has, np.logical_not(over))
+
+
 def host_group_reduce(op: str, col: HostColumn, gid: np.ndarray, ngroups: int,
-                      out_dtype: dt.DataType
+                      out_dtype: dt.DataType, merging: bool = False
                       ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """-> (values[ngroups], validity[ngroups] or None)."""
+    """-> (values[ngroups], validity[ngroups] or None). ``merging``: the op
+    merges partial states (a final aggregate), so a wide-decimal sum reads
+    its inputs' overflow marks."""
     if op in _COLLECT_OPS:
         raise NotImplementedError(
             f"aggregate op {op!r} is not ported yet {not_ported(STEP_BREADTH)}")
@@ -135,6 +166,8 @@ def host_group_reduce(op: str, col: HostColumn, gid: np.ndarray, ngroups: int,
 
     if op == "count":
         return vcount.astype(np.int64), None
+    if op == "sum" and dt.is_d128(out_dtype):
+        return _d128_sum(vals, valid, gid, ngroups, out_dtype, has, merging)
     if op == "sum":
         acc = np.zeros(ngroups, dtype=np_out)
         with np.errstate(over="ignore", invalid="ignore"):

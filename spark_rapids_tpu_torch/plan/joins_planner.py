@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Set, Tuple
 
+from ..columnar import dtypes as dt
 from ..conf import (BROADCAST_THRESHOLD, STEP_NESTED_LOOP, RapidsConf,
                     not_ported)
 from ..expr.base import Alias, AttributeReference, Expression
@@ -84,7 +85,10 @@ def _coerce_join_keys(left: PhysicalPlan, right: PhysicalPlan,
     for i, (lk, rk) in enumerate(zip(lkeys, rkeys)):
         lt = left.schema.field(lk).dtype
         rt = right.schema.field(rk).dtype
-        if lt == rt or not (lt.is_numeric and rt.is_numeric):
+        if lt == rt or not (lt.is_numeric and rt.is_numeric) \
+                or isinstance(lt, dt.DecimalType) \
+                or isinstance(rt, dt.DecimalType):
+            # decimal keys are joined as they are, as the JAX package does
             continue
         commons[i] = numeric_promote(lt, rt)
     if not commons:

@@ -203,7 +203,10 @@ def _coerce_using_keys(left: LogicalPlan, right: LogicalPlan, on):
     for k in on:
         lt = left.schema.field(k).dtype
         rt = right.schema.field(k).dtype
-        if lt == rt or not (lt.is_numeric and rt.is_numeric):
+        if lt == rt or not (lt.is_numeric and rt.is_numeric) \
+                or isinstance(lt, dt.DecimalType) \
+                or isinstance(rt, dt.DecimalType):
+            # decimal keys are joined as they are, as the JAX package does
             continue
         common = numeric_promote(lt, rt)
         if lt != common:

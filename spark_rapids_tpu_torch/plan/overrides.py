@@ -9,13 +9,21 @@ it cannot run), converts convertible subtrees to device execs on ``device``,
 inserts host<->device transitions, and runs whole-stage fusion. Nodes and
 expressions without a rule here are not ported yet: ``explain`` says so and
 they run on the host engine.
+
+Decimals pass every numeric signature up to 18 digits; the rules of the
+ops whose device code takes two-limb columns raise the gate to 38 (the
+JAX package's DECIMAL_128 section) and, with
+``spark.rapids.sql.decimal128.enabled`` off, send every node and
+expression that touches a wide decimal to the host engine.
 """
 from __future__ import annotations
 
 import torch
 
 from ..columnar.dtypes import TypeEnum, TypeSig
-from ..conf import JOIN_STRATEGY, PARQUET_DEVICE_DECODE, RapidsConf
+from ..columnar import dtypes as dt
+from ..conf import (DECIMAL128_ENABLED, JOIN_STRATEGY, PARQUET_DEVICE_DECODE,
+                    RapidsConf)
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.basic import TpuFilterExec, TpuLocalLimitExec, TpuProjectExec
 from ..exec.exchange import TpuLocalExchangeExec
@@ -125,18 +133,20 @@ def _register_exec_rules():
 
     def tag_agg(meta, conf):
         # string keys group by their packed byte words; aggregate inputs
-        # and states stay fixed-width (string min/max is not ported)
+        # and states stay fixed-width (string min/max is not ported), wide
+        # decimals included (their ops are gated by the decimal128 rules)
         p: CpuHashAggregateExec = meta.plan
         in_schema = p.child.schema
+        fixed = _device_common.with_decimal128()
         for s in p.specs:
             in_cols = s.input_cols if p.mode == "partial" \
                 else [n for (n, _, _) in s.state_fields]
             for c in in_cols:
-                for r in _device_common.reasons_not_supported(
+                for r in fixed.reasons_not_supported(
                         in_schema.field(c).dtype):
                     meta.cannot_run(f"aggregate input {c}: {r}")
             for (n, d, _) in s.state_fields:
-                for r in _device_common.reasons_not_supported(d):
+                for r in fixed.reasons_not_supported(d):
                     meta.cannot_run(f"aggregate state {n}: {r}")
 
     register_exec_rule(
@@ -213,6 +223,93 @@ def _register_exec_rules():
 
 _register_expr_rules()
 _register_exec_rules()
+
+
+# ---------------------------------------------------------------------------
+# The DECIMAL_128 tier (the JAX package's plan/overrides.py:886-1040;
+# reference: TypeChecks.scala:465,544). Decimals past 18 digits run on the
+# device as two-limb int64 columns (expr/decimal128.py); these rules opt
+# each op whose device code takes them into the 38-digit gate.
+# ---------------------------------------------------------------------------
+_D128_OFF = "decimal128 disabled by spark.rapids.sql.decimal128.enabled"
+
+
+def _plan_has_d128(meta) -> bool:
+    return any(dt.is_d128(f.dtype) for f in meta.plan.schema) \
+        or any(dt.is_d128(f.dtype) for ch in meta.plan.children
+               for f in ch.schema)
+
+
+def _expr_has_d128(meta) -> bool:
+    return dt.is_d128(meta.expr.data_type) \
+        or any(dt.is_d128(c.data_type) for c in meta.expr.children)
+
+
+def _upgrade_decimal128_rules():
+    from .meta import EXEC_RULES, EXPR_RULES
+
+    def chain_expr(cls, extra=None):
+        rule = EXPR_RULES[cls]
+        rule.sig = rule.sig.with_decimal128()
+        prev = rule.tag_fn
+
+        def tag(meta, conf):
+            if _expr_has_d128(meta):
+                if not conf.get(DECIMAL128_ENABLED):
+                    meta.cannot_run(_D128_OFF)
+                elif extra is not None:
+                    extra(meta, conf)
+            if prev is not None:
+                prev(meta, conf)
+        rule.tag_fn = tag
+
+    def agg_fn_ok(meta, conf):
+        if not isinstance(meta.expr, (A.Sum, A.Count, A.CountStar,
+                                      A.Average)):
+            meta.cannot_run(f"{type(meta.expr).__name__} over decimal128 "
+                            "is host-only")
+
+    for cls in (AttributeReference, Alias, Literal, Cast,
+                AR.Add, AR.Subtract, AR.Multiply, AR.UnaryMinus, AR.Abs,
+                P.EqualTo, P.GreaterThan, P.GreaterThanOrEqual, P.LessThan,
+                P.LessThanOrEqual, P.IsNull, P.IsNotNull):
+        chain_expr(cls)
+    for cls in (A.Sum, A.Count, A.CountStar, A.Average):
+        chain_expr(cls, agg_fn_ok)
+
+    def chain_exec(cls, extra=None):
+        rule = EXEC_RULES[cls]
+        rule.output_sig = rule.output_sig.with_decimal128()
+        prev = rule.tag_fn
+
+        def tag(meta, conf):
+            if _plan_has_d128(meta):
+                if not conf.get(DECIMAL128_ENABLED):
+                    meta.cannot_run(_D128_OFF)
+                elif extra is not None:
+                    extra(meta, conf)
+            if prev is not None:
+                prev(meta, conf)
+        rule.tag_fn = tag
+
+    def agg_ok(meta, conf):
+        for s in meta.plan.specs:
+            for ops in (s.update_ops, s.merge_ops):
+                for op, (n, d, _) in zip(ops, s.state_fields):
+                    if dt.is_d128(d) and op not in ("sum", "count"):
+                        meta.cannot_run(
+                            f"aggregate op {op!r} over decimal128 state "
+                            f"{n} is host-only")
+
+    for cls in (CpuScanExec, CpuProjectExec, CpuFilterExec, CpuSortExec,
+                CpuTakeOrderedExec, CpuGlobalLimitExec, CpuLocalLimitExec,
+                CpuCollectLimitExec, ShuffleExchangeExec,
+                CpuShuffledHashJoinExec, CpuBroadcastHashJoinExec):
+        chain_exec(cls)
+    chain_exec(CpuHashAggregateExec, agg_ok)
+
+
+_upgrade_decimal128_rules()
 
 
 def explain_plan(cpu_plan: PhysicalPlan, conf: RapidsConf) -> str:

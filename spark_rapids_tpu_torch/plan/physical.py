@@ -112,7 +112,7 @@ class PhysicalPlan:
 
 
 def _empty_values(d: dt.DataType) -> np.ndarray:
-    if isinstance(d, (dt.StringType, dt.BinaryType)):
+    if isinstance(d, (dt.StringType, dt.BinaryType)) or dt.is_d128(d):
         return np.empty(0, dtype=object)
     return np.empty(0, dtype=d.np_dtype())
 
@@ -212,8 +212,9 @@ def _sort_indices(table: HostTable, orders: Sequence[SortOrder]) -> np.ndarray:
         valid = c.validity if c.validity is not None \
             else np.ones(len(vals), dtype=bool)
         if vals.dtype == object:
-            # dense codes in value order
-            codes = np.unique(np.where(valid, vals, ""),
+            # dense codes in value order (strings, or a wide decimal's ints)
+            fill = 0 if isinstance(c.dtype, dt.DecimalType) else ""
+            codes = np.unique(np.where(valid, vals, fill),
                               return_inverse=True)[1].reshape(-1) \
                 .astype(np.int64)
         elif vals.dtype.kind == "f":
@@ -409,7 +410,8 @@ class CpuHashAggregateExec(PhysicalPlan):
         out_cols = [table.column(k).take(rep) for k in self.key_names]
         for in_col, op, _, out_dt in cols_ops:
             vals, validity = host_group_reduce(op, table.column(in_col), gid,
-                                               ngroups, out_dt)
+                                               ngroups, out_dt,
+                                               self.mode == "final")
             if vals.dtype != object and vals.dtype != out_dt.np_dtype():
                 with np.errstate(invalid="ignore"):
                     vals = vals.astype(out_dt.np_dtype())

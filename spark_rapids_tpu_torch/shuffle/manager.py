@@ -16,7 +16,7 @@ from typing import Sequence
 import torch
 
 from ..columnar.device import DeviceColumn, DeviceTable, pack_string_key_words
-from ..conf import STEP_BREADTH, STEP_DECIMAL128, not_ported
+from ..conf import STEP_BREADTH, not_ported
 
 __all__ = ["MASK32", "fmix_device", "mul32", "string_key_hash",
            "column_key_hash", "device_partition_ids"]
@@ -25,6 +25,9 @@ MASK32 = 0xFFFFFFFF
 _MURMUR_C1 = 0x85EBCA6B
 _MURMUR_C2 = 0xC2B2AE35
 _COMBINE_ADD = 0xE6546B64
+#: the JAX package's uint64 limb-fold constant 0x9E3779B97F4A7C15, as the
+#: int64 with the same bits (the product modulo 2**64 is the same)
+_LIMB_FOLD = 0x9E3779B97F4A7C15 - 2**64
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -73,14 +76,14 @@ def column_key_hash(col: DeviceColumn) -> torch.Tensor:
     """``_column_key_hash``: a per-row uint32 hash (in int64) of one key
     column, mixed once more by the finaliser (a string's too); a null row
     hashes to 0. A float hashes its float64 bits as they are: -0.0 and
-    0.0, or two NaN payloads, hash apart."""
+    0.0, or two NaN payloads, hash apart. A wide decimal (a 2-D plane
+    without lengths) folds its limbs: ``hi ^ lo * 0x9E3779B97F4A7C15``
+    modulo 2**64 (int64 products wrap to the same bits)."""
     v = col.data
     if col.lengths is not None:
         k = string_key_hash(col)
-    elif v.dim() == 2:
-        raise NotImplementedError(
-            "a decimal128 key's partition id is not ported yet "
-            + not_ported(STEP_DECIMAL128))
+    elif v.dim() == 2 and v.shape[1] == 2 and v.dtype == torch.int64:
+        k = _fold64(v[:, 0] ^ (v[:, 1] * _LIMB_FOLD))
     elif v.dim() != 1:
         raise NotImplementedError(
             f"a key column of {col.dtype!r} (a nested type) has no partition "

@@ -8,8 +8,11 @@ session runs them before the main plan and puts their value in as a
 literal. EXISTS / NOT EXISTS / IN become left-semi / left-anti joins.
 
 The generator is numpy, seeded, with dbgen-flavored value domains; prices
-are double (not decimal), the common benchmarking simplification; row
-counts follow the spec scale factors (6,000,000 lineitem rows per unit).
+are double, the common benchmarking simplification; row counts follow the
+spec scale factors (6,000,000 lineitem rows per unit). ``decimal_lineitem``
+re-types lineitem's money and quantity columns to Spark's DECIMAL(12,2), and
+``q1_decimal`` and ``q6_decimal`` run Q1 and Q6 over them (outside
+``QUERIES``, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from ..columnar import dtypes as dt
 __all__ = ["gen_lineitem", "gen_orders", "gen_customer", "gen_part",
            "gen_supplier", "gen_partsupp", "gen_nation", "gen_region",
            "gen_all", "build_dataframes", "QUERIES", "TABLE_GENERATORS",
-           "q13_nolike"] + [f"q{i}" for i in range(1, 23)]
+           "q13_nolike", "decimal_lineitem", "q1_decimal", "q6_decimal"] \
+    + [f"q{i}" for i in range(1, 23)]
 
 _EPOCH_1992 = 8035   # days from unix epoch to 1992-01-01
 _DATE_RANGE = 2557   # ~7 years of ship dates
@@ -369,6 +373,53 @@ def q1(t):
                  F.avg(col("l_discount")).alias("avg_disc"),
                  F.count_star().alias("count_order"))
             .sort("l_returnflag", "l_linestatus"))
+
+
+def decimal_lineitem(table: pa.Table) -> pa.Table:
+    """Money and quantity columns re-typed to DECIMAL(12,2), Spark's TPC-H
+    schema (the sums and products pass 18 digits: the wide decimal tier)."""
+    out = table
+    for name in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"):
+        i = out.schema.get_field_index(name)
+        out = out.set_column(
+            i, name, out.column(name).cast(pa.decimal128(12, 2)))
+    return out
+
+
+def q1_decimal(t):
+    """Q1 over DECIMAL(12,2) money columns: disc_price is decimal(26,4),
+    charge decimal(38,6), their sums decimal(36,4) and decimal(38,6)."""
+    import decimal as _dec
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    sd = col("l_shipdate").cast(dt.INT)
+    one = lit(_dec.Decimal("1.00"))
+    disc_price = col("l_extendedprice") * (one - col("l_discount"))
+    charge = disc_price * (one + col("l_tax"))
+    return (t["lineitem"]
+            .filter(sd <= lit(_D["1998-09-02"]))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.sum(col("l_extendedprice")).alias("sum_base_price"),
+                 F.sum(disc_price).alias("sum_disc_price"),
+                 F.sum(charge).alias("sum_charge"),
+                 F.count_star().alias("count_order"))
+            .sort("l_returnflag", "l_linestatus"))
+
+
+def q6_decimal(t):
+    """Q6 over DECIMAL(12,2): revenue = sum(price * disc), decimal(35,4)."""
+    import decimal as _dec
+    from ..expr import functions as F
+    col, lit = F.col, F.lit
+    sd = col("l_shipdate").cast(dt.INT)
+    return (t["lineitem"]
+            .filter((sd >= lit(_D["1994-01-01"])) & (sd < lit(_D["1995-01-01"]))
+                    & (col("l_discount") >= lit(_dec.Decimal("0.05")))
+                    & (col("l_discount") <= lit(_dec.Decimal("0.07")))
+                    & (col("l_quantity") < lit(_dec.Decimal("24.00"))))
+            .agg(F.sum(col("l_extendedprice") * col("l_discount"))
+                 .alias("revenue")))
 
 
 def q2(t):

@@ -404,6 +404,11 @@ def test_lexsort_equals_numpy_lexsort_with_top_bit_words():
 
 
 def test_struct_and_decimal_keys_raise_naming_roadmap():
+    """Struct (and binary) keys still raise, naming their ROADMAP step; a
+    wide decimal key, which raised until decimals were ported, now groups
+    as the JAX package groups it: its key words and the group ids of a
+    two-limb key (with a decimal64 key beside it) equal JAX's, and the
+    host engine's."""
     class StructType(dt.DataType):
         simple_name = "struct<a:int>"
 
@@ -412,6 +417,33 @@ def test_struct_and_decimal_keys_raise_naming_roadmap():
                            torch.ones(8, dtype=torch.bool), d)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tagg._key_code_words(col)
+    from decimal import Decimal
+    rng = np.random.default_rng(8)
+    n = 900
+    wide = pa.array([None if i % 11 == 0 else Decimal(
+        int(rng.integers(-40, 40)) * 10 ** 20 + int(rng.integers(0, 3)))
+        .scaleb(-2) for i in range(n)], type=pa.decimal128(25, 2))
+    narrow = pa.array([Decimal(int(v)).scaleb(-1)
+                       for v in rng.integers(-3, 3, n)],
+                      type=pa.decimal128(10, 1))
+    table = pa.table({"w": wide, "d": narrow})
+    host = HostTable.from_arrow(table)
+    port = DeviceTable.from_host(host, 1024, "cpu")
+    jtable = jdev.DeviceTable.from_host(JHostTable.from_arrow(table), 1024)
+    words, _ = tagg._key_code_words(port.column("w"))
+    jwords, _ = jagg._key_code_words(jtable.column("w"))
+    for w, jw in zip(words, jwords):
+        np.testing.assert_array_equal(w.numpy(),
+                                      np.asarray(jw).view(np.int64))
+    for keys in (["w"], ["w", "d"]):
+        gid, is_rep, num_groups = tagg._hash_group_ids(port, keys)
+        _, _, jgid, jrep, jnum = jagg._hash_group_ids(jtable, keys)
+        assert int(num_groups) == int(jnum) > 1
+        np.testing.assert_array_equal(gid.numpy(), np.asarray(jgid))
+        np.testing.assert_array_equal(is_rep.numpy(), np.asarray(jrep))
+        hgid, hn, _ = group_codes(host, keys)
+        assert hn == int(num_groups)
+        np.testing.assert_array_equal(gid.numpy()[:n], hgid)
 
 
 @pytest.mark.parametrize("op", ["collect_list", "collect_set",

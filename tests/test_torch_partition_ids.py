@@ -2,8 +2,9 @@
 bit, on the same numpy batch handed to both engines: every fixed-width,
 bool, date, float and string key, with and without nulls, seeds 42 and 9001
 (the grace join's), 2, 7 and 64 partitions, several keys combined, and
-hashes with the top bit set (the uint32 remainder torch has not). The
-decimal and nested branches raise naming their ROADMAP steps."""
+hashes with the top bit set (the uint32 remainder torch has not). A
+two-limb decimal key hashes bit-equal to JAX too; the nested branch raises
+naming its ROADMAP step."""
 import numpy as np
 import pytest
 import torch
@@ -120,10 +121,34 @@ def test_string_hash_does_not_depend_on_the_matrix_width():
 @pytest.mark.parametrize("shape,step", [((8, 2), "decimal128"),
                                         ((8, 2, 2), "breadth")])
 def test_decimal_and_nested_keys_raise_naming_their_steps(shape, step):
-    col = DeviceColumn(torch.zeros(shape, dtype=torch.int64),
-                       torch.ones(8, dtype=torch.bool), None, True)
+    """A nested key still raises naming its step. A two-limb (decimal128)
+    key, which raised until decimals were ported, now hashes bit-equal to
+    the JAX package's fold of its limbs (``hi ^ lo * 0x9E3779B97F4A7C15``,
+    the top bits of the product wrapped away) at every partition count."""
+    rng = np.random.default_rng(12)
+    data = rng.integers(-2**63, 2**63 - 1, shape, dtype=np.int64)
+    data[0] = [-1, -1] if len(shape) == 2 else data[0]
+    valid = np.ones(8, bool)
+    valid[3] = False
+    col = DeviceColumn(torch.from_numpy(data), torch.from_numpy(valid), None,
+                       False)
     table = DeviceTable((col,), torch.ones(8, dtype=torch.bool),
                         torch.tensor(8, dtype=torch.int32), ("k",))
-    with pytest.raises(NotImplementedError,
-                       match=rf"\(ROADMAP Queue 1: {step}\)"):
-        tmanager.device_partition_ids(table, ["k"], 4)
+    if step != "decimal128":
+        with pytest.raises(NotImplementedError,
+                           match=rf"\(ROADMAP Queue 1: {step}\)"):
+            tmanager.device_partition_ids(table, ["k"], 4)
+        return
+    import jax.numpy as jnp
+    from spark_rapids_tpu.columnar import device as jdev
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    jt = jdev.DeviceTable(
+        (jdev.DeviceColumn(jnp.asarray(data), jnp.asarray(valid),
+                           jdt.DecimalType(30, 2), None),),
+        jnp.ones(8, bool), jnp.int32(8), ("k",))
+    for parts in (2, 7, 64):
+        for seed in (42, 9001):
+            np.testing.assert_array_equal(
+                tmanager.device_partition_ids(table, ["k"], parts,
+                                              seed=seed).numpy(),
+                _jax_ids(jt, ["k"], parts, seed))
