@@ -95,8 +95,11 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    and warm: device nodes only above the scans, results equal to exact
    int64 references of the scaled values as decimals, the decimal kernels'
    launches read around the warm runs (``d128_mul_rescaled`` and
-   ``d128_segment_sum`` must launch), a trace of a warm run, and the host
-   engine on 600,000 rows; then a DECIMAL(25,2) key column of 1M rows
+   ``d128_segment_sum`` must launch), a trace of a warm run, the
+   synchronising CUDA calls of one more warm run of each with AQE off
+   (``torch.cuda.set_sync_debug_mode``) by call site, beside the same run
+   with the sum's overflow mark copied from the host on every call, and
+   the host engine on 600,000 rows; then a DECIMAL(25,2) key column of 1M rows
    grouped by, sorted by and joined on (the join under a 512 KiB budget, so
    the grace join buckets the key's partition ids) against numpy; then Q6
    decimal from a Parquet file pyarrow wrote (the decimal chunks take the
@@ -115,9 +118,13 @@ kernels (``csrc/decimal128.cu``) against theirs, limbs and overflow flags
 bit for bit at 2^20 rows on random values of 1..38 digits and on edge rows
 (0, +-1, +-(10^38 - 1), exact halves at scale drops 1, 9, 10, 18, 19 and
 38, products past 2^127 and near 10^76, rescales into overflow; sums at cap
-1, 6 and 2^16, a group of only nulls, a sum passing 10^38 and coming back,
-a group of 2^20 rows of +(10^38 - 1) whose total needs more than 128 bits),
-the segment sum three times by bits, and times each against its bound.
+1, 6, the small-cap path's bound and one past it, and 2^16, a group of only
+nulls, a sum passing 10^38 and coming back, a group of 2^20 rows of +(10^38
+- 1) whose total needs more than 128 bits, a ragged last step), the segment
+sum three times by bits; counts the device operations of one segment sum
+on each path (the small-cap path: two kernels, nothing zeroed), and times
+each kernel against its bound (the segment sum at cap 1, 6, 2^16 and at
+Q1's partial shape, 2^20 groups of which 4 are used).
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -3150,7 +3157,9 @@ def d128_segment_sum_cases(rng, n: int) -> list:
     (Q1's groups) with a group of only nulls and a group whose sum passes
     10^38 and comes back, 2^16 random groups, int64 values, one group of
     ``n`` rows of +(10^38 - 1) (a total past 2^128) and one whose total is
-    exactly -2^128."""
+    exactly -2^128; the small-cap path's bound and one past it, group ids
+    outside ``[0, cap)``, ``n - 3`` rows (a step of the small-cap path cut
+    short), and rows whose digit sums carry from word to word."""
     cases = []
     vals = d128_random(rng, n)
     contrib = rng.random(n) < 0.9
@@ -3179,6 +3188,29 @@ def d128_segment_sum_cases(rng, n: int) -> list:
     low[:2] = _limbs([-2 ** 127, -2 ** 127])
     cases.append(("a total of exactly -2^128", low, True, np.ones(n, bool),
                   np.zeros(n, np.int32), 1, 38))
+    # the two paths' edge: the registers' bound and one past it, with ids
+    # below 0 and past cap dropped; ids between cap and the bound dropped
+    from spark_rapids_tpu_torch.expr.decimal128 import SEGMENT_SUM_SMALL_CAP
+    k = SEGMENT_SUM_SMALL_CAP
+    cases.append((f"cap {k} (the small-cap bound)", vals, True, contrib,
+                  rng.integers(-1, k + 2, n).astype(np.int32), k, 38))
+    cases.append((f"cap {k + 1} (past the small-cap bound)", vals, True,
+                  contrib, rng.integers(-1, k + 3, n).astype(np.int64),
+                  k + 1, 38))
+    cases.append((f"cap 3, ids to {k + 1} dropped, decimal64 values",
+                  d128_random(rng, n, 1, 18, False), False, contrib,
+                  rng.integers(0, k + 2, n).astype(np.int64), 3, 20))
+    cases.append(("cap 6, a ragged last step", v6[:n - 3], True,
+                  c6[:n - 3], gid[:n - 3], 6, 38))
+    # rows whose 32-bit digit sums carry into the next word when the
+    # small-cap path puts its total together: all-ones low words (group 0),
+    # all-ones high words of both signs (group 1), both (group 2)
+    kinds = _limbs([2 ** 64 - 1, 2 ** 32 - 1, 5 - 2 ** 64,
+                    (2 ** 32 - 1) << 64])
+    row = np.arange(n)
+    gid3 = np.where(row % 5 == 0, 2, (row % 4) // 2).astype(np.int32)
+    cases.append(("carries between the digit sums, cap 3",
+                  kinds[row % 4], True, np.ones(n, bool), gid3, 3, 38))
     return cases
 
 
@@ -3255,6 +3287,29 @@ def decimal_kernel_phase(device="cuda") -> dict:
           f"segment sum in 3 runs each; {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    k = d.SEGMENT_SUM_SMALL_CAP
+    if device != "cpu":
+        from spark_rapids_tpu_torch.native import load_kernels
+        built = load_kernels().srt_d128_segment_sum_small_cap()
+        if built != k:
+            raise AssertionError(f"csrc/decimal128.cu kSmallCap {built} != "
+                                 f"SEGMENT_SUM_SMALL_CAP {k}")
+    gid = torch.zeros(n, dtype=torch.int32, device=device)
+    vals = tensor(d128_random(rng, n), True)
+    contrib = torch.ones(n, dtype=torch.bool, device=device)
+    for cap in (1, k, k + 1):
+        ops = _device_ops(d.d128_segment_sum, vals, contrib, gid, cap, 38)
+        if ops is None:
+            continue
+        zeroing = {name: c for name, c in ops.items()
+                   if re.search(r"(?i)memset|fill|zero", name)}
+        print(f"# kernel d128_segment_sum cap {cap}: device operations of "
+              f"one call {ops}", flush=True)
+        if cap <= k and (zeroing or sum(ops.values()) > 2):
+            raise AssertionError(f"d128_segment_sum cap {cap}: the "
+                                 f"small-cap path ran {ops}")
+    made.clear()
+
     timings = {}
     kinds = {"mul": (d.d128_mul_rescaled, d.d128_mul_rescaled_reference),
              "rescale": (d.d128_rescale, d.d128_rescale_reference),
@@ -3270,11 +3325,36 @@ def decimal_kernel_phase(device="cuda") -> dict:
     return timings
 
 
+def _device_ops(fn, *args):
+    """The device operations (kernels, memsets, copies) of one warm ``fn``
+    call by name, from torch.profiler; None on the CPU, or where the
+    profiler records no device event."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    if not ops:
+        print(f"# {fn.__name__}: the profiler recorded no device event; "
+              "its operations a call not counted", flush=True)
+    return ops or None
+
+
 def d128_timed_shapes(rng, n: int, device) -> list:
     """(key, label, kind, argument sets, trailing arguments, bytes) of each
     decimal kernel's timed shape, Q1's and Q6's: a product of limbs and
     int64 (Q1's charge) and of two int64 (Q6's revenue), a rescale (a sum
-    input, k = 0) and the segment sum at cap 6 (Q1's groups) and 1 (Q6).
+    input, k = 0) and the segment sum at cap 6 (Q1's groups), 1 (Q6), 6
+    over scaled int64, 2^16 (past the small-cap path) and 2^20 with 4
+    groups used (Q1's partial sums: the aggregate passes the batch's
+    capacity as cap).
     The sets exceed L2 (the first tensors, then copies rolled along their
     rows); the bytes are each input read once and each output written
     once."""
@@ -3295,8 +3375,13 @@ def d128_timed_shapes(rng, n: int, device) -> list:
     gid6 = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)) \
         .to(device)
     gid1 = torch.zeros(n, dtype=torch.int32, device=device)
+    gid16 = torch.from_numpy(rng.integers(0, 1 << 16, n).astype(np.int32)) \
+        .to(device)
+    gid4 = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)) \
+        .to(device)
     contrib = torch.from_numpy(rng.random(n) < 0.98).to(device)
     sums = [(a, contrib) for (a,) in sets(limbs(30))]
+    sums64 = [(a, contrib) for (a,) in sets(i64(13))]
     return [
         ("d128_mul_rescaled",
          "d128_mul_rescaled n=2^20 limbs x int64 (Q1 charge)", "mul",
@@ -3313,19 +3398,35 @@ def d128_timed_shapes(rng, n: int, device) -> list:
          (16 + 1 + 4) * n + 17 * 6),
         ("d128_segment_sum cap 1",
          "d128_segment_sum n=2^20 limbs, cap 1 (Q6)", "segment_sum",
-         [(a, c, gid1) for a, c in sums], (1, 38), (16 + 1 + 4) * n + 17)]
+         [(a, c, gid1) for a, c in sums], (1, 38), (16 + 1 + 4) * n + 17),
+        ("d128_segment_sum int64 cap 6",
+         "d128_segment_sum n=2^20 scaled int64, cap 6", "segment_sum",
+         [(a, c, gid6) for a, c in sums64], (6, 28),
+         (8 + 1 + 4) * n + 17 * 6),
+        ("d128_segment_sum cap 65536",
+         "d128_segment_sum n=2^20 limbs, cap 65536 (atomics)",
+         "segment_sum", [(a, c, gid16) for a, c in sums], (1 << 16, 38),
+         (16 + 1 + 4) * n + 17 * (1 << 16)),
+        ("d128_segment_sum cap 2^20",
+         "d128_segment_sum n=2^20 limbs, cap 2^20, 4 groups used (Q1's "
+         "partial sums)", "segment_sum", [(a, c, gid4) for a, c in sums],
+         (n, 38), (16 + 1 + 4) * n + 17 * n)]
 
 
 def _d128_counts() -> dict:
     from spark_rapids_tpu_torch.expr import decimal128 as d
-    return {f.__name__: f.launches for f in (
+    counts = {f.__name__: f.launches for f in (
         d.d128_mul_rescaled, d.d128_rescale, d.d128_segment_sum)}
+    counts["d128_segment_sum small cap"] = \
+        d.d128_segment_sum.small_cap_launches
+    return counts
 
 
 def _d128_zero() -> None:
     from spark_rapids_tpu_torch.expr import decimal128 as d
     for f in (d.d128_mul_rescaled, d.d128_rescale, d.d128_segment_sum):
         f.launches = 0
+    d.d128_segment_sum.small_cap_launches = 0
 
 
 def _cents(table, name: str) -> np.ndarray:
@@ -3391,6 +3492,47 @@ def check_q6_decimal(out, want: int, what: str) -> None:
         raise AssertionError(f"{what}: revenue {got} != {want} (scale 4)")
 
 
+def _sync_sites(run) -> dict:
+    """The synchronising CUDA calls of ``run()`` (torch's sync debug mode's
+    warnings) by Python call site."""
+    import collections
+    import os
+    import warnings
+    sites: collections.Counter = collections.Counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = w.filename.split(f"spark_rapids_tpu_torch{os.sep}")[-1]
+            sites[f"{path}:{w.lineno}"] += 1
+    return dict(sites)
+
+
+def _decimal_syncs(label: str, q) -> dict:
+    """One warm run's synchronising calls, then one more with the sum's
+    overflow mark copied from pageable host memory on every call (as
+    ``_d128_sum`` built it before the mark was made once a device)."""
+    from spark_rapids_tpu_torch.exec import aggregate
+    cached = _sync_sites(q.collect)
+    keep = aggregate._mark_limbs
+    aggregate._mark_limbs = lambda device: torch.tensor(
+        aggregate._MARK_LIMBS, dtype=torch.int64, device=device)
+    try:
+        per_call = _sync_sites(q.collect)
+    finally:
+        aggregate._mark_limbs = keep
+    print(f"# {label} synchronising calls of a warm run: "
+          f"{sum(cached.values())} {cached}; with the mark copied each call "
+          f"{sum(per_call.values())} {per_call}", flush=True)
+    return {"cached": cached, "per_call": per_call}
+
+
 def decimal_query_phase(li, partitions: int, host_rows: int = 600_000,
                         device: str = "cuda") -> dict:
     """Q1 and Q6 over ``decimal_lineitem(li)``, AQE off and on, cold and
@@ -3447,6 +3589,8 @@ def decimal_query_phase(li, partitions: int, host_rows: int = 600_000,
             busy = _profile(q, label)
             out[label] = {"cold_s": walls[0], "warm_s": walls[1],
                           "launches": warm, "busy": busy}
+            if not aqe and device != "cpu":
+                out[label]["syncs"] = _decimal_syncs(label, q)
             print(f"# {label}: cold {walls[0]:.3f} s, warm {walls[1]:.3f} "
                   f"s, exact against the int64 reference; warm launches "
                   f"{warm}", flush=True)
@@ -3586,22 +3730,34 @@ def decimal_parquet_phase(li, workdir, partitions: int,
 
 
 def _d128_kernel_lines(timings: dict, runs: dict) -> list:
-    """The ``kernels`` line's entries of the three decimal128 kernels:
-    launches over the warm runs of Q1 and Q6 decimal with AQE off; times
-    at Q1's shapes (charge's product, a sum input, the grouped sum)."""
+    """The ``kernels`` line's entries of the decimal128 kernels: launches
+    over the warm runs of Q1 and Q6 decimal with AQE off; times at Q1's
+    shapes (charge's product, a sum input, the grouped sum). The segment
+    sum has an entry a path: its small-cap path (timed at cap 6; Q6's
+    grand totals launch it) and its atomics past that bound (timed at cap
+    2^16; Q1's partial sums, at the batch's capacity, launch it)."""
+    from spark_rapids_tpu_torch.expr.decimal128 import SEGMENT_SUM_SMALL_CAP
+    names = ("d128_mul_rescaled", "d128_rescale", "d128_segment_sum",
+             "d128_segment_sum small cap")
     launches = {k: sum(runs[f"{q} AQE off"]["launches"][k]
-                       for q in ("q1_decimal", "q6_decimal"))
-                for k in ("d128_mul_rescaled", "d128_rescale",
-                          "d128_segment_sum")}
+                       for q in ("q1_decimal", "q6_decimal")) for k in names}
     lines = []
-    for name, line in (("d128_mul_rescaled", 327), ("d128_rescale", 310),
-                       ("d128_segment_sum", 395)):
-        t = timings[name]
+    for name, key, line, n_launch in (
+            ("d128_mul_rescaled", "d128_mul_rescaled", 327,
+             launches["d128_mul_rescaled"]),
+            ("d128_rescale", "d128_rescale", 310, launches["d128_rescale"]),
+            (f"d128_segment_sum (cap <= {SEGMENT_SUM_SMALL_CAP})",
+             "d128_segment_sum", 395, launches["d128_segment_sum small cap"]),
+            (f"d128_segment_sum (cap > {SEGMENT_SUM_SMALL_CAP})",
+             "d128_segment_sum cap 65536", 395,
+             launches["d128_segment_sum"]
+             - launches["d128_segment_sum small cap"])):
+        t = timings[key]
         lines.append({
             "name": name, "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/decimal128.cu",
             "replaces": f"spark_rapids_tpu/expr/decimal128.py:{line}",
-            "launches": launches[name], "max_abs_err": 0.0,
+            "launches": n_launch, "max_abs_err": 0.0,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None})

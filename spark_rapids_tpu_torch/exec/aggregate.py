@@ -65,6 +65,9 @@ _FIXED_WIDTH = (dt.BooleanType, dt.IntegralType, dt.FractionalType,
                 dt.DateType, dt.TimestampType, dt.NullType, dt.DecimalType)
 #: the limbs of ``SUM_OVERFLOW_MARK`` (see the module docstring)
 _MARK_LIMBS = limbs_from_py_ints([SUM_OVERFLOW_MARK], 1)[0].tolist()
+#: device -> ``_MARK_LIMBS`` on it, made once: a tensor built from a list
+#: is a copy from pageable host memory, which waits for the stream
+_MARK_ON: dict = {}
 
 
 def _minmax_identity(dtype: torch.dtype, for_min: bool):
@@ -260,16 +263,38 @@ def _seg_sum_sorted(x: torch.Tensor, gid: torch.Tensor, cap: int,
 
 
 def _seg_extreme(x: torch.Tensor, gid: torch.Tensor, cap: int,
-                 for_min: bool) -> torch.Tensor:
-    """Per-group min or max. Empty groups hold the identity, as the JAX
-    package's segment_min/segment_max leave there."""
+                 for_min: bool, ident=None) -> torch.Tensor:
+    """Per-group min or max. Empty groups hold the identity (``ident``, by
+    default ``_minmax_identity``), as the JAX package's
+    segment_min/segment_max leave there."""
     if cap == 1:
         return x.amin(0, keepdim=True) if for_min \
             else x.amax(0, keepdim=True)
-    ident = _minmax_identity(x.dtype, for_min)
+    if ident is None:
+        ident = _minmax_identity(x.dtype, for_min)
     return torch.full((cap,), ident, dtype=x.dtype, device=x.device) \
         .scatter_reduce_(0, gid.long(), x, "amin" if for_min else "amax",
                          include_self=True)
+
+
+def _float_order_key(x: torch.Tensor,
+                     inverse: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A float tensor's bits as a signed integer whose order is the floats'
+    with -0.0 below 0.0 (a negative's magnitude bits flipped); with
+    ``inverse``, the integer keys back to floats of that type."""
+    if inverse is None:
+        x = x.view(torch.int64 if x.element_size() == 8 else torch.int32)
+    bits = 8 * x.element_size()
+    key = x ^ ((x >> (bits - 1)) & (2 ** (bits - 1) - 1))
+    return key if inverse is None else key.view(inverse)
+
+
+def _mark_limbs(device: torch.device) -> torch.Tensor:
+    mark = _MARK_ON.get(device)
+    if mark is None:
+        mark = _MARK_ON[device] = torch.tensor(_MARK_LIMBS, dtype=torch.int64,
+                                               device=device)
+    return mark
 
 
 def _d128_sum(vals: torch.Tensor, contrib: torch.Tensor, gid: torch.Tensor,
@@ -288,8 +313,7 @@ def _d128_sum(vals: torch.Tensor, contrib: torch.Tensor, gid: torch.Tensor,
             d128_overflows(vals, out_dt.precision))
         over = torch.logical_or(
             over, _seg_sum(marked.to(torch.int64), gid, cap) > 0)
-    mark = torch.tensor(_MARK_LIMBS, dtype=torch.int64, device=vals.device)
-    limbs = torch.where(over[:, None], mark, limbs)
+    limbs = torch.where(over[:, None], _mark_limbs(vals.device), limbs)
     return limbs, torch.logical_and(has, torch.logical_not(over))
 
 
@@ -340,19 +364,25 @@ def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
         # Spark total order: NaN is the largest value
         nan = torch.isnan(x)
         x = torch.where(nan, float("inf") if for_min else float("-inf"), x)
-    x = torch.where(contrib, x, _minmax_identity(x.dtype, for_min))
-    out = _seg_extreme(x, gid, cap, for_min)
-    if isfloat:
-        if for_min:
-            # NaN only when every contributing value is NaN
-            nonnan = _seg_sum(torch.logical_and(
-                contrib, torch.logical_not(nan)).to(torch.int64), gid, cap)
-            out = torch.where(torch.logical_and(has, nonnan == 0),
-                              float("nan"), out)
-        else:
-            nans = _seg_sum(torch.logical_and(contrib, nan).to(torch.int64),
-                            gid, cap)
-            out = torch.where(nans > 0, float("nan"), out)
+    ident = _minmax_identity(x.dtype, for_min)
+    x = torch.where(contrib, x, ident)
+    if not isfloat:
+        return _seg_extreme(x, gid, cap, for_min).to(out_dtype), has
+    # -0.0 below 0.0, as the JAX package orders them: the extremes of the
+    # floats' order keys (an extreme of floats keeps either zero)
+    ident_key = int(_float_order_key(torch.tensor([ident], dtype=x.dtype)))
+    out = _float_order_key(_seg_extreme(_float_order_key(x), gid, cap,
+                                        for_min, ident_key), inverse=x.dtype)
+    if for_min:
+        # NaN only when every contributing value is NaN
+        nonnan = _seg_sum(torch.logical_and(
+            contrib, torch.logical_not(nan)).to(torch.int64), gid, cap)
+        out = torch.where(torch.logical_and(has, nonnan == 0),
+                          float("nan"), out)
+    else:
+        nans = _seg_sum(torch.logical_and(contrib, nan).to(torch.int64),
+                        gid, cap)
+        out = torch.where(nans > 0, float("nan"), out)
     return out.to(out_dtype), has
 
 

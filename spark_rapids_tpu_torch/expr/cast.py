@@ -9,9 +9,11 @@ wraps); crossing 18 digits moves between scaled int64 and two int64 limbs,
 through the ``d128_rescale`` kernel on the device. Integral and float
 sources scale by 10^s (floats rounded half to even, as the JAX package's
 ``round``); a decimal to a float divides by 10^s, to an integral truncates
-that. Past the target precision, or from a NaN or infinite float, the
-result is null on both engines (the JAX package checks only the wide
-tier: its decimal64 results from integers and floats are not checked).
+in integer space and keeps the target's low bits (Spark's non-ANSI cast;
+the JAX package truncates a float64 and saturates). Past the target
+precision, or from a NaN or infinite float, the result is null on both
+engines (the JAX package checks only the wide tier: its decimal64 results
+from integers and floats are not checked).
 """
 from __future__ import annotations
 
@@ -158,20 +160,40 @@ def _float_to_integral(xp, values, to: dt.DataType):
 
 def _cast_from_decimal(ctx, c: EvalCol, src: dt.DecimalType,
                        to: dt.DataType) -> EvalCol:
-    """decimal -> float (over 10^s) or integral (that, truncated)."""
+    """decimal -> float (over 10^s), or integral: truncated toward zero in
+    integer space, then the low bits of the target type (Spark's non-ANSI
+    ``Decimal.toLong``, ``.toInt``, ``.toShort``, ``.toByte``). The JAX
+    package truncates a float64 and saturates; a float64 holds 53 bits, so
+    it is wrong from 2^53 on (ROADMAP Queue 3, repaired)."""
     xp = ctx.xp
-    if not dt.is_d128(src):
-        fvals = xp.astype(c.values, xp.float64)
-    elif ctx.is_device:
-        from .decimal128 import d128_to_f64
-        fvals = d128_to_f64(c.values)
-    else:
-        fvals = np.array([float(int(v)) for v in c.values], np.float64)
-    scaled = fvals / (10.0 ** src.scale)
     if to in (dt.FLOAT, dt.DOUBLE):
+        if not dt.is_d128(src):
+            fvals = xp.astype(c.values, xp.float64)
+        elif ctx.is_device:
+            from .decimal128 import d128_to_f64
+            fvals = d128_to_f64(c.values)
+        else:
+            fvals = np.array([float(int(v)) for v in c.values], np.float64)
+        scaled = fvals / (10.0 ** src.scale)
         return EvalCol(xp.astype(scaled, to.np_dtype()), c.validity, to)
-    return EvalCol(xp.astype(xp.trunc(scaled), to.np_dtype()), c.validity,
-                   to)
+    f = 10 ** src.scale
+    if not dt.is_d128(src):
+        # |v| < 10^18: abs cannot wrap
+        v = xp.astype(c.values, xp.int64)
+        q = xp.floor_divide(xp.abs(v), f)
+        whole = xp.where(v < 0, -q, q)
+    elif ctx.is_device:
+        from .decimal128 import d128_trunc_low64
+        whole = d128_trunc_low64(c.values, src.scale)
+    else:
+        whole = np.array([_low64(int(v), f) for v in c.values], np.int64)
+    return EvalCol(xp.astype(whole, to.np_dtype()), c.validity, to)
+
+
+def _low64(v: int, f: int) -> int:
+    """``v / f`` truncated toward zero, its low 64 bits as a signed int."""
+    q = abs(v) // f
+    return ((-q if v < 0 else q) + 2**63) % 2**64 - 2**63
 
 
 def _cast_to_decimal(ctx, c: EvalCol, src: dt.DataType,

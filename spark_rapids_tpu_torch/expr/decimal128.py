@@ -23,7 +23,8 @@ Three of them are the plain versions of hand-written kernels
 - ``d128_mul_rescaled``: ``a * b`` (256 bits exact), divided by ``10**k``
   with HALF_UP rounding, checked against ``10**p``;
 - ``d128_rescale``: a column times or over ``10**k`` (HALF_UP), checked;
-- ``d128_segment_sum``: each group's exact sum and overflow flag.
+- ``d128_segment_sum``: each group's exact sum and overflow flag (up to
+  ``SEGMENT_SUM_SMALL_CAP`` groups in registers, more through atomics).
 
 Their operands may be limbs or scaled int64 (the decimal64 tier), which the
 kernels read as they are. A wrapper checks its inputs, then computes the
@@ -46,9 +47,11 @@ __all__ = [
     "d128_cmp", "d128_eq", "d128_lt", "d128_key_words",
     "d128_mul", "d128_rescale", "d128_rescale_reference",
     "d128_mul_rescaled", "d128_mul_rescaled_reference",
-    "d128_from_i64", "d128_to_i64", "d128_to_f64", "d128_from_f64",
+    "d128_from_i64", "d128_to_i64", "d128_trunc_low64", "d128_to_f64",
+    "d128_from_f64",
     "d128_overflows", "d128_segment_sum", "d128_segment_sum_reference",
     "POW10_LIMBS", "MAX_MUL_SCALE_DROP", "SUM_OVERFLOW_MARK",
+    "SEGMENT_SUM_SMALL_CAP",
 ]
 
 MAX_PRECISION = 38
@@ -58,6 +61,9 @@ MAX_PRECISION = 38
 SUM_OVERFLOW_MARK = 10 ** MAX_PRECISION
 #: the widest scale drop of a product the kernel takes (two scales of 38)
 MAX_MUL_SCALE_DROP = 76
+#: the most groups the segment sum's small-cap path takes
+#: (``csrc/decimal128.cu kSmallCap``)
+SEGMENT_SUM_SMALL_CAP = 16
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _SIGN = -2**63
@@ -383,6 +389,19 @@ def d128_to_i64(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return lo, torch.logical_not(fits)
 
 
+def d128_trunc_low64(a: torch.Tensor, scale: int) -> torch.Tensor:
+    """Limbs at ``scale`` -> the value truncated toward zero to an integer,
+    its low 64 bits as int64 (Spark's non-ANSI ``Decimal.toLong``): the
+    magnitude divided by 10^scale over the digit planes (floor(floor(x / a)
+    / b) = floor(x / (a b))), the sign put back modulo 2^64."""
+    neg = a[:, 0] < 0
+    q = _to_digits(d128_abs(a))
+    for d in _pow10_chain(scale):
+        q, _ = _divmod_small(q, d)
+    lo = q[0] | (q[1] << 32)
+    return torch.where(neg, -lo, lo)
+
+
 def _u64_to_f64(w: torch.Tensor) -> torch.Tensor:
     """The uint64 bits of ``w`` as float64, rounded once (two exact 32-bit
     halves and one rounding add, the conversion the JAX package's uint64
@@ -558,6 +577,12 @@ def d128_rescale(a: torch.Tensor, from_scale: int, to_scale: int,
     return out, over
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data does not start on 16 bytes (a view
+    past an odd row): the segment sum reads 16-byte words."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def d128_segment_sum(a: torch.Tensor, contrib: torch.Tensor,
                      gid: torch.Tensor, cap: int, precision: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -566,7 +591,10 @@ def d128_segment_sum(a: torch.Tensor, contrib: torch.Tensor,
     checked against ``10**precision`` -> ((cap, 2) limbs, (cap,) bool
     overflow). ``gid`` is int32 or int64; rows with an id outside ``[0,
     cap)`` are dropped. Kernel: ``csrc/decimal128.cu d128_segment_sum``
-    (192-bit accumulators, so a total past 2^128 is seen)."""
+    (192-bit accumulators, so a total past 2^128 is seen): up to
+    ``SEGMENT_SUM_SMALL_CAP`` groups in registers, two launches, counted
+    in ``d128_segment_sum.small_cap_launches`` too; more groups through
+    shared and global atomics over zeroed scratch."""
     dev = a.device
     wide = _check_value("a", a, dev)
     n = a.shape[0]
@@ -582,20 +610,30 @@ def d128_segment_sum(a: torch.Tensor, contrib: torch.Tensor,
                         f"{tuple(gid.shape)} on {gid.device}")
     if cap < 1:
         raise ValueError(f"d128_segment_sum: cap {cap} < 1")
+    if n >= 2 ** 31:
+        raise ValueError(f"d128_segment_sum: {n} rows; a batch holds fewer "
+                         "than 2^31")
     _check_precision("d128_segment_sum", precision)
     if dev.type == "cpu":
         return d128_segment_sum_reference(a, contrib, gid, cap, precision)
     _cuda_device("d128_segment_sum", dev)
+    from ..native import load_kernels
+    lib = load_kernels()
     out = torch.empty((cap, 2), dtype=torch.int64, device=dev)
     over = torch.empty(cap, dtype=torch.bool, device=dev)
-    acc = torch.zeros((cap, 3), dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.srt_d128_segment_sum_scratch(n, cap),
+                          dtype=torch.int64, device=dev)
+    a, contrib, gid = (_aligned16(t) for t in (a, contrib, gid))
     with torch.cuda.device(dev):
         _launch(d128_segment_sum, "srt_d128_segment_sum", a.data_ptr(), wide,
                 contrib.data_ptr(), gid.data_ptr(),
                 int(gid.dtype == torch.int64), n, cap, precision,
-                acc.data_ptr(), out.data_ptr(), over.data_ptr())
+                scratch.data_ptr(), out.data_ptr(), over.data_ptr())
+    if cap <= lib.srt_d128_segment_sum_small_cap():
+        d128_segment_sum.small_cap_launches += 1
     return out, over
 
 
 for _fn in (d128_mul_rescaled, d128_rescale, d128_segment_sum):
     _fn.launches = 0
+d128_segment_sum.small_cap_launches = 0

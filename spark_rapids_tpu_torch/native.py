@@ -131,5 +131,9 @@ def load_kernels() -> ctypes.CDLL:
             for fn in (lib.srt_d128_mul_rescaled, lib.srt_d128_rescale,
                        lib.srt_d128_segment_sum):
                 fn.restype = ctypes.c_int
+            lib.srt_d128_segment_sum_scratch.argtypes = [i64, i64]
+            lib.srt_d128_segment_sum_scratch.restype = ctypes.c_int64
+            lib.srt_d128_segment_sum_small_cap.argtypes = []
+            lib.srt_d128_segment_sum_small_cap.restype = ctypes.c_int32
             _LIB = lib
         return _LIB

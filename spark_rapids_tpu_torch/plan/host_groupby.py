@@ -178,6 +178,16 @@ def host_group_reduce(op: str, col: HostColumn, gid: np.ndarray, ngroups: int,
     raise ValueError(op)
 
 
+def _float_order_key(x: np.ndarray) -> np.ndarray:
+    """Floats -> signed integers of the same width whose order is the
+    floats' with -0.0 below 0.0 (a negative's magnitude bits flipped);
+    applied to the integers (viewed back as floats by the caller), the
+    inverse."""
+    if x.dtype.kind == "f":
+        x = x.view(np.int64 if x.itemsize == 8 else np.int32)
+    return x ^ ((x >> (8 * x.itemsize - 1)) & np.iinfo(x.dtype).max)
+
+
 def _host_minmax(op: str, vals: np.ndarray, valid: np.ndarray,
                  gid: np.ndarray, ngroups: int, has: np.ndarray):
     if vals.dtype == object:  # strings: order via sorted codes
@@ -195,21 +205,30 @@ def _host_minmax(op: str, vals: np.ndarray, valid: np.ndarray,
         nan_mask = np.isnan(vals)
         # NaN is the largest value in Spark's total order
         work = np.where(nan_mask, np.inf if op == "min" else -np.inf, vals)
+        # -0.0 below 0.0, as the JAX package orders them: reduce the
+        # floats' order keys (np.minimum keeps either zero)
+        work = _float_order_key(work)
     if op == "min":
         ident = np.inf if isfloat else np.iinfo(vals.dtype).max \
             if vals.dtype != np.bool_ else True
+        if isfloat:
+            ident = _float_order_key(np.array([ident], vals.dtype))[0]
         acc = np.full(ngroups, ident, dtype=work.dtype)
         np.minimum.at(acc, gid[valid], work[valid])
         if isfloat:
+            acc = _float_order_key(acc).view(vals.dtype)
             nonnan = np.zeros(ngroups, dtype=np.int64)
             np.add.at(nonnan, gid[valid], (~nan_mask[valid]).astype(np.int64))
             acc = np.where(has & (nonnan == 0), np.nan, acc)
     else:
         ident = -np.inf if isfloat else np.iinfo(vals.dtype).min \
             if vals.dtype != np.bool_ else False
+        if isfloat:
+            ident = _float_order_key(np.array([ident], vals.dtype))[0]
         acc = np.full(ngroups, ident, dtype=work.dtype)
         np.maximum.at(acc, gid[valid], work[valid])
         if isfloat:
+            acc = _float_order_key(acc).view(vals.dtype)
             anynan = np.zeros(ngroups, dtype=np.int64)
             np.add.at(anynan, gid[valid], nan_mask[valid].astype(np.int64))
             acc = np.where(anynan > 0, np.nan, acc)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 ``spark_rapids_tpu_torch`` (and ``chip_smoke.py``) loads neither ``jax`` nor
-``spark_rapids_tpu``, and no source of theirs imports either, nor pandas
-(the card's machine has none)."""
+``spark_rapids_tpu``, and no source of theirs or of the port's scripts on
+the card (``*_kernel_ab.py``, ``nfa_match_limits.py``) imports either, nor
+pandas (the card's machine has none)."""
 import ast
 import pathlib
 import subprocess
@@ -21,7 +22,10 @@ def _forbidden(module: str) -> bool:
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "decimal_kernel_ab.py",
+                                 "nfa_match_limits.py",
+                                 "parquet_kernel_ab.py")]
 
 
 def test_import_every_module_loads_no_jax():

@@ -9,8 +9,10 @@ against a small header that emulates what it uses (a block as 256
 ``std::thread``s, ``__syncthreads`` and each warp's shuffles, ballots and
 matches as barriers, shared memory as statics, at most 3 blocks so the
 grid-stride loops turn), and the 256-bit products, the HALF_UP division
-chains and the 192-bit carry-propagating accumulation are held bit for bit
-against the plain versions on the kernel phase's cases (``chip_smoke.py``).
+chains and both segment-sum paths (the small-cap one's digit sums in
+registers and its blocks' partials; the 192-bit carry-propagating atomics
+past it) are held bit for bit against the plain versions on the kernel
+phase's cases (``chip_smoke.py``).
 The wrappers' CPU path and input checks are tested too. On the card the
 ``cuda`` cases hold each kernel against its plain version, the segment sum
 three times by bits, and Q1 and Q6 over DECIMAL(12,2) against the CPU."""
@@ -36,6 +38,7 @@ _EMULATION = r"""
 #include <atomic>
 #include <barrier>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 #define __global__
@@ -44,10 +47,31 @@ _EMULATION = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __shared__ static
+#define __launch_bounds__(n)
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
+// a card of 2 SMs, one block each: the small-cap sum's grid is the least
+// of those 2 and the 3 blocks its rows take
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return 0;
+}
+template <class F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, F, int, size_t) {
+  *v = 1;
+  return 0;
+}
+struct longlong2 { long long x, y; };
+struct int4 { int x, y, z, w; };
+template <class T> T __ldg(const T* p) { return *p; }
 struct emu_dim3 { unsigned x = 0; };
 inline thread_local emu_dim3 threadIdx, blockIdx;
 inline emu_dim3 blockDim, gridDim;
@@ -150,9 +174,10 @@ def _emulated_source() -> str:
     src, n = re.subn(r"constexpr int64_t kMaxBlocks = [^;]+;",
                      "constexpr int64_t kMaxBlocks = 3;", src)
     assert n == 1
-    src, n = re.subn(r"(\w+)<<<(.*?),\s*kThreads,\s*0,\s*(.*?)>>>\(",
-                     r"emu_launch(\1, \2, kThreads, ", src, flags=re.S)
-    assert n == 4, "every launch of decimal128.cu is rewritten"
+    src, n = re.subn(r"(\w+(?:<[\w, ]*>)?)<<<(.*?),\s*kThreads,\s*0,\s*"
+                     r"(.*?)>>>\(", r"emu_launch(\1, \2, kThreads, ", src,
+                     flags=re.S)
+    assert n == 6, "every launch of decimal128.cu is rewritten"
     return src
 
 
@@ -177,6 +202,9 @@ def model(tmp_path_factory):
     lib.srt_d128_rescale.argtypes = [ptr, i32, i64, i32, i32, ptr, ptr, ptr]
     lib.srt_d128_segment_sum.argtypes = [ptr, i32, ptr, ptr, i32, i64, i64,
                                          i32, ptr, ptr, ptr, ptr]
+    lib.srt_d128_segment_sum_scratch.argtypes = [i64, i64]
+    lib.srt_d128_segment_sum_scratch.restype = i64
+    lib.srt_d128_segment_sum_small_cap.restype = i32
     return lib
 
 
@@ -191,8 +219,29 @@ def _equal(got, want) -> None:
                                    w[(g != w).reshape(len(w), -1).any(1)])
 
 
-def _cases(builder):
-    return builder(np.random.default_rng(4), _N)
+def _cases(builder, n: int = _N):
+    return builder(np.random.default_rng(4), n)
+
+
+#: rows of the segment-sum cases: 750 whole steps of 4 rows over 2 blocks
+#: of 256 threads (the grid-stride loop turns) and a ragged last row
+_SUM_N = 3001
+
+
+def _model_sum(model, tv, wide, tc, tg, cap, p):
+    """The model's segment sum over scratch of the size it asks for, the
+    scratch filled with junk first (nothing may rely on it being zero)."""
+    n = tv.shape[0]
+    for t in (tv, tc, tg):
+        assert t.data_ptr() % 16 == 0, "the kernel reads 16-byte words"
+    scratch = torch.full((model.srt_d128_segment_sum_scratch(n, cap),),
+                         0x5A5A5A5A5A5A5A5A, dtype=torch.int64)
+    out, over = _outs(cap)
+    assert model.srt_d128_segment_sum(
+        tv.data_ptr(), int(wide), tc.data_ptr(), tg.data_ptr(),
+        int(tg.dtype == torch.int64), n, cap, p, scratch.data_ptr(),
+        out.data_ptr(), over.data_ptr(), None) == 0
+    return out, over
 
 
 @pytest.mark.parametrize("case", range(len(_cases(cs.d128_mul_cases))))
@@ -217,23 +266,21 @@ def test_model_rescale_equals_plain(model, case):
     _equal((out, over), d.d128_rescale_reference(tv, fs, ts, p))
 
 
-@pytest.mark.parametrize("case",
-                         range(len(_cases(cs.d128_segment_sum_cases))))
+@pytest.mark.parametrize("case", range(len(_cases(cs.d128_segment_sum_cases,
+                                                 _SUM_N))))
 def test_model_segment_sum_equals_plain(model, case):
-    """Groups spread over the 3 blocks' slots and warps: cap 65536 is cut
-    to 1024 (the model's finalise runs a thread a group)."""
-    label, v, wide, c, g, cap, p = _cases(cs.d128_segment_sum_cases)[case]
+    """Both paths (cap 1 and up to the small cap in registers, past it
+    through the atomics), groups spread over the blocks' slots and warps:
+    cap 65536 is cut to 1024 (the model's finalise runs a thread a
+    group)."""
+    label, v, wide, c, g, cap, p = _cases(cs.d128_segment_sum_cases,
+                                          _SUM_N)[case]
     if cap > 1024:
         cap, g = 1024, g % 1024
     tv = cs.d128_tensor(v, wide, "cpu")
     tc, tg = torch.from_numpy(c), torch.from_numpy(g)
-    out, over = _outs(cap)
-    acc = torch.zeros((cap, 3), dtype=torch.int64)
-    assert model.srt_d128_segment_sum(
-        tv.data_ptr(), int(wide), tc.data_ptr(), tg.data_ptr(),
-        int(tg.dtype == torch.int64), len(v), cap, p, acc.data_ptr(),
-        out.data_ptr(), over.data_ptr(), None) == 0
-    _equal((out, over), d.d128_segment_sum_reference(tv, tc, tg, cap, p))
+    _equal(_model_sum(model, tv, wide, tc, tg, cap, p),
+           d.d128_segment_sum_reference(tv, tc, tg, cap, p))
 
 
 def test_model_segment_sum_of_many_groups_a_warp(model):
@@ -244,12 +291,35 @@ def test_model_segment_sum_of_many_groups_a_warp(model):
     tv = cs.d128_tensor(cs.d128_random(rng, n), True, "cpu")
     tg = torch.from_numpy(rng.integers(-3, cap + 3, n).astype(np.int32))
     tc = torch.from_numpy(rng.random(n) < 0.7)
-    out, over = _outs(cap)
-    acc = torch.zeros((cap, 3), dtype=torch.int64)
-    assert model.srt_d128_segment_sum(
-        tv.data_ptr(), 1, tc.data_ptr(), tg.data_ptr(), 0, n, cap, 38,
-        acc.data_ptr(), out.data_ptr(), over.data_ptr(), None) == 0
-    _equal((out, over), d.d128_segment_sum_reference(tv, tc, tg, cap, 38))
+    _equal(_model_sum(model, tv, True, tc, tg, cap, 38),
+           d.d128_segment_sum_reference(tv, tc, tg, cap, 38))
+
+
+@pytest.mark.parametrize("n", [0, 5, 1029])
+@pytest.mark.parametrize("cap", [1, 3, d.SEGMENT_SUM_SMALL_CAP])
+def test_model_small_cap_sum_of_few_rows(model, n, cap):
+    """The small-cap path where the rows do not fill a step, a block or
+    the grid (the rows past the last whole step go to block 0), and group
+    ids outside ``[0, cap)``, including those between cap and the
+    registers' bound, dropped."""
+    rng = np.random.default_rng(n + 10 * cap)
+    tv = cs.d128_tensor(cs.d128_random(rng, n), True, "cpu")
+    tg = torch.from_numpy(rng.integers(-2, d.SEGMENT_SUM_SMALL_CAP + 2,
+                                       n).astype(np.int64))
+    tc = torch.from_numpy(rng.random(n) < 0.8)
+    _equal(_model_sum(model, tv, True, tc, tg, cap, 38),
+           d.d128_segment_sum_reference(tv, tc, tg, cap, 38))
+
+
+def test_model_small_cap_is_the_wrappers(model):
+    """The source's register bound is the one the wrapper and the cases
+    name, and its scratch is a (cap, 4) block of digit sums a block on
+    that path (3 blocks at most in the model)."""
+    k = d.SEGMENT_SUM_SMALL_CAP
+    assert model.srt_d128_segment_sum_small_cap() == k
+    assert model.srt_d128_segment_sum_scratch(1 << 20, k + 1) == 3 * (k + 1)
+    assert model.srt_d128_segment_sum_scratch(1 << 20, k) == 4 * k * 3
+    assert model.srt_d128_segment_sum_scratch(0, 1) == 4
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +371,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         calls[bad]()
 
 
+def test_decimal_sum_copies_no_host_list_to_the_device_each_call(
+        monkeypatch):
+    """``_d128_sum`` makes its overflow mark once a device: a tensor built
+    from a Python list is a copy from pageable host memory, which makes the
+    host wait for the stream on every decimal sum."""
+    from spark_rapids_tpu_torch.exec import aggregate
+    a = _limbs(16)
+    c = torch.ones(16, dtype=torch.bool)
+    g = torch.tensor([0, 1] * 8, dtype=torch.int32)
+    out_dt = aggregate.dt.DecimalType(38, 2)
+    has = torch.ones(2, dtype=torch.bool)
+    aggregate._d128_sum(a, c, g, 2, out_dt, has, None)
+    made = []
+    real = torch.tensor
+    monkeypatch.setattr(torch, "tensor",
+                        lambda *args, **kw: made.append(args) or real(
+                            *args, **kw))
+    for merge in (None, c):
+        limbs, valid = aggregate._d128_sum(a, c, g, 2, out_dt, has, merge)
+    assert made == []
+    assert torch.equal(limbs, d.d128_segment_sum_reference(a, c, g, 2,
+                                                           38)[0])
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -343,6 +437,10 @@ def test_kernels_equal_plain_on_the_card(cuda_device, kind):
             want = d.d128_segment_sum_reference(tv, tc, tg, cap, p)
             for _ in range(3):  # the same bits every run
                 _equal(d.d128_segment_sum(tv, tc, tg, cap, p), want)
+            # views one row in: off 16 bytes, which the wrapper copies
+            views = (tv[1:], tc[1:], tg[1:])
+            _equal(d.d128_segment_sum(*views, cap, p),
+                   d.d128_segment_sum_reference(*views, cap, p))
         fn = d.d128_segment_sum
     torch.cuda.synchronize()
     assert fn.launches > launches[fn]
