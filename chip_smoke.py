@@ -103,8 +103,29 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    grouped by, sorted by and joined on (the join under a 512 KiB budget, so
    the grace join buckets the key's partition ids) against numpy; then Q6
    decimal from a Parquet file pyarrow wrote (the decimal chunks take the
-   host decode) against the in-memory run. Then the seconds of each phase
-   and of the whole run.
+   host decode) against the in-memory run.
+14. relational phase, over SF1 orders, lineitem and part: window
+   queries W1 (orders by customer: row_number, lag, lead, a running sum,
+   max over ROWS -3..1, avg over ROWS -2..0, rank, dense_rank and a sum
+   over RANGE -90..0 days), W2 (lineitem by return flag and line status,
+   segments of about 1.5M rows: running min and max, ntile(100), count and
+   sum over the partition) and W3 (part: rank by price within a brand, the
+   top 3 kept); R1 (a rollup and a cube of lineitem), U1 (a union of two
+   ship modes, grouped) and a 1 % sample of lineitem, each with AQE on
+   (cold, then warm) and off (warm): device nodes only above the scans,
+   the query's node kinds in its plan, results equal to the host engine's
+   column by column after a sort on a unique key, the window kernels'
+   launches counted (W1 must launch all three) and the row counts of
+   their launches kept, a trace of a warm run; then ``range(0, 2^24)``
+   sampled at 0.1 and counted against numpy's splitmix64, a cached
+   lineitem read by two queries (the second from the cache, no upload),
+   again under a 16 MiB spill catalog (spilled and restored, equal
+   results), and Q6's rows through ``to_torch`` (sums against numpy).
+15. the window kernels at the row counts the relational phase launched
+   them at (W1's orders batch, W2's lineitem batch, W3's part batch):
+   each against its plain version over that query's segments, then timed
+   there; the ``kernels`` line reports the largest.
+   Then the seconds of each phase and of the whole run.
 
 Between phases 5 and 6 the Parquet phase scans SF1 lineitem, orders and a
 nullable file through the device decode, each equal to pyarrow, and runs
@@ -124,7 +145,16 @@ nulls, a sum passing 10^38 and coming back, a group of 2^20 rows of +(10^38
 sum three times by bits; counts the device operations of one segment sum
 on each path (the small-cap path: two kernels, nothing zeroed), and times
 each kernel against its bound (the segment sum at cap 1, 6, 2^16 and at
-Q1's partial shape, 2^20 groups of which 4 are used).
+Q1's partial shape, 2^20 groups of which 4 are used). The window kernels
+(``csrc/window.cu``) are held against their plain versions: ``seg_scan``
+on every dtype and op over six flag patterns (tile starts, one segment,
+segments of many tiles, starts beside tile edges) at 2^20 + 12345 rows and
+its adds past 2048 tiles, float adds of finite values beside those with
+NaN and +-inf, ``frame_bounds`` on int64 and float64 keys with sentinels,
+``frame_reduce`` on short, running, whole and long frames; integers and
+min/max by bits, float sums within their bound (``_scan_sum_tolerance``,
+``_float_sum_tolerance``) and the same bits over three runs; each is timed
+at 2^20 and 2^22 rows.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -1267,11 +1297,9 @@ def join_query_phase(label: str, build_query, tables: dict, want: dict,
     Returns (the warm AQE plan, the session's query)."""
     from spark_rapids_tpu_torch.session import TorchSession
 
-    def query(conf):
-        sess = TorchSession({"spark.rapids.sql.test.enabled": True, **conf})
-        return sess, build_query({k: sess.create_dataframe(
-            v, num_partitions=partitions) for k, v in tables.items()})
-    sess, q = query({})
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True})
+    q = build_query({k: sess.create_dataframe(v, num_partitions=partitions)
+                     for k, v in tables.items()})
     walls = []
     for run in ("cold", "warm"):
         (out, plan, wall), _ = _cached_run(
@@ -1283,9 +1311,11 @@ def join_query_phase(label: str, build_query, tables: dict, want: dict,
     for e in expect_events:
         if not any(ev.startswith(e) for ev in plan.events):
             raise AssertionError(f"{label}: no AQE event {e!r}")
-    off_sess, off_q = query({"spark.rapids.tpu.aqe.enabled": False})
-    off, off_plan, t_off = _run_checked(label, off_q, off_sess, want, exact,
-                                        sums, False)
+    # AQE off in the same session: its uploads come from the cache
+    sess.set_conf("spark.rapids.tpu.aqe.enabled", False)
+    off, off_plan, t_off = _run_checked(label, q, sess, want, exact, sums,
+                                        False)
+    sess.set_conf("spark.rapids.tpu.aqe.enabled", True)
     t0 = time.perf_counter()
     host = q.collect(device=False)
     t_host = time.perf_counter() - t0
@@ -1784,12 +1814,10 @@ def tpch_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
         expect_nfa = _scan_batches(like_rows[name], partitions) \
             if name in like_rows and device == "cuda" else 0
 
-        def query(conf, t=t, name=name):
-            sess = TorchSession({"spark.rapids.sql.test.enabled": True,
-                                 **conf}, device=device)
-            return sess, tpch.QUERIES[name]({k: sess.create_dataframe(
-                v, num_partitions=partitions) for k, v in t.items()})
-        sess, q = query({})
+        sess = TorchSession({"spark.rapids.sql.test.enabled": True},
+                            device=device)
+        q = tpch.QUERIES[name]({k: sess.create_dataframe(
+            v, num_partitions=partitions) for k, v in t.items()})
         runs, hits = [], []
         for run in ("cold", "warm"):
             r, delta = _cached_run(name, run, lambda run=run: _tpch_run(
@@ -1800,8 +1828,10 @@ def tpch_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
         out, plan = runs[-1][0], runs[-1][1]
         print(plan.tree_string(), flush=True)
         print(f"# {name} AQE events: " + "; ".join(plan.events), flush=True)
-        off_sess, off_q = query({"spark.rapids.tpu.aqe.enabled": False})
-        off = _tpch_run(name, off_sess, off_q, False, expect_nfa, device)
+        # AQE off in the same session: its uploads come from the cache
+        sess.set_conf("spark.rapids.tpu.aqe.enabled", False)
+        off = _tpch_run(name, sess, q, False, expect_nfa, device)
+        sess.set_conf("spark.rapids.tpu.aqe.enabled", True)
         if name in like_rows:
             # after the counts were read: these launches are not the run's
             recorded = runs[0][5]
@@ -3764,6 +3794,946 @@ def _d128_kernel_lines(timings: dict, runs: dict) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# The relational surface: windows on seg_scan, frame_bounds and
+# frame_reduce (csrc/window.cu), rollup and cube through Expand, union,
+# range, sample, cache and to_torch
+# ---------------------------------------------------------------------------
+WINDOW_TILE = 2048              # csrc/window.cu kTile
+WINDOW_CARRY_PASS = 2048        # tiles a pass of csrc/window.cu's carries
+WINDOW_SIZES = (1 << 20, 1 << 22)
+CACHE_SPILL_BUDGET = 16 * 2**20  # the spill catalog under C1's second run
+
+
+def _window_flags(rng, n: int) -> dict:
+    """Segment-start flags: short random segments, a segment a tile
+    starting exactly on each tile, one segment over the batch, three
+    segments of many tiles each, starts one row before and after tile
+    edges, and dense starts."""
+    out = {"random": rng.random(n) < 0.002,
+           "tile starts": np.arange(n) % WINDOW_TILE == 0,
+           "one segment": np.arange(n) == 0,
+           "long segments": np.arange(n) % max(1, n // 3) == 0,
+           "dense": rng.random(n) < 0.4}
+    edges = np.zeros(n, dtype=bool)
+    b = np.arange(WINDOW_TILE, n, WINDOW_TILE * 3)
+    edges[b - 1] = True
+    edges[np.minimum(b + 1, n - 1)] = True
+    edges[0] = True
+    out["tile edges"] = edges
+    return out
+
+
+def _window_values(rng, n: int, dtype: str,
+                   finite: bool = False) -> np.ndarray:
+    """Random values of ``dtype``: int32 small, int64 wide enough that sums
+    wrap, floats normal with NaN, +-inf and signed zeros among them (only
+    normal ones when ``finite``)."""
+    if dtype == "int32":
+        return rng.integers(-1000, 1000, n).astype(np.int32)
+    if dtype == "int64":
+        return rng.integers(-2**62, 2**62, n)
+    v = rng.standard_normal(n)
+    if finite:
+        return v.astype(dtype)
+    pick = rng.random(n)
+    v[pick < 0.01] = np.nan
+    v[(pick >= 0.01) & (pick < 0.013)] = np.inf
+    v[(pick >= 0.013) & (pick < 0.016)] = -np.inf
+    v[(pick >= 0.016) & (pick < 0.02)] = -0.0
+    v[(pick >= 0.02) & (pick < 0.024)] = 0.0
+    return v.astype(dtype)
+
+
+def window_scan_cases(rng, n: int, flag_sets=None) -> list:
+    """``seg_scan``'s cases: (label, values, flags, op) for every dtype, op
+    and flag pattern (``flag_sets`` picks patterns by name); then float
+    adds of finite values only, whose sums stay finite over segments of
+    many tiles (with NaN among the values, a long segment's running sum is
+    NaN after its first hundred rows)."""
+    flags = _window_flags(rng, n)
+    if flag_sets is not None:
+        flags = {k: v for k, v in flags.items() if k in flag_sets}
+    cases = []
+    for dtype in ("int32", "int64", "float32", "float64"):
+        values = _window_values(rng, n, dtype)
+        for fname, f in flags.items():
+            for op in ("add", "min", "max"):
+                cases.append((f"{dtype} {op}, {fname}", values, f, op))
+    for dtype in ("float32", "float64"):
+        values = _window_values(rng, n, dtype, finite=True)
+        for fname, f in flags.items():
+            if fname != "dense":
+                cases.append((f"{dtype} finite add, {fname}", values, f,
+                              "add"))
+    return cases
+
+
+def window_main_scan_cases(rng, flags: np.ndarray, label: str) -> list:
+    """``seg_scan``'s cases over one batch's ``flags``: every dtype and
+    op, then the finite float adds."""
+    n = len(flags)
+    cases = [(f"{dtype} {op}, {label}", values, flags, op)
+             for dtype in ("int32", "int64", "float32", "float64")
+             for values in (_window_values(rng, n, dtype),)
+             for op in ("add", "min", "max")]
+    cases += [(f"{dtype} finite add, {label}",
+               _window_values(rng, n, dtype, finite=True), flags, "add")
+              for dtype in ("float32", "float64")]
+    return cases
+
+
+def _window_segments(rng, n: int, mean: int):
+    """Random segments of about ``mean`` rows -> (flags, start, end) of
+    every row."""
+    flags = rng.random(n) < 1.0 / mean
+    flags[0] = True
+    pos = np.arange(n, dtype=np.int64)
+    start = np.maximum.accumulate(np.where(flags, pos, 0))
+    nxt = np.where(flags, pos, n)
+    end = np.empty(n, dtype=np.int64)
+    end[:-1] = np.minimum.accumulate(nxt[::-1])[::-1][1:]
+    end[-1] = n
+    return flags, start, end
+
+
+def window_bounds_cases(rng, n: int, means=(64, 4096)) -> list:
+    """``frame_bounds``'s cases: (label, key, target, lo, hi, strict), keys
+    ascending within segments of about ``means`` rows (dates with
+    repeats; doubles with -inf first and +inf, the NaN and null sentinel,
+    last), targets the keys moved by -90, 0 and +5 (a sentinel row keeps
+    its key)."""
+    cases = []
+    for mean in means:
+        _, start, end = _window_segments(rng, n, mean)
+        seg = np.cumsum(start == np.arange(n))
+        ikey = (seg * 10**7 + rng.integers(0, 3000, n)).astype(np.int64)
+        order = np.lexsort((ikey, seg))
+        ikey = ikey[order]
+        sentinel = rng.random(n) < 0.01
+        fkey = np.sort(rng.standard_normal(n))
+        fkey = np.where(sentinel, np.inf, fkey)
+        fkey = fkey[np.lexsort((fkey, seg))]
+        fkey[start == np.arange(n)] = -np.inf
+        for kname, key, sent in (
+                ("int64", ikey, np.zeros(n, dtype=bool)),
+                ("float64", fkey, np.isinf(fkey))):
+            for off in (-90, 0, 5):
+                target = np.where(sent, key, key + key.dtype.type(off))
+                for strict in (False, True):
+                    cases.append((f"{kname} keys, segments of ~{mean}, "
+                                  f"offset {off}, strict {strict}", key,
+                                  target, start, end, strict))
+    return cases
+
+
+def window_reduce_cases(rng, n: int, mean: int = 1000) -> list:
+    """``frame_reduce``'s cases: (label, values, valid, lo, hi, op) over
+    segments of about ``mean`` rows: ROWS -3..1 and -2..0 (W1's), the
+    running and the whole segment, and random frames up to 50,000 rows
+    either side (through every level of the block aggregates); int64 and
+    float64 (NaN, +-inf, signed zeros), 10 % invalid; then float64 sums of
+    finite values only."""
+    _, start, end = _window_segments(rng, n, mean)
+    pos = np.arange(n, dtype=np.int64)
+    frames = {
+        "rows -3..1": (np.maximum(pos - 3, start), np.minimum(pos + 2, end)),
+        "rows -2..0": (np.maximum(pos - 2, start), pos + 1),
+        "running": (start, pos + 1),
+        "whole segment": (start, end),
+        "random long": (np.maximum(pos - rng.integers(0, 50_000, n), 0),
+                        np.minimum(pos + rng.integers(0, 50_000, n), n)),
+    }
+    valid = rng.random(n) > 0.1
+    cases = []
+    for dtype in ("int64", "float64"):
+        values = _window_values(rng, n, dtype)
+        for fname, (lo, hi) in frames.items():
+            for op in ("add", "min", "max"):
+                cases.append((f"{dtype} {op}, {fname}", values, valid,
+                               lo.astype(np.int64), hi.astype(np.int64), op))
+    values = _window_values(rng, n, "float64", finite=True)
+    for fname, (lo, hi) in frames.items():
+        cases.append((f"float64 finite add, {fname}", values, valid,
+                      lo.astype(np.int64), hi.astype(np.int64), "add"))
+    return cases
+
+
+def _float_sum_tolerance(abs_sum: torch.Tensor, length: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """How far two float sums of the same ``length`` values may differ:
+    each is within (length - 1) * u * sum(|x|) of the exact sum in any
+    order of adds (u the type's unit roundoff: 2^-53 for float64, 2^-24
+    for float32), so 2 * length * u * sum(|x|) apart at most."""
+    u = torch.finfo(dtype).eps / 2
+    return 2.0 * length.to(torch.float64) * u * abs_sum
+
+
+def _scan_sum_tolerance(abs_sum: torch.Tensor, flags: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """How far ``seg_scan``'s float sums may lie from its plain version's.
+    Each is a tree of adds, and a tree of height h is within h * u *
+    sum(|x|) of the exact sum. The plain version's doubling scan has height
+    ceil(log2 n). The kernel's is at most 64 plus a level a carries pass:
+    18 to a tile's pair (8 rows a thread, two warp scans of 5 levels), 28
+    more through the carries kernel plus one a pass of 2048 tiles, 2 more
+    in the write (48 + passes, rounded up to 64). The smaller of this and
+    ``_float_sum_tolerance``, which holds for any order."""
+    n = flags.shape[0]
+    tiles = -(-n // WINDOW_TILE)
+    height = 64 + -(-tiles // WINDOW_CARRY_PASS) + max(1, n - 1).bit_length()
+    u = torch.finfo(dtype).eps / 2
+    return torch.minimum(height * u * abs_sum,
+                         _float_sum_tolerance(abs_sum, _scan_lengths(flags),
+                                              dtype))
+
+
+def _window_equal(label: str, got: torch.Tensor, want: torch.Tensor,
+                  tol=None) -> float:
+    """``got`` against the plain version's ``want``: integers and min/max
+    bit for bit; a float sum (``tol`` given) NaN where NaN, +-inf where
+    +-inf, and elsewhere within ``tol``. -> max abs difference."""
+    if tol is None:
+        bits = torch.int32 if got.element_size() == 4 else torch.int64
+        if not torch.equal(got.view(bits), want.view(bits)):
+            bad = int((got.view(bits) != want.view(bits)).sum())
+            raise AssertionError(f"{label}: {bad} values differ")
+        return 0.0
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    fin = torch.isfinite(g) & torch.isfinite(w)
+    if not torch.equal(gn, wn) or not torch.equal(g[~fin & ~gn],
+                                                  w[~fin & ~wn]):
+        raise AssertionError(f"{label}: NaN or +-inf rows differ")
+    diff = (g - w).abs()[fin]
+    over = diff > tol[fin] + 1e-300
+    if bool(over.any()):
+        raise AssertionError(f"{label}: {int(over.sum())} sums outside the "
+                             f"tolerance (max diff {float(diff.max())})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _scan_lengths(flags: torch.Tensor) -> torch.Tensor:
+    """Each row's position in its segment plus one."""
+    pos = torch.arange(flags.shape[0], device=flags.device)
+    start = torch.cummax(torch.where(flags, pos, torch.zeros_like(pos)),
+                         0).values
+    return pos - start + 1
+
+
+def check_window_scan(label, values, flags, op, device, runs: int = 1):
+    """``seg_scan`` of one case against its plain version (a float sum
+    ``runs`` times, by bits) -> max abs difference."""
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    v = torch.from_numpy(values).to(device)
+    f = torch.from_numpy(flags).to(device)
+    want = wk.seg_scan_reference(v, f, op)
+    first = wk.seg_scan(v, f, op)
+    for _ in range(runs - 1):
+        _window_equal(f"{label} (repeat)", wk.seg_scan(v, f, op), first)
+    tol = None
+    if op == "add" and v.is_floating_point():
+        tol = _scan_sum_tolerance(
+            wk.seg_scan_reference(v.abs().to(torch.float64), f, "add"), f,
+            v.dtype)
+    return _window_equal(label, first, want, tol)
+
+
+def check_window_bounds(label, key, target, lo, hi, strict, device) -> None:
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (key, target, lo, hi)]
+    _window_equal(label, wk.frame_bounds(*args, strict),
+                  wk.frame_bounds_reference(*args, strict))
+
+
+def check_window_reduce(label, values, valid, lo, hi, op, device,
+                        runs: int = 1) -> float:
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    v, ok, tlo, thi = (torch.from_numpy(a).to(device)
+                       for a in (values, valid, lo, hi))
+    want, wcount = wk.frame_reduce_reference(v, ok, tlo, thi, op)
+    got, count = wk.frame_reduce(v, ok, tlo, thi, op)
+    for _ in range(runs - 1):
+        again, _ = wk.frame_reduce(v, ok, tlo, thi, op)
+        _window_equal(f"{label} (repeat)", again, got)
+    _window_equal(f"{label} counts", count, wcount)
+    tol = None
+    if op == "add" and v.is_floating_point():
+        tol = _float_sum_tolerance(
+            wk.frame_reduce_reference(v.abs(), ok, tlo, thi, "add")[0],
+            thi - tlo, v.dtype)
+    return _window_equal(label, got, want, tol)
+
+
+_WINDOW_KERNELS = ("seg_scan", "frame_bounds", "frame_reduce")
+
+
+def _window_timed_sets(rng, n: int, device, names=_WINDOW_KERNELS,
+                       scan_flags=None) -> tuple:
+    """The timed inputs at ``n`` rows of the kernels ``names``, each
+    kernel's arguments in enough sets to pass L2 (W1's shapes: float64
+    running sums over segments of about 15 rows, or over ``scan_flags``;
+    int64 date keys -90; ROWS -3..1 float64 sums) -> (sets, bytes a set)."""
+    flags, start, end = _window_segments(rng, n, 15)
+    if scan_flags is not None:
+        flags = scan_flags
+    pos = np.arange(n, dtype=np.int64)
+    seg = np.cumsum(flags)
+    key = (seg * 10**5 + np.sort(rng.integers(0, 2500, n))).astype(np.int64)
+    key = key[np.lexsort((key, seg))]
+    lo3, hi1 = np.maximum(pos - 3, start), np.minimum(pos + 2, end)
+    vals = rng.random(n) * 1e5
+    valid = np.ones(n, dtype=bool)
+    per_set = {name: n * {"seg_scan": 17, "frame_bounds": 40,
+                          "frame_reduce": 41}[name] for name in names}
+    sets = {}
+    for name, nbytes in per_set.items():
+        copies = max(2, math.ceil(2 * L2_BYTES / nbytes))
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if name == "seg_scan":
+            base = (t(vals), t(flags))
+            sets[name] = [(base[0].clone(), base[1].clone(), "add")
+                          for _ in range(copies)]
+        elif name == "frame_bounds":
+            base = (t(key), t(key - 90), t(start), t(end))
+            sets[name] = [tuple(x.clone() for x in base) + (False,)
+                          for _ in range(copies)]
+        else:
+            base = (t(vals), t(valid), t(lo3), t(hi1))
+            sets[name] = [tuple(x.clone() for x in base) + ("add",)
+                          for _ in range(copies)]
+    return sets, per_set
+
+
+def _note_err(err: dict, kernel: str, e: float) -> None:
+    err[kernel] = max(err[kernel], e)
+
+
+def window_kernel_phase(device="cuda", n: int = (1 << 20) + 12345,
+                        big: int = (1 << 22) + 5000,
+                        sizes=WINDOW_SIZES) -> dict:
+    """The three window kernels against their plain versions: every scan
+    case at ``n`` rows (not a multiple of the tile) and the int64 and
+    float64 adds at ``big`` rows (past 2048 tiles, so the carries kernel
+    takes two chunks), a float sum three times by bits; every bounds case;
+    every reduce case. Then each kernel's time at ``sizes`` beside its plain
+    version and its bound."""
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    rng = np.random.default_rng(12)
+    err = {"seg_scan": 0.0, "frame_bounds": 0.0, "frame_reduce": 0.0}
+    t0 = time.perf_counter()
+    cases = window_scan_cases(rng, n)
+    for label, values, flags, op in cases:
+        runs = 3 if op == "add" and values.dtype.kind == "f" else 1
+        _note_err(err, "seg_scan", check_window_scan(
+            f"seg_scan {label}", values, flags, op, device, runs))
+    big_cases = [c for c in window_scan_cases(
+        rng, big, flag_sets=("random", "one segment"))
+        if c[3] == "add" and (c[1].dtype.itemsize == 8 or "finite" in c[0])]
+    for label, values, flags, op in big_cases:
+        _note_err(err, "seg_scan", check_window_scan(
+            f"seg_scan {label}, {big} rows", values, flags, op, device, 3))
+    bcases = window_bounds_cases(rng, n)
+    for label, *args in bcases:
+        check_window_bounds(f"frame_bounds {label}", *args, device)
+    rcases = window_reduce_cases(rng, n)
+    for label, *args in rcases:
+        runs = 3 if args[-1] == "add" else 1
+        _note_err(err, "frame_reduce", check_window_reduce(
+            f"frame_reduce {label}", *args, device, runs))
+    print(f"# window kernels: {len(cases) + len(big_cases)} seg_scan cases, "
+          f"{len(bcases)} frame_bounds cases and {len(rcases)} frame_reduce "
+          f"cases equal their plain versions (integers and min/max by bits, "
+          f"float sums within their bound, {max(err.values()):.3e} at most; "
+          f"float sums the same bits over three runs) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    timings = {}
+    if device == "cuda":
+        for size in sizes:
+            timings.update(_window_time(rng, size, device))
+    return {"timings": timings, "max_abs_err": err}
+
+
+def _window_time(rng, n: int, device, names=_WINDOW_KERNELS, scan_flags=None,
+                 label: str = "") -> dict:
+    """Each kernel of ``names`` at ``n`` rows beside its plain version and
+    its bound -> {(name, n): times}."""
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    sets, per_set = _window_timed_sets(rng, n, device, names, scan_flags)
+    timings = {}
+    for name in names:
+        fn = getattr(wk, name)
+        plain = getattr(wk, f"{name}_reference")
+        ms = _graph_ms(fn, sets[name])
+        plain_ms = _graph_ms(plain, sets[name][:4], calls=2, replays=3)
+        bound_ms = per_set[name] / MEM_BYTES_PER_S * 1e3
+        timings[(name, n)] = {"ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms}
+        print(f"# {name} at {n} rows{label}: {ms:.6f} ms (plain "
+              f"{plain_ms:.6f} ms), bound {bound_ms:.6f} ms (bytes "
+              f"{per_set[name]}), {100 * bound_ms / ms:.1f} % reached",
+              flush=True)
+    return timings
+
+
+def _main_flags(rng, cap: int, rows: int, mean) -> np.ndarray:
+    """Segment starts of a window batch as the main path sorts it: ``rows``
+    real rows in random segments of about ``mean`` rows, or in ``-mean``
+    equal segments when ``mean`` is negative, then the masked rows up to
+    ``cap``, a segment of their own."""
+    if mean < 0:
+        flags = np.zeros(cap, dtype=bool)
+        flags[(np.arange(-mean) * rows) // -mean] = True
+    else:
+        flags = rng.random(cap) < 1.0 / mean
+    flags[0] = True
+    if rows < cap:
+        flags[rows] = True
+        flags[rows + 1:] = False
+    return flags
+
+
+def window_main_shape_phase(shapes: dict, device="cuda") -> dict:
+    """The window kernels at the sizes the main path launched them:
+    ``shapes`` maps each query to (its input rows, its segments' mean
+    rows, or minus their number, and {kernel: the row counts its
+    launches took}). At each, every kernel the query launched is held
+    against its plain version (``seg_scan`` over the query's segments,
+    every dtype and op; ``frame_bounds`` and ``frame_reduce`` over
+    segments of about its mean), a float sum the same bits over three
+    runs, then timed -> {"timings": {(kernel, rows): times},
+    "max_abs_err": {kernel: its float sums' largest difference},
+    "where": {kernel: the query and rows of its kernels-line entry}}."""
+    rng = np.random.default_rng(21)
+    err = {"seg_scan": 0.0, "frame_bounds": 0.0, "frame_reduce": 0.0}
+    timings, where, checked = {}, {}, set()
+    t0 = time.perf_counter()
+    for query, (rows, mean, sizes) in shapes.items():
+        for name, ns in sizes.items():
+            for n in sorted(ns):
+                if (name, n) in checked:
+                    continue
+                checked.add((name, n))
+                if name == "seg_scan":
+                    flags = _main_flags(rng, n, min(rows, n), mean)
+                    for label, values, f, op in window_main_scan_cases(
+                            rng, flags, f"{query}'s segments"):
+                        runs = 3 if op == "add" and values.dtype.kind == "f" \
+                            else 1
+                        _note_err(err, "seg_scan", check_window_scan(
+                            f"seg_scan {label}, {n} rows", values, f, op,
+                            device, runs))
+                elif name == "frame_bounds":
+                    for label, *args in window_bounds_cases(
+                            rng, n, means=(abs(mean),)):
+                        check_window_bounds(f"frame_bounds {label}, {n} rows",
+                                            *args, device)
+                else:
+                    for label, *args in window_reduce_cases(rng, n,
+                                                            abs(mean)):
+                        runs = 3 if args[-1] == "add" else 1
+                        _note_err(err, "frame_reduce", check_window_reduce(
+                            f"frame_reduce {label}, {n} rows", *args, device,
+                            runs))
+                if device == "cuda":
+                    timings.update(_window_time(
+                        rng, n, device, (name,),
+                        _main_flags(rng, n, min(rows, n), mean)
+                        if name == "seg_scan" else None,
+                        f" ({query}'s shape)"))
+                if n >= where.get(name, ("", 0))[1]:
+                    where[name] = (query, n)
+    print(f"# window kernels at the main path's sizes "
+          f"{sorted(checked)}: equal their plain versions (float sums "
+          f"{max(err.values()):.3e} at most, the same bits over three "
+          f"runs) in {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"timings": timings, "max_abs_err": err, "where": where}
+
+
+def _node_kinds(plan) -> set:
+    """The class names of every node of a plan, through AQE's stages and
+    the members of fused stages."""
+    kinds = set()
+    for node in _walk_plan(plan):
+        kinds.add(type(node).__name__)
+        kinds.update(type(m).__name__ for m in getattr(node, "chain", ()))
+    return kinds
+
+
+def _compare_columns(label: str, got: pa.Table, want: pa.Table,
+                     keys, want_sorted: bool = False) -> None:
+    """Column by column in numpy after sorting both on the unique ``keys``
+    (``want`` already sorted when ``want_sorted``): the same nulls,
+    integers, dates, booleans and strings exactly, doubles at rel 1e-9
+    (NaN with NaN)."""
+    import pyarrow.compute as pc
+    if got.column_names != want.column_names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{label}: {got.num_rows} rows of "
+                             f"{got.column_names} against {want.num_rows} of "
+                             f"{want.column_names}")
+    order = [(k, "ascending") for k in keys]
+    g = got.sort_by(order)
+    w = want if want_sorted else want.sort_by(order)
+    for name in g.column_names:
+        a, b = g.column(name), w.column(name)
+        va = a.is_valid().to_numpy(zero_copy_only=False)
+        vb = b.is_valid().to_numpy(zero_copy_only=False)
+        if not np.array_equal(va, vb):
+            raise AssertionError(f"{label}: column {name}: nulls differ in "
+                                 f"{int((va != vb).sum())} rows")
+        if pa.types.is_floating(a.type):
+            x = pc.fill_null(a, 0.0).to_numpy()
+            y = pc.fill_null(b, 0.0).to_numpy()
+            same = (np.isnan(x) & np.isnan(y)) | np.isclose(
+                x, y, rtol=1e-9, atol=1e-9) | (x == y)
+        else:
+            x = a.to_numpy(zero_copy_only=False)
+            y = b.to_numpy(zero_copy_only=False)
+            same = (x == y) | ~va
+        if not np.asarray(same).all():
+            bad = np.nonzero(~np.asarray(same))[0]
+            raise AssertionError(f"{label}: column {name}: {len(bad)} values "
+                                 f"differ, first at row {bad[0]}: "
+                                 f"{x[bad[0]]!r} vs {y[bad[0]]!r}")
+
+
+def _window_counts() -> dict:
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    return {f.__name__: f.launches
+            for f in (wk.seg_scan, wk.frame_bounds, wk.frame_reduce)}
+
+
+def _window_zero() -> None:
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    for f in (wk.seg_scan, wk.frame_bounds, wk.frame_reduce):
+        f.launches = 0
+        f.launch_rows = set()
+
+
+def _window_rows() -> dict:
+    """Each window kernel's launches' row counts since the last zero."""
+    from spark_rapids_tpu_torch.exec import window_kernels as wk
+    return {f.__name__: set(f.launch_rows)
+            for f in (wk.seg_scan, wk.frame_bounds, wk.frame_reduce)}
+
+
+#: each window query's input table and its window segments' mean rows (or
+#: minus their number): W1 orders by customer, W2 lineitem's 4 (flag,
+#: status) pairs, W3 part by its 25 brands
+_WINDOW_SEGMENTS = {"W1": ("orders", 15), "W2": ("lineitem", -4),
+                    "W3": ("part", 8000)}
+
+
+def _relational_queries() -> dict:
+    """label -> (build(F, W, dfs), the unique keys a result sorts on, the
+    node kinds its plan must hold, the window kernels it must launch).
+    ``dfs`` holds orders, lineitem and part."""
+    def w1(F, W, t):
+        col = F.col
+        w = W.Window.partition_by("o_custkey").order_by(
+            col("o_orderdate").asc(), col("o_orderkey").asc())
+        wd = W.Window.partition_by("o_custkey").order_by(
+            col("o_orderdate").asc())
+        return t["orders"].select(
+            col("o_orderkey"), col("o_custkey"), col("o_orderdate"),
+            col("o_totalprice"),
+            W.row_number().over(w).alias("rn"),
+            W.lag(col("o_totalprice")).over(w).alias("prev_price"),
+            W.lead(col("o_orderdate")).over(w).alias("next_date"),
+            F.sum(col("o_totalprice")).over(w.rows_between(None, 0))
+            .alias("running"),
+            F.max(col("o_totalprice")).over(w.rows_between(-3, 1))
+            .alias("mx_3_1"),
+            F.avg(col("o_totalprice")).over(w.rows_between(-2, 0))
+            .alias("avg_2_0"),
+            W.rank().over(wd).alias("rk"),
+            W.dense_rank().over(wd).alias("drk"),
+            F.sum(col("o_totalprice")).over(wd.range_between(-90, 0))
+            .alias("spend_90d"))
+
+    def w2(F, W, t):
+        col = F.col
+        # l_rowid breaks the ties the generator's (orderkey, linenumber)
+        # pairs leave, so ntile's rows are defined
+        w = W.Window.partition_by("l_returnflag", "l_linestatus").order_by(
+            col("l_shipdate").asc(), col("l_orderkey").asc(),
+            col("l_linenumber").asc(), col("l_rowid").asc())
+        whole = W.Window.partition_by("l_returnflag", "l_linestatus")
+        return t["lineitem"].select(
+            col("l_rowid"), col("l_orderkey"), col("l_linenumber"),
+            col("l_returnflag"),
+            col("l_linestatus"),
+            F.min(col("l_extendedprice")).over(w.rows_between(None, 0))
+            .alias("run_min_price"),
+            F.max(col("l_discount")).over(w.rows_between(None, 0))
+            .alias("run_max_disc"),
+            W.ntile(100).over(w).alias("pct"),
+            F.count_star().over(whole).alias("n"),
+            F.sum(col("l_quantity")).over(whole).alias("qty"))
+
+    def w3(F, W, t):
+        col = F.col
+        w = W.Window.partition_by("p_brand").order_by(
+            col("p_retailprice").desc())
+        return t["part"].select(
+            col("p_partkey"), col("p_brand"), col("p_retailprice"),
+            W.rank().over(w).alias("rk")).filter(col("rk") <= F.lit(3))
+
+    def r1_rollup(F, W, t):
+        col = F.col
+        return t["lineitem"].rollup("l_returnflag", "l_linestatus").agg(
+            F.sum(col("l_quantity")).alias("sum_qty"),
+            F.sum(col("l_extendedprice")).alias("sum_price"),
+            F.count_star().alias("n"))
+
+    def r1_cube(F, W, t):
+        col = F.col
+        return t["lineitem"].cube("l_shipmode", "l_returnflag").agg(
+            F.count_star().alias("n"),
+            F.avg(col("l_discount")).alias("avg_disc"))
+
+    def u1(F, W, t):
+        col, lit = F.col, F.lit
+        li = t["lineitem"]
+        return li.filter(col("l_shipmode") == lit("MAIL")).union(
+            li.filter(col("l_shipmode") == lit("SHIP"))).group_by(
+            "l_shipmode").agg(F.count_star().alias("n"),
+                              F.sum(col("l_extendedprice")).alias("price"))
+
+    def s1_lineitem(F, W, t):
+        col = F.col
+        return t["lineitem"].select(
+            col("l_rowid"), col("l_orderkey"), col("l_extendedprice"),
+            col("l_shipmode")).sample(0.01, seed=42)
+
+    window = {"TpuWindowExec"}
+    return {"W1": (w1, ["o_orderkey"], window,
+                   ("seg_scan", "frame_bounds", "frame_reduce")),
+            "W2": (w2, ["l_rowid"], window, ("seg_scan",)),
+            "W3": (w3, ["p_partkey"], window, ("seg_scan",)),
+            "R1 rollup": (r1_rollup, ["l_returnflag", "l_linestatus"],
+                          {"TpuExpandExec"}, ()),
+            "R1 cube": (r1_cube, ["l_shipmode", "l_returnflag"],
+                        {"TpuExpandExec"}, ()),
+            "U1": (u1, ["l_shipmode"], {"TpuUnionExec"}, ()),
+            "S1 lineitem sample": (s1_lineitem, ["l_rowid"],
+                                   {"TpuSampleExec"}, ())}
+
+
+class _Window:
+    """The window module's names, as the queries' ``W``."""
+
+    def __init__(self):
+        from spark_rapids_tpu_torch.expr import window as wmod
+        self.Window = wmod.Window
+        self.row_number, self.rank = wmod.row_number, wmod.rank
+        self.dense_rank, self.ntile = wmod.dense_rank, wmod.ntile
+        self.lag, self.lead = wmod.lag, wmod.lead
+
+
+def _rel_run(label: str, sess, q, kinds: set, device: str) -> tuple:
+    """One device run -> (result, plan, wall); the plan device nodes only
+    above the scans and holding ``kinds``."""
+    t0 = time.perf_counter()
+    plan = sess._physical(q.logical, True)
+    out = plan.collect().to_arrow()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_device_only(plan, label)
+    missing = kinds - _node_kinds(plan)
+    if missing:
+        raise AssertionError(f"{label}: no {sorted(missing)} in the plan:\n"
+                             + plan.tree_string())
+    plan.release_spill_handles()
+    return out, plan, wall
+
+
+def splitmix64_keep(n: int, partitions: int, fraction: float,
+                    seed: int) -> np.ndarray:
+    """The rows ``range(0, n)`` in ``partitions`` keeps under
+    ``sample(fraction, seed)``: splitmix64 of (seed, partition, position)
+    in numpy uint64, written out here from the algorithm (the mixing
+    constants of Steele, Lea and Flood's SplitMix64)."""
+    mask = (1 << 64) - 1
+    keep = []
+    per = math.ceil(n / partitions)
+    for p in range(partitions):
+        lo, hi = min(n, p * per), min(n, (p + 1) * per)
+        pos = np.arange(hi - lo, dtype=np.uint64)
+        with np.errstate(over="ignore"):
+            z = pos + np.uint64((seed * 0x632BE59BD9B4E019
+                                 + p * 0x9E3779B97F4A7C15) & mask)
+            z = z + np.uint64(0x9E3779B97F4A7C15)
+            z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+            z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+            z = z ^ (z >> np.uint64(31))
+        u = (z >> np.uint64(11)).astype(np.float64) * 2.0 ** -53
+        keep.append(lo + np.nonzero(u < fraction)[0])
+    return np.concatenate(keep)
+
+
+def relational_phase(tables: dict, partitions: int,
+                     device: str = "cuda") -> dict:
+    """W1-W3, R1, U1 and S1 (lineitem) with AQE on (cold, then warm) and
+    off (warm: the same session and DataFrames, its uploads from the
+    cache): every plan device nodes only above the scans, with the node
+    kinds of its query; every result equal to the host engine's (one run,
+    AQE off) column by column; the window kernels' launches over the warm
+    AQE-off runs of W1-W3 (each must launch); a trace of a warm AQE-on
+    run. Then S1's range sample, C1 and T1. Lineitem gains ``l_rowid``, its
+    row number: the generator repeats some (orderkey, linenumber) pairs,
+    and a result sorts on a unique key."""
+    from spark_rapids_tpu_torch.expr import functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    W = _Window()
+    li = tables["lineitem"]
+    tables = dict(tables, lineitem=li.append_column(
+        "l_rowid", pa.array(np.arange(li.num_rows, dtype=np.int64))))
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True},
+                        device=device)
+    dfs = {k: sess.create_dataframe(tables[k], num_partitions=partitions)
+           for k in ("orders", "lineitem", "part")}
+    summary = {}
+    launches = {"seg_scan": 0, "frame_bounds": 0, "frame_reduce": 0}
+    shapes = {}
+    for label, (build, keys, kinds, expect) in \
+            _relational_queries().items():
+        row = {}
+        results = []
+        q = build(F, W, dfs)
+        for aqe, runs in ((True, ("cold", "warm")), (False, ("warm",))):
+            sess.set_conf("spark.rapids.tpu.aqe.enabled", aqe)
+            tag = "on" if aqe else "off"
+            for run in runs:
+                _window_zero()
+                (out, plan, wall), _ = _cached_run(
+                    f"{label} AQE {tag}", run,
+                    lambda: _rel_run(label, sess, q, kinds, device))
+                counts = _window_counts()
+                if label in _WINDOW_SEGMENTS:
+                    table, mean = _WINDOW_SEGMENTS[label]
+                    sizes = shapes.setdefault(
+                        label, (tables[table].num_rows, mean, {}))[2]
+                    for k, ns in _window_rows().items():
+                        if ns:
+                            sizes.setdefault(k, set()).update(ns)
+                # the wrappers launch nothing on the CPU (a rehearsal)
+                idle = [k for k in expect if counts[k] == 0]
+                if idle and device == "cuda":
+                    raise AssertionError(f"{label} AQE {tag} {run}: "
+                                         f"{idle} did not launch: {counts}")
+                if expect and not aqe:
+                    for k, v in counts.items():
+                        launches[k] += v
+                    row["launches"] = counts
+                results.append(out)
+                row[f"{tag}_{run}_s"] = wall
+            if aqe:
+                print(f"# {label} AQE plan:\n{plan.tree_string()}\n# events: "
+                      f"{getattr(plan, 'events', None)}", flush=True)
+                busy = _profile(q, label)
+                row["busy_pct"] = None if busy is None \
+                    else 100 * busy[0] / busy[1]
+                row["busy_ms"] = None if busy is None else busy[0]
+        t0 = time.perf_counter()
+        host = q.collect(device=False)
+        row["host_s"] = time.perf_counter() - t0
+        host = host.sort_by([(k, "ascending") for k in keys])
+        for out in results:
+            _compare_columns(f"{label} device vs host engine", out, host,
+                             keys, want_sorted=True)
+        row["rows"] = host.num_rows
+        summary[label] = row
+        print(f"# {label}: {host.num_rows} rows; AQE on cold "
+              f"{row['on_cold_s']:.3f} s, warm {row['on_warm_s']:.3f} s; "
+              f"AQE off warm {row['off_warm_s']:.3f} s; host engine "
+              f"{row['host_s']:.3f} s"
+              + (f"; window kernel launches (warm, AQE off) "
+                 f"{row['launches']}" if "launches" in row else ""),
+              flush=True)
+    if device == "cuda" and any(v == 0 for v in launches.values()):
+        raise AssertionError(f"W1-W3: a window kernel never launched: "
+                             f"{launches}")
+    summary["S1 range"] = _range_sample_check(sess, partitions, device)
+    summary["C1"] = _cache_check(tables["lineitem"], partitions, device)
+    sess.set_conf("spark.rapids.tpu.aqe.enabled", True)
+    summary["T1"] = _to_torch_check(dfs["lineitem"], tables["lineitem"],
+                                    device)
+    print(f"# window kernels' rows a launch on the main path: "
+          + "; ".join(f"{q} {({k: sorted(v) for k, v in z.items()})}"
+                      for q, (_, _, z) in shapes.items()), flush=True)
+    return {"runs": summary, "launches": launches, "shapes": shapes}
+
+
+def _range_sample_check(sess, partitions: int, device: str) -> dict:
+    """``range(0, 2^24)`` in ``partitions`` sampled at 0.1 with seed 7,
+    counted on the card with AQE on and off, against numpy's splitmix64;
+    its plan holds the range and the sample."""
+    from spark_rapids_tpu_torch.expr.functions import count_star
+    n, frac, seed = 1 << 24, 0.1, 7
+    want = len(splitmix64_keep(n, partitions, frac, seed))
+    row = {}
+    for aqe in (True, False):
+        sess.set_conf("spark.rapids.tpu.aqe.enabled", aqe)
+        df = sess.range(0, n, num_partitions=partitions).sample(frac, seed)
+        q = df.agg(count_star().alias("n"))
+        out, plan, wall = _rel_run("S1 range", sess, q,
+                                   {"TpuRangeExec", "TpuSampleExec"}, device)
+        t0 = time.perf_counter()
+        got = df.count()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        row[f"{'on' if aqe else 'off'}_s"] = time.perf_counter() - t0
+        if out.column("n")[0].as_py() != want or got != want:
+            raise AssertionError(f"S1 range: sample kept "
+                                 f"{out.column('n')[0].as_py()} / {got} "
+                                 f"rows, numpy {want}")
+    print(f"# S1 range(0, 2^24).sample(0.1, seed=7).count() = {want} "
+          f"(numpy splitmix64) with AQE on and off; count() "
+          f"{row['on_s']:.3f} / {row['off_s']:.3f} s", flush=True)
+    return row
+
+
+def _cache_check(li: pa.Table, partitions: int, device: str) -> dict:
+    """C1: a filtered lineitem cached and read by two queries: the second
+    shows cacheHits and no upload; then under a spill catalog of
+    ``CACHE_SPILL_BUDGET``, smaller than the cache, the cached batches spill
+    and come back with equal results."""
+    from spark_rapids_tpu_torch.expr import functions as F
+    from spark_rapids_tpu_torch.memory.catalog import (BufferCatalog,
+                                                       set_catalog)
+    from spark_rapids_tpu_torch.memory.stores import StorageTier
+    col, lit = F.col, F.lit
+
+    def queries(sess):
+        cached = sess.create_dataframe(li, num_partitions=partitions).filter(
+            col("l_shipdate") >= lit(datetime.date(1995, 1, 1))).select(
+            col("l_orderkey"), col("l_linenumber"), col("l_returnflag"),
+            col("l_extendedprice"), col("l_quantity")).cache()
+        a = cached.group_by("l_returnflag").agg(
+            F.count_star().alias("n"),
+            F.sum(col("l_extendedprice")).alias("price"))
+        b = cached.agg(F.sum(col("l_quantity")).alias("qty"),
+                       F.count_star().alias("n"))
+        return cached, a, b
+
+    def counters(plan, name):
+        return sum(n.metrics.get(name, 0) for n in _walk_plan(plan)
+                   if hasattr(n, "metrics"))
+    import contextlib
+    row = {}
+    results = {}
+    for budget in (None, CACHE_SPILL_BUDGET):
+        cat = None
+        timer = contextlib.nullcontext()
+        if budget is not None:
+            cat = BufferCatalog(device_limit=budget, host_limit=1 << 40)
+            set_catalog(cat)
+            timer = _SpillTimer()
+        try:
+            with timer:
+                outs = _cache_runs(queries, device, row, budget, counters)
+            results[budget] = outs
+            if cat is not None:
+                st = cat.stats()
+                spilled = st["spill_count"][StorageTier.HOST]
+                if not spilled or not timer.bytes["restore"]:
+                    raise AssertionError(f"C1: the cache did not spill and "
+                                         f"come back under {budget} B: {st}, "
+                                         f"{timer.rates()}")
+                row["spills"] = spilled
+                row["restored_bytes"] = timer.bytes["restore"]
+        finally:
+            if cat is not None:
+                set_catalog(None)
+    for a, b in zip(results[None], results[CACHE_SPILL_BUDGET]):
+        if not a.equals(b):
+            raise AssertionError("C1: results under spill differ")
+    print(f"# C1 cache: the second query served from the cache (cacheHits, "
+          f"no upload); {row['plain_q1_s']:.3f} / {row['plain_q2_s']:.3f} s; "
+          f"under a {CACHE_SPILL_BUDGET} B catalog {row['spills']} spills to "
+          f"the host and "
+          f"{row['restored_bytes']} B restored, results equal; "
+          f"{row['spill_q1_s']:.3f} / {row['spill_q2_s']:.3f} s", flush=True)
+    return row
+
+
+def _cache_runs(queries, device: str, row: dict, budget, counters) -> list:
+    """C1's two queries over one cached DataFrame in a new session: the
+    first fills the cache, the second must be served from it."""
+    from spark_rapids_tpu_torch.exec.cache import CACHE_HITS
+    from spark_rapids_tpu_torch.exec.transitions import UPLOAD_BYTES
+    from spark_rapids_tpu_torch.session import TorchSession
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True},
+                        device=device)
+    _, qa, qb = queries(sess)
+    outs = []
+    for i, q in enumerate((qa, qb)):
+        out, plan, wall = _rel_run("C1", sess, q, {"TpuCacheExec"}, device)
+        hits, uploads = counters(plan, CACHE_HITS), \
+            counters(plan, UPLOAD_BYTES)
+        if i == 1 and (hits == 0 or uploads != 0):
+            raise AssertionError(f"C1: the second query took {hits} cache "
+                                 f"hits and uploaded {uploads} B")
+        if i == 0 and hits != 0:
+            raise AssertionError("C1: the first query hit the cache")
+        outs.append(out)
+        row[f"{'spill' if budget else 'plain'}_q{i + 1}_s"] = wall
+    if budget is None:   # the run under the spill budget must equal this one
+        _compare_columns("C1 first query vs host engine", outs[0],
+                         qa.collect(device=False), ["l_returnflag"])
+        _compare_columns("C1 second query vs host engine", outs[1],
+                         qb.collect(device=False), ["n"])
+    return outs
+
+
+def _to_torch_check(df, li: pa.Table, device: str) -> dict:
+    """T1: Q6's rows and columns as tensors on the device; their sums
+    against numpy's."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.expr.functions import col, lit
+    mask = _q6_mask(li)
+    t0 = time.perf_counter()
+    out = df.filter(_q6_predicate(col, lit, dt)).select(
+        col("l_extendedprice"), col("l_discount"),
+        col("l_quantity")).to_torch()
+    wall = time.perf_counter() - t0
+    for name, t in out.items():
+        if t.device.type != device or t.shape[0] != int(mask.sum()):
+            raise AssertionError(f"T1: {name} is {tuple(t.shape)} on "
+                                 f"{t.device}")
+        want = float(np.sum(li.column(name).to_numpy()[mask]))
+        _close(float(t.sum()), want, f"T1 {name} sum")
+    print(f"# T1 to_torch: {int(mask.sum())} rows of 3 columns on "
+          f"{device}, sums equal numpy's; {wall:.3f} s", flush=True)
+    return {"s": wall}
+
+
+def _window_kernel_lines(main: dict, launches: dict, err: dict) -> list:
+    """The ``kernels`` line's entries of the window kernels: each timed at
+    the largest row count the main path launched it at (``main["where"]``),
+    launches over the warm AQE-off runs of W1-W3, ``err`` each kernel's
+    largest difference from its plain version in both kernel phases."""
+    lines = []
+    for name, line in (("seg_scan", 41), ("frame_bounds", 414),
+                       ("frame_reduce", 431)):
+        t = main["timings"][(name, main["where"][name][1])]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/window.cu",
+            "replaces": f"spark_rapids_tpu/exec/window.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
@@ -3802,6 +4772,7 @@ def main() -> int:
     nfa = nfa_kernel_phase()
     pqk = parquet_kernel_phase()
     d128k = decimal_kernel_phase()
+    wink = window_kernel_phase()
     phase_s["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3912,6 +4883,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as tmp:
         decimal_parquet_phase(li, tmp, args.partitions)
     phase_s["decimal"] = time.perf_counter() - t0
+    # -- windows, rollup/cube, union, range, sample, cache, to_torch -------
+    t0 = time.perf_counter()
+    rel = relational_phase({"orders": tables["orders"], "lineitem": li,
+                            "part": ptables["part"]}, args.partitions)
+    phase_s["relational"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    winm = window_main_shape_phase(rel["shapes"])
+    phase_s["window kernels at main shapes"] = time.perf_counter() - t0
     print("# TPC-H summary (s): query rows cold warm aqe_off host busy% "
           "warm_cache_hits", flush=True)
     for name, r in summary.items():
@@ -3924,6 +4903,15 @@ def main() -> int:
         busy = "n/m" if r["busy_pct"] is None else f"{r['busy_pct']:.1f}"
         print(f"#   {name}: {r['cold_s']:.3f} {r['warm_s']:.3f} {busy} "
               f"{r['launches']}", flush=True)
+    print("# relational summary (s): query rows aqe_on_cold aqe_on_warm "
+          "aqe_off_warm host busy%", flush=True)
+    for name, r in rel["runs"].items():
+        if "rows" not in r:
+            continue
+        busy = "n/m" if r["busy_pct"] is None else f"{r['busy_pct']:.1f}"
+        print(f"#   {name:18s} {r['rows']:8d} {r['on_cold_s']:.3f} "
+              f"{r['on_warm_s']:.3f} {r['off_warm_s']:.3f} "
+              f"{r['host_s']:.3f} {busy}", flush=True)
     print("# phase seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items())
         + f"; whole run {time.perf_counter() - t_start:.2f} s", flush=True)
@@ -3947,7 +4935,10 @@ def main() -> int:
         "plain_ms": tn["plain_ms"], "bound_ms": tn["bound_ms"],
         "bound_by": tn["bound_by"], "library_ms": None},
         *_pq_kernel_lines(pqk, pq_out["runs"]),
-        *_d128_kernel_lines(d128k, d128_runs)]}), flush=True)
+        *_d128_kernel_lines(d128k, d128_runs),
+        *_window_kernel_lines(winm, rel["launches"], {
+            k: max(wink["max_abs_err"][k], winm["max_abs_err"][k])
+            for k in winm["max_abs_err"]})]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

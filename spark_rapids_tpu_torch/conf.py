@@ -20,7 +20,6 @@ _REGISTRY: "Dict[str, ConfEntry]" = {}
 
 #: The open steps of ROADMAP Queue 1, by name: messages name the step that
 #: will port a feature by these, never by a number a re-anchor changes.
-STEP_RELATIONAL = "the relational surface"
 STEP_NESTED_LOOP = "nested-loop and cross joins"
 STEP_ROBUSTNESS = "memory and robustness"
 STEP_MULTI_GPU = "multi-GPU"
@@ -348,9 +347,6 @@ DECIMAL128_ENABLED = register_conf(
 #: port keeps its own copy (it imports nothing of the JAX package);
 #: tests/test_torch_conf.py holds it equal to the JAX registry.
 _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
-    STEP_RELATIONAL: {
-        "spark.rapids.tpu.cache.compressionCodec": "none",
-    },
     STEP_ROBUSTNESS: {
         "spark.rapids.memory.gpu.allocFraction": 0.9,
         "spark.rapids.memory.gpu.maxAllocFraction": 1.0,
@@ -375,6 +371,9 @@ _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
         "spark.rapids.tpu.faults.spec": "",
     },
     STEP_MULTI_GPU: {
+        # "none" is read (exec/cache.py); zlib and lz4 serialise the host
+        # cache through the shuffle serializer, which comes with this step
+        "spark.rapids.tpu.cache.compressionCodec": "none",
         "spark.rapids.tpu.shuffle.mode": "auto",
         "spark.rapids.tpu.shuffle.cacheWrites": "auto",
         "spark.rapids.tpu.shuffle.exchangeChunkRows": 524288,

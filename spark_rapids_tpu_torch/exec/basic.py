@@ -1,10 +1,11 @@
-"""Basic device operators: Project, Filter and the local limit — the port of
-those nodes of ``spark_rapids_tpu/exec/basic.py`` (reference:
-basicPhysicalOperators.scala:115,313; limit.scala).
+"""Basic device operators: Project, Filter, Sample, Expand, Range, Union
+and the local limit — the port of those nodes of
+``spark_rapids_tpu/exec/basic.py`` (reference:
+basicPhysicalOperators.scala:115,313; GpuExpandExec.scala; limit.scala).
 
-Both are pure per-batch functions — Filter only ANDs the selection mask (no
-gather), so a filter+project chain fuses into one whole-stage node with no
-intermediate compaction.
+Project, Filter and Expand are pure per-batch functions — Filter only ANDs
+the selection mask (no gather), so a filter+project chain fuses into one
+whole-stage node with no intermediate compaction.
 """
 from __future__ import annotations
 
@@ -12,13 +13,17 @@ from typing import Callable, Iterator, List, Sequence
 
 import torch
 
-from ..columnar.device import DeviceColumn, DeviceTable, torch_dtype
+from ..columnar import dtypes as dt
+from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
+                               concat_device_tables, torch_dtype)
 from ..expr.base import EvalContext, Expression
-from ..plan.physical import PhysicalPlan
+from ..expr.hashing import SampleMask
+from ..plan.physical import PhysicalPlan, range_partition_bounds
 from ..plan.schema import Field, Schema
 from .base import TpuExec
 
 __all__ = ["TpuProjectExec", "TpuFilterExec", "TpuLocalLimitExec",
+           "TpuSampleExec", "TpuExpandExec", "TpuRangeExec", "TpuUnionExec",
            "eval_exprs_device"]
 
 
@@ -121,3 +126,126 @@ class TpuLocalLimitExec(TpuExec):
             remaining -= emitted
             self.account_batch(emitted)
             yield DeviceTable(t.columns, mask, kept, t.names)
+
+
+class TpuSampleExec(TpuExec):
+    """Device Bernoulli sample (reference: GpuPartitionwiseSampledRDD and
+    GpuPoissonSampler). Each batch is compacted, so a row's position is its
+    batch's offset plus its index; the offset is a device tensor that
+    accumulates the batches' row counts, so sampling never waits on the
+    device between batches. The decisions equal the host engine's row for
+    row."""
+
+    def __init__(self, child: PhysicalPlan, fraction: float, seed: int):
+        super().__init__()
+        self.child = child
+        self.children = (child,)
+        self.fraction = fraction
+        self.seed = seed
+        self.mask_expr = SampleMask(fraction, seed)
+        self.schema = child.schema
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        offset = None
+        for batch in self.child_device_batches(pidx):
+            batch = batch.compact()
+            if offset is None:
+                offset = torch.zeros((), dtype=torch.int64,
+                                     device=batch.device)
+            ctx = EvalContext.for_device(batch, pidx, offset)
+            out = batch.filter_mask(self.mask_expr.eval(ctx).values)
+            offset = offset + batch.num_rows.to(torch.int64)
+            self.account_batch()
+            yield out
+
+    def node_desc(self):
+        return f"fraction={self.fraction} seed={self.seed}"
+
+
+class TpuExpandExec(_PerBatchExec):
+    """Device Expand: the P projections of a batch stack into one batch of
+    the bucket of P times its capacity (reference: GpuExpandExec.scala emits
+    a batch a projection; the JAX package stacks them, and the port keeps
+    its batch shapes)."""
+
+    def __init__(self, child: PhysicalPlan, projections, names, schema):
+        super().__init__()
+        self.child = child
+        self.children = (child,)
+        self.projections = projections
+        self.names = list(names)
+        self.schema = schema
+
+    def batch_fn(self) -> Callable[[DeviceTable], DeviceTable]:
+        projections, names = self.projections, self.names
+
+        def fn(table: DeviceTable) -> DeviceTable:
+            parts = [eval_exprs_device(table, proj, names)
+                     for proj in projections]
+            return concat_device_tables(parts)
+        return fn
+
+    def node_desc(self):
+        return f"{len(self.projections)} projections"
+
+
+class TpuRangeExec(TpuExec):
+    """``range`` made on the device, in batches of at most
+    ``MAX_BATCH_ROWS`` rows."""
+
+    MAX_BATCH_ROWS = 1 << 22
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int,
+                 min_bucket: int, device: torch.device):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self._parts = num_partitions
+        self.min_bucket = min_bucket
+        self.device = device
+        self.children = ()
+        self.schema = Schema([Field("id", dt.LONG, False)])
+
+    @property
+    def num_partitions(self) -> int:
+        return self._parts
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        pos, hi = range_partition_bounds(self.start, self.end, self.step,
+                                         self._parts, pidx)
+        while pos < hi:
+            n = min(self.MAX_BATCH_ROWS, hi - pos)
+            cap = bucket_rows(max(n, 1), self.min_bucket)
+            iota = torch.arange(cap, dtype=torch.int64, device=self.device)
+            values = self.start + self.step * (iota + pos)
+            mask = iota < n
+            col = DeviceColumn(values, mask, dt.LONG, True)
+            self.account_batch(n)
+            yield DeviceTable((col,), mask,
+                              torch.tensor(n, dtype=torch.int32,
+                                           device=self.device), ("id",))
+            pos += n
+
+
+class TpuUnionExec(TpuExec):
+    """UNION ALL on the device: the children's partitions one after
+    another, each batch renamed to the union's columns."""
+
+    def __init__(self, children: Sequence[PhysicalPlan]):
+        super().__init__()
+        self.children = tuple(children)
+        self.schema = children[0].schema
+
+    @property
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions for c in self.children)
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        for c in self.children:
+            if pidx < c.num_partitions:
+                for b in c.execute_columnar(pidx):
+                    self.account_batch()
+                    yield DeviceTable(b.columns, b.row_mask, b.num_rows,
+                                      tuple(self.schema.names))
+                return
+            pidx -= c.num_partitions
+        raise IndexError(pidx)

@@ -1,0 +1,102 @@
+"""Cached (materialized) plans: ``df.cache()`` — the port of
+``spark_rapids_tpu/exec/cache.py``.
+
+Reference analogue: ParquetCachedBatchSerializer keeps ``df.cache()`` as
+columnar batches. Here the storage belongs to the LOGICAL node, so every
+execution of the same DataFrame after the first skips the upload and the
+upstream work: the device path serves its cached ``DeviceTable``s, the host
+engine its ``HostTable``s. The device batches are registered with the
+buffer catalog (memory/catalog.py) as spillable at broadcast priority, so
+they yield device memory under pressure and come back on the next read.
+
+Not ported: the host cache's compressed frames
+(``spark.rapids.tpu.cache.compressionCodec`` zlib or lz4), which serialise
+through the shuffle serializer (ROADMAP Queue 1: multi-GPU), and the
+exclusive-ownership mark the JAX package takes off a cached batch before a
+donating fused stage sees it (``take_exclusive``; ROADMAP Queue 1: memory
+and robustness): the port donates no buffer, so a cached batch is never
+freed under the cache.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, List
+
+from ..columnar.device import DeviceTable
+from ..columnar.host import HostTable
+from ..memory.catalog import SpillPriorities, get_catalog
+from ..plan.physical import PhysicalPlan
+from .base import TpuExec
+
+__all__ = ["CacheStorage", "CpuCacheExec", "TpuCacheExec",
+           "CACHE_COMPRESS_CODEC", "CACHE_HITS"]
+
+#: the host cache's codec: "none" is ported (live tables), zlib and lz4
+#: raise until ROADMAP Queue 1: multi-GPU (conf.py)
+CACHE_COMPRESS_CODEC = "spark.rapids.tpu.cache.compressionCodec"
+CACHE_HITS = "cacheHits"
+
+
+class CacheStorage:
+    def __init__(self):
+        self.host: Dict[int, List[HostTable]] = {}
+        # device entries are SpillableDeviceTable handles
+        self.device: Dict[int, list] = {}
+
+
+class CpuCacheExec(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, storage: CacheStorage,
+                 codec: str = "none"):
+        self.child = child
+        self.children = (child,)
+        self.storage = storage
+        self.codec = codec
+        self.schema = child.schema
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        cached = self.storage.host.get(pidx)
+        if cached is not None:
+            yield from cached
+            return
+        acc: List[HostTable] = []
+        for b in self.child.execute(pidx):
+            acc.append(b)
+            yield b
+        self.storage.host[pidx] = acc
+
+
+class TpuCacheExec(TpuExec):
+    """The first full read of a partition registers its batches with the
+    catalog; later reads get them back (restored if they spilled) and count
+    ``cacheHits``."""
+
+    def __init__(self, child: PhysicalPlan, storage: CacheStorage,
+                 conf=None):
+        super().__init__()
+        self.child = child
+        self.children = (child,)
+        self.storage = storage
+        self.conf = conf
+        self.schema = child.schema
+        self.metrics[CACHE_HITS] = 0
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        cached = self.storage.device.get(pidx)
+        if cached is not None:
+            self.metrics[CACHE_HITS] += 1
+            for handle in cached:
+                self.account_batch()
+                yield handle.get()
+            return
+        acc: List[DeviceTable] = []
+        for b in self.child_device_batches(pidx):
+            acc.append(b)
+            self.account_batch()
+            yield b
+        # registered only after a full drain: an abandoned generator (under
+        # a limit) leaves no catalog entry behind
+        if acc:
+            catalog = get_catalog(self.conf, acc[0].device)
+            self.storage.device[pidx] = [
+                catalog.register(b, SpillPriorities.BROADCAST) for b in acc]
+        else:
+            self.storage.device[pidx] = []

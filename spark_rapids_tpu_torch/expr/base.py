@@ -65,21 +65,30 @@ class EvalContext:
     """Evaluation context: column lookup + array backend."""
 
     def __init__(self, is_device: bool, xp, columns: Dict[str, EvalCol],
-                 num_rows: int):
+                 num_rows: int, partition_id: int = 0,
+                 batch_row_offset: Any = 0):
         self.is_device = is_device
         self.xp = xp
         self._columns = columns
         #: rows of every evaluated plane (the batch capacity on the device)
         self.num_rows = num_rows
+        #: the task context of a context-dependent expression (the sample's
+        #: position hash): the partition, and the rows of that partition
+        #: before this batch (an int, or a 0-d int64 tensor on the device)
+        self.partition_id = partition_id
+        self.batch_row_offset = batch_row_offset
 
     @staticmethod
-    def for_host(table: HostTable) -> "EvalContext":
+    def for_host(table: HostTable, partition_id: int = 0,
+                 batch_row_offset: int = 0) -> "EvalContext":
         cols = {n: EvalCol(c.values, c.validity, c.dtype)
                 for n, c in zip(table.names, table.columns)}
-        return EvalContext(False, _HOST_XP, cols, table.num_rows)
+        return EvalContext(False, _HOST_XP, cols, table.num_rows,
+                           partition_id, batch_row_offset)
 
     @staticmethod
-    def for_device(table: DeviceTable) -> "EvalContext":
+    def for_device(table: DeviceTable, partition_id: int = 0,
+                   batch_row_offset: Any = 0) -> "EvalContext":
         def to_eval(c: DeviceColumn) -> EvalCol:
             # null-free columns enter evaluation with validity=None so every
             # null-propagation AND drops out of the batch function
@@ -88,7 +97,7 @@ class EvalContext:
 
         cols = {n: to_eval(c) for n, c in zip(table.names, table.columns)}
         return EvalContext(True, TorchNamespace(table.device), cols,
-                           table.capacity)
+                           table.capacity, partition_id, batch_row_offset)
 
     def lookup(self, name: str) -> EvalCol:
         return self._columns[name]
@@ -103,6 +112,12 @@ class Expression:
     """
 
     children: Tuple["Expression", ...] = ()
+    #: whether evaluation reads the task context (partition, row offset)
+    context_dependent: bool = False
+
+    def tree_context_dependent(self) -> bool:
+        return self.context_dependent \
+            or any(c.tree_context_dependent() for c in self.children)
 
     @property
     def data_type(self) -> dt.DataType:
@@ -202,8 +217,11 @@ class Literal(Expression):
                                           xp.device)
         if self.value is None:
             if string_like:
-                return EvalCol(np.empty(n, dtype=object),
-                               np.zeros(n, dtype=bool), self._dtype)
+                # a null string holds "" on the host, as an Arrow column's do
+                values = np.empty(n, dtype=object)
+                values[:] = "" if isinstance(self._dtype, dt.StringType) \
+                    else b""
+                return EvalCol(values, np.zeros(n, dtype=bool), self._dtype)
             if dt.is_d128(self._dtype) and ctx.is_device:
                 return EvalCol(xp.zeros((n, 2), dtype=xp.int64),
                                xp.zeros(n, dtype=bool), self._dtype)

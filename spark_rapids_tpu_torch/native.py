@@ -135,5 +135,18 @@ def load_kernels() -> ctypes.CDLL:
             lib.srt_d128_segment_sum_scratch.restype = ctypes.c_int64
             lib.srt_d128_segment_sum_small_cap.argtypes = []
             lib.srt_d128_segment_sum_small_cap.restype = ctypes.c_int32
+            lib.srt_seg_scan.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr,
+                                         ptr]
+            lib.srt_frame_bounds.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
+                                             i32, i32, ptr]
+            lib.srt_frame_reduce.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
+                                             i32, ptr, ptr, ptr, ptr]
+            for fn in (lib.srt_seg_scan, lib.srt_frame_bounds,
+                       lib.srt_frame_reduce):
+                fn.restype = ctypes.c_int
+            for fn in (lib.srt_seg_scan_scratch_bytes,
+                       lib.srt_frame_reduce_scratch_bytes):
+                fn.argtypes = [i64]
+                fn.restype = ctypes.c_int64
             _LIB = lib
         return _LIB

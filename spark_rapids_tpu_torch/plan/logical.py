@@ -1,5 +1,7 @@
 """Logical plan nodes — the port's copy of ``spark_rapids_tpu/plan/logical.py``
-for scan, filter, project, aggregate, sort, limit and join.
+for scan, filter, project, aggregate, sort, limit, join, union, window,
+cache, range, sample and expand. Generate (``explode``) waits for array
+columns (ROADMAP Queue 1: breadth), the pandas nodes for the UDFs.
 
 The logical layer's only jobs are (a) the DataFrame builder API, (b)
 expression resolution, and (c) feeding the physical planner
@@ -19,7 +21,8 @@ from .schema import Field, Schema
 
 __all__ = ["LogicalPlan", "LogicalScan", "LogicalProject", "LogicalFilter",
            "LogicalAggregate", "LogicalSort", "LogicalLimit", "LogicalJoin",
-           "DataSource"]
+           "LogicalUnion", "LogicalWindow", "LogicalCache", "LogicalRange",
+           "LogicalSample", "LogicalExpand", "DataSource"]
 
 
 class DataSource:
@@ -191,6 +194,137 @@ class LogicalJoin(LogicalPlan):
     def schema(self) -> Schema:
         return _join_schema(self.left.schema, self.right.schema, self.on,
                             self.how)
+
+
+class LogicalUnion(LogicalPlan):
+    """UNION ALL of children with equal column names and types."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        assert len(children) >= 2
+        self.children = tuple(children)
+        first = children[0].schema
+        for c in children[1:]:
+            s = c.schema
+            if s.names != first.names \
+                    or [f.dtype for f in s] != [f.dtype for f in first]:
+                raise TypeError(f"union schema mismatch: {first!r} vs {s!r}")
+
+    @property
+    def schema(self) -> Schema:
+        first = self.children[0].schema
+        nullable = [any(c.schema.fields[i].nullable for c in self.children)
+                    for i in range(len(first))]
+        return Schema([Field(f.name, f.dtype, nb)
+                       for f, nb in zip(first.fields, nullable)])
+
+
+class LogicalWindow(LogicalPlan):
+    """Window node: the child's columns and appended window columns
+    (reference: GpuWindowExec). Every entry shares one WindowSpec
+    (partition and order); the DataFrame layer stacks a node a spec."""
+
+    def __init__(self, child: LogicalPlan, window_cols):
+        from ..expr.window import WindowExpression
+        self.child = child
+        self.children = (child,)
+        cs = child.schema
+        resolved = []
+        for name, w in window_cols:
+            r = resolve_expression(w, cs.to_dict(), cs.nullable_dict())
+            assert isinstance(r, WindowExpression), r
+            resolved.append((name, r))
+        self.window_cols = resolved
+        _check_dup(list(cs.names) + [n for n, _ in resolved])
+
+    @property
+    def schema(self) -> Schema:
+        fields = list(self.child.schema.fields)
+        fields += [Field(n, w.data_type, w.nullable)
+                   for n, w in self.window_cols]
+        return Schema(fields)
+
+
+class LogicalCache(LogicalPlan):
+    """``df.cache()``: the child materialized once (on the device when
+    lowered) and served from its storage afterwards."""
+
+    def __init__(self, child: LogicalPlan):
+        from ..exec.cache import CacheStorage
+        self.child = child
+        self.children = (child,)
+        self.storage = CacheStorage()
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class LogicalRange(LogicalPlan):
+    """``range(start, end, step)``: one LONG column ``id`` (reference:
+    GpuRangeExec)."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_partitions: int = 1):
+        assert step != 0
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = num_partitions
+        self.children = ()
+
+    @property
+    def schema(self) -> Schema:
+        return Schema([Field("id", dt.LONG, False)])
+
+
+class LogicalSample(LogicalPlan):
+    """``df.sample(fraction, seed)``: a deterministic Bernoulli row
+    sample."""
+
+    def __init__(self, child: LogicalPlan, fraction: float, seed: int):
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"sample fraction must be in [0, 1], "
+                             f"got {fraction}")
+        self.child = child
+        self.children = (child,)
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class LogicalExpand(LogicalPlan):
+    """Expand: each input row becomes one output row a projection — the
+    substrate of rollup, cube and grouping sets (reference:
+    GpuExpandExec.scala). ``projections`` are expression lists of one
+    length; output column ``i`` is ``names[i]``, of the projections' common
+    type at slot ``i``, nullable if any projection can be null there."""
+
+    def __init__(self, child: LogicalPlan, projections, names):
+        self.child = child
+        self.children = (child,)
+        cs = child.schema
+        assert projections and all(len(p) == len(names) for p in projections)
+        self.projections = [
+            [resolve_expression(e, cs.to_dict(), cs.nullable_dict())
+             for e in proj]
+            for proj in projections]
+        self.names = list(names)
+        _check_dup(self.names)
+        fields = []
+        for i, n in enumerate(self.names):
+            dts = {repr(p[i].data_type) for p in self.projections}
+            if len(dts) != 1:
+                raise TypeError(
+                    f"expand slot {n}: projections disagree on dtype {dts}")
+            nullable = any(p[i].nullable for p in self.projections)
+            fields.append(Field(n, self.projections[0][i].data_type,
+                                nullable))
+        self._schema = Schema(fields)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
 
 
 def _coerce_using_keys(left: LogicalPlan, right: LogicalPlan, on):

@@ -25,13 +25,17 @@ from ..columnar import dtypes as dt
 from ..conf import (DECIMAL128_ENABLED, JOIN_STRATEGY, PARQUET_DEVICE_DECODE,
                     RapidsConf)
 from ..exec.aggregate import TpuHashAggregateExec
-from ..exec.basic import TpuFilterExec, TpuLocalLimitExec, TpuProjectExec
+from ..exec.basic import (TpuExpandExec, TpuFilterExec, TpuLocalLimitExec,
+                          TpuProjectExec, TpuRangeExec, TpuSampleExec,
+                          TpuUnionExec)
+from ..exec.cache import CpuCacheExec, TpuCacheExec
 from ..exec.exchange import TpuLocalExchangeExec
 from ..exec.joins import (TpuBroadcastHashJoinExec, TpuShuffledHashJoinExec,
                           join_unsupported_reason)
 from ..exec.scan import TpuParquetScanExec
 from ..exec.sort import TpuSortExec, TpuTakeOrderedExec
 from ..exec.wholestage import fuse_stages
+from ..exec.window import TpuWindowExec
 from ..expr import aggregates as A
 from ..expr import arithmetic as AR
 from ..expr import conditional as C
@@ -43,12 +47,15 @@ from ..expr.cast import Cast, cast_supported
 from ..io.parquet import ParquetSource
 from ..udf.columnar import ColumnarUDF
 from .meta import register_exec_rule, register_expr_rule, wrap_plan
-from .physical import (CpuCollectLimitExec, CpuFilterExec,
+from ..expr import window as W
+from .physical import (CpuCollectLimitExec, CpuExpandExec, CpuFilterExec,
                        CpuGlobalLimitExec, CpuHashAggregateExec,
-                       CpuLocalLimitExec, CpuProjectExec, CpuScanExec,
-                       CpuSortExec, CpuTakeOrderedExec, PhysicalPlan,
+                       CpuLocalLimitExec, CpuProjectExec, CpuRangeExec,
+                       CpuSampleExec, CpuScanExec, CpuSortExec,
+                       CpuTakeOrderedExec, CpuUnionExec, PhysicalPlan,
                        ShuffleExchangeExec)
 from .physical_joins import CpuBroadcastHashJoinExec, CpuShuffledHashJoinExec
+from .physical_window import CpuWindowExec
 from .transitions import insert_transitions
 
 __all__ = ["apply_overrides", "explain_plan"]
@@ -219,6 +226,80 @@ def _register_exec_rules():
         ShuffleExchangeExec, _device_all,
         lambda p, ch, conf, device: TpuLocalExchangeExec(
             ch[0], p.partitioning, conf.min_bucket_rows))
+    _register_relational_rules()
+
+
+#: the window functions the device runs (the JAX package's list)
+_DEVICE_WINDOW_FNS = (W.RowNumber, W.Rank, W.DenseRank, W.NTile, W.Lag,
+                      W.Lead, A.Sum, A.Min, A.Max, A.Count, A.CountStar,
+                      A.Average)
+
+
+def _register_relational_rules():
+    """Range, union, expand, sample, cache and window: the JAX package's
+    rules, with its tags and reasons."""
+    register_exec_rule(
+        CpuRangeExec, _device_all,
+        lambda p, ch, conf, device: TpuRangeExec(
+            p.start, p.end, p.step, p.num_partitions, conf.min_bucket_rows,
+            device))
+    register_exec_rule(
+        CpuUnionExec, _device_all,
+        lambda p, ch, conf, device: TpuUnionExec(ch))
+    register_exec_rule(
+        CpuExpandExec, _device_all,
+        lambda p, ch, conf, device: TpuExpandExec(ch[0], p.projections,
+                                                  p.names, p.schema),
+        exprs_fn=lambda p: [e for proj in p.projections for e in proj])
+    # the most derived rule wins over the filter's in the MRO lookup
+    register_exec_rule(
+        CpuSampleExec, _device_all,
+        lambda p, ch, conf, device: TpuSampleExec(ch[0], p.fraction,
+                                                  p.seed))
+    register_exec_rule(
+        CpuCacheExec, _device_all,
+        lambda p, ch, conf, device: TpuCacheExec(ch[0], p.storage, conf))
+
+    def tag_window(meta, conf):
+        for _, w in meta.plan.window_cols:
+            name = type(w.fn).__name__
+            if not isinstance(w.fn, _DEVICE_WINDOW_FNS):
+                meta.cannot_run(f"window function {name} not supported on "
+                                "device")
+                continue
+            # the window function is no child expression, so its own kill
+            # switch is read here
+            fn_key = f"spark.rapids.sql.expression.{name}"
+            if not conf.is_op_enabled(fn_key):
+                meta.cannot_run(f"window function {name} disabled by "
+                                f"{fn_key}")
+                continue
+            frame = w.spec.frame
+            if frame.kind == "range" and not (frame.is_unbounded_entire
+                                              or frame.is_running):
+                # bounded RANGE offsets apply along one numeric sort axis
+                if len(w.spec.orders) != 1:
+                    meta.cannot_run("bounded RANGE frames need exactly one "
+                                    "order key")
+                else:
+                    kt = w.spec.orders[0].expr.data_type
+                    if not (kt.is_numeric or isinstance(
+                            kt, (dt.DateType, dt.TimestampType))):
+                        meta.cannot_run(f"bounded RANGE order key {kt!r} "
+                                        "not numeric")
+            if isinstance(w.fn, (A.Sum, A.Min, A.Max, A.Count, A.Average)) \
+                    and w.fn.children \
+                    and isinstance(w.fn.children[0].data_type,
+                                   (dt.StringType, dt.BinaryType)):
+                meta.cannot_run("string aggregate input not supported on "
+                                "device window")
+
+    register_exec_rule(
+        CpuWindowExec, _device_all,
+        lambda p, ch, conf, device: TpuWindowExec(ch[0], p.window_cols),
+        exprs_fn=lambda p: [c for _, w in p.window_cols
+                            for c in w.fn.children],
+        tag_fn=tag_window)
 
 
 _register_expr_rules()
@@ -303,8 +384,9 @@ def _upgrade_decimal128_rules():
 
     for cls in (CpuScanExec, CpuProjectExec, CpuFilterExec, CpuSortExec,
                 CpuTakeOrderedExec, CpuGlobalLimitExec, CpuLocalLimitExec,
-                CpuCollectLimitExec, ShuffleExchangeExec,
-                CpuShuffledHashJoinExec, CpuBroadcastHashJoinExec):
+                CpuCollectLimitExec, CpuUnionExec, CpuExpandExec,
+                ShuffleExchangeExec, CpuShuffledHashJoinExec,
+                CpuBroadcastHashJoinExec):
         chain_exec(cls)
     chain_exec(CpuHashAggregateExec, agg_ok)
 

@@ -1,8 +1,9 @@
 """Physical plan nodes — the host engine and the common plan infrastructure;
 the port of ``spark_rapids_tpu/plan/physical.py`` for the nodes this engine
-plans: scan, project, filter, sort, limits, top-n, hash aggregate and the
-exchange with single, hash and range partitioning (the joins are in
-``plan/physical_joins.py``).
+plans: scan, project, filter, sample, range, union, expand, sort, limits,
+top-n, hash aggregate and the exchange with single, hash and range
+partitioning (the joins are in ``plan/physical_joins.py``, the window in
+``plan/physical_window.py``, the cache in ``exec/cache.py``).
 
 The host engine (numpy) serves two purposes:
 
@@ -15,10 +16,12 @@ expose ``execute_columnar(pidx) -> Iterator[DeviceTable]``.
 """
 from __future__ import annotations
 
+import math
 import weakref
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import pyarrow as pa
 
 from ..columnar import dtypes as dt
 from ..columnar.host import HostColumn, HostTable
@@ -30,6 +33,7 @@ from .schema import Field, Schema
 
 __all__ = [
     "PhysicalPlan", "CpuScanExec", "CpuProjectExec", "CpuFilterExec",
+    "CpuSampleExec", "CpuRangeExec", "CpuUnionExec", "CpuExpandExec",
     "CpuSortExec", "CpuHashAggregateExec", "ShuffleExchangeExec",
     "CpuLocalLimitExec", "CpuGlobalLimitExec", "CpuCollectLimitExec",
     "CpuTakeOrderedExec",
@@ -42,8 +46,10 @@ __all__ = [
 DEFAULT_BATCH_ROWS = 1 << 20
 
 #: every attribute a physical node may hold expressions in (bare, in lists,
-#: in ``SortOrder``s) — what the session's subquery pass walks
-PLAN_EXPR_ATTRS = ("exprs", "condition", "orders")
+#: in ``SortOrder``s, in (name, expression) pairs) — what the session's
+#: subquery pass walks
+PLAN_EXPR_ATTRS = ("exprs", "condition", "projections", "orders",
+                   "window_cols")
 
 class PhysicalPlan:
     children: Tuple["PhysicalPlan", ...] = ()
@@ -124,8 +130,9 @@ def empty_result_table(schema: Schema) -> HostTable:
 
 
 def host_eval_exprs(table: HostTable, exprs: Sequence[Expression],
-                    names: Sequence[str]) -> HostTable:
-    ctx = EvalContext.for_host(table)
+                    names: Sequence[str], partition_id: int = 0,
+                    batch_row_offset: int = 0) -> HostTable:
+    ctx = EvalContext.for_host(table, partition_id, batch_row_offset)
     cols = []
     for e in exprs:
         c = e.eval(ctx)
@@ -186,8 +193,11 @@ class CpuFilterExec(PhysicalPlan):
         self.schema = child.schema
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
+        offset = 0
         for batch in self.child.execute(pidx):
-            c = self.condition.eval(EvalContext.for_host(batch))
+            ctx = EvalContext.for_host(batch, pidx, offset)
+            offset += batch.num_rows
+            c = self.condition.eval(ctx)
             keep = np.asarray(c.values, dtype=np.bool_)
             if c.validity is not None:
                 keep = keep & c.validity
@@ -195,6 +205,93 @@ class CpuFilterExec(PhysicalPlan):
 
     def node_desc(self):
         return repr(self.condition)
+
+
+class CpuSampleExec(CpuFilterExec):
+    """Deterministic Bernoulli sample (reference: SampleExec and
+    GpuPoissonSampler): a filter on a seeded hash of the row's partition and
+    position, so the device and the host keep the same rows."""
+
+    def __init__(self, child: PhysicalPlan, fraction: float, seed: int):
+        from ..expr.hashing import SampleMask
+        super().__init__(child, SampleMask(fraction, seed))
+        self.fraction = fraction
+        self.seed = seed
+
+    def node_desc(self):
+        return f"fraction={self.fraction} seed={self.seed}"
+
+
+def range_partition_bounds(start: int, end: int, step: int, parts: int,
+                           pidx: int) -> Tuple[int, int]:
+    """The positions ``[lo, hi)`` of ``range(start, end, step)`` that
+    partition ``pidx`` of ``parts`` holds."""
+    total = max(0, math.ceil((end - start) / step))
+    per = math.ceil(total / parts) if total else 0
+    return min(total, pidx * per), min(total, (pidx + 1) * per)
+
+
+class CpuRangeExec(PhysicalPlan):
+    def __init__(self, start: int, end: int, step: int,
+                 num_partitions: int = 1):
+        self.start, self.end, self.step = start, end, step
+        self._parts = num_partitions
+        self.children = ()
+        self.schema = Schema([Field("id", dt.LONG, False)])
+
+    @property
+    def num_partitions(self) -> int:
+        return self._parts
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        lo, hi = range_partition_bounds(self.start, self.end, self.step,
+                                        self._parts, pidx)
+        vals = self.start + self.step * np.arange(lo, hi, dtype=np.int64)
+        yield HostTable(["id"], [HostColumn(dt.LONG, vals)])
+
+
+class CpuUnionExec(PhysicalPlan):
+    """UNION ALL: the children's partitions one after another."""
+
+    def __init__(self, children: Sequence[PhysicalPlan]):
+        self.children = tuple(children)
+        self.schema = children[0].schema
+
+    @property
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions for c in self.children)
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        for c in self.children:
+            if pidx < c.num_partitions:
+                for b in c.execute(pidx):
+                    # the union's column names over the child's columns
+                    yield HostTable(self.schema.names, b.columns)
+                return
+            pidx -= c.num_partitions
+        raise IndexError(pidx)
+
+
+class CpuExpandExec(PhysicalPlan):
+    """Each input row -> one output row a projection (the grouping sets'
+    substrate; reference: GpuExpandExec.scala)."""
+
+    def __init__(self, child: PhysicalPlan, projections, names, schema):
+        self.child = child
+        self.children = (child,)
+        self.projections = projections
+        self.names = list(names)
+        self.schema = schema
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        offset = 0
+        for batch in self.child.execute(pidx):
+            for proj in self.projections:
+                yield host_eval_exprs(batch, proj, self.names, pidx, offset)
+            offset += batch.num_rows
+
+    def node_desc(self):
+        return f"{len(self.projections)} projections"
 
 
 # ---------------------------------------------------------------------------
@@ -214,9 +311,9 @@ def _sort_indices(table: HostTable, orders: Sequence[SortOrder]) -> np.ndarray:
         if vals.dtype == object:
             # dense codes in value order (strings, or a wide decimal's ints)
             fill = 0 if isinstance(c.dtype, dt.DecimalType) else ""
-            codes = np.unique(np.where(valid, vals, fill),
-                              return_inverse=True)[1].reshape(-1) \
-                .astype(np.int64)
+            codes = _dense_object_codes(
+                np.where(valid, vals, fill),
+                isinstance(c.dtype, dt.StringType))
         elif vals.dtype.kind == "f":
             # DENSE codes: equal values MUST share a code, or a tied float
             # key never defers to the later sort keys. NaN sorts last, just
@@ -234,6 +331,17 @@ def _sort_indices(table: HostTable, orders: Sequence[SortOrder]) -> np.ndarray:
         keys.append(np.where(valid, codes, 0))
         keys.append(valid if o.nulls_first else ~valid)
     return np.lexsort(keys) if keys else np.arange(table.num_rows)
+
+
+def _dense_object_codes(vals: np.ndarray, strings: bool) -> np.ndarray:
+    """Codes 0..k-1 of an object array without None in its values' order
+    (Python's comparison, for strings their UTF-8 bytes' order): the
+    distinct values of ``_object_factorize``, ranked."""
+    codes, uniq = _object_factorize(vals, strings)
+    rank = np.empty(len(uniq), dtype=np.int64)
+    rank[np.argsort(np.array(uniq, dtype=object), kind="stable")] = \
+        np.arange(len(uniq), dtype=np.int64)
+    return rank[codes]
 
 
 def describe_orders(orders: Sequence[SortOrder]) -> str:
@@ -435,8 +543,14 @@ def murmur_hash_columns(table: HostTable, key_names: Sequence[str],
     for name in key_names:
         col = table.column(name)
         if col.values.dtype == object:
-            k = np.asarray([_murmur_bytes(str(v).encode())
-                            for v in col.values], dtype=np.uint32)
+            # each distinct value hashed once (a key column repeats few);
+            # a null's hash is 0 below, whatever stands in its place
+            strings = isinstance(col.dtype, dt.StringType)
+            codes, uniq = _object_factorize(
+                np.where(col.valid_mask(), col.values, "") if strings
+                else col.values, strings)
+            k = np.asarray([_murmur_bytes(str(v).encode()) for v in uniq],
+                           dtype=np.uint32)[codes]
         else:
             k = _murmur_fmix(col.values)
         k = np.where(col.valid_mask(), k, np.uint32(0))
@@ -465,6 +579,20 @@ def _murmur_fmix(vals: np.ndarray) -> np.ndarray:
     x = (x * np.uint32(0xC2B2AE35)) & np.uint32(0xFFFFFFFF)
     x ^= x >> np.uint32(16)
     return x
+
+
+def _object_factorize(values: np.ndarray, strings: bool):
+    """-> (codes, distinct values) of an object array: ``values[i] ==
+    uniq[codes[i]]``. ``strings`` (a StringType column, no None in it):
+    through Arrow's dictionary encoding; else compared as Python
+    objects."""
+    if strings:
+        enc = pa.array(values, type=pa.string()).dictionary_encode()
+        return enc.indices.to_numpy(), enc.dictionary.to_pylist()
+    index: dict = {}
+    codes = np.fromiter((index.setdefault(v, len(index)) for v in values),
+                        dtype=np.int64, count=len(values))
+    return codes, list(index)
 
 
 def _murmur_bytes(b: bytes) -> int:

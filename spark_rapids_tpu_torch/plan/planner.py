@@ -1,12 +1,15 @@
 """Logical -> host physical planning — the port of
 ``spark_rapids_tpu/plan/planner.py`` for scan, filter, project, aggregate,
-sort, limit and join, with the Parquet scan's filter pushdown.
+sort, limit, join, sample, expand, union, range, window and cache, with the
+Parquet scan's filter pushdown.
 
 Produces the host plan that the overrides layer (plan/overrides.py) then
 tags and lowers onto the device. Aggregates are planned two-phase (partial
 -> exchange -> final -> post-project) like Spark and the reference; a sort
 of more than one partition gets a range exchange first; a limit over a sort
-becomes top-n; joins are planned by plan/joins_planner.py.
+becomes top-n; joins are planned by plan/joins_planner.py; a window over
+more than one partition gets a hash exchange on its partition columns (a
+single one when a partition key is not a plain column).
 """
 from __future__ import annotations
 
@@ -19,14 +22,17 @@ from ..conf import SCAN_PUSHDOWN, RapidsConf
 from ..expr.base import AttributeReference, Expression
 from ..io.pushdown import push_filter_into_scan
 from .joins_planner import plan_join
-from .logical import (LogicalAggregate, LogicalFilter, LogicalJoin,
-                      LogicalLimit, LogicalPlan, LogicalProject, LogicalScan,
-                      LogicalSort)
-from .physical import (AggSpec, CpuCollectLimitExec, CpuFilterExec,
-                       CpuGlobalLimitExec, CpuHashAggregateExec,
-                       CpuLocalLimitExec, CpuProjectExec, CpuScanExec,
-                       CpuSortExec, CpuTakeOrderedExec, HashPartitioning,
-                       PhysicalPlan, RangePartitioning, ShuffleExchangeExec,
+from .logical import (LogicalAggregate, LogicalCache, LogicalExpand,
+                      LogicalFilter, LogicalJoin, LogicalLimit, LogicalPlan,
+                      LogicalProject, LogicalRange, LogicalSample,
+                      LogicalScan, LogicalSort, LogicalUnion, LogicalWindow)
+from .physical import (AggSpec, CpuCollectLimitExec, CpuExpandExec,
+                       CpuFilterExec, CpuGlobalLimitExec,
+                       CpuHashAggregateExec, CpuLocalLimitExec,
+                       CpuProjectExec, CpuRangeExec, CpuSampleExec,
+                       CpuScanExec, CpuSortExec, CpuTakeOrderedExec,
+                       CpuUnionExec, HashPartitioning, PhysicalPlan,
+                       RangePartitioning, ShuffleExchangeExec,
                        SinglePartitioning)
 
 __all__ = ["plan_physical"]
@@ -90,6 +96,15 @@ def _plan(node: LogicalPlan, conf: RapidsConf,
                 child, RangePartitioning(node.orders, nparts))
         return CpuSortExec(child, node.orders)
 
+    if isinstance(node, LogicalSample):
+        return CpuSampleExec(_plan(node.child, conf, required),
+                             node.fraction, node.seed)
+
+    if isinstance(node, LogicalExpand):
+        refs = _refs(e for p in node.projections for e in p)
+        return CpuExpandExec(_plan(node.child, conf, refs), node.projections,
+                             node.names, node.schema)
+
     if isinstance(node, LogicalLimit):
         if isinstance(node.child, LogicalSort) and node.child.global_sort:
             # limit-over-sort is top-n: only each partition's top n rows
@@ -110,6 +125,39 @@ def _plan(node: LogicalPlan, conf: RapidsConf,
             single = ShuffleExchangeExec(local, SinglePartitioning())
             return CpuCollectLimitExec(single, node.n)
         return CpuGlobalLimitExec(local, node.n)
+
+    if isinstance(node, LogicalUnion):
+        return CpuUnionExec([_plan(c, conf, required)
+                             for c in node.children])
+
+    if isinstance(node, LogicalRange):
+        return CpuRangeExec(node.start, node.end, node.step,
+                            node.num_partitions)
+
+    if isinstance(node, LogicalWindow):
+        from .physical_window import CpuWindowExec
+        child_req = None
+        if required is not None:
+            child_req = set(required)
+            for _, w in node.window_cols:
+                child_req |= w.references()
+        child = _plan(node.child, conf, child_req)
+        spec = node.window_cols[0][1].spec
+        if child.num_partitions > 1:
+            part_cols = [e.column_name for e in spec.partition_exprs
+                         if isinstance(e, AttributeReference)]
+            if part_cols and len(part_cols) == len(spec.partition_exprs):
+                child = ShuffleExchangeExec(
+                    child, HashPartitioning(part_cols, nparts))
+            else:
+                child = ShuffleExchangeExec(child, SinglePartitioning())
+        return CpuWindowExec(child, node.window_cols)
+
+    if isinstance(node, LogicalCache):
+        from ..exec.cache import CACHE_COMPRESS_CODEC, CpuCacheExec
+        # a cache materializes every column: no pruning through it
+        return CpuCacheExec(_plan(node.child, conf, None), node.storage,
+                            conf.get(CACHE_COMPRESS_CODEC))
 
     if isinstance(node, LogicalJoin):
         return plan_join(node, conf, required,

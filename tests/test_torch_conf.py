@@ -102,6 +102,24 @@ def test_keys_that_change_the_jax_plan_raise(key, value):
         TorchSession({key: value}, device="cpu")
 
 
+def test_cache_codec_none_is_read_and_the_others_wait_for_multi_gpu():
+    """``df.cache()`` keeps live tables under the default codec "none" (the
+    host cache is read by exec/cache.py); zlib and lz4 serialise through the
+    shuffle serializer, which comes with the multi-GPU step."""
+    from spark_rapids_tpu_torch.exec.cache import CACHE_COMPRESS_CODEC
+    from spark_rapids_tpu_torch.plan.planner import plan_physical
+    from spark_rapids_tpu_torch.session import TorchSession
+    import pyarrow as pa
+    sess = TorchSession({CACHE_COMPRESS_CODEC: "none"}, device="cpu")
+    df = sess.create_dataframe(pa.table({"a": [1, 2]})).cache()
+    assert plan_physical(df.logical, sess.conf).codec == "none"
+    assert df.collect(device=False).num_rows == 2
+    for codec in ("zlib", "lz4"):
+        with pytest.raises(NotImplementedError,
+                           match=r"\(ROADMAP Queue 1: multi-GPU\)"):
+            TorchSession({CACHE_COMPRESS_CODEC: codec}, device="cpu")
+
+
 def test_per_op_and_unknown_keys_still_pass():
     conf = RapidsConf({"spark.rapids.sql.exec.FilterExec": "false",
                        "spark.rapids.sql.expression.Like": False,
