@@ -3799,8 +3799,7 @@ def _d128_kernel_lines(timings: dict, runs: dict) -> list:
 # frame_reduce (csrc/window.cu), rollup and cube through Expand, union,
 # range, sample, cache and to_torch
 # ---------------------------------------------------------------------------
-WINDOW_TILE = 2048              # csrc/window.cu kTile
-WINDOW_CARRY_PASS = 2048        # tiles a pass of csrc/window.cu's carries
+WINDOW_TILE = 4096              # csrc/window.cu kTile
 WINDOW_SIZES = (1 << 20, 1 << 22)
 CACHE_SPILL_BUDGET = 16 * 2**20  # the spill catalog under C1's second run
 
@@ -3869,6 +3868,38 @@ def window_scan_cases(rng, n: int, flag_sets=None) -> list:
     return cases
 
 
+def window_reverse_cases(rng, n: int) -> list:
+    """The reverse ``seg_scan``'s cases, (label, values, flags, op), flags
+    ``None`` for one segment: every dtype and op over random flags and
+    over none, finite float adds over none, and the main path's call, the
+    int64 min of each next row's position where it starts a segment
+    (``exec/window.py _next_start``)."""
+    flags = _window_flags(rng, n)["random"]
+    cases = []
+    for dtype in ("int32", "int64", "float32", "float64"):
+        values = _window_values(rng, n, dtype)
+        for fname, f in (("random", flags), ("no flags", None)):
+            for op in ("add", "min", "max"):
+                cases.append((f"{dtype} {op}, {fname}, reverse", values, f,
+                              op))
+    for dtype in ("float32", "float64"):
+        cases.append((f"{dtype} finite add, no flags, reverse",
+                      _window_values(rng, n, dtype, finite=True), None,
+                      "add"))
+    cases.append(("int64 min, next segment starts, reverse",
+                  _next_starts(flags), None, "min"))
+    return cases
+
+
+def _next_starts(flags: np.ndarray) -> np.ndarray:
+    """Each row's next row's position where that row is flagged, else the
+    row count: what ``_next_start`` scans."""
+    n = len(flags)
+    nxt = np.full(n, n, dtype=np.int64)
+    nxt[:-1] = np.where(flags[1:], np.arange(1, n), n)
+    return nxt
+
+
 def window_main_scan_cases(rng, flags: np.ndarray, label: str) -> list:
     """``seg_scan``'s cases over one batch's ``flags``: every dtype and
     op, then the finite float adds."""
@@ -3881,6 +3912,21 @@ def window_main_scan_cases(rng, flags: np.ndarray, label: str) -> list:
                _window_values(rng, n, dtype, finite=True), flags, "add")
               for dtype in ("float32", "float64")]
     return cases
+
+
+def window_main_reverse_cases(rng, flags: np.ndarray, label: str) -> list:
+    """The reverse ``seg_scan``'s cases over one batch's ``flags``: the
+    main path's next segment starts, then float adds over one segment and
+    int64 max and float32 adds over the flags."""
+    n = len(flags)
+    return [(f"int64 min, next starts of {label}, reverse",
+             _next_starts(flags), None, "min"),
+            ("float64 finite add, no flags, reverse",
+             _window_values(rng, n, "float64", finite=True), None, "add"),
+            (f"float32 finite add, {label}, reverse",
+             _window_values(rng, n, "float32", finite=True), flags, "add"),
+            (f"int64 max, {label}, reverse",
+             _window_values(rng, n, "int64"), flags, "max")]
 
 
 def _window_segments(rng, n: int, mean: int):
@@ -3928,34 +3974,39 @@ def window_bounds_cases(rng, n: int, means=(64, 4096)) -> list:
 
 
 def window_reduce_cases(rng, n: int, mean: int = 1000) -> list:
-    """``frame_reduce``'s cases: (label, values, valid, lo, hi, op) over
-    segments of about ``mean`` rows: ROWS -3..1 and -2..0 (W1's), the
-    running and the whole segment, and random frames up to 50,000 rows
-    either side (through every level of the block aggregates); int64 and
-    float64 (NaN, +-inf, signed zeros), 10 % invalid; then float64 sums of
-    finite values only."""
+    """``frame_reduce``'s cases: (label, values, valid, lo, hi, op,
+    max_len) over segments of about ``mean`` rows: ROWS -3..1 and -2..0
+    (W1's, ``max_len`` 5 and 3: no block aggregates), the running and the
+    whole segment, and random frames up to 50,000 rows either side
+    (through every level of the block aggregates); int64 and float64 (NaN,
+    +-inf, signed zeros), 10 % invalid; then float64 sums of finite values
+    only."""
     _, start, end = _window_segments(rng, n, mean)
     pos = np.arange(n, dtype=np.int64)
     frames = {
-        "rows -3..1": (np.maximum(pos - 3, start), np.minimum(pos + 2, end)),
-        "rows -2..0": (np.maximum(pos - 2, start), pos + 1),
-        "running": (start, pos + 1),
-        "whole segment": (start, end),
+        "rows -3..1": (np.maximum(pos - 3, start), np.minimum(pos + 2, end),
+                       5),
+        "rows -2..0": (np.maximum(pos - 2, start), pos + 1, 3),
+        "running": (start, pos + 1, None),
+        "whole segment": (start, end, None),
         "random long": (np.maximum(pos - rng.integers(0, 50_000, n), 0),
-                        np.minimum(pos + rng.integers(0, 50_000, n), n)),
+                        np.minimum(pos + rng.integers(0, 50_000, n), n),
+                        None),
     }
     valid = rng.random(n) > 0.1
     cases = []
     for dtype in ("int64", "float64"):
         values = _window_values(rng, n, dtype)
-        for fname, (lo, hi) in frames.items():
+        for fname, (lo, hi, max_len) in frames.items():
             for op in ("add", "min", "max"):
                 cases.append((f"{dtype} {op}, {fname}", values, valid,
-                               lo.astype(np.int64), hi.astype(np.int64), op))
+                               lo.astype(np.int64), hi.astype(np.int64), op,
+                               max_len))
     values = _window_values(rng, n, "float64", finite=True)
-    for fname, (lo, hi) in frames.items():
+    for fname, (lo, hi, max_len) in frames.items():
         cases.append((f"float64 finite add, {fname}", values, valid,
-                      lo.astype(np.int64), hi.astype(np.int64), "add"))
+                      lo.astype(np.int64), hi.astype(np.int64), "add",
+                      max_len))
     return cases
 
 
@@ -3969,23 +4020,28 @@ def _float_sum_tolerance(abs_sum: torch.Tensor, length: torch.Tensor,
     return 2.0 * length.to(torch.float64) * u * abs_sum
 
 
-def _scan_sum_tolerance(abs_sum: torch.Tensor, flags: torch.Tensor,
-                        dtype: torch.dtype) -> torch.Tensor:
-    """How far ``seg_scan``'s float sums may lie from its plain version's.
-    Each is a tree of adds, and a tree of height h is within h * u *
-    sum(|x|) of the exact sum. The plain version's doubling scan has height
-    ceil(log2 n). The kernel's is at most 64 plus a level a carries pass:
-    18 to a tile's pair (8 rows a thread, two warp scans of 5 levels), 28
-    more through the carries kernel plus one a pass of 2048 tiles, 2 more
-    in the write (48 + passes, rounded up to 64). The smaller of this and
-    ``_float_sum_tolerance``, which holds for any order."""
-    n = flags.shape[0]
-    tiles = -(-n // WINDOW_TILE)
-    height = 64 + -(-tiles // WINDOW_CARRY_PASS) + max(1, n - 1).bit_length()
+def _scan_sum_tolerance(abs_sum: torch.Tensor, flags,
+                        dtype: torch.dtype,
+                        reverse: bool = False) -> torch.Tensor:
+    """How far ``seg_scan``'s float sums may lie from its plain version's
+    (``flags`` None: one segment). Each is a tree of adds, and a tree of
+    height h is within h * u * sum(|x|) of the exact sum. The plain
+    version's doubling scan has height ceil(log2 n). The kernel's is at
+    most 64: 26 to a tile's pair (16 rows a thread, two warp scans of 5
+    levels), 5 more a level of the look-back's pairs (4 levels at most
+    below 2^32 rows) and 5 for a level's warp prefix, one to join each
+    level's prefix to the carry, 2 more in the write (49, rounded up to
+    64). The smaller of this and ``_float_sum_tolerance``, which holds for
+    any order."""
+    n = abs_sum.shape[0]
+    if flags is None:
+        flags = torch.zeros(n, dtype=torch.bool, device=abs_sum.device)
+    lengths = _scan_lengths(flags.flip(0)).flip(0) if reverse \
+        else _scan_lengths(flags)
+    height = 64 + max(1, n - 1).bit_length()
     u = torch.finfo(dtype).eps / 2
     return torch.minimum(height * u * abs_sum,
-                         _float_sum_tolerance(abs_sum, _scan_lengths(flags),
-                                              dtype))
+                         _float_sum_tolerance(abs_sum, lengths, dtype))
 
 
 def _window_equal(label: str, got: torch.Tensor, want: torch.Tensor,
@@ -4021,21 +4077,24 @@ def _scan_lengths(flags: torch.Tensor) -> torch.Tensor:
     return pos - start + 1
 
 
-def check_window_scan(label, values, flags, op, device, runs: int = 1):
-    """``seg_scan`` of one case against its plain version (a float sum
-    ``runs`` times, by bits) -> max abs difference."""
+def check_window_scan(label, values, flags, op, device, runs: int = 1,
+                      reverse: bool = False):
+    """``seg_scan`` of one case (``flags`` None: one segment) against its
+    plain version (a float sum ``runs`` times, by bits) -> max abs
+    difference."""
     from spark_rapids_tpu_torch.exec import window_kernels as wk
     v = torch.from_numpy(values).to(device)
-    f = torch.from_numpy(flags).to(device)
-    want = wk.seg_scan_reference(v, f, op)
-    first = wk.seg_scan(v, f, op)
+    f = None if flags is None else torch.from_numpy(flags).to(device)
+    want = wk.seg_scan_reference(v, f, op, reverse)
+    first = wk.seg_scan(v, f, op, reverse)
     for _ in range(runs - 1):
-        _window_equal(f"{label} (repeat)", wk.seg_scan(v, f, op), first)
+        _window_equal(f"{label} (repeat)", wk.seg_scan(v, f, op, reverse),
+                      first)
     tol = None
     if op == "add" and v.is_floating_point():
         tol = _scan_sum_tolerance(
-            wk.seg_scan_reference(v.abs().to(torch.float64), f, "add"), f,
-            v.dtype)
+            wk.seg_scan_reference(v.abs().to(torch.float64), f, "add",
+                                  reverse), f, v.dtype, reverse)
     return _window_equal(label, first, want, tol)
 
 
@@ -4047,15 +4106,15 @@ def check_window_bounds(label, key, target, lo, hi, strict, device) -> None:
                   wk.frame_bounds_reference(*args, strict))
 
 
-def check_window_reduce(label, values, valid, lo, hi, op, device,
+def check_window_reduce(label, values, valid, lo, hi, op, max_len, device,
                         runs: int = 1) -> float:
     from spark_rapids_tpu_torch.exec import window_kernels as wk
     v, ok, tlo, thi = (torch.from_numpy(a).to(device)
                        for a in (values, valid, lo, hi))
     want, wcount = wk.frame_reduce_reference(v, ok, tlo, thi, op)
-    got, count = wk.frame_reduce(v, ok, tlo, thi, op)
+    got, count = wk.frame_reduce(v, ok, tlo, thi, op, max_len)
     for _ in range(runs - 1):
-        again, _ = wk.frame_reduce(v, ok, tlo, thi, op)
+        again, _ = wk.frame_reduce(v, ok, tlo, thi, op, max_len)
         _window_equal(f"{label} (repeat)", again, got)
     _window_equal(f"{label} counts", count, wcount)
     tol = None
@@ -4067,14 +4126,28 @@ def check_window_reduce(label, values, valid, lo, hi, op, device,
 
 
 _WINDOW_KERNELS = ("seg_scan", "frame_bounds", "frame_reduce")
+#: each kernel's timed cases: the forward scan and the reverse one; the
+#: frames of ROWS -3..1 (no block aggregates) and of RANGE -90..0 days
+_WINDOW_TIMED = {"seg_scan": ("seg_scan", "seg_scan reverse"),
+                 "frame_bounds": ("frame_bounds",),
+                 "frame_reduce": ("frame_reduce", "frame_reduce tables")}
+#: bytes a row each timed case must move: seg_scan values and flags in,
+#: values out (the reverse one reads no flags); frame_bounds key, target,
+#: lo and hi in, the bound out; frame_reduce value, flag, lo and hi in,
+#: value and count out
+_WINDOW_ROW_BYTES = {"seg_scan": 17, "seg_scan reverse": 16,
+                     "frame_bounds": 40, "frame_reduce": 41,
+                     "frame_reduce tables": 41}
 
 
 def _window_timed_sets(rng, n: int, device, names=_WINDOW_KERNELS,
                        scan_flags=None) -> tuple:
-    """The timed inputs at ``n`` rows of the kernels ``names``, each
-    kernel's arguments in enough sets to pass L2 (W1's shapes: float64
+    """The timed inputs at ``n`` rows of the kernels ``names``, each timed
+    case's arguments in enough sets to pass L2 (W1's shapes: float64
     running sums over segments of about 15 rows, or over ``scan_flags``;
-    int64 date keys -90; ROWS -3..1 float64 sums) -> (sets, bytes a set)."""
+    the reverse int64 min of those segments' next starts, one segment;
+    int64 date keys -90; float64 sums over ROWS -3..1, ``max_len`` 5, and
+    over RANGE -90..0 days) -> (sets, bytes a set), keyed by case."""
     flags, start, end = _window_segments(rng, n, 15)
     if scan_flags is not None:
         flags = scan_flags
@@ -4083,28 +4156,32 @@ def _window_timed_sets(rng, n: int, device, names=_WINDOW_KERNELS,
     key = (seg * 10**5 + np.sort(rng.integers(0, 2500, n))).astype(np.int64)
     key = key[np.lexsort((key, seg))]
     lo3, hi1 = np.maximum(pos - 3, start), np.minimum(pos + 2, end)
+    # keys ascend over the batch and segments lie 10^5 apart: a global
+    # search stays within the row's segment
+    lo90 = np.searchsorted(key, key - 90, "left").astype(np.int64)
+    hi0 = np.searchsorted(key, key, "right").astype(np.int64)
     vals = rng.random(n) * 1e5
     valid = np.ones(n, dtype=bool)
-    per_set = {name: n * {"seg_scan": 17, "frame_bounds": 40,
-                          "frame_reduce": 41}[name] for name in names}
+    cases = [c for name in names for c in _WINDOW_TIMED[name]]
+    per_set = {c: n * _WINDOW_ROW_BYTES[c] for c in cases}
     sets = {}
-    for name, nbytes in per_set.items():
-        copies = max(2, math.ceil(2 * L2_BYTES / nbytes))
 
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        if name == "seg_scan":
-            base = (t(vals), t(flags))
-            sets[name] = [(base[0].clone(), base[1].clone(), "add")
-                          for _ in range(copies)]
-        elif name == "frame_bounds":
-            base = (t(key), t(key - 90), t(start), t(end))
-            sets[name] = [tuple(x.clone() for x in base) + (False,)
-                          for _ in range(copies)]
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    for case, nbytes in per_set.items():
+        copies = max(2, math.ceil(2 * L2_BYTES / nbytes))
+        if case == "seg_scan":
+            base = (t(vals), t(flags), "add")
+        elif case == "seg_scan reverse":
+            base = (t(_next_starts(flags)), None, "min", True)
+        elif case == "frame_bounds":
+            base = (t(key), t(key - 90), t(start), t(end), False)
+        elif case == "frame_reduce":
+            base = (t(vals), t(valid), t(lo3), t(hi1), "add", 5)
         else:
-            base = (t(vals), t(valid), t(lo3), t(hi1))
-            sets[name] = [tuple(x.clone() for x in base) + ("add",)
-                          for _ in range(copies)]
+            base = (t(vals), t(valid), t(lo90), t(hi0), "add", None)
+        sets[case] = [tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                            for x in base) for _ in range(copies)]
     return sets, per_set
 
 
@@ -4116,10 +4193,11 @@ def window_kernel_phase(device="cuda", n: int = (1 << 20) + 12345,
                         big: int = (1 << 22) + 5000,
                         sizes=WINDOW_SIZES) -> dict:
     """The three window kernels against their plain versions: every scan
-    case at ``n`` rows (not a multiple of the tile) and the int64 and
-    float64 adds at ``big`` rows (past 2048 tiles, so the carries kernel
-    takes two chunks), a float sum three times by bits; every bounds case;
-    every reduce case. Then each kernel's time at ``sizes`` beside its plain
+    case at ``n`` rows (not a multiple of the tile), forward and reverse,
+    and the int64 and float64 adds at ``big`` rows (past 1024 tiles, so
+    the look-back climbs three levels), a float sum three times by bits;
+    every bounds case; every reduce case, ROWS -3..1 and -2..0 without the
+    block aggregates. Then each timed case at ``sizes`` beside its plain
     version and its bound."""
     from spark_rapids_tpu_torch.exec import window_kernels as wk
     rng = np.random.default_rng(12)
@@ -4130,21 +4208,30 @@ def window_kernel_phase(device="cuda", n: int = (1 << 20) + 12345,
         runs = 3 if op == "add" and values.dtype.kind == "f" else 1
         _note_err(err, "seg_scan", check_window_scan(
             f"seg_scan {label}", values, flags, op, device, runs))
+    rev_cases = window_reverse_cases(rng, n)
+    for label, values, flags, op in rev_cases:
+        runs = 3 if op == "add" and values.dtype.kind == "f" else 1
+        _note_err(err, "seg_scan", check_window_scan(
+            f"seg_scan {label}", values, flags, op, device, runs, True))
     big_cases = [c for c in window_scan_cases(
         rng, big, flag_sets=("random", "one segment"))
         if c[3] == "add" and (c[1].dtype.itemsize == 8 or "finite" in c[0])]
     for label, values, flags, op in big_cases:
         _note_err(err, "seg_scan", check_window_scan(
             f"seg_scan {label}, {big} rows", values, flags, op, device, 3))
+        _note_err(err, "seg_scan", check_window_scan(
+            f"seg_scan {label}, {big} rows, reverse", values, None, op,
+            device, 3, True))
     bcases = window_bounds_cases(rng, n)
     for label, *args in bcases:
         check_window_bounds(f"frame_bounds {label}", *args, device)
     rcases = window_reduce_cases(rng, n)
     for label, *args in rcases:
-        runs = 3 if args[-1] == "add" else 1
+        runs = 3 if args[4] == "add" else 1
         _note_err(err, "frame_reduce", check_window_reduce(
             f"frame_reduce {label}", *args, device, runs))
-    print(f"# window kernels: {len(cases) + len(big_cases)} seg_scan cases, "
+    print(f"# window kernels: {len(cases) + len(rev_cases) + 2 * len(big_cases)}"
+          f" seg_scan cases ({len(rev_cases) + len(big_cases)} reverse), "
           f"{len(bcases)} frame_bounds cases and {len(rcases)} frame_reduce "
           f"cases equal their plain versions (integers and min/max by bits, "
           f"float sums within their bound, {max(err.values()):.3e} at most; "
@@ -4157,24 +4244,36 @@ def window_kernel_phase(device="cuda", n: int = (1 << 20) + 12345,
     return {"timings": timings, "max_abs_err": err}
 
 
+def _reverse_cummin(x, flags, op, reverse):
+    """The call the reverse scan replaces in ``_next_start``: an
+    unsegmented reverse min as flips around ``torch.cummin``."""
+    return torch.cummin(x.flip(0), 0).values.flip(0)
+
+
 def _window_time(rng, n: int, device, names=_WINDOW_KERNELS, scan_flags=None,
                  label: str = "") -> dict:
-    """Each kernel of ``names`` at ``n`` rows beside its plain version and
-    its bound -> {(name, n): times}."""
+    """Each timed case of the kernels ``names`` at ``n`` rows beside its
+    plain version, its bound and, for the reverse scan, the reverse
+    ``torch.cummin`` it replaces -> {(case, n): times}."""
     from spark_rapids_tpu_torch.exec import window_kernels as wk
     sets, per_set = _window_timed_sets(rng, n, device, names, scan_flags)
     timings = {}
-    for name in names:
+    for case in per_set:
+        name = case.split()[0]
         fn = getattr(wk, name)
         plain = getattr(wk, f"{name}_reference")
-        ms = _graph_ms(fn, sets[name])
-        plain_ms = _graph_ms(plain, sets[name][:4], calls=2, replays=3)
-        bound_ms = per_set[name] / MEM_BYTES_PER_S * 1e3
-        timings[(name, n)] = {"ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms}
-        print(f"# {name} at {n} rows{label}: {ms:.6f} ms (plain "
-              f"{plain_ms:.6f} ms), bound {bound_ms:.6f} ms (bytes "
-              f"{per_set[name]}), {100 * bound_ms / ms:.1f} % reached",
+        ms = _graph_ms(fn, sets[case])
+        plain_ms = _graph_ms(plain, sets[case][:4], calls=2, replays=3)
+        library_ms = _graph_ms(_reverse_cummin, sets[case]) \
+            if case == "seg_scan reverse" else None
+        bound_ms = per_set[case] / MEM_BYTES_PER_S * 1e3
+        timings[(case, n)] = {"ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "library_ms": library_ms}
+        lib = "" if library_ms is None else \
+            f", reverse torch.cummin {library_ms:.6f} ms"
+        print(f"# {case} at {n} rows{label}: {ms:.6f} ms (plain "
+              f"{plain_ms:.6f} ms{lib}), bound {bound_ms:.6f} ms (bytes "
+              f"{per_set[case]}), {100 * bound_ms / ms:.1f} % reached",
               flush=True)
     return timings
 
@@ -4202,9 +4301,11 @@ def window_main_shape_phase(shapes: dict, device="cuda") -> dict:
     rows, or minus their number, and {kernel: the row counts its
     launches took}). At each, every kernel the query launched is held
     against its plain version (``seg_scan`` over the query's segments,
-    every dtype and op; ``frame_bounds`` and ``frame_reduce`` over
-    segments of about its mean), a float sum the same bits over three
-    runs, then timed -> {"timings": {(kernel, rows): times},
+    every dtype and op, and in reverse over their next starts and over one
+    segment; ``frame_bounds`` and ``frame_reduce`` over segments of about
+    its mean, short ROWS frames without the block aggregates), a float sum
+    the same bits over three runs, then timed -> {"timings": {(case,
+    rows): times},
     "max_abs_err": {kernel: its float sums' largest difference},
     "where": {kernel: the query and rows of its kernels-line entry}}."""
     rng = np.random.default_rng(21)
@@ -4219,13 +4320,16 @@ def window_main_shape_phase(shapes: dict, device="cuda") -> dict:
                 checked.add((name, n))
                 if name == "seg_scan":
                     flags = _main_flags(rng, n, min(rows, n), mean)
-                    for label, values, f, op in window_main_scan_cases(
-                            rng, flags, f"{query}'s segments"):
-                        runs = 3 if op == "add" and values.dtype.kind == "f" \
-                            else 1
-                        _note_err(err, "seg_scan", check_window_scan(
-                            f"seg_scan {label}, {n} rows", values, f, op,
-                            device, runs))
+                    for cases, reverse in (
+                            (window_main_scan_cases, False),
+                            (window_main_reverse_cases, True)):
+                        for label, values, f, op in cases(
+                                rng, flags, f"{query}'s segments"):
+                            runs = 3 if op == "add" \
+                                and values.dtype.kind == "f" else 1
+                            _note_err(err, "seg_scan", check_window_scan(
+                                f"seg_scan {label}, {n} rows", values, f,
+                                op, device, runs, reverse))
                 elif name == "frame_bounds":
                     for label, *args in window_bounds_cases(
                             rng, n, means=(abs(mean),)):
@@ -4234,7 +4338,7 @@ def window_main_shape_phase(shapes: dict, device="cuda") -> dict:
                 else:
                     for label, *args in window_reduce_cases(rng, n,
                                                             abs(mean)):
-                        runs = 3 if args[-1] == "add" else 1
+                        runs = 3 if args[4] == "add" else 1
                         _note_err(err, "frame_reduce", check_window_reduce(
                             f"frame_reduce {label}, {n} rows", *args, device,
                             runs))
@@ -4715,13 +4819,27 @@ def _to_torch_check(df, li: pa.Table, device: str) -> dict:
 
 def _window_kernel_lines(main: dict, launches: dict, err: dict) -> list:
     """The ``kernels`` line's entries of the window kernels: each timed at
-    the largest row count the main path launched it at (``main["where"]``),
-    launches over the warm AQE-off runs of W1-W3, ``err`` each kernel's
-    largest difference from its plain version in both kernel phases."""
+    the largest row count the main path launched it at (``main["where"]``;
+    ``seg_scan`` its forward float64 add, ``frame_reduce`` its ROWS -3..1
+    sums), launches over the warm AQE-off runs of W1-W3 (``seg_scan``'s
+    reverse scans among them), ``err`` each kernel's largest difference
+    from its plain version in both kernel phases. ``seg_scan``'s
+    ``library_ms`` is the unsegmented reverse ``torch.cummin`` (flipped
+    in and out) at the same rows: the call its reverse scan replaced, for
+    one segment only."""
     lines = []
     for name, line in (("seg_scan", 41), ("frame_bounds", 414),
                        ("frame_reduce", 431)):
-        t = main["timings"][(name, main["where"][name][1])]
+        n = main["where"][name][1]
+        t = main["timings"][(name, n)]
+        library_ms = None
+        if name == "seg_scan":
+            library_ms = main["timings"][("seg_scan reverse", n)][
+                "library_ms"]
+            print(f"# seg_scan library_ms: torch.cummin(x.flip(0), 0)"
+                  f".values.flip(0) at {n} rows, one segment (the reverse "
+                  f"scan's unsegmented case): {library_ms:.6f} ms",
+                  flush=True)
         lines.append({
             "name": name, "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/window.cu",
@@ -4730,7 +4848,7 @@ def _window_kernel_lines(main: dict, launches: dict, err: dict) -> list:
             "max_abs_err": err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": library_ms})
     return lines
 
 

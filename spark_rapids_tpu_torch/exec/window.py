@@ -14,7 +14,7 @@ every window function is then data-parallel over that layout:
   ``frame_reduce``;
 - counts and integer sums (decimals too) are differences of int64 prefix
   sums (``torch.cumsum``: exact, and wrapping as Spark's non-ANSI sums);
-  segment and peer-group ends are reverse ``torch.cummin``s; ranks, ntile
+  segment and peer-group ends are reverse ``seg_scan`` mins; ranks, ntile
   and lag/lead are index arithmetic and gathers.
 
 Two reference faults are not copied: the JAX package's float sums are
@@ -80,13 +80,13 @@ def _changes(c, cap: int, device) -> torch.Tensor:
 
 
 def _next_start(flags: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """For each row, the first flagged position after it (cap if none): a
-    reverse cummin."""
+    """For each row, the first flagged position after it (cap if none): the
+    reverse min scan, over one segment, of each next row's position where
+    it is flagged."""
     cap = flags.shape[0]
-    nxt = torch.where(flags, pos, torch.full_like(pos, cap))
-    m = torch.cummin(nxt.flip(0), 0).values.flip(0)
-    return torch.cat([m[1:], torch.full((1,), cap, dtype=m.dtype,
-                                        device=m.device)])
+    nxt = torch.full_like(pos, cap)
+    nxt[:-1] = torch.where(flags[1:], pos[1:], cap)
+    return seg_scan(nxt, None, "min", reverse=True)
 
 
 class TpuWindowExec(TpuExec):
@@ -159,8 +159,15 @@ class _Segments:
         self.start = seg_scan(torch.where(new_seg, pos,
                                           torch.zeros_like(pos)),
                               new_seg, "max")
-        self.end = _next_start(new_seg, pos)
+        self._end = None
         self._peers = None
+
+    @property
+    def end(self) -> torch.Tensor:
+        """Each row's segment end, on first use."""
+        if self._end is None:
+            self._end = _next_start(self.new_seg, self.pos)
+        return self._end
 
     def peers(self, orders: Sequence[SortOrder]) -> torch.Tensor:
         """True where a peer group (distinct order keys) starts; the node's
@@ -309,6 +316,10 @@ def _agg_window(seg: _Segments, w: WindowExpression) -> DeviceColumn:
         valid = c.valid_mask(seg.ctx) & mask
     out_dt = fn.data_type
     lo, hi, kind = _frame(seg, w)
+    frame = w.spec.frame
+    # a ROWS frame bounded at both ends: no frame longer than its offsets
+    max_len = frame.end - frame.start + 1 if frame.kind == "rows" \
+        and frame.start is not None and frame.end is not None else None
 
     def prefix_count() -> torch.Tensor:
         """The frames' valid rows as a difference of prefix counts (a
@@ -332,7 +343,7 @@ def _agg_window(seg: _Segments, w: WindowExpression) -> DeviceColumn:
             out = run[torch.clamp(hi - 1, 0, cap - 1)]
             cnt = prefix_count()
         else:
-            out, cnt = frame_reduce(x, valid, lo, hi, op)
+            out, cnt = frame_reduce(x, valid, lo, hi, op, max_len)
         return DeviceColumn(out.to(torch_dtype(out_dt)), (cnt > 0) & mask,
                             out_dt)
     if not isinstance(fn, (Sum, Average)):
@@ -345,7 +356,7 @@ def _agg_window(seg: _Segments, w: WindowExpression) -> DeviceColumn:
             s = run[torch.clamp(hi - 1, 0, cap - 1)]
             cnt = prefix_count()
         else:
-            s, cnt = frame_reduce(x, valid, lo, hi, "add")
+            s, cnt = frame_reduce(x, valid, lo, hi, "add", max_len)
     else:
         x = torch.where(valid, vals.to(torch.int64),
                         torch.zeros(cap, dtype=torch.int64, device=dev))

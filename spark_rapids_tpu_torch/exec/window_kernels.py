@@ -2,12 +2,15 @@
 its plain PyTorch version.
 
 - ``seg_scan``: an inclusive segmented scan (add, min or max) that restarts
-  where a flag is set (the JAX package's ``_segmented_scan``);
+  where a flag is set (the JAX package's ``_segmented_scan``), forward or
+  from the last row to the first (its reverse ``associative_scan`` of
+  ``jnp.minimum``, which finds segment and peer-group ends);
 - ``frame_bounds``: for each row the first position of ``[lo, hi)`` whose
   key is ``>=`` its target, or ``>`` when strict (``_device_bsearch``);
 - ``frame_reduce``: for each row the sum, min or max of the valid values of
   ``[lo, hi)`` and their count (``_device_range_minmax`` and the bounded
-  frames' float sums).
+  frames' float sums); frames the caller knows to be short skip the block
+  aggregates.
 
 Float min and max follow Spark's order: NaN above +inf (so a min is NaN
 only when every value is), -0.0 below 0.0; a NaN result is the canonical
@@ -23,7 +26,7 @@ from the kernel to the plain version.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,10 +78,16 @@ def _canonical_nan(x: torch.Tensor, op: str) -> torch.Tensor:
     return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
 
 
-def seg_scan_reference(values: torch.Tensor, flags: torch.Tensor,
-                       op: str) -> torch.Tensor:
+def seg_scan_reference(values: torch.Tensor, flags, op: str,
+                       reverse: bool = False) -> torch.Tensor:
     """Plain version of ``seg_scan``: the doubling scan of (flag, value)
-    pairs, log2(n) steps of torch ops."""
+    pairs, log2(n) steps of torch ops; in reverse, the same scan of the
+    rows and flags flipped, flipped back."""
+    if flags is None:
+        flags = torch.zeros(values.shape[0], dtype=torch.bool,
+                            device=values.device)
+    if reverse:
+        return seg_scan_reference(values.flip(0), flags.flip(0), op).flip(0)
     v = values.clone()
     f = flags.to(torch.bool).clone()
     n = v.shape[0]
@@ -111,11 +120,13 @@ def frame_bounds_reference(key: torch.Tensor, target: torch.Tensor,
 
 
 def frame_reduce_reference(values: torch.Tensor, valid: torch.Tensor,
-                           lo: torch.Tensor, hi: torch.Tensor, op: str
+                           lo: torch.Tensor, hi: torch.Tensor, op: str,
+                           max_len: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``frame_reduce``: each frame as the power-of-two
     blocks of its length's bits, smallest first, from a level of blocks
-    built one doubling at a time (one level held at once)."""
+    built one doubling at a time (one level held at once). ``max_len``,
+    the kernel's hint, does not change the result."""
     n = values.shape[0]
     ident = _identity(values.dtype, op)
     x = torch.where(valid, values, torch.full_like(values, ident))
@@ -176,30 +187,35 @@ def _launch(fn, kernel: str, device: torch.device, n: int, *args) -> None:
     fn.launch_rows.add(n)
 
 
-def _scratch(kernel: str, n: int, device: torch.device) -> torch.Tensor:
+def _scratch(kernel: str, device: torch.device, *args) -> torch.Tensor:
     from ..native import load_kernels
-    nbytes = getattr(load_kernels(), kernel)(n)
+    nbytes = getattr(load_kernels(), kernel)(*args)
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
-def seg_scan(values: torch.Tensor, flags: torch.Tensor,
-             op: str) -> torch.Tensor:
+def seg_scan(values: torch.Tensor, flags, op: str,
+             reverse: bool = False) -> torch.Tensor:
     """Inclusive scan of ``values`` (int32, int64, float32 or float64) under
     ``op`` (``"add"``, ``"min"`` or ``"max"``), restarting at each row whose
-    ``flags`` (bool or uint8) is set. Kernel: ``csrc/window.cu``
-    ``seg_scan`` (three launches a call)."""
+    ``flags`` (bool or uint8; ``None``: one segment, no flags read) is set;
+    with ``reverse`` from the last row to the first, so a flag restarts the
+    scan at its row going backwards. Kernel: ``csrc/window.cu``
+    ``seg_scan`` (a memset of its look-back slots, then one launch)."""
     dev = values.device
     n = values.shape[0] if values.dim() == 1 else -1
     _check_1d("seg_scan", "values", values, _SCAN_DTYPES, n, dev)
-    _check_1d("seg_scan", "flags", flags, (torch.bool, torch.uint8), n, dev)
+    if flags is not None:
+        _check_1d("seg_scan", "flags", flags, (torch.bool, torch.uint8), n,
+                  dev)
     code = _check_op("seg_scan", op)
     if dev.type == "cpu":
-        return seg_scan_reference(values, flags, op)
+        return seg_scan_reference(values, flags, op, reverse)
     out = torch.empty_like(values)
     if n:
-        scratch = _scratch("srt_seg_scan_scratch_bytes", n, dev)
+        scratch = _scratch("srt_seg_scan_scratch_bytes", dev, n)
         _launch(seg_scan, "srt_seg_scan", dev, n, values.data_ptr(),
-                flags.data_ptr(), n, _SCAN_DTYPES[values.dtype], code,
+                None if flags is None else flags.data_ptr(), n,
+                _SCAN_DTYPES[values.dtype], code, int(bool(reverse)),
                 scratch.data_ptr(), out.data_ptr())
     return out
 
@@ -230,14 +246,18 @@ def frame_bounds(key: torch.Tensor, target: torch.Tensor, lo: torch.Tensor,
 
 
 def frame_reduce(values: torch.Tensor, valid: torch.Tensor,
-                 lo: torch.Tensor, hi: torch.Tensor, op: str
+                 lo: torch.Tensor, hi: torch.Tensor, op: str,
+                 max_len: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each row ``i``, ``op`` (``"add"``, ``"min"`` or ``"max"``) over
     the rows ``j`` of ``[lo[i], hi[i])`` with ``valid[j]``, and their count
     -> (values' dtype, int64). ``values`` are int64 or float64; an empty
-    frame gives the op's identity and 0. Kernel: ``csrc/window.cu``
-    ``frame_reduce`` (two launches a call: the block aggregates, then the
-    frames)."""
+    frame gives the op's identity and 0. ``max_len``: the longest frame,
+    where the caller knows it without reading the device. Kernel:
+    ``csrc/window.cu`` ``frame_reduce``: one launch when ``max_len`` is at
+    most 64 (every frame row by row; a longer one is still reduced right,
+    only slower); else a memset, the block aggregates' launch and the
+    frames'."""
     dev = values.device
     n = values.shape[0] if values.dim() == 1 else -1
     _check_1d("frame_reduce", "values", values, (torch.int64, torch.float64),
@@ -251,11 +271,12 @@ def frame_reduce(values: torch.Tensor, valid: torch.Tensor,
     out = torch.empty_like(values)
     count = torch.empty(n, dtype=torch.int64, device=dev)
     if n:
-        scratch = _scratch("srt_frame_reduce_scratch_bytes", n, dev)
+        limit = -1 if max_len is None else max(0, int(max_len))
+        scratch = _scratch("srt_frame_reduce_scratch_bytes", dev, n, limit)
         _launch(frame_reduce, "srt_frame_reduce", dev, n, values.data_ptr(),
                 valid.data_ptr(), lo.data_ptr(), hi.data_ptr(), n,
-                int(values.is_floating_point()), code, scratch.data_ptr(),
-                out.data_ptr(), count.data_ptr())
+                int(values.is_floating_point()), code, limit,
+                scratch.data_ptr(), out.data_ptr(), count.data_ptr())
     return out, count
 
 
