@@ -125,6 +125,43 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    them at (W1's orders batch, W2's lineitem batch, W3's part batch):
    each against its plain version over that query's segments, then timed
    there; the ``kernels`` line reports the largest.
+16. NL1, the nested-loop join (``TpuBroadcastNestedLoopJoinExec``): SF1
+   orders against a 64-row price-band table ``(lo, hi, band)`` on
+   ``o_totalprice >= lo AND o_totalprice < hi`` as inner, left, left_anti
+   and full joins (the bands leave gaps and pass the top price, so both
+   sides have unmatched rows), ``nation.cross_join(region)``, a cross join
+   of two one-row aggregates (TPC-DS Q88/Q90's shape) and part against a
+   16-row size-band table on ``p_size >= lo AND p_size < hi AND p_name
+   LIKE '%green%blue%'`` (two inner ``%``, so the LIKE runs on
+   ``nfa_match``, whose launch counter must move): each result against the
+   host engine and numpy (``searchsorted`` over the bands), with its wall,
+   its windows (``ws x bws``) and the device time by op of a traced run.
+17. OOM phase (``bench.py _worker_oom``'s contract): a clean run of Q1, Q6,
+   Q3 and Q1 decimal records each answer and the catalog's peak; a fresh
+   session runs them under ``memory.pool.mode=strict`` at 40 % of that peak
+   and ``alloc.jit:after=3:times=2:action=oom`` (seed 11): each answer
+   equals its clean one, and the retry ladder's retries and splits are
+   both above 0. Then a real allocator OOM: the process capped with
+   ``torch.cuda.set_per_process_memory_fraction`` at ``REAL_OOM_FRACTION``
+   (0.95) of Q1's clean peak, with the host fallback off, Q1 must finish
+   through the ladder alone, right, with a record naming
+   ``torch.OutOfMemoryError``; any exception fails the phase; the
+   fraction is 1.0 again afterwards.
+18. fallback phase (``bench.py _worker_fallback``'s contract): Q1 and Q6
+   under ``alloc.jit:after=2:times=2:action=fatal``, each answer equal to
+   the clean one through the host fallback (``host_fallbacks`` above 0).
+   Then Q1 decimal (the d128 kernels) and a LIKE filter on ``p_name``
+   (``nfa_match``) under ``alloc.jit:times=1:action=fatal`` must raise
+   ``InjectedDeviceFailure``, with no host fallback and no quarantine
+   note: the fallback never hides a kernel.
+19. deadline phase: ``query.timeoutSeconds=0.001`` on Q3 raises
+   ``QueryTimeoutError`` and leaves the task semaphore with no holder; the
+   same session, its deadline lifted, answers Q6 right.
+20. donation probe: Q1 (AQE off) with the fused stages donating their
+   inputs and without, upload cache off (on, off, off, on) and on: wall,
+   peak device memory and ``donatedBytes`` of each run.
+   No phase but 17 and 18 may record a host fallback, an OOM retry, a
+   split or a quarantine note: the counters are read after every phase.
    Then the seconds of each phase and of the whole run.
 
 Between phases 5 and 6 the Parquet phase scans SF1 lineitem, orders and a
@@ -165,6 +202,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import gc
 import json
 import math
 import re
@@ -4817,6 +4855,661 @@ def _to_torch_check(df, li: pa.Table, device: str) -> dict:
     return {"s": wall}
 
 
+# ---------------------------------------------------------------------------
+# 16-19: the nested-loop join, and the memory and robustness layer
+# ---------------------------------------------------------------------------
+class _Quiet:
+    """The recovery counters no phase but the two pressure phases may move:
+    the retry ladder's retries and splits, the host fallbacks and the
+    quarantine notes, read after every phase."""
+
+    def __init__(self):
+        self.last = self._read()
+
+    @staticmethod
+    def _read() -> dict:
+        from spark_rapids_tpu_torch.exec import fallback
+        from spark_rapids_tpu_torch.memory import retry
+        r, f = retry.retry_stats(), fallback.fallback_stats()
+        return {"oom_retries": r["oom_retries"],
+                "oom_splits": r["oom_splits"],
+                "host_fallbacks": f["host_fallbacks"],
+                "quarantine_notes": f["quarantine_notes"]}
+
+    def check(self, label: str) -> None:
+        now = self._read()
+        moved = {k: now[k] - self.last[k] for k in now
+                 if now[k] != self.last[k]}
+        self.last = now
+        if moved:
+            raise AssertionError(f"{label}: the robustness layer recovered "
+                                 f"something in a phase that must need "
+                                 f"nothing of it: {moved}")
+
+    def absorb(self) -> dict:
+        """Take a pressure phase's counts as the new baseline; -> them."""
+        now = self._read()
+        moved = {k: now[k] - self.last[k] for k in now}
+        self.last = now
+        return moved
+
+
+NL_BANDS = 64
+#: NL1's LIKE: two inner ``%``, so it runs on ``nfa_match``
+NL_LIKE = "%green%blue%"
+
+
+def price_bands(orders) -> tuple:
+    """64 half-open price bands ``[lo, hi)``: 72 equal steps from under the
+    lowest price to past the highest, every ninth step left out (orders in
+    those gaps match no band), the top steps above every price (bands no
+    order matches). -> (the band table, the 73 step edges, the kept step
+    of each band)."""
+    p = orders.column("o_totalprice").to_numpy()
+    edges = np.linspace(float(p.min()) - 1.0, float(p.max()) * 1.04, 73)
+    keep = np.array([i for i in range(72) if i % 9 != 4][:NL_BANDS])
+    table = pa.table({"lo": pa.array(edges[keep]),
+                      "hi": pa.array(edges[keep + 1]),
+                      "band": pa.array(np.arange(NL_BANDS,
+                                                 dtype=np.int64))})
+    return table, edges, keep
+
+
+def band_of(values: np.ndarray, edges: np.ndarray, keep: np.ndarray
+            ) -> np.ndarray:
+    """Each value's band (-1: none), by ``searchsorted`` over the edges."""
+    step = np.searchsorted(edges, values, side="right") - 1
+    band_at = np.full(len(edges), -1, dtype=np.int64)
+    band_at[keep] = np.arange(len(keep))
+    ok = (step >= 0) & (step < len(edges) - 1)
+    return np.where(ok, band_at[np.clip(step, 0, len(edges) - 1)], -1)
+
+
+def _sorted_table(t):
+    return t.sort_by([(c, "ascending") for c in t.column_names])
+
+
+def _bnlj_nodes(plan) -> list:
+    return [n for n in _walk_plan(plan)
+            if type(n).__name__ == "TpuBroadcastNestedLoopJoinExec"]
+
+
+def _nl_run(label: str, sess, q, check) -> dict:
+    """One nested-loop query: device (cold, then warm), the host engine,
+    both checked and equal; -> wall seconds and the windows."""
+    t0 = time.perf_counter()
+    plan = sess._physical(q.logical, True)
+    out = plan.collect().to_arrow()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    _check_device_only(plan, label)
+    nodes = _bnlj_nodes(plan)
+    if not nodes:
+        raise AssertionError(f"{label}: no nested-loop join in the plan:\n"
+                             + plan.tree_string())
+    t0 = time.perf_counter()
+    out = q.collect()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    check(out, f"{label} device")
+    t0 = time.perf_counter()
+    host = q.collect(device=False)
+    host_s = time.perf_counter() - t0
+    check(host, f"{label} host engine")
+    if not _sorted_table(out).equals(_sorted_table(host)):
+        raise AssertionError(f"{label}: device != host engine")
+    ws = nodes[0].window_shape
+    print(f"# {label}: {out.num_rows} rows, cold {cold:.3f} s, warm "
+          f"{warm:.3f} s, host engine {host_s:.3f} s; windows "
+          f"{ws[0]} x {ws[1]}", flush=True)
+    return {"rows": out.num_rows, "cold_s": cold, "warm_s": warm,
+            "host_s": host_s, "windows": ws}
+
+
+def nl1_phase(tables: dict, partitions: int, device: str = "cuda") -> dict:
+    """Phase 16: non-equi and cross joins on the nested-loop join."""
+    import re as _re
+    from spark_rapids_tpu_torch.expr.functions import col, count_star, lit
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.udf.kernels import nfa_match
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True},
+                        device=device)
+    orders = tables["orders"].select(["o_orderkey", "o_custkey",
+                                      "o_totalprice", "o_orderdate",
+                                      "o_orderpriority"])
+    bands, edges, keep = price_bands(orders)
+    want_band = band_of(orders.column("o_totalprice").to_numpy(), edges,
+                        keep)
+    okeys = orders.column("o_orderkey").to_numpy()
+    o = sess.create_dataframe(orders, num_partitions=partitions)
+    b = sess.create_dataframe(bands)
+    cond = (col("o_totalprice") >= col("lo")) \
+        & (col("o_totalprice") < col("hi"))
+    matched = want_band >= 0
+    unmatched_bands = np.setdiff1d(np.arange(NL_BANDS), want_band[matched])
+    print(f"# NL1 tables: orders {orders.num_rows} rows, {NL_BANDS} price "
+          f"bands; {int(matched.sum())} orders in a band, "
+          f"{len(unmatched_bands)} bands with no order", flush=True)
+
+    def check_join(how):
+        def check(out, what):
+            okey = out.column("o_orderkey")
+            if how == "left_anti":
+                if not np.array_equal(np.sort(okey.to_numpy()),
+                                      np.sort(okeys[~matched])):
+                    raise AssertionError(f"{what}: the anti join's rows")
+                return
+            has_o = okey.is_valid().to_numpy()
+            band = out.column("band").fill_null(-1).to_numpy()
+            if how == "full" and not np.array_equal(
+                    np.sort(band[~has_o]), unmatched_bands):
+                raise AssertionError(f"{what}: the bands without orders")
+            k = okey.filter(pa.array(has_o)).to_numpy()
+            want_k, want_b = (okeys, want_band) if how in ("left", "full") \
+                else (okeys[matched], want_band[matched])
+            got_o, want_o = np.argsort(k), np.argsort(want_k)
+            if not (np.array_equal(k[got_o], want_k[want_o])
+                    and np.array_equal(band[has_o][got_o],
+                                       want_b[want_o])):
+                raise AssertionError(f"{what}: the orders or their bands")
+        return check
+
+    runs = {}
+    for how in ("inner", "left", "left_anti", "full"):
+        q = o.join(b, how=how, condition=cond)
+        runs[f"orders x bands {how}"] = _nl_run(
+            f"NL1 orders x bands {how}", sess, q, check_join(how))
+    busy = _profile(o.join(b, how="inner", condition=cond),
+                    "NL1 orders x bands inner")
+
+    nation, region = tables["nation"], tables["region"]
+    nr = sess.create_dataframe(nation).cross_join(
+        sess.create_dataframe(region))
+
+    def check_cross(out, what):
+        pairs = set(zip(out.column("n_nationkey").to_pylist(),
+                        out.column("r_regionkey").to_pylist()))
+        want = {(n, r) for n in nation.column("n_nationkey").to_pylist()
+                for r in region.column("r_regionkey").to_pylist()}
+        if out.num_rows != len(want) or pairs != want:
+            raise AssertionError(f"{what}: not every pair once")
+    runs["nation x region"] = _nl_run("NL1 nation x region", sess, nr,
+                                      check_cross)
+
+    li = sess.create_dataframe(tables["lineitem"], num_partitions=partitions)
+    qty = tables["lineitem"].column("l_quantity").to_numpy()
+    small = li.filter(col("l_quantity") < lit(10.0)).agg(
+        count_star().alias("n_small"))
+    big = li.filter(col("l_quantity") >= lit(40.0)).agg(
+        count_star().alias("n_big"))
+
+    def check_aggs(out, what):
+        if out.num_rows != 1 or out.column("n_small")[0].as_py() \
+                != int((qty < 10).sum()) or out.column("n_big")[0].as_py() \
+                != int((qty >= 40).sum()):
+            raise AssertionError(f"{what}: {out.to_pylist()}")
+    runs["aggregate x aggregate"] = _nl_run(
+        "NL1 aggregate x aggregate", sess, small.cross_join(big), check_aggs)
+
+    part = tables["part"].select(["p_partkey", "p_name", "p_size"])
+    edges_s = np.arange(1, 52, 3)[:17]
+    sbands = pa.table({"lo": pa.array(edges_s[:-1].astype(np.int64)),
+                       "hi": pa.array(edges_s[1:].astype(np.int64)),
+                       "sband": pa.array(np.arange(16, dtype=np.int64))})
+    names = part.column("p_name").to_pylist()
+    sizes = part.column("p_size").to_numpy()
+    like = np.array([_re.search("green.*blue", s, _re.S) is not None
+                     for s in names])
+    sb = np.searchsorted(edges_s, sizes, side="right") - 1
+    ok = like & (sb >= 0) & (sb < 16)
+    want_p = dict(zip(part.column("p_partkey").to_numpy()[ok], sb[ok]))
+    p = sess.create_dataframe(part, num_partitions=partitions)
+    s = sess.create_dataframe(sbands)
+    pq = p.join(s, how="inner", condition=(col("p_size") >= col("lo"))
+                & (col("p_size") < col("hi"))
+                & col("p_name").like(NL_LIKE))
+
+    def check_part(out, what):
+        got = dict(zip(out.column("p_partkey").to_pylist(),
+                       out.column("sband").to_pylist()))
+        if out.num_rows != len(want_p) or got != want_p:
+            raise AssertionError(f"{what}: {out.num_rows} rows, want "
+                                 f"{len(want_p)}")
+    nfa_match.launches = 0
+    runs["part x size bands"] = _nl_run("NL1 part x size bands (LIKE)",
+                                        sess, pq, check_part)
+    launched = nfa_match.launches
+    if device != "cpu" and not launched:
+        raise AssertionError("NL1: the LIKE condition did not run on "
+                             "nfa_match")
+    print(f"# NL1 part x size bands: {len(want_p)} parts matched; "
+          f"nfa_match launched {launched} times over the cold, warm and "
+          f"host-engine runs", flush=True)
+    busy_p = _profile(pq, "NL1 part x size bands (LIKE)")
+    return {"runs": runs, "busy": busy, "busy_part": busy_p,
+            "nfa_launches": launched}
+
+
+def _robust_queries(sess, tables: dict, dli, partitions: int) -> dict:
+    from spark_rapids_tpu_torch.tools import tpch
+    dfs = {k: sess.create_dataframe(v, num_partitions=partitions)
+           for k, v in tables.items()}
+    return {"q1": tpch.q1(dfs), "q6": tpch.q6(dfs), "q3": tpch.q3(dfs),
+            "q1_decimal": tpch.q1_decimal({"lineitem": sess.create_dataframe(
+                dli, num_partitions=partitions)})}
+
+
+def _same_answer(name: str, got, clean, what: str) -> None:
+    if name == "q1_decimal":
+        if not got.equals(clean):
+            raise AssertionError(f"{what}: differs from the clean run")
+        return
+    _compare_tpch(name, got, clean, what)
+
+
+#: The real allocator OOM's cap: this share of Q1's clean peak over the
+#: memory resident before it. At 0.95 the allocator raises inside Q1's first
+#: stage and one retry (the spill rung drops the upload cache) recovers it
+#: (PERF.md, PR 14 call 6); an allocation outside the ladder's scopes that
+#: fails at this cap fails the phase.
+REAL_OOM_FRACTION = 0.95
+
+
+def oom_phase(tables: dict, li, partitions: int, device: str = "cuda"
+              ) -> dict:
+    """Phase 17: the retry ladder under a strict pool and injected OOMs,
+    then under a real allocator OOM."""
+    from spark_rapids_tpu_torch.exec import fallback
+    from spark_rapids_tpu_torch.exec.transitions import clear_upload_cache
+    from spark_rapids_tpu_torch.memory import catalog, retry
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    dli = tpch.decimal_lineitem(li)
+    qt = {k: tables[k] for k in ("lineitem", "orders", "customer")}
+    clear_upload_cache()
+    catalog.set_catalog(None)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    sess = TorchSession({}, device=device)
+    clean, clean_s, d128 = {}, {}, {}
+    for name, q in _robust_queries(sess, qt, dli, partitions).items():
+        _d128_zero()
+        t0 = time.perf_counter()
+        clean[name] = q.collect()
+        clean_s[name] = time.perf_counter() - t0
+        d128[name] = {"clean": _d128_counts()}
+    peak = catalog.peek_catalog().peak_device_bytes
+    pool = max(int(peak * 0.4), 1 << 20)
+    print(f"# OOM clean runs (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in clean_s.items())
+        + f"; catalog peak {peak} B -> strict pool {pool} B (40 %)",
+        flush=True)
+    retry.reset_retry_state()
+    fallback.reset_fallback_state()
+    sess = TorchSession({
+        "spark.rapids.tpu.memory.pool.size": pool,
+        "spark.rapids.tpu.memory.pool.mode": "strict",
+        "spark.rapids.tpu.faults.enabled": True,
+        "spark.rapids.tpu.faults.seed": 11,
+        "spark.rapids.tpu.faults.spec":
+            "alloc.jit:after=3:times=2:action=oom"}, device=device)
+    res = {}
+    for name, q in _robust_queries(sess, qt, dli, partitions).items():
+        before = retry.retry_stats()
+        _d128_zero()
+        t0 = time.perf_counter()
+        got = q.collect()
+        wall = time.perf_counter() - t0
+        d128[name]["pressured"] = _d128_counts()
+        after = retry.retry_stats()
+        _same_answer(name, got, clean[name], f"OOM {name} under pressure")
+        delta = {k: after[k] - before[k]
+                 for k in ("oom_retries", "oom_splits",
+                           "oom_rematerializations", "oom_recoveries",
+                           "oom_spilled_bytes") if after[k] != before[k]}
+        res[name] = {"clean_s": clean_s[name], "oom_s": wall,
+                     "retry": delta, "d128_launches": d128[name]}
+        print(f"# OOM {name}: clean {clean_s[name]:.3f} s, pressured "
+              f"{wall:.3f} s, equal; ladder {delta}", flush=True)
+    print("# OOM decimal kernel launches (clean, pressured): " + "; ".join(
+        f"{k} {v['clean']} / {v['pressured']}" for k, v in d128.items()
+        if any(v["clean"].values())), flush=True)
+    if device != "cpu" and not (d128["q1_decimal"]["clean"]
+                                ["d128_mul_rescaled"]
+                                and d128["q1_decimal"]["pressured"]
+                                ["d128_segment_sum"]):
+        raise AssertionError(f"OOM: Q1 decimal ran no decimal kernel: "
+                             f"{d128['q1_decimal']}")
+    totals = retry.retry_stats()
+    recs = retry.drain_oom_retry_records()
+    print(f"# OOM ladder totals: {totals}; {len(recs)} records, scopes "
+          + ", ".join(sorted({r['scope'] for r in recs})), flush=True)
+    if not (totals["oom_retries"] and totals["oom_splits"]):
+        raise AssertionError(f"OOM: the ladder was idle: {totals}")
+    if fallback.fallback_stats()["host_fallbacks"]:
+        raise AssertionError("OOM: the strict-pool runs fell back to the "
+                             "host engine")
+    sess = TorchSession({}, device=device)   # default pool and no faults
+    res["real"] = _real_oom(sess, qt, partitions, clean["q1"], device)
+    return res
+
+
+def _real_oom(sess, qt: dict, partitions: int, clean, device: str) -> dict:
+    """Q1 under ``set_per_process_memory_fraction`` at
+    ``REAL_OOM_FRACTION`` of its clean peak: the allocator must raise and
+    the ladder alone (the host fallback off) must still give the clean
+    answer, its records naming ``OutOfMemoryError`` as a cause. Any
+    exception fails the phase."""
+    from spark_rapids_tpu_torch.exec.transitions import clear_upload_cache
+    from spark_rapids_tpu_torch.memory import retry
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    if device == "cpu":
+        return {"skipped": "no CUDA allocator on the CPU"}
+    dev = torch.cuda.current_device()   # the fraction wants an index
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def fresh_q1(s):
+        return tpch.q1({"lineitem": s.create_dataframe(
+            qt["lineitem"], num_partitions=partitions)})
+    from spark_rapids_tpu_torch.memory.catalog import peek_catalog
+    clear_upload_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cat = peek_catalog()
+    print(f"# real OOM: {base} B allocated before Q1 (the catalog holds "
+          f"{None if cat is None else cat.counters()['device_used_bytes']} "
+          f"B of it)", flush=True)
+    fresh_q1(sess).collect()
+    torch.cuda.synchronize()
+    q1_peak = torch.cuda.max_memory_allocated(dev) - base
+    nofb = TorchSession({"spark.rapids.tpu.fallback.enabled": False},
+                        device=device)
+    frac = REAL_OOM_FRACTION
+    clear_upload_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cap = base + int(q1_peak * frac)
+    limit = cap / total
+    retry.reset_retry_state()
+    torch.cuda.set_per_process_memory_fraction(limit, dev)
+    t0 = time.perf_counter()
+    try:
+        got = fresh_q1(nofb).collect()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    recs = retry.drain_oom_retry_records()
+    stats = retry.retry_stats()
+    row = {"fraction_of_peak": frac, "cap_bytes": cap,
+           "memory_fraction": limit, "wall_s": wall,
+           "retries": stats["oom_retries"], "splits": stats["oom_splits"],
+           "causes": sorted({r["cause"] for r in recs if r["cause"]})}
+    print(f"# real OOM, Q1 capped at {frac:.2f} of its clean peak "
+          f"({q1_peak} B over a resident {base} B): memory fraction "
+          f"{limit:.6f}, {wall:.3f} s, retries {row['retries']}, "
+          f"splits {row['splits']}, causes {row['causes']}", flush=True)
+    _compare_tpch("q1", got, clean, f"real OOM at {frac}")
+    if "OutOfMemoryError" not in row["causes"]:
+        raise AssertionError(f"real OOM: Q1 at {frac} of its clean peak "
+                             f"finished without an allocator OOM: {row}")
+    print(f"# real OOM: Q1 finished through the ladder alone at a memory "
+          f"fraction of {limit:.6f} ({frac:.2f} of its clean peak), equal "
+          f"to the clean answer; the fraction is 1.0 again", flush=True)
+    return {"q1_peak": q1_peak, "run": row}
+
+
+def fallback_phase(tables: dict, partitions: int, device: str = "cuda"
+                   ) -> dict:
+    """Phase 18: non-retryable failures recovered by the host fallback,
+    then the same failure in a stage that launches a hand-written kernel
+    (``kernel_fatal_checks``), which must re-raise."""
+    from spark_rapids_tpu_torch.exec import fallback
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+
+    def queries(sess):
+        dfs = {"lineitem": sess.create_dataframe(tables["lineitem"],
+                                                 num_partitions=partitions)}
+        return {"q1": tpch.q1(dfs), "q6": tpch.q6(dfs)}
+    clean = {}
+    for name, q in queries(TorchSession({}, device=device)).items():
+        clean[name] = q.collect()
+    fallback.reset_fallback_state()
+    fatal = {"spark.rapids.tpu.faults.enabled": True,
+             "spark.rapids.tpu.faults.seed": 11,
+             "spark.rapids.tpu.faults.spec":
+                 "alloc.jit:after=2:times=2:action=fatal"}
+    out = {}
+    for name in clean:
+        # a session of its own: the spec's evaluations count from 0 again
+        q = queries(TorchSession(fatal, device=device))[name]
+        before = fallback.fallback_stats()["host_fallbacks"]
+        t0 = time.perf_counter()
+        got = q.collect()
+        wall = time.perf_counter() - t0
+        n = fallback.fallback_stats()["host_fallbacks"] - before
+        _compare_tpch(name, got, clean[name], f"fallback {name}")
+        out[name] = {"wall_s": wall, "host_fallbacks": n}
+        print(f"# fallback {name}: {wall:.3f} s, {n} host fallbacks, "
+              f"equal to the clean answer", flush=True)
+    recs = fallback.drain_fallback_records()
+    for r in recs:
+        print(f"#   fallback record: {r['operator']} {r['failure_class']} "
+              f"{r['rows']} rows, {r['bytes_down']} B down, {r['bytes_up']} "
+              f"B up, {r['wall_s']:.3f} s", flush=True)
+    stats = fallback.fallback_stats()
+    print(f"# fallback counters {stats}; quarantine entries "
+          + json.dumps([{k: e[k] for k in ("operator", "failure_class",
+                                            "count")}
+                        for e in fallback.quarantine_entries()]), flush=True)
+    if not all(r["host_fallbacks"] for r in out.values()):
+        raise AssertionError(f"fallback: a query needed no host fallback: "
+                             f"{out}")
+    out["stats"] = stats
+    # the store lives for the process: later phases start without it
+    fallback.reset_fallback_state()
+    TorchSession({}, device=device)   # faults off again
+    out["kernel_fatal"] = kernel_fatal_checks(tables, partitions, device)
+    return out
+
+
+def kernel_fatal_checks(tables: dict, partitions: int,
+                        device: str = "cuda") -> dict:
+    """Q1 decimal (``d128_mul_rescaled``, ``d128_rescale``,
+    ``d128_segment_sum``) and a LIKE filter on ``p_name`` (``nfa_match``)
+    under ``alloc.jit:times=1:action=fatal``: the fallback must not hide a
+    kernel, so each query raises ``InjectedDeviceFailure``, runs no batch
+    on the host and notes nothing in the quarantine store. A clean run of
+    each shows its kernels launch."""
+    from spark_rapids_tpu_torch.exec import fallback
+    from spark_rapids_tpu_torch.expr import decimal128
+    from spark_rapids_tpu_torch.expr.functions import col
+    from spark_rapids_tpu_torch.memory.retry import InjectedDeviceFailure
+    from spark_rapids_tpu_torch.memory.semaphore import peek_semaphore
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    from spark_rapids_tpu_torch.udf import kernels
+    from spark_rapids_tpu_torch.utils import faults
+    dli = tpch.decimal_lineitem(tables["lineitem"])
+
+    def q1_decimal(sess):
+        return tpch.q1_decimal({"lineitem": sess.create_dataframe(
+            dli, num_partitions=partitions)})
+
+    def like_filter(sess):
+        part = sess.create_dataframe(tables["part"],
+                                     num_partitions=partitions)
+        return part.filter(col("p_name").like(NL_LIKE)).select(
+            "p_partkey", "p_name")
+    fatal = {"spark.rapids.tpu.faults.enabled": True,
+             "spark.rapids.tpu.faults.seed": 11,
+             "spark.rapids.tpu.faults.spec": "alloc.jit:times=1:action=fatal"}
+    out = {}
+    for name, build, counter in (
+            ("q1_decimal", q1_decimal, decimal128.d128_mul_rescaled),
+            ("like_filter", like_filter, kernels.nfa_match)):
+        before = counter.launches
+        rows = build(TorchSession({}, device=device)).collect().num_rows
+        clean_launches = counter.launches - before
+        if device != "cpu" and not clean_launches:
+            raise AssertionError(f"fallback: the clean {name} launched no "
+                                 f"{counter.__name__}")
+        stats = fallback.fallback_stats()
+        t0 = time.perf_counter()
+        try:
+            build(TorchSession(fatal, device=device)).collect()
+        except InjectedDeviceFailure as e:
+            err = e
+        else:
+            raise AssertionError(f"fallback: {name} under action=fatal "
+                                 f"finished: a stage that launches "
+                                 f"{counter.__name__} was recovered")
+        finally:
+            faults.reset_faults()
+        wall = time.perf_counter() - t0
+        now = fallback.fallback_stats()
+        moved = {k: now[k] - stats[k] for k in ("host_fallbacks",
+                                                "quarantine_notes")
+                 if now[k] != stats[k]}
+        if moved or fallback.quarantine_entries():
+            raise AssertionError(f"fallback: {name}'s kernel-bearing stage "
+                                 f"was recovered or quarantined: {moved}")
+        sem = peek_semaphore()
+        if sem is not None and (sem.holder_count() or sem.waiter_count()):
+            raise AssertionError(f"fallback: {name}'s failure left a "
+                                 f"semaphore hold: {sem.dump()}")
+        out[name] = {"rows": rows, "clean_launches": clean_launches,
+                     "raise_s": wall}
+        print(f"# fallback: {name} ({rows} rows clean, {counter.__name__} "
+              f"launched {clean_launches} times) raised under action=fatal "
+              f"after {wall:.3f} s: {str(err)[:90]}; no host fallback, no "
+              f"quarantine note", flush=True)
+    TorchSession({}, device=device)   # faults off again
+    return out
+
+
+def donation_probe(li, partitions: int, device: str = "cuda") -> dict:
+    """Q1 with the fused stages donating their exclusively owned inputs
+    and without, AQE off: peak device memory over the resident base, wall
+    and ``donatedBytes``. With the upload cache off every upload is its
+    stage's alone; runs in the order on, off, off, on. With the cache on
+    (the default) one run each way: the cache keeps the uploads, so
+    nothing is donated."""
+    from spark_rapids_tpu_torch.exec.transitions import clear_upload_cache
+    from spark_rapids_tpu_torch.exec.wholestage import (DONATED_BYTES,
+                                                        TpuWholeStageExec)
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    on_card = device != "cpu"
+
+    def stages(n, acc):
+        if isinstance(n, TpuWholeStageExec):
+            acc[id(n)] = n
+        for c in getattr(n, "children", ()):
+            stages(c, acc)
+        return acc
+    clean = None
+    rows = []
+    for cache, donate in ((False, True), (False, False), (False, False),
+                          (False, True), (True, True), (True, False)):
+        sess = TorchSession({"spark.rapids.tpu.aqe.enabled": False,
+                             "spark.rapids.tpu.scan.deviceCache.enabled":
+                                 cache,
+                             "spark.rapids.tpu.donation.enabled": donate,
+                             # the CPU donates only when forced (rehearsal)
+                             "spark.rapids.tpu.donation.force":
+                                 donate and not on_card},
+                            device=device)
+        q = tpch.q1({"lineitem": sess.create_dataframe(
+            li, num_partitions=partitions)})
+        plan = sess._physical(q.logical, True)
+        clear_upload_cache()
+        gc.collect()
+        base = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = plan.collect().to_arrow()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        if clean is None:
+            clean = got
+        _compare_tpch("q1", got, clean, f"donation={donate} cache={cache}")
+        donated = sum(s.metrics[DONATED_BYTES]
+                      for s in stages(plan, {}).values())
+        if donate and not cache and not donated:
+            raise AssertionError("donation: nothing donated with the upload "
+                                 "cache off")
+        if (cache or not donate) and donated:
+            raise AssertionError(f"donation: {donated} B donated with "
+                                 f"donation={donate} cache={cache}")
+        row = {"upload_cache": cache, "donation": donate, "wall_s": wall,
+               "peak_bytes": peak, "donated_bytes": donated}
+        rows.append(row)
+        print(f"# donation probe, Q1 upload cache "
+              f"{'on' if cache else 'off'}, donation "
+              f"{'on' if donate else 'off'}: {wall:.3f} s, peak {peak} B "
+              f"over a resident {base} B, donatedBytes {donated}",
+              flush=True)
+    clear_upload_cache()
+    return {"runs": rows}
+
+
+def deadline_phase(tables: dict, partitions: int, device: str = "cuda"
+                   ) -> dict:
+    """Phase 19: a query past its deadline, then the same session again."""
+    from spark_rapids_tpu_torch.memory import retry
+    from spark_rapids_tpu_torch.memory.semaphore import peek_semaphore
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.tools import tpch
+    from spark_rapids_tpu_torch.utils.deadline import QueryTimeoutError
+    sess = TorchSession({"spark.rapids.tpu.query.timeoutSeconds": 0.001},
+                        device=device)
+    dfs = {k: sess.create_dataframe(v, num_partitions=partitions)
+           for k, v in tables.items()}
+    t0 = time.perf_counter()
+    try:
+        tpch.q3(dfs).collect()
+    except QueryTimeoutError as e:
+        err = e
+    else:
+        raise AssertionError("deadline: Q3 finished inside 1 ms")
+    wall = time.perf_counter() - t0
+    sem = peek_semaphore()
+    if sem is None or sem.holder_count() or sem.waiter_count():
+        raise AssertionError(f"deadline: the semaphore kept a hold: "
+                             f"{None if sem is None else sem.dump()}")
+    arb = retry.arbiter_snapshot()
+    if arb["active_retriers"] or arb["gate_active"]:
+        raise AssertionError(f"deadline: the arbiter stayed engaged: {arb}")
+    sess.set_conf("spark.rapids.tpu.query.timeoutSeconds", 0.0)
+    li = tables["lineitem"]
+    mask = _q6_mask(li)
+    want = float(np.sum(li.column("l_extendedprice").to_numpy()[mask]
+                        * li.column("l_discount").to_numpy()[mask]))
+    got = tpch.q6(dfs).collect().column("revenue")[0].as_py()
+    if not math.isclose(got, want, rel_tol=1e-9):
+        raise AssertionError(f"deadline: Q6 after the timeout {got} != "
+                             f"{want}")
+    print(f"# deadline: Q3 raised QueryTimeoutError after {wall:.3f} s "
+          f"({err.elapsed_s:.4f} s past arming, forensics "
+          f"{err.forensics_path}); semaphore holders 0; the same session "
+          f"then answered Q6 = {got!r}, equal to numpy", flush=True)
+    return {"raise_s": wall, "elapsed_s": err.elapsed_s}
+
+
 def _window_kernel_lines(main: dict, launches: dict, err: dict) -> list:
     """The ``kernels`` line's entries of the window kernels: each timed at
     the largest row count the main path launched it at (``main["where"]``;
@@ -4884,6 +5577,7 @@ def main() -> int:
           f"(nvcc {native.build_seconds:.2f} s)", flush=True)
 
     phase_s = {"build": time.perf_counter() - t_start}
+    quiet = _Quiet()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     kern = kernel_phase(gen)
@@ -4892,6 +5586,7 @@ def main() -> int:
     d128k = decimal_kernel_phase()
     wink = window_kernel_phase()
     phase_s["kernels"] = time.perf_counter() - t0
+    quiet.check("kernels")
 
     t0 = time.perf_counter()
     li = tpch.gen_lineitem(args.sf, seed=0)
@@ -4911,6 +5606,7 @@ def main() -> int:
     query_phase(tpch.q6({"lineitem": df}), "Q6", "revenue",
                 float(np.sum(price[mask] * disc[mask])), launches=0)
     phase_s["Q6"] = time.perf_counter() - t0
+    quiet.check("Q6")
 
     # -- UDF phase: one axpy launch per input batch --------------------------
     t0 = time.perf_counter()
@@ -4929,11 +5625,13 @@ def main() -> int:
                            float(np.sum(r[mask].astype(np.float64))),
                            launches=batches)
     phase_s["UDF"] = time.perf_counter() - t0
+    quiet.check("UDF")
 
     # -- Q1 phase: keyed aggregate over string keys, then a sort -----------
     t0 = time.perf_counter()
     q1_phase(tpch.q1({"lineitem": df}), li)
     phase_s["Q1"] = time.perf_counter() - t0
+    quiet.check("Q1")
 
     # -- Q3 phase: equi-joins, top-n and AQE's broadcast demotion -----------
     t0 = time.perf_counter()
@@ -4947,12 +5645,14 @@ def main() -> int:
     t0 = time.perf_counter()
     q3_phase(tables, args.partitions)
     phase_s["Q3"] = time.perf_counter() - t0
+    quiet.check("Q3")
 
     # -- Parquet: full scans, Q6 (device decode and host reader) and Q1 ----
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parquet_") as tmp:
         pq_out = parquet_phase(li, tables["orders"], tmp)
     phase_s["parquet"] = time.perf_counter() - t0
+    quiet.check("parquet")
 
     # -- Q4, Q5, Q21 and the outer joins: every join type on the device ----
     t0 = time.perf_counter()
@@ -4964,6 +5664,7 @@ def main() -> int:
     t0 = time.perf_counter()
     joins_phase(jtables, args.partitions)
     phase_s["joins"] = time.perf_counter() - t0
+    quiet.check("joins")
 
     # -- the other fifteen queries: subqueries, distinct, date parts,
     #    string predicates and LIKE on the nfa_match kernel ----------------
@@ -4975,25 +5676,31 @@ def main() -> int:
           f"generated in {time.perf_counter() - t0:.2f} s", flush=True)
     summary = tpch_phase(ptables, args.partitions)
     phase_s["tpch"] = time.perf_counter() - t0
+    quiet.check("tpch")
 
     # -- Q20 on rows: lineitem's pairs drawn from partsupp ----------------
     t0 = time.perf_counter()
     q20_phase(ptables, args.partitions)
     phase_s["q20"] = time.perf_counter() - t0
+    quiet.check("q20")
     # -- the grace join, the spill catalog, the out-of-core sort ----------
     t0 = time.perf_counter()
     grace_phase(jtables, _q13_outer_tables(jtables)[1], args.partitions)
     phase_s["grace"] = time.perf_counter() - t0
+    quiet.check("grace")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as tmp:
         spill_phase(tables, args.partitions, tmp)
     phase_s["spill"] = time.perf_counter() - t0
+    quiet.check("spill")
     t0 = time.perf_counter()
     sort_phase(li, args.partitions)
     phase_s["sort"] = time.perf_counter() - t0
+    quiet.check("sort")
     t0 = time.perf_counter()
     q3_sf10_phase(args.partitions)
     phase_s["Q3 SF10"] = time.perf_counter() - t0
+    quiet.check("Q3 SF10")
     # -- decimals: Q1 and Q6 over DECIMAL(12,2), a wide key, Parquet -------
     t0 = time.perf_counter()
     d128_runs = decimal_query_phase(li, args.partitions)
@@ -5001,14 +5708,41 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as tmp:
         decimal_parquet_phase(li, tmp, args.partitions)
     phase_s["decimal"] = time.perf_counter() - t0
+    quiet.check("decimal")
     # -- windows, rollup/cube, union, range, sample, cache, to_torch -------
     t0 = time.perf_counter()
     rel = relational_phase({"orders": tables["orders"], "lineitem": li,
                             "part": ptables["part"]}, args.partitions)
     phase_s["relational"] = time.perf_counter() - t0
+    quiet.check("relational")
     t0 = time.perf_counter()
     winm = window_main_shape_phase(rel["shapes"])
     phase_s["window kernels at main shapes"] = time.perf_counter() - t0
+    quiet.check("window kernels at main shapes")
+    # -- nested-loop and cross joins --------------------------------------
+    t0 = time.perf_counter()
+    nl1 = nl1_phase(dict(ptables, lineitem=li), args.partitions)
+    phase_s["NL1"] = time.perf_counter() - t0
+    quiet.check("NL1")
+    # -- the memory and robustness layer: the two pressure phases, whose
+    #    recoveries are the point, then the deadline ---------------------
+    t0 = time.perf_counter()
+    oom = oom_phase(dict(tables, lineitem=li), li, args.partitions)
+    phase_s["OOM"] = time.perf_counter() - t0
+    print(f"# OOM phase recovered: {quiet.absorb()}", flush=True)
+    t0 = time.perf_counter()
+    fb = fallback_phase({"lineitem": li, "part": ptables["part"]},
+                        args.partitions)
+    phase_s["fallback"] = time.perf_counter() - t0
+    quiet.absorb()   # the phase printed its counters and cleared them
+    t0 = time.perf_counter()
+    deadline_phase(dict(tables, lineitem=li), args.partitions)
+    phase_s["deadline"] = time.perf_counter() - t0
+    quiet.check("deadline")
+    t0 = time.perf_counter()
+    donation = donation_probe(li, args.partitions)
+    phase_s["donation"] = time.perf_counter() - t0
+    quiet.check("donation")
     print("# TPC-H summary (s): query rows cold warm aqe_off host busy% "
           "warm_cache_hits", flush=True)
     for name, r in summary.items():
@@ -5030,6 +5764,16 @@ def main() -> int:
         print(f"#   {name:18s} {r['rows']:8d} {r['on_cold_s']:.3f} "
               f"{r['on_warm_s']:.3f} {r['off_warm_s']:.3f} "
               f"{r['host_s']:.3f} {busy}", flush=True)
+    print("# NL1 summary (s): query rows cold warm host windows", flush=True)
+    for name, r in nl1["runs"].items():
+        print(f"#   {name:28s} {r['rows']:8d} {r['cold_s']:.3f} "
+              f"{r['warm_s']:.3f} {r['host_s']:.3f} "
+              f"{r['windows'][0]}x{r['windows'][1]}", flush=True)
+    print("# robustness summary: " + json.dumps({
+        "oom": {k: v for k, v in oom.items() if k != "real"},
+        "real_oom": oom["real"]["run"],
+        "fallback": {k: v for k, v in fb.items() if k != "stats"},
+        "donation": donation["runs"]}, default=str), flush=True)
     print("# phase seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items())
         + f"; whole run {time.perf_counter() - t_start:.2f} s", flush=True)

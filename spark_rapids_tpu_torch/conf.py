@@ -20,8 +20,6 @@ _REGISTRY: "Dict[str, ConfEntry]" = {}
 
 #: The open steps of ROADMAP Queue 1, by name: messages name the step that
 #: will port a feature by these, never by a number a re-anchor changes.
-STEP_NESTED_LOOP = "nested-loop and cross joins"
-STEP_ROBUSTNESS = "memory and robustness"
 STEP_MULTI_GPU = "multi-GPU"
 STEP_BREADTH = "breadth"
 
@@ -333,6 +331,171 @@ DISK_SPILL_CHECKSUM = register_conf(
     "silently corrupt rows.", True)
 
 
+# -- memory and robustness: the pool, the OOM ladder, host fallback, faults,
+# deadlines, the task semaphore, donation and the memory profiler ----------
+def _non_negative(what: str):
+    def check(v):
+        return None if v >= 0 else f"{what} must be >= 0, got {v}"
+    return check
+
+
+DEVICE_POOL_BYTES = register_conf(
+    "spark.rapids.tpu.memory.pool.size",
+    "Logical device budget in bytes for spillable buffers (reference: RMM "
+    "pool sizing, GpuDeviceManager.scala:176-222). 0 = derive from the "
+    "device.", 0)
+
+DEVICE_POOL_MODE = register_conf(
+    "spark.rapids.tpu.memory.pool.mode",
+    "Buffer-pool accounting mode (reference: the RMM DEFAULT/POOL/ARENA/"
+    "ASYNC selection, GpuDeviceManager.scala:224): 'logical' enforces the "
+    "budget by spilling lowest-priority buffers; 'none' disables budget "
+    "accounting (the caching allocator arbitrates, like RMM DEFAULT); "
+    "'strict' raises when a registration cannot fit even after spilling "
+    "(surface OOM early instead of overcommitting).", "logical",
+    checker=lambda v: None if v in ("logical", "none", "strict")
+    else f"must be one of logical/none/strict, got {v!r}")
+
+DEVICE_POOL_FRACTION = register_conf(
+    "spark.rapids.memory.gpu.allocFraction",
+    "Fraction of device memory the buffer pool may use.", 0.9,
+    conf_type=float)
+
+DEVICE_POOL_MAX_FRACTION = register_conf(
+    "spark.rapids.memory.gpu.maxAllocFraction",
+    "Upper bound on the fraction of device memory the spillable pool may "
+    "claim (reference: RapidsConf RMM_ALLOC_MAX_FRACTION).", 1.0,
+    conf_type=float)
+
+MEMORY_DEBUG = register_conf(
+    "spark.rapids.tpu.memory.debug",
+    "Sanitizer mode for the buffer catalog (reference: RMM debug allocator "
+    "/ spark.rapids.memory.gpu.debug): double-free and release-underflow "
+    "raise, freed host buffers are poisoned (0xDD), buffer creation sites "
+    "are recorded, and accounting invariants are checked after every "
+    "operation.", False)
+
+OOM_MAX_RETRIES = register_conf(
+    "spark.rapids.tpu.oom.maxRetries",
+    "Maximum spill-and-retry attempts per retry scope before the ladder "
+    "escalates to split-and-retry (or fails with a structured "
+    "DeviceOomError). 0 disables plain retries.",
+    2, checker=_non_negative("oom.maxRetries"))
+
+OOM_MAX_SPLITS = register_conf(
+    "spark.rapids.tpu.oom.maxSplits",
+    "Maximum row-axis input halvings per retry scope for operators that "
+    "declare a splitter (split-and-retry). 0 disables splitting.",
+    4, checker=_non_negative("oom.maxSplits"))
+
+OOM_ARBITRATION = register_conf(
+    "spark.rapids.tpu.oom.arbitration.enabled",
+    "Pause new task admissions while a thread is retrying after device OOM "
+    "and serialize retriers' final attempts, giving the retrier the "
+    "device's memory to itself.", True)
+
+OOM_GATE_MAX_WAIT = register_conf(
+    "spark.rapids.tpu.oom.arbitration.maxWaitSeconds",
+    "Upper bound on how long a new admission parks on the OOM arbitration "
+    "gate before proceeding anyway.", 30.0, conf_type=float,
+    checker=lambda v: None if v > 0
+    else f"maxWaitSeconds must be > 0, got {v}")
+
+FALLBACK_ENABLED = register_conf(
+    "spark.rapids.tpu.fallback.enabled",
+    "Runtime host fallback: when a device operator's dispatch fails "
+    "terminally (OOM ladder exhausted, or a classified non-retryable "
+    "device error), download the batch, re-execute it through the host "
+    "engine's implementation and re-upload.", True)
+
+QUARANTINE_ENABLED = register_conf(
+    "spark.rapids.tpu.fallback.quarantine.enabled",
+    "Operator quarantine: count runtime fallbacks per (operator class, "
+    "plan signature, failure class); past quarantine.threshold the "
+    "planner routes that operator to the host at plan time (explain shows "
+    "the reason). The store lives for the process.", True)
+
+QUARANTINE_THRESHOLD = register_conf(
+    "spark.rapids.tpu.fallback.quarantine.threshold",
+    "Runtime fallbacks a (operator, plan-signature, failure-class) key "
+    "must accumulate before the planner quarantines it to the host.",
+    3, checker=lambda v: None if v >= 1
+    else f"threshold must be >= 1, got {v}")
+
+QUARANTINE_TTL = register_conf(
+    "spark.rapids.tpu.fallback.quarantine.ttlSeconds",
+    "Quarantine entry lifetime in seconds; expired entries are pruned on "
+    "lookup, so a quarantined operator is tried on the device again.",
+    86400.0, conf_type=float,
+    checker=lambda v: None if v > 0 else f"ttlSeconds must be > 0, got {v}")
+
+QUARANTINE_MAX_ENTRIES = register_conf(
+    "spark.rapids.tpu.fallback.quarantine.maxEntries",
+    "Upper bound on quarantine-store entries; the oldest entries are "
+    "evicted first.", 256,
+    checker=lambda v: None if v >= 1 else f"maxEntries must be >= 1, got {v}")
+
+QUERY_TIMEOUT = register_conf(
+    "spark.rapids.tpu.query.timeoutSeconds",
+    "Wall-clock deadline per collect() in seconds; 0 (the default) "
+    "disables it. A query past its deadline cancels cooperatively at the "
+    "runtime's next yield point (retry-ladder dispatch, OOM arbitration "
+    "gate) with a QueryTimeoutError carrying a forensics dump.",
+    0.0, conf_type=float,
+    checker=lambda v: None if v >= 0
+    else f"timeoutSeconds must be >= 0, got {v}")
+
+CONCURRENT_GPU_TASKS = register_conf(
+    "spark.rapids.sql.concurrentGpuTasks",
+    "Number of tasks that may submit device work concurrently per device "
+    "(admission control via the task semaphore). (reference: "
+    "RapidsConf.scala:412-418)", 1, checker=_positive("concurrent tasks"))
+
+DONATION_ENABLED = register_conf(
+    "spark.rapids.tpu.donation.enabled",
+    "Let a fused stage drop its references to an exclusively owned input "
+    "batch (an upload the scan cache does not keep) once the chain has "
+    "consumed it, so the caching allocator can reuse those planes for the "
+    "output. Cached and spillable batches are never donated. Off on the "
+    "CPU unless donation.force.", True)
+
+DONATION_FORCE = register_conf(
+    "spark.rapids.tpu.donation.force",
+    "Testing only: donate on the CPU too.", False)
+
+FAULTS_ENABLED = register_conf(
+    "spark.rapids.tpu.faults.enabled",
+    "Enable the fault-injection framework. When false (the default) every "
+    "fault point is a single module-constant check and nothing is ever "
+    "injected.", False)
+
+FAULTS_SPEC = register_conf(
+    "spark.rapids.tpu.faults.spec",
+    "Fault-injection spec: semicolon-separated clauses of the form "
+    "point[:key=value]* with keys p|prob (fire probability), times (max "
+    "fires), after (skip first N evaluations), latency_ms and action "
+    "(raise|kill|corrupt|delay|oom|fatal).", "")
+
+FAULTS_SEED = register_conf(
+    "spark.rapids.tpu.faults.seed",
+    "Seed for the per-point deterministic RNG streams used by "
+    "probabilistic fault clauses.", 0)
+
+MEMPROF_ENABLED = register_conf(
+    "spark.rapids.tpu.memory.profile.enabled",
+    "Record buffer-catalog allocation lifecycle events (register/spill/"
+    "restore/free with byte deltas and the owning query and operator) into "
+    "the process-wide memory flight recorder: per-operator live and peak "
+    "device bytes, leak detection at query end, and OOM postmortems.",
+    True)
+
+MEMPROF_RING_SIZE = register_conf(
+    "spark.rapids.tpu.memory.profile.ringSize",
+    "Ring-buffer capacity of the memory flight recorder in lifecycle "
+    "events; overflow drops the oldest events.", 4096,
+    checker=lambda v: None if v > 0 else f"must be positive, got {v}")
+
+
 DECIMAL128_ENABLED = register_conf(
     "spark.rapids.sql.decimal128.enabled",
     "Run DECIMAL(19..38) on the device as two-limb int64 columns "
@@ -347,29 +510,6 @@ DECIMAL128_ENABLED = register_conf(
 #: port keeps its own copy (it imports nothing of the JAX package);
 #: tests/test_torch_conf.py holds it equal to the JAX registry.
 _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
-    STEP_ROBUSTNESS: {
-        "spark.rapids.memory.gpu.allocFraction": 0.9,
-        "spark.rapids.memory.gpu.maxAllocFraction": 1.0,
-        "spark.rapids.tpu.memory.pool.mode": "logical",
-        "spark.rapids.tpu.memory.pool.size": 0,
-        "spark.rapids.tpu.memory.debug": False,
-        "spark.rapids.tpu.oom.arbitration.enabled": True,
-        "spark.rapids.tpu.oom.arbitration.maxWaitSeconds": 30.0,
-        "spark.rapids.tpu.oom.maxRetries": 2,
-        "spark.rapids.tpu.oom.maxSplits": 4,
-        "spark.rapids.tpu.fallback.enabled": True,
-        "spark.rapids.tpu.fallback.quarantine.enabled": True,
-        "spark.rapids.tpu.fallback.quarantine.maxEntries": 256,
-        "spark.rapids.tpu.fallback.quarantine.threshold": 3,
-        "spark.rapids.tpu.fallback.quarantine.ttlSeconds": 86400.0,
-        "spark.rapids.tpu.query.timeoutSeconds": 0.0,
-        "spark.rapids.sql.concurrentGpuTasks": 1,
-        "spark.rapids.tpu.donation.enabled": True,
-        "spark.rapids.tpu.donation.force": False,
-        "spark.rapids.tpu.faults.enabled": False,
-        "spark.rapids.tpu.faults.seed": 0,
-        "spark.rapids.tpu.faults.spec": "",
-    },
     STEP_MULTI_GPU: {
         # "none" is read (exec/cache.py); zlib and lz4 serialise the host
         # cache through the shuffle serializer, which comes with this step
@@ -458,8 +598,6 @@ _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
         "spark.rapids.tpu.health.stallTimeout": 120.0,
         "spark.rapids.tpu.movement.enabled": False,
         "spark.rapids.tpu.movement.ringSize": 4096,
-        "spark.rapids.tpu.memory.profile.enabled": True,
-        "spark.rapids.tpu.memory.profile.ringSize": 4096,
         "spark.rapids.tpu.shuffle.telemetry.enabled": False,
         "spark.rapids.tpu.shuffle.telemetry.ringSize": 4096,
     },

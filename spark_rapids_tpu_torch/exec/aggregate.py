@@ -16,7 +16,12 @@ from its first row.
 The partial pass fuses into the whole-stage node above the upload and
 emits one aggregated batch per input batch; the final pass concatenates
 what it receives and merges as it goes, shrinking the running state to the
-bucket of its group count.
+bucket of its group count. The running state is registered with the spill
+catalog between chunks (``ACTIVE_ON_DECK``), each chunk aggregates under
+the retry ladder (a partial pass splits: its half states merge again), and
+each merge spills and retries; a terminal failure feeds the quarantine
+store. The partial pass's host twin is the host engine's aggregate of one
+batch (``host_batch_fn``), its runtime fallback.
 
 Torch lacks shifts, remainders and order on unsigned integers, so the
 JAX package's uint64 key words ride int64 tensors bit for bit and its
@@ -46,7 +51,9 @@ from ..conf import STEP_BREADTH, not_ported
 from ..expr.decimal128 import (SUM_OVERFLOW_MARK, d128_key_words,
                                d128_overflows, d128_segment_sum,
                                limbs_from_py_ints)
+from ..memory.catalog import SpillPriorities, get_catalog
 from ..plan.physical import (AggSpec, PhysicalPlan, aggregate_columns_ops,
+                             host_aggregate,
                              aggregate_schema, check_mode)
 from ..plan.schema import Schema
 from ..shuffle.manager import MASK32, fmix_device
@@ -505,29 +512,91 @@ class TpuHashAggregateExec(TpuExec):
         if staged:
             yield concat_device_tables(staged, self.min_bucket)
 
+    def host_batch_fn(self):
+        """The host engine's aggregate of one batch: only the partial pass
+        has one (its per-batch states merge downstream like the device
+        partial's); a final pass spans batches."""
+        if not self.fusible:
+            return None
+        key_names, specs, mode = self.key_names, self.specs, self.mode
+        child_schema, schema = self.child.schema, self.schema
+        return lambda table: host_aggregate(table, key_names, specs, mode,
+                                            child_schema, schema)
+
+    def runs_kernel(self) -> bool:
+        # a two-limb decimal sum runs on d128_segment_sum (partial, final
+        # and the merge of running states)
+        return any(op == "sum" and dt.is_d128(out_dt)
+                   for mode in (self.mode, "final")
+                   for _, op, _, out_dt in aggregate_columns_ops(self.specs,
+                                                                 mode))
+
+    def plan_signature(self) -> str:
+        return (f"HashAgg|{self.mode}|{self.key_names}|"
+                f"{aggregate_columns_ops(self.specs, self.mode)!r}|"
+                f"{self.children[0].schema!r}")
+
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
-        fn = self.batch_fn()
-        merge_fn = self.batch_fn("final")
-        pending = None  # the running merged state
-        for chunk in self._chunks(pidx):
-            # shrink to the group bucket: the running state must not scale
-            # with the input capacity
-            out = shrink_to_fit(fn(chunk), self.min_bucket)
-            if pending is not None:
-                # merge-as-you-go over the concatenated pair: the string
-                # key matrices may differ in width, so the pair is grouped
-                # again as one table, never part by part
-                out = shrink_to_fit(merge_fn(concat_device_tables(
-                    [pending, out], self.min_bucket)), self.min_bucket)
-            pending = out
-        if pending is None:
-            if self.key_names:
-                return  # no input, no groups
-            # no input batch at all: the grand aggregate of nothing
-            pending = fn(_empty_device_table(self.child.schema,
+        from ..memory.retry import (split_device_rows, with_retry,
+                                    with_retry_split, wrap_dispatch)
+        from .fallback import quarantine_on_failure
+        fn = wrap_dispatch(self.batch_fn(), context=self.node_desc())
+        merge_fn = wrap_dispatch(self.batch_fn("final"),
+                                 context=self.node_desc())
+        catalog = get_catalog(None, self.device)
+        pending = None  # the spill handle of the running merged state
+
+        def agg_combine(outs):
+            """The split rung's combiner: half outputs are partial states
+            with overlapping keys, so their concat is merged again."""
+            return merge_fn(concat_device_tables(outs, self.min_bucket))
+
+        # only the partial pass splits: its half outputs are mergeable
+        # states, where a final pass emits finished values
+        splitter = split_device_rows if self.mode == "partial" else None
+        try:
+            for chunk in self._chunks(pidx):
+                # note-only boundary: the state spans batches, so a
+                # terminal failure cannot fall back mid-stream, but it
+                # feeds the quarantine store
+                with quarantine_on_failure(self):
+                    # shrink to the group bucket: the running state must
+                    # not scale with the input capacity
+                    out = shrink_to_fit(with_retry_split(
+                        fn, chunk, splitter=splitter, combiner=agg_combine,
+                        scope="partial-agg", context=self.node_desc()),
+                        self.min_bucket)
+                    del chunk
+                    if pending is not None:
+                        # merge-as-you-go over the concatenated pair: the
+                        # string key matrices may differ in width, so the
+                        # pair is grouped again as one table; spill-only,
+                        # the pair is at the group bucket already
+                        with pending as prev:
+                            both = concat_device_tables([prev, out],
+                                                        self.min_bucket)
+                        out = shrink_to_fit(with_retry(
+                            merge_fn, both, scope="agg-merge",
+                            context=self.node_desc()), self.min_bucket)
+                        del both
+                        pending.close()
+                        pending = None
+                    pending = catalog.register(
+                        out, SpillPriorities.ACTIVE_ON_DECK)
+                    del out
+            if pending is None:
+                if self.key_names:
+                    return  # no input, no groups
+                # no input batch at all: the grand aggregate of nothing
+                self.account_batch()
+                yield fn(_empty_device_table(self.child.schema,
                                              _STATE_CAPACITY, self.device))
-        self.account_batch()
-        yield pending
+                return
+            self.account_batch()
+            yield pending.get()
+        finally:
+            if pending is not None:
+                pending.close()
 
     def node_desc(self):
         return f"mode={self.mode} keys={self.key_names}"

@@ -6,11 +6,18 @@ basicPhysicalOperators.scala:115,313; GpuExpandExec.scala; limit.scala).
 Project, Filter and Expand are pure per-batch functions — Filter only ANDs
 the selection mask (no gather), so a filter+project chain fuses into one
 whole-stage node with no intermediate compaction.
+
+Each batch goes through the retry ladder's dispatch chokepoint
+(``wrap_dispatch``). Project and Filter are row-wise, so they split a batch
+that does not fit and fall back to their host-engine twins on a terminal
+failure; Expand (its projections interleave) and Sample (it hashes absolute
+row positions) only spill and retry.
 """
 from __future__ import annotations
 
 from typing import Callable, Iterator, List, Sequence
 
+import numpy as np
 import torch
 
 from ..columnar import dtypes as dt
@@ -18,9 +25,10 @@ from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
                                concat_device_tables, torch_dtype)
 from ..expr.base import EvalContext, Expression
 from ..expr.hashing import SampleMask
-from ..plan.physical import PhysicalPlan, range_partition_bounds
+from ..plan.physical import (PhysicalPlan, host_eval_exprs,
+                             range_partition_bounds)
 from ..plan.schema import Field, Schema
-from .base import TpuExec
+from .base import TpuExec, any_runs_kernel
 
 __all__ = ["TpuProjectExec", "TpuFilterExec", "TpuLocalLimitExec",
            "TpuSampleExec", "TpuExpandExec", "TpuRangeExec", "TpuUnionExec",
@@ -46,17 +54,40 @@ def eval_exprs_device(table: DeviceTable, exprs: Sequence[Expression],
 
 
 class _PerBatchExec(TpuExec):
-    """A device operator that applies its ``batch_fn`` to every batch."""
+    """A device operator that applies its ``batch_fn`` to every batch,
+    under the retry ladder: a ``ROW_WISE`` operator (f(a ++ b) == f(a) ++
+    f(b)) splits and falls back to its host twin, any other spills and
+    retries only."""
+
+    #: the retry ladder's scope name
+    SCOPE = "batch"
+    ROW_WISE = True
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
-        fn = self.batch_fn()
+        from ..memory.retry import (split_device_rows, with_retry,
+                                    with_retry_split, wrap_dispatch)
+        from .fallback import with_host_fallback
+        fn = wrap_dispatch(self.batch_fn(), context=self.node_desc())
+        if self.ROW_WISE:
+            run = with_host_fallback(
+                self,
+                lambda b: with_retry_split(fn, b, splitter=split_device_rows,
+                                           scope=self.SCOPE,
+                                           context=self.node_desc()),
+                self.host_batch_fn())
+        else:
+            def run(b):
+                return with_retry(fn, b, scope=self.SCOPE,
+                                  context=self.node_desc())
         for batch in self.child_device_batches(pidx):
-            out = fn(batch)
+            out = run(batch)
             self.account_batch()
             yield out
 
 
 class TpuProjectExec(_PerBatchExec):
+    SCOPE = "project"
+
     def __init__(self, child: PhysicalPlan, exprs: Sequence[Expression],
                  names: Sequence[str]):
         super().__init__()
@@ -74,11 +105,25 @@ class TpuProjectExec(_PerBatchExec):
             return eval_exprs_device(table, exprs, names)
         return fn
 
+    def host_batch_fn(self):
+        # the host engine's projection of one downloaded batch
+        exprs, names = self.exprs, self.names
+        return lambda table: host_eval_exprs(table, exprs, names)
+
+    def runs_kernel(self) -> bool:
+        return any_runs_kernel(self.exprs)
+
+    def plan_signature(self) -> str:
+        return (f"Project|{[repr(e) for e in self.exprs]}|{self.names}|"
+                f"{self.children[0].schema!r}")
+
     def node_desc(self):
         return ", ".join(self.names)
 
 
 class TpuFilterExec(_PerBatchExec):
+    SCOPE = "filter"
+
     def __init__(self, child: PhysicalPlan, condition: Expression):
         super().__init__()
         self.child = child
@@ -96,6 +141,24 @@ class TpuFilterExec(_PerBatchExec):
                 keep = torch.logical_and(keep, c.validity)
             return table.filter_mask(keep)
         return fn
+
+    def host_batch_fn(self):
+        # the host engine's filter of one downloaded batch
+        cond = self.condition
+
+        def fn(table):
+            c = cond.eval(EvalContext.for_host(table))
+            keep = np.asarray(c.values, dtype=np.bool_)
+            if c.validity is not None:
+                keep = keep & c.validity
+            return table.take(np.nonzero(keep)[0])
+        return fn
+
+    def runs_kernel(self) -> bool:
+        return any_runs_kernel([self.condition])
+
+    def plan_signature(self) -> str:
+        return f"Filter|{self.condition!r}|{self.children[0].schema!r}"
 
     def node_desc(self):
         return repr(self.condition)
@@ -146,14 +209,23 @@ class TpuSampleExec(TpuExec):
         self.schema = child.schema
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        from ..memory.retry import with_retry, wrap_dispatch
+        mask_expr = self.mask_expr
+
+        def sample(batch: DeviceTable, offset) -> DeviceTable:
+            ctx = EvalContext.for_device(batch, pidx, offset)
+            return batch.filter_mask(mask_expr.eval(ctx).values)
+        fn = wrap_dispatch(sample, context=self.node_desc())
         offset = None
         for batch in self.child_device_batches(pidx):
             batch = batch.compact()
             if offset is None:
                 offset = torch.zeros((), dtype=torch.int64,
                                      device=batch.device)
-            ctx = EvalContext.for_device(batch, pidx, offset)
-            out = batch.filter_mask(self.mask_expr.eval(ctx).values)
+            # spill-only: the mask hashes absolute row positions, which
+            # halves would renumber
+            out = with_retry(fn, batch, offset, scope="sample",
+                             context=self.node_desc())
             offset = offset + batch.num_rows.to(torch.int64)
             self.account_batch()
             yield out
@@ -167,6 +239,11 @@ class TpuExpandExec(_PerBatchExec):
     the bucket of P times its capacity (reference: GpuExpandExec.scala emits
     a batch a projection; the JAX package stacks them, and the port keeps
     its batch shapes)."""
+
+    # spill-only: the P projections interleave, so halves would reorder
+    # rows across the projection boundary
+    SCOPE = "expand"
+    ROW_WISE = False
 
     def __init__(self, child: PhysicalPlan, projections, names, schema):
         super().__init__()
@@ -184,6 +261,9 @@ class TpuExpandExec(_PerBatchExec):
                      for proj in projections]
             return concat_device_tables(parts)
         return fn
+
+    def runs_kernel(self) -> bool:
+        return any(any_runs_kernel(p) for p in self.projections)
 
     def node_desc(self):
         return f"{len(self.projections)} projections"

@@ -9,13 +9,14 @@ engine its ``HostTable``s. The device batches are registered with the
 buffer catalog (memory/catalog.py) as spillable at broadcast priority, so
 they yield device memory under pressure and come back on the next read.
 
+The node keeps each batch for the next execution, so it takes the
+exclusive-ownership mark off a batch before its consumer sees it
+(``take_exclusive``): a donating fused stage above must not free planes
+the cache serves again.
+
 Not ported: the host cache's compressed frames
 (``spark.rapids.tpu.cache.compressionCodec`` zlib or lz4), which serialise
-through the shuffle serializer (ROADMAP Queue 1: multi-GPU), and the
-exclusive-ownership mark the JAX package takes off a cached batch before a
-donating fused stage sees it (``take_exclusive``; ROADMAP Queue 1: memory
-and robustness): the port donates no buffer, so a cached batch is never
-freed under the cache.
+through the shuffle serializer (ROADMAP Queue 1: multi-GPU).
 """
 from __future__ import annotations
 
@@ -87,8 +88,11 @@ class TpuCacheExec(TpuExec):
                 self.account_batch()
                 yield handle.get()
             return
+        from .transitions import take_exclusive
         acc: List[DeviceTable] = []
         for b in self.child_device_batches(pidx):
+            # kept for the next execution: no donation downstream
+            take_exclusive(b)
             acc.append(b)
             self.account_batch()
             yield b

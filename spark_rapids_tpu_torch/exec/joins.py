@@ -63,10 +63,19 @@ join codes read it; its override tag keeps keys past 18 digits on the host,
 the port's does not), and the grace join buckets them as they are (no -0.0
 or NaN to fold).
 
-Not ported yet: joins without equi-keys (the broadcast nested-loop join,
-ROADMAP Queue 1: nested-loop and cross joins), whose planning raises; and
-key types the device batch does not hold (binary and nested types), which
-are tagged and run on the host engine (ROADMAP Queue 1: breadth).
+A join without equi-keys (a cross join, or a condition with no equality
+between the sides) is ``TpuBroadcastNestedLoopJoinExec``: the right side is
+broadcast, and each window of stream rows crosses a window of it in one
+pair-slot grid whose shape keeps the JAX package's byte budget
+(``_window_shape``).
+
+Every build concat runs under the retry ladder (spill-only: a build is
+unsplittable), and a terminal device failure inside a join feeds the
+quarantine store (``quarantine_on_failure``) before it propagates.
+
+Not ported yet: key types the device batch does not hold (binary and
+nested types), which are tagged and run on the host engine (ROADMAP
+Queue 1: breadth).
 """
 from __future__ import annotations
 
@@ -81,7 +90,7 @@ from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
                                bucket_width, concat_device_tables,
                                pack_string_key_words, shrink_to_fit,
                                slice_rows, torch_dtype)
-from ..conf import STEP_BREADTH, STEP_NESTED_LOOP, RapidsConf, not_ported
+from ..conf import STEP_BREADTH, RapidsConf, not_ported
 from ..expr.base import EvalContext, Expression
 from ..expr.decimal128 import d128_key_words
 from ..memory.catalog import SpillableDeviceTable, SpillPriorities, get_catalog
@@ -90,10 +99,11 @@ from ..plan.physical import PhysicalPlan
 from ..plan.schema import Schema
 from ..shuffle.manager import MASK32, device_partition_ids, fmix_device
 from .aggregate import _empty_device_table
-from .base import TpuExec
+from .base import TpuExec, any_runs_kernel
 from .sort import lexsort
 
 __all__ = ["TpuShuffledHashJoinExec", "TpuBroadcastHashJoinExec",
+           "TpuBroadcastNestedLoopJoinExec",
            "join_unsupported_reason", "monotone_i64", "build_prep_hash",
            "pk_hash_probe", "build_prep_sorted", "pk_sorted_probe",
            "probe_count", "probe_matched", "join_codes", "count_matches",
@@ -498,15 +508,13 @@ def _key_type_ok(d: dt.DataType) -> bool:
 def join_unsupported_reason(how: str, left_keys: Sequence[str],
                             right_keys: Sequence[str], left_schema: Schema,
                             right_schema: Schema) -> Optional[str]:
-    """Why the device cannot run this hash join yet (naming the ROADMAP
-    step), or None."""
+    """Why the device hash join cannot run this join (naming the ROADMAP
+    step of what is not ported yet), or None. A join without equi-keys
+    never reaches it: the planner makes it a nested-loop join."""
     if how not in SUPPORTED:
-        return (f"{how} joins (the broadcast nested-loop join) are not "
-                f"ported to the device yet {not_ported(STEP_NESTED_LOOP)}")
+        return f"join type {how} is not a hash join type"
     if not left_keys:
-        return ("joins without equi-keys (the broadcast nested-loop join) "
-                "are not ported to the device yet "
-                + not_ported(STEP_NESTED_LOOP))
+        return "a hash join needs equi-keys (the nested-loop join has none)"
     for lk, rk in zip(left_keys, right_keys):
         lt = left_schema.field(lk).dtype
         rt = right_schema.field(rk).dtype
@@ -625,7 +633,19 @@ class TpuShuffledHashJoinExec(TpuExec):
                                        self.device)
         if len(batches) == 1:
             return batches[0]
-        return concat_device_tables(batches)
+        # a build is unsplittable (every probe needs all of it):
+        # spill-only retry
+        from ..memory.retry import with_retry
+        return with_retry(concat_device_tables, batches, scope="join-build",
+                          context=self.node_desc())
+
+    def runs_kernel(self) -> bool:
+        return any_runs_kernel([self.condition])
+
+    def plan_signature(self) -> str:
+        return (f"Join|{self.how}|{self.left_keys}|{self.right_keys}|"
+                f"{self.merge_keys}|{self.condition!r}|"
+                f"{self.left.schema!r}|{self.right.schema!r}")
 
     def _build_table(self, pidx: int) -> DeviceTable:
         return self._concat_build(
@@ -642,6 +662,13 @@ class TpuShuffledHashJoinExec(TpuExec):
                                         SpillPriorities.ACTIVE_ON_DECK), True
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        from .fallback import quarantine_on_failure
+        # note-only boundary: every probe needs the whole build, so a
+        # terminal failure cannot fall back a batch; it quarantines
+        with quarantine_on_failure(self):
+            yield from self._join_batches(pidx)
+
+    def _join_batches(self, pidx: int) -> Iterator[DeviceTable]:
         build = self._build_table(pidx)
         if build.nbytes() > self.batch_bytes:
             for out in self._grace_join(build, pidx):
@@ -1086,3 +1113,248 @@ class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
                     self._own_spill_handle(h)
                 self._bc_grace_parts = parts
             return self._bc_grace_parts, False
+
+
+class TpuBroadcastNestedLoopJoinExec(TpuExec):
+    """Non-equi and cross joins (the JAX package's
+    ``TpuBroadcastNestedLoopJoinExec``; reference:
+    GpuBroadcastNestedLoopJoinExec.scala and GpuCartesianProductExec.scala).
+
+    The right side is broadcast once, registered with the spill catalog at
+    ``BROADCAST`` priority. The stream (left) side crosses it in windows:
+    ``_window_shape`` sizes a stream window of ``ws`` rows and a build
+    window of ``bws`` rows so the ``ws x bws`` pair slots stay under
+    ``batchSizeBytes`` (the JAX ``_budget_rows`` formula, so the windows
+    equal the JAX package's). A window's pair slots are indexed in int64
+    (``ws x bws`` can pass 2^31), the condition is evaluated over the
+    columns it reads, and only the passing pairs are gathered, compacted
+    into a bucket of their count (one host read a window), in the JAX
+    package's row order. A stream row's "any pair passed" and a build
+    row's "seen" are sets of ``True`` at the passing pairs' indices.
+
+    Right and full joins drain every stream partition inside partition 0,
+    so an unmatched build row is emitted once, at the end, null-padded.
+    """
+
+    SUPPORTED = ("inner", "cross", "left", "right", "full", "left_semi",
+                 "left_anti")
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan, how: str,
+                 condition: Optional[Expression], device: torch.device,
+                 conf: Optional[RapidsConf] = None):
+        super().__init__()
+        if how not in self.SUPPORTED:
+            raise ValueError(f"join type {how} not supported on device BNLJ")
+        self.left, self.right = left, right
+        self.children = (left, right)
+        self.how = how
+        self.condition = condition
+        self.device = device
+        self.conf = conf if conf is not None else RapidsConf({})
+        #: the window shapes' floor and budget (``_window_shape``)
+        self.min_bucket = self.conf.min_bucket_rows
+        self.batch_bytes = self.conf.batch_size_bytes
+        self.schema = _join_schema(left.schema, right.schema, None, how)
+        self._bc_handle: Optional[SpillableDeviceTable] = None
+        self._bc_lock = threading.Lock()
+        #: (ws, bws) of the last run, for reports
+        self.window_shape: Optional[Tuple[int, int]] = None
+
+    @property
+    def num_partitions(self) -> int:
+        return self.left.num_partitions
+
+    def node_desc(self):
+        return f"{self.how} condition={self.condition!r}"
+
+    def runs_kernel(self) -> bool:
+        return any_runs_kernel([self.condition])
+
+    def plan_signature(self) -> str:
+        return (f"BNLJ|{self.how}|{self.condition!r}|"
+                f"{self.left.schema!r}|{self.right.schema!r}")
+
+    def _broadcast_handle(self) -> SpillableDeviceTable:
+        from ..memory.retry import with_retry
+        with self._bc_lock:
+            if self._bc_handle is None:
+                batches = [b for p in range(self.right.num_partitions)
+                           for b in self.right.execute_columnar(p)]
+                if not batches:
+                    table = _empty_device_table(self.right.schema,
+                                                self.min_bucket, self.device)
+                elif len(batches) == 1:
+                    table = batches[0]
+                else:
+                    # every stream window crosses the whole build:
+                    # unsplittable, spill-only retry
+                    table = with_retry(concat_device_tables, batches,
+                                       scope="join-build",
+                                       context=self.node_desc())
+                table = shrink_to_fit(table, self.min_bucket)
+                self._bc_handle = get_catalog(self.conf, self.device) \
+                    .register(table, SpillPriorities.BROADCAST)
+                self._own_spill_handle(self._bc_handle)
+            return self._bc_handle
+
+    # -- assembly and padding (the stream side plays the probe role) --------
+    def _table(self, scols, bcols, mask: torch.Tensor) -> DeviceTable:
+        names = list(self.left.schema.names) + list(self.right.schema.names)
+        return DeviceTable(tuple(scols) + tuple(bcols), mask,
+                           mask.sum(dtype=torch.int32), tuple(names))
+
+    def pad_stream(self, stream: DeviceTable, emit: torch.Tensor
+                   ) -> DeviceTable:
+        bcols = [null_device_column(f.dtype, stream.capacity, stream.device)
+                 for f in self.right.schema]
+        scols = [c.with_validity(torch.logical_and(c.validity, emit),
+                                 all_valid=c.all_valid)
+                 for c in stream.columns]
+        return self._table(scols, bcols, emit)
+
+    def pad_build(self, build: DeviceTable, emit: torch.Tensor
+                  ) -> DeviceTable:
+        scols = [null_device_column(f.dtype, build.capacity, build.device)
+                 for f in self.left.schema]
+        bcols = [c.with_validity(torch.logical_and(c.validity, emit),
+                                 all_valid=c.all_valid)
+                 for c in build.columns]
+        return self._table(scols, bcols, emit)
+
+    # -- one window x one build window ---------------------------------------
+    def _pair_step(self, window: DeviceTable, build: DeviceTable,
+                   seen: Optional[torch.Tensor], want_pairs: bool,
+                   want_any: bool):
+        """-> (the passing pairs or None, per stream row whether any pair
+        passed or None, the build rows seen so far or None)."""
+        ws, nb = window.capacity, build.capacity
+        dev = window.device
+        j = torch.arange(ws * nb, dtype=torch.int64, device=dev)
+        si, bi = j // nb, j % nb
+        valid = torch.logical_and(window.row_mask[si], build.row_mask[bi])
+        if self.condition is not None:
+            refs = self.condition.references()
+            lnames = [n for n in window.names if n in refs]
+            rnames = [n for n in build.names if n in refs]
+            cols = gather_columns(_select(window, lnames), si, valid) \
+                + gather_columns(_select(build, rnames), bi, valid)
+            sub = DeviceTable(tuple(cols), valid, valid.sum(dtype=torch.int32),
+                              tuple(lnames + rnames))
+            keep = condition_mask(self.condition, sub)
+        else:
+            keep = valid
+        hit = torch.nonzero(keep).squeeze(1)
+        n = int(hit.numel())
+        pairs = any_pass = None
+        if want_pairs:
+            cap = bucket_rows(max(n, 1), self.min_bucket)
+            pos = torch.arange(cap, dtype=torch.int64, device=dev)
+            mask = pos < n
+            idx = torch.zeros(cap, dtype=torch.int64, device=dev)
+            idx[:n] = hit
+            psi, pbi = si[idx], bi[idx]
+            pairs = self._table(gather_columns(window, psi, mask),
+                                gather_columns(build, pbi, mask), mask)
+        if want_any:
+            any_pass = torch.zeros(ws, dtype=torch.bool, device=dev)
+            any_pass[si[hit]] = True
+        if seen is not None:
+            hit_b = torch.zeros(nb, dtype=torch.bool, device=dev)
+            hit_b[bi[hit]] = True
+            seen = torch.logical_or(seen, hit_b)
+        return pairs, any_pass, seen
+
+    # -- execution -------------------------------------------------------------
+    def _budget_rows(self) -> int:
+        """Pair-slot budget derived from the byte budget (the JAX
+        package's formula)."""
+        row_bytes = 0
+        for f in self.schema:
+            if isinstance(f.dtype, (dt.StringType, dt.BinaryType)):
+                row_bytes += 32
+            else:
+                row_bytes += f.dtype.np_dtype().itemsize
+            row_bytes += 1
+        return max(self.min_bucket, self.batch_bytes // max(row_bytes, 1))
+
+    def _window_shape(self, build_cap: int) -> Tuple[int, int]:
+        """(stream window rows, build window rows): both sides window so
+        their product stays under the budget even when the broadcast side
+        alone passes it."""
+        budget = self._budget_rows()
+        build_ws = bucket_rows(
+            min(build_cap, max(self.min_bucket, budget // self.min_bucket)),
+            self.min_bucket)
+        stream_ws = bucket_rows(max(1, budget // build_ws), self.min_bucket)
+        return stream_ws, min(build_ws, bucket_rows(build_cap,
+                                                    self.min_bucket))
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        from .fallback import quarantine_on_failure
+        # note-only boundary: every window needs the whole build, so a
+        # terminal failure cannot fall back a batch; it quarantines
+        with quarantine_on_failure(self):
+            for out in self._join_batches(pidx):
+                self.account_batch()
+                yield out
+
+    def _join_batches(self, pidx: int) -> Iterator[DeviceTable]:
+        from ..memory.retry import wrap_dispatch
+        track = self.how in ("right", "full")
+        if track and pidx != 0:
+            return
+        handle = self._broadcast_handle()
+        with handle as build:
+            build_cap = build.capacity
+        ws, bws = self._window_shape(build_cap)
+        self.window_shape = (ws, bws)
+        n_bslices = max(1, math.ceil(build_cap / bws))
+        step = wrap_dispatch(self._pair_step, context=self.node_desc())
+        seen = [torch.zeros(min(bws, build_cap), dtype=torch.bool,
+                            device=self.device)
+                for _ in range(n_bslices)] if track else None
+        parts = range(self.left.num_partitions) if track else [pidx]
+        for sp in parts:
+            for batch in self.left.execute_columnar(sp):
+                batch = batch.compact()
+                nrows = int(batch.num_rows)
+                for start in range(0, nrows, ws):
+                    yield from self._cross_window(
+                        slice_rows(batch, start, ws), handle, n_bslices, bws,
+                        step, seen)
+        if track:
+            for b in range(n_bslices):
+                with handle as build:
+                    bslice = slice_rows(build, b * bws, min(bws, build_cap))
+                    yield self.pad_build(bslice, torch.logical_and(
+                        bslice.row_mask, torch.logical_not(seen[b])))
+
+    def _cross_window(self, window: DeviceTable, handle, n_bslices: int,
+                      bws: int, step, seen) -> Iterator[DeviceTable]:
+        """The window's pairs, build window by build window, then its
+        stream-side rows (left/full unmatched, semi, anti), decided by the
+        OR over the build windows."""
+        emit_pairs = self.how in ("inner", "cross", "left", "right", "full")
+        want_any = self.how in ("left", "full", "left_semi", "left_anti")
+        any_pass = None
+        for b in range(n_bslices):
+            with handle as build:
+                bslice = build if n_bslices == 1 \
+                    else slice_rows(build, b * bws, min(bws, build.capacity))
+                pairs, hit, s = step(window, bslice,
+                                     seen[b] if seen is not None else None,
+                                     emit_pairs, want_any)
+            if seen is not None:
+                seen[b] = s
+            if hit is not None:
+                any_pass = hit if any_pass is None \
+                    else torch.logical_or(any_pass, hit)
+            if pairs is not None:
+                yield pairs
+        if self.how in ("left", "full"):
+            yield self.pad_stream(window, torch.logical_and(
+                window.row_mask, torch.logical_not(any_pass)))
+        elif self.how == "left_semi":
+            yield window.filter_mask(any_pass)
+        elif self.how == "left_anti":
+            yield window.filter_mask(torch.logical_not(any_pass))

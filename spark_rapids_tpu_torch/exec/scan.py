@@ -46,6 +46,9 @@ class TpuParquetScanExec(TpuExec):
     def num_partitions(self) -> int:
         return self.source.partitions()
 
+    def runs_kernel(self) -> bool:
+        return True    # the page decode kernels
+
     def node_desc(self) -> str:
         return (f"{self.source.name()} device-decode "
                 f"cols={self.columns or '*'}")

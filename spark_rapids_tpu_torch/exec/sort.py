@@ -22,6 +22,10 @@ of the last round, the next chunk of each run, and each unfinished run's
 next unseen row as a sentinel, sorts them, and emits every row before the
 first sentinel: no row still unseen can sort before it. The rest is
 carried.
+
+Every sort runs under the retry ladder: a batch that does not fit is split,
+its halves sorted and their concat sorted again; a merge round spills and
+retries; a terminal failure feeds the quarantine store.
 """
 from __future__ import annotations
 
@@ -39,8 +43,10 @@ from ..expr.base import EvalContext
 from ..expr.decimal128 import d128_key_words
 from ..expr.functions import SortOrder
 from ..memory.catalog import SpillPriorities, SpillableDeviceTable, get_catalog
+from ..memory.retry import (split_device_rows, with_retry, with_retry_split,
+                            wrap_dispatch)
 from ..plan.physical import PhysicalPlan, describe_orders
-from .base import TpuExec
+from .base import TpuExec, any_runs_kernel
 
 __all__ = ["TpuSortExec", "TpuTakeOrderedExec", "device_sort_table"]
 
@@ -151,14 +157,39 @@ class TpuTakeOrderedExec(TpuExec):
         self.schema = child.schema
         self.min_bucket = min_bucket
 
+    def runs_kernel(self) -> bool:
+        return any_runs_kernel([o.expr for o in self.orders])
+
+    def plan_signature(self) -> str:
+        return (f"TakeOrdered|{self.n}|"
+                f"{[(repr(o.expr), o.ascending, o.nulls_first) for o in self.orders]}|"
+                f"{self.schema!r}")
+
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        from .fallback import quarantine_on_failure
         cap = bucket_rows(max(self.n, 1), self.min_bucket)
+        topn = wrap_dispatch(
+            lambda t: device_top_n(t, self.orders, self.n, cap),
+            context=self.node_desc())
+
+        def topn_combine(outs):
+            """Half top-n's are each sorted and cut; the top-n of their
+            concat restores the order and the bound."""
+            return topn(concat_device_tables(outs))
+
         state = None
         for batch in self.child_device_batches(pidx):
-            top = device_top_n(batch, self.orders, self.n, cap)
-            if state is not None:
-                top = device_top_n(concat_device_tables([state, top]),
-                                   self.orders, self.n, cap)
+            # note-only boundary: the state spans batches
+            with quarantine_on_failure(self):
+                top = with_retry_split(topn, batch,
+                                       splitter=split_device_rows,
+                                       combiner=topn_combine, scope="topn",
+                                       context=self.node_desc())
+                if state is not None:
+                    # spill-only: the state is bounded at n rows already
+                    top = with_retry(topn, concat_device_tables([state, top]),
+                                     scope="topn-merge",
+                                     context=self.node_desc())
             state = top
         if state is not None:
             self.account_batch()
@@ -181,7 +212,31 @@ class TpuSortExec(TpuExec):
         self.batch_bytes = batch_bytes
         self.conf = conf
 
+    def runs_kernel(self) -> bool:
+        return any_runs_kernel([o.expr for o in self.orders])
+
+    def plan_signature(self) -> str:
+        return (f"{type(self).__name__}|{self.node_desc()}|"
+                f"{self.children[0].schema!r}")
+
+    def _sort_fn(self):
+        return wrap_dispatch(lambda t: device_sort_table(t, self.orders),
+                             context=self.node_desc())
+
+    def _sort_combine(self, outs):
+        """The split rung's combiner: half sorts are only ordered within
+        themselves, so their concat is sorted again (by then the ladder has
+        spilled what it could)."""
+        return self._sort_fn()(concat_device_tables(outs, self.min_bucket))
+
+    def _sort_retrying(self, table: DeviceTable) -> DeviceTable:
+        return with_retry_split(self._sort_fn(), table,
+                                splitter=split_device_rows,
+                                combiner=self._sort_combine, scope="sort",
+                                context=self.node_desc())
+
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        from .fallback import quarantine_on_failure
         batches = list(self.child_device_batches(pidx))
         if not batches:
             return
@@ -190,19 +245,29 @@ class TpuSortExec(TpuExec):
             yield from self._out_of_core(batches)
             return
         # FullSortSingleBatch mode
-        table = concat_device_tables(batches, self.min_bucket)
+        with quarantine_on_failure(self):
+            table = with_retry(concat_device_tables, batches,
+                               self.min_bucket, scope="sort-concat",
+                               context=self.node_desc()) \
+                if len(batches) > 1 \
+                else concat_device_tables(batches, self.min_bucket)
+            del batches
+            out = self._sort_retrying(table)
+        del table
         self.account_batch()
-        yield device_sort_table(table, self.orders)
+        yield out
 
     # -- OutOfCoreSort mode ---------------------------------------------------
     def _out_of_core(self, batches: List[DeviceTable]
                      ) -> Iterator[DeviceTable]:
         """Sort each batch into a run held by the spill catalog, then merge
         the runs (``_out_of_core``)."""
+        from .fallback import quarantine_on_failure
         catalog = get_catalog(self.conf, batches[0].device)
         runs: List[Tuple[SpillableDeviceTable, int]] = []
         try:
-            sorted_bs = [device_sort_table(b, self.orders) for b in batches]
+            with quarantine_on_failure(self):
+                sorted_bs = [self._sort_retrying(b) for b in batches]
             # every run's count in one host copy
             counts = torch.stack([b.num_rows for b in sorted_bs]).tolist()
             for b, n in zip(sorted_bs, counts):
@@ -252,7 +317,11 @@ class TpuSortExec(TpuExec):
                 torch.ones(t.capacity, dtype=torch.bool, device=t.device),
                 dt.BOOLEAN, True)) for t, f in zip(inputs, flags)]
             merged = concat_device_tables(tagged, self.min_bucket)
-            sorted_m = device_sort_table(merged, self.orders)
+            # spill-only: the merge's inputs are chunks the out-of-core
+            # policy bounds already
+            sorted_m = with_retry(self._sort_fn(), merged,
+                                  scope="sort-merge",
+                                  context=self.node_desc())
             sent = torch.logical_and(sorted_m.column(_SENT).data,
                                      sorted_m.row_mask)
             iota = torch.arange(sorted_m.capacity, dtype=torch.int32,

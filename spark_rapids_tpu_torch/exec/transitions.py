@@ -15,9 +15,15 @@ an upload. A cached ``DeviceTable`` is shared by every later run, so no
 operator writes into the tensors of an input batch. Its byte budget bounds
 it, and it registers with the buffer catalog: ``handle_device_oom`` drops
 it (``clear_upload_cache`` is an OOM callback), and its bytes count in the
-catalog's device use and peak. Not ported: the exclusive-ownership marks
-that let a fused stage donate its input buffers (ROADMAP Queue 1: memory
-and robustness).
+catalog's device use and peak.
+
+An upload the cache does not keep is owned by its consumer alone:
+``mark_exclusive`` says so, and keeps a rematerialiser from the host origin,
+so a fused stage may donate its planes (exec/wholestage.py) and the retry
+ladder can rebuild it. Each upload runs under the ladder's full rungs, the
+host batch split in halves if it must (``alloc.upload``; the ``h2d.upload``
+fault point inside), and the coalesce concat under spill-and-retry. The
+device drain of a partition holds the task semaphore (memory/semaphore.py).
 """
 from __future__ import annotations
 
@@ -33,14 +39,43 @@ from ..columnar.host import HostTable
 from ..conf import RapidsConf
 from ..memory.catalog import get_catalog
 from ..plan.physical import PhysicalPlan
+from ..utils import faults
 from .base import NUM_OUTPUT_BATCHES, TpuExec
 
 __all__ = ["HostToDeviceExec", "DeviceToHostExec", "TpuCoalesceBatchesExec",
-           "clear_upload_cache", "upload_cache_stats"]
+           "clear_upload_cache", "upload_cache_stats", "mark_exclusive",
+           "take_exclusive"]
 
 UPLOAD_BYTES = "uploadBytes"
 UPLOAD_CACHE_HITS = "uploadCacheHits"
 COALESCED_BYTES = "coalescedBytes"
+
+# ---------------------------------------------------------------------------
+# exclusive ownership: an upload the cache does not keep has one owner, its
+# consumer, so a fused stage may donate it (exec/wholestage.py). The mark
+# rides the DeviceTable instance and is consumed once.
+# ---------------------------------------------------------------------------
+def mark_exclusive(table: DeviceTable, origin: Optional[HostTable] = None,
+                   min_bucket: Optional[int] = None) -> DeviceTable:
+    table._srt_exclusive = True
+    if origin is not None:
+        # the retry ladder's rebuild of a donated batch (memory/retry.py
+        # wrap_dispatch_donating): the host batch is alive while its
+        # consumer runs, so this keeps no extra memory
+        device = table.device
+        table._srt_remat = lambda: DeviceTable.from_host(origin, min_bucket,
+                                                         device)
+    return table
+
+
+def take_exclusive(table: DeviceTable) -> bool:
+    """True once per exclusively owned batch (clears the mark: after the
+    consumer donates it, or declines to, nobody else may)."""
+    if getattr(table, "_srt_exclusive", False):
+        table._srt_exclusive = False
+        return True
+    return False
+
 
 # Upload memoization keyed by host-batch IDENTITY: sources that cache their
 # decoded batches re-yield the same objects. A weakref death-callback drops
@@ -128,12 +163,31 @@ class HostToDeviceExec(TpuExec):
         self.metrics[UPLOAD_BYTES] = 0
         self.metrics[UPLOAD_CACHE_HITS] = 0
 
+    def _upload_retryable(self, batch: HostTable) -> DeviceTable:
+        """One upload under the full OOM ladder (memory/retry.py): spill,
+        retry, then split the host batch and upload the halves (each needs
+        half the device memory), concatenated on the device."""
+        from ..memory.retry import split_host_rows, with_retry_split
+        min_bucket, device = self.min_bucket, self.device
+
+        def upload(hb: HostTable) -> DeviceTable:
+            action = faults.fire("h2d.upload")
+            if action is not None and action != "delay":
+                raise faults.FaultInjectedError("h2d.upload", action)
+            return DeviceTable.from_host(hb, min_bucket, device)
+
+        return with_retry_split(
+            upload, batch, splitter=split_host_rows,
+            combiner=lambda outs: concat_device_tables(outs, min_bucket),
+            scope="h2d-upload", context=f"rows={batch.num_rows}",
+            fault_point="alloc.upload")
+
     def _upload(self, batch: HostTable) -> DeviceTable:
         global _CACHED_BYTES, _CACHE_HITS, _CACHE_INSERTS
         if not self.cache_max_bytes:
-            dtb = DeviceTable.from_host(batch, self.min_bucket, self.device)
+            dtb = self._upload_retryable(batch)
             self.metrics[UPLOAD_BYTES] += dtb.nbytes()
-            return dtb
+            return mark_exclusive(dtb, batch, self.min_bucket)
         key = id(batch)
         inner = (self.min_bucket, self.device)
         with _UPLOAD_LOCK:
@@ -146,7 +200,7 @@ class HostToDeviceExec(TpuExec):
         if hit is not None:
             self.metrics[UPLOAD_CACHE_HITS] += 1
             return hit
-        dtb = DeviceTable.from_host(batch, self.min_bucket, self.device)
+        dtb = self._upload_retryable(batch)
         nbytes = dtb.nbytes()
         self.metrics[UPLOAD_BYTES] += nbytes
         cached = False
@@ -168,13 +222,17 @@ class HostToDeviceExec(TpuExec):
                     cached = True
         if cached:
             _hook_oom(self.conf, self.device)
+        else:
+            # not kept by the cache: the consumer holds the only reference
+            mark_exclusive(dtb, batch, self.min_bucket)
         return dtb
 
     def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
         for batch in self.child.execute(pidx):
-            dtb = self._upload(batch)
             self.account_batch(batch.num_rows)
-            yield dtb
+            # no local keeps the upload: a donating consumer holds the only
+            # reference (exec/wholestage.py)
+            yield self._upload(batch)
 
 
 class DeviceToHostExec(PhysicalPlan):
@@ -183,22 +241,28 @@ class DeviceToHostExec(PhysicalPlan):
     are drained first and downloaded together, one device-to-host copy per
     plane type (``to_host_batched``); else each batch as it arrives."""
 
-    def __init__(self, child: TpuExec, bulk: bool = True):
+    def __init__(self, child: TpuExec, bulk: bool = True,
+                 conf: Optional[RapidsConf] = None):
         self.child = child
         self.children = (child,)
         self.schema = child.schema
         self.bulk = bulk
+        self.conf = conf
 
     @property
     def num_partitions(self) -> int:
         return self.child.num_partitions
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
-        if self.bulk:
-            yield from to_host_batched(list(self.child.execute_columnar(pidx)))
-            return
-        for batch in self.child.execute_columnar(pidx):
-            yield batch.to_host()
+        from ..memory.semaphore import get_semaphore
+        # one task's admission for the partition's device drain
+        with get_semaphore(self.conf).drain_scope():
+            if self.bulk:
+                yield from to_host_batched(
+                    list(self.child.execute_columnar(pidx)))
+                return
+            for batch in self.child.execute_columnar(pidx):
+                yield batch.to_host()
 
 
 class TpuCoalesceBatchesExec(TpuExec):
@@ -252,7 +316,10 @@ class TpuCoalesceBatchesExec(TpuExec):
             yield self._flush(pending)
 
     def _flush(self, pending: List[DeviceTable]) -> DeviceTable:
-        out = concat_device_tables(pending, self.min_bucket)
+        from ..memory.retry import with_retry
+        # spill-only: a concat has no smaller piece to retry
+        out = with_retry(concat_device_tables, pending, self.min_bucket,
+                         scope="coalesce", context=self.node_desc())
         self.metrics[NUM_OUTPUT_BATCHES] += 1
         self.metrics[COALESCED_BYTES] += out.nbytes()
         return out

@@ -104,6 +104,9 @@ class TpuWindowExec(TpuExec):
     def node_desc(self):
         return ", ".join(n for n, _ in self.window_cols)
 
+    def runs_kernel(self) -> bool:
+        return True    # seg_scan, frame_bounds, frame_reduce
+
     @property
     def fusible(self) -> bool:
         return False  # a window needs its whole partition

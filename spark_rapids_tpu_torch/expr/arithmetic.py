@@ -173,6 +173,18 @@ class Multiply(BinaryArithmetic):
             return node
         return super().coerce()
 
+    def _int64_product(self) -> bool:
+        """Whether a decimal product is exact in int64 (< 10^18)."""
+        out = self.data_type
+        lt, rt = self.left.data_type, self.right.data_type
+        return not (dt.is_d128(out) or dt.is_d128(lt) or dt.is_d128(rt)) \
+            and lt.precision + rt.precision <= 18
+
+    def runs_kernel(self) -> bool:
+        return all(isinstance(t, dt.DecimalType) for t in (
+            self.data_type, self.left.data_type, self.right.data_type)) \
+            and not self._int64_product()
+
     def _compute(self, ctx, lv, rv):
         out = self.data_type
         lt, rt = self.left.data_type, self.right.data_type
@@ -182,8 +194,7 @@ class Multiply(BinaryArithmetic):
             return lv * rv, None
         drop = max(lt.scale + rt.scale - out.scale, 0)
         if ctx.is_device:
-            if not (dt.is_d128(out) or dt.is_d128(lt) or dt.is_d128(rt)) \
-                    and lt.precision + rt.precision <= 18:
+            if self._int64_product():
                 return lv * rv, None    # the product < 10^18: exact int64
             from .decimal128 import d128_mul_rescaled, d128_to_i64
             # a decimal64 operand goes to the kernel as scaled int64

@@ -119,6 +119,16 @@ class Expression:
         return self.context_dependent \
             or any(c.tree_context_dependent() for c in self.children)
 
+    def runs_kernel(self) -> bool:
+        """Whether this node's own device evaluation calls a hand-written
+        kernel's wrapper: a batch that evaluates one is never rerun on the
+        host engine (exec/fallback.py), so no fallback hides a kernel."""
+        return False
+
+    def tree_runs_kernel(self) -> bool:
+        return self.runs_kernel() \
+            or any(c.tree_runs_kernel() for c in self.children)
+
     @property
     def data_type(self) -> dt.DataType:
         raise NotImplementedError(type(self).__name__)

@@ -91,6 +91,17 @@ class Cast(Expression):
     def __repr__(self):
         return f"cast({self.child!r} as {self.to!r})"
 
+    def runs_kernel(self) -> bool:
+        # d128_rescale: a decimal to or from a two-limb decimal, and an
+        # integral or boolean column to a two-limb decimal
+        src, to = self.child.data_type, self.to
+        if src == to or not isinstance(to, dt.DecimalType):
+            return False
+        if isinstance(src, dt.DecimalType):
+            return dt.is_d128(src) or dt.is_d128(to)
+        return dt.is_d128(to) and src not in (dt.FLOAT, dt.DOUBLE) \
+            and not isinstance(src, dt.NullType)
+
     def eval(self, ctx: EvalContext) -> EvalCol:
         c = self.child.eval(ctx)
         src, to = c.dtype, self.to

@@ -307,6 +307,10 @@ class Like(Expression):
     def data_type(self):
         return dt.BOOLEAN
 
+    def runs_kernel(self) -> bool:
+        # a pattern past the four search ops runs on nfa_match
+        return self.simple_kind() is None
+
     # -- pattern analysis (used by tagging AND execution) --------------------
     def simple_kind(self):
         """('equals'|'prefix'|'suffix'|'contains', needle) or None."""

@@ -13,8 +13,11 @@ raises ``SpillCorruptionError``. The caching allocator owns the device
 memory, so the device store keeps a logical budget and frees by dropping
 references.
 
-Not ported: the fault-injection hooks of the JAX stores (ROADMAP Queue 1:
-memory and robustness).
+The disk tier carries the JAX package's fault points: ``spill.write``
+(``raise``, or ``corrupt``: one byte flipped after the checksum was
+recorded, so the restore's check must catch it) and ``spill.read`` (the
+restore fails as corrupt). Each detected corruption is noted in the
+recovery ledger (utils/faults.py).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from ..columnar.device import DeviceColumn, DeviceTable
+from ..utils import faults
 
 __all__ = ["StorageTier", "StoredTable", "DeviceStore", "HostStore",
            "DiskStore", "SpillCorruptionError"]
@@ -192,17 +196,33 @@ class DiskStore:
                     return crc
                 crc = zlib.crc32(chunk, crc)
 
+    @staticmethod
+    def _corrupt_file(path: str) -> None:
+        """``spill.write`` action=corrupt: flip one byte mid-file after the
+        checksum was recorded, so the restore must catch it."""
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+
     def put(self, stored: StoredTable):
         assert stored.host_arrays is not None
+        action = faults.fire("spill.write")
+        if action == "raise":
+            raise faults.FaultInjectedError("spill.write")
         if self.direct:
             d = os.path.join(self.dir, f"buf{stored.buffer_id}")
             os.makedirs(d, exist_ok=True)
             size = 0
             crcs: Dict[str, int] = {}
+            files = []
             for k, arr in stored.host_arrays.items():
                 fp = os.path.join(d, f"{k}.npy")
                 np.save(fp, np.ascontiguousarray(arr))
                 size += os.path.getsize(fp)
+                files.append(fp)
                 if self.checksum:
                     crcs[f"{k}.npy"] = self._crc32_file(fp)
             if self.checksum:
@@ -210,6 +230,8 @@ class DiskStore:
                 with open(sidecar, "w", encoding="utf-8") as f:
                     json.dump(crcs, f)
                 size += os.path.getsize(sidecar)
+            if action == "corrupt" and files:
+                self._corrupt_file(files[len(files) // 2])
             stored.disk_path = d
         else:
             path = os.path.join(self.dir, f"buf{stored.buffer_id}.npz")
@@ -220,6 +242,8 @@ class DiskStore:
                 with open(path + ".crc", "w", encoding="utf-8") as f:
                     f.write(str(self._crc32_file(path)))
                 size += os.path.getsize(path + ".crc")
+            if action == "corrupt":
+                self._corrupt_file(path)
         stored.host_arrays = None
         stored.tier = StorageTier.DISK
         self.used_bytes += size
@@ -227,10 +251,16 @@ class DiskStore:
     def _verify(self, path: str, expected: int) -> None:
         actual = self._crc32_file(path)
         if actual != expected:
+            faults.note_recovery("spill_corruptions")
             raise SpillCorruptionError(
                 path, f"crc32 {actual:#010x} != recorded {expected:#010x}")
 
     def load(self, stored: StoredTable) -> dict:
+        action = faults.fire("spill.read")
+        if action is not None and action != "delay":
+            faults.note_recovery("spill_corruptions")
+            raise SpillCorruptionError(stored.disk_path or "?",
+                                       "injected fault 'spill.read'")
         if os.path.isdir(stored.disk_path):
             crcs: Optional[Dict[str, int]] = None
             sidecar = os.path.join(stored.disk_path, self.CHECKSUM_SIDECAR)

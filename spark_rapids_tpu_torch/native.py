@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load_kernels", "build_seconds"]
+__all__ = ["load_kernels", "build_seconds", "KernelBuildError"]
 
 _HERE = Path(__file__).resolve().parent
 _SRC_DIR = _HERE / "csrc"
@@ -33,14 +33,20 @@ _LIB: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be built or loaded. Never a reason to
+    fall back to the host engine (exec/fallback.py): a kernel that does
+    not build is a fault to see, not to hide."""
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
                  "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set NVCC, or put the CUDA toolkit's "
-                       "bin directory on PATH): the CUDA kernels cannot be "
-                       "built")
+    raise KernelBuildError("nvcc not found (set NVCC, or put the CUDA "
+                           "toolkit's bin directory on PATH): the CUDA "
+                           "kernels cannot be built")
 
 
 def _library_path() -> Path:
@@ -61,8 +67,8 @@ def _run_all(cmds) -> None:
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}): "
-                               f"{' '.join(cmd)}\n{out}")
+            raise KernelBuildError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
 
 
 def _build(so: Path) -> None:
@@ -94,7 +100,10 @@ def load_kernels() -> ctypes.CDLL:
                 build_seconds = 0.0
             else:
                 _build(so)
-            lib = ctypes.CDLL(str(so))
+            try:
+                lib = ctypes.CDLL(str(so))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {so}: {e}") from e
             # pointers and the stream as c_void_p: a bare int would be cut
             # to 32 bits
             lib.srt_axpy_f32.argtypes = [ctypes.c_void_p] * 4 + [

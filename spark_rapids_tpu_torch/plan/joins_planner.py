@@ -1,6 +1,8 @@
 """Join planning — the port of ``spark_rapids_tpu/plan/joins_planner.py``:
 equi-key extraction, key type coercion, and the choice between a broadcast
-and a shuffled hash join (reference: GpuOverrides join rules; Spark's
+hash join, a shuffled hash join and, for a join without equi-keys (a cross
+join, or a condition with no equality between the sides), the broadcast
+nested-loop join (reference: GpuOverrides join rules; Spark's
 ExtractEquiJoinKeys is mirrored by ``extract_equi_keys``).
 """
 from __future__ import annotations
@@ -8,14 +10,15 @@ from __future__ import annotations
 from typing import List, Optional, Set, Tuple
 
 from ..columnar import dtypes as dt
-from ..conf import (BROADCAST_THRESHOLD, STEP_NESTED_LOOP, RapidsConf,
-                    not_ported)
+from ..conf import BROADCAST_THRESHOLD, RapidsConf
 from ..expr.base import Alias, AttributeReference, Expression
 from ..expr.predicates import And, EqualTo
 from .logical import LogicalJoin, LogicalPlan, LogicalScan
 from .physical import (CpuProjectExec, HashPartitioning, PhysicalPlan,
                        ShuffleExchangeExec)
-from .physical_joins import CpuBroadcastHashJoinExec, CpuShuffledHashJoinExec
+from .physical_joins import (CpuBroadcastHashJoinExec,
+                             CpuBroadcastNestedLoopJoinExec,
+                             CpuShuffledHashJoinExec)
 
 __all__ = ["plan_join", "extract_equi_keys"]
 
@@ -121,8 +124,9 @@ def plan_join(node: LogicalJoin, conf: RapidsConf,
     """A broadcast hash join when the right subtree's estimated bytes are
     within ``spark.rapids.tpu.autoBroadcastJoinThreshold`` (and its
     unmatched rows never reach the output), else hash exchanges on both
-    sides and a shuffled hash join. ``plan_fn(logical, required)`` plans a
-    child."""
+    sides and a shuffled hash join; without equi-keys a broadcast
+    nested-loop join over the whole condition. ``plan_fn(logical,
+    required)`` plans a child."""
     lnames = set(node.left.schema.names)
     rnames = set(node.right.schema.names)
     if node.on:
@@ -132,10 +136,6 @@ def plan_join(node: LogicalJoin, conf: RapidsConf,
         lkeys, rkeys, residual = extract_equi_keys(node.condition, lnames,
                                                    rnames)
         merge_keys = False
-    if not lkeys:
-        raise NotImplementedError(
-            f"{node.how} join without equi-keys (the broadcast nested-loop "
-            f"join) is not ported yet {not_ported(STEP_NESTED_LOOP)}")
     lreq = rreq = None
     if required is not None:
         refs = set(required) | set(lkeys) | set(rkeys)
@@ -156,6 +156,9 @@ def plan_join(node: LogicalJoin, conf: RapidsConf,
             join, [AttributeReference(f.name, f.dtype, f.nullable)
                    for f in keep], [f.name for f in keep])
 
+    if not lkeys:
+        return CpuBroadcastNestedLoopJoinExec(left, right, node.how,
+                                              node.condition)
     threshold = conf.get(BROADCAST_THRESHOLD)
     rsize = _estimate_subtree_bytes(node.right)
     # broadcasting the RIGHT side is only sound when unmatched right rows

@@ -30,11 +30,13 @@ from ..exec.basic import (TpuExpandExec, TpuFilterExec, TpuLocalLimitExec,
                           TpuUnionExec)
 from ..exec.cache import CpuCacheExec, TpuCacheExec
 from ..exec.exchange import TpuLocalExchangeExec
-from ..exec.joins import (TpuBroadcastHashJoinExec, TpuShuffledHashJoinExec,
-                          join_unsupported_reason)
+from ..exec.fallback import plan_quarantine_pass
+from ..exec.joins import (TpuBroadcastHashJoinExec,
+                          TpuBroadcastNestedLoopJoinExec,
+                          TpuShuffledHashJoinExec, join_unsupported_reason)
 from ..exec.scan import TpuParquetScanExec
 from ..exec.sort import TpuSortExec, TpuTakeOrderedExec
-from ..exec.wholestage import fuse_stages
+from ..exec.wholestage import donation_active, fuse_stages
 from ..exec.window import TpuWindowExec
 from ..expr import aggregates as A
 from ..expr import arithmetic as AR
@@ -54,7 +56,9 @@ from .physical import (CpuCollectLimitExec, CpuExpandExec, CpuFilterExec,
                        CpuSampleExec, CpuScanExec, CpuSortExec,
                        CpuTakeOrderedExec, CpuUnionExec, PhysicalPlan,
                        ShuffleExchangeExec)
-from .physical_joins import CpuBroadcastHashJoinExec, CpuShuffledHashJoinExec
+from .physical_joins import (CpuBroadcastHashJoinExec,
+                             CpuBroadcastNestedLoopJoinExec,
+                             CpuShuffledHashJoinExec)
 from .physical_window import CpuWindowExec
 from .transitions import insert_transitions
 
@@ -199,6 +203,18 @@ def _register_exec_rules():
                 conf.min_bucket_rows, conf.batch_size_bytes, conf),
             exprs_fn=lambda p: [] if p.condition is None else [p.condition],
             tag_fn=tag_join)
+
+    def tag_bnlj(meta, conf):
+        p = meta.plan
+        if p.how not in TpuBroadcastNestedLoopJoinExec.SUPPORTED:
+            meta.cannot_run(f"join type {p.how} not supported on device BNLJ")
+
+    register_exec_rule(
+        CpuBroadcastNestedLoopJoinExec, _device_all,
+        lambda p, ch, conf, device: TpuBroadcastNestedLoopJoinExec(
+            ch[0], ch[1], p.how, p.condition, device, conf),
+        exprs_fn=lambda p: [] if p.condition is None else [p.condition],
+        tag_fn=tag_bnlj)
 
     def tag_scan(meta, conf):
         # a parquet scan decodes on the device (exec/scan.py); other
@@ -394,9 +410,11 @@ def _upgrade_decimal128_rules():
 _upgrade_decimal128_rules()
 
 
-def explain_plan(cpu_plan: PhysicalPlan, conf: RapidsConf) -> str:
+def explain_plan(cpu_plan: PhysicalPlan, conf: RapidsConf,
+                 device: torch.device = torch.device("cpu")) -> str:
     meta = wrap_plan(cpu_plan)
     meta.tag(conf)
+    plan_quarantine_pass(meta, conf, device)
     return meta.explain(not_on_device_only=(conf.explain == "NOT_ON_GPU"))
 
 
@@ -405,16 +423,24 @@ def apply_overrides(cpu_plan: PhysicalPlan, conf: RapidsConf,
     """Tag + convert + insert transitions + fuse (SURVEY §3.2 call stack)."""
     meta = wrap_plan(cpu_plan)
     meta.tag(conf)
+    # operators the runtime fallback quarantined run on the host engine
+    plan_quarantine_pass(meta, conf, device)
     if conf.explain != "NONE":
         text = meta.explain(not_on_device_only=(conf.explain == "NOT_ON_GPU"))
         if text:
             print(text)
     if conf.test_enabled:
         for m in meta.walk():
+            # a quarantined node is deliberate host routing (its runtime
+            # failure history), not a support gap
+            if m.reasons and all(r.startswith("quarantined:")
+                                 for r in m.reasons):
+                continue
             # a scan that cannot decode on the device reads on the host
             if not m.can_run and not isinstance(m.plan, CpuScanExec):
                 raise AssertionError(
                     f"[test.enabled] {type(m.plan).__name__} fell off the "
                     f"device: {m.reasons}")
     converted = meta.convert_if_needed(conf, device)
-    return fuse_stages(insert_transitions(converted, conf, device))
+    return fuse_stages(insert_transitions(converted, conf, device),
+                       donation_active(conf, device))

@@ -481,6 +481,36 @@ def check_mode(mode: str) -> None:
         raise ValueError(f"aggregate mode {mode!r}")
 
 
+def host_aggregate(table: Optional[HostTable], key_names: List[str],
+                   specs: List[AggSpec], mode: str, child_schema: Schema,
+                   schema: Schema) -> HostTable:
+    """One host table (None: no input) aggregated: the body of
+    CpuHashAggregateExec, and the host fallback of the device partial
+    aggregate. A keyed aggregate of no rows is empty; a grand aggregate of
+    no rows is one null/zero row."""
+    cols_ops = aggregate_columns_ops(specs, mode)
+    if table is None or table.num_rows == 0:
+        if key_names:
+            return empty_result_table(schema)
+        table = HostTable(
+            [c for c, _, _, _ in cols_ops],
+            [HostColumn(child_schema.field(c).dtype,
+                        _empty_values(child_schema.field(c).dtype))
+             for c, _, _, _ in cols_ops])
+    gid, ngroups, rep = group_codes(table, key_names)
+    out_cols = [table.column(k).take(rep) for k in key_names]
+    for in_col, op, _, out_dt in cols_ops:
+        vals, validity = host_group_reduce(op, table.column(in_col), gid,
+                                           ngroups, out_dt, mode == "final")
+        if vals.dtype != object and vals.dtype != out_dt.np_dtype():
+            with np.errstate(invalid="ignore"):
+                vals = vals.astype(out_dt.np_dtype())
+        if validity is not None and validity.all():
+            validity = None
+        out_cols.append(HostColumn(out_dt, vals, validity))
+    return HostTable(schema.names, out_cols)
+
+
 class CpuHashAggregateExec(PhysicalPlan):
     """Group-by aggregate over pre-projected input (mode partial|final).
 
@@ -503,30 +533,8 @@ class CpuHashAggregateExec(PhysicalPlan):
     def execute(self, pidx: int) -> Iterator[HostTable]:
         batches = list(self.child.execute(pidx))
         table = HostTable.concat(batches) if batches else None
-        cols_ops = aggregate_columns_ops(self.specs, self.mode)
-        if table is None or table.num_rows == 0:
-            if self.key_names:
-                yield empty_result_table(self.schema)
-                return
-            # grand aggregate over empty input: one null/zero row
-            table = HostTable(
-                [c for c, _, _, _ in cols_ops],
-                [HostColumn(self.child.schema.field(c).dtype,
-                            _empty_values(self.child.schema.field(c).dtype))
-                 for c, _, _, _ in cols_ops])
-        gid, ngroups, rep = group_codes(table, self.key_names)
-        out_cols = [table.column(k).take(rep) for k in self.key_names]
-        for in_col, op, _, out_dt in cols_ops:
-            vals, validity = host_group_reduce(op, table.column(in_col), gid,
-                                               ngroups, out_dt,
-                                               self.mode == "final")
-            if vals.dtype != object and vals.dtype != out_dt.np_dtype():
-                with np.errstate(invalid="ignore"):
-                    vals = vals.astype(out_dt.np_dtype())
-            if validity is not None and validity.all():
-                validity = None
-            out_cols.append(HostColumn(out_dt, vals, validity))
-        yield HostTable(self.schema.names, out_cols)
+        yield host_aggregate(table, self.key_names, self.specs, self.mode,
+                             self.child.schema, self.schema)
 
     def node_desc(self):
         return f"mode={self.mode} keys={self.key_names}"

@@ -1,6 +1,6 @@
-"""Host-engine equi-joins — the port of ``spark_rapids_tpu/plan/physical_joins.py``
-for the hash joins (reference: GpuShuffledHashJoinExec /
-GpuBroadcastHashJoinExec).
+"""Host-engine joins — the port of ``spark_rapids_tpu/plan/physical_joins.py``
+(reference: GpuShuffledHashJoinExec / GpuBroadcastHashJoinExec /
+GpuBroadcastNestedLoopJoinExec / GpuCartesianProductExec).
 
 numpy, not pandas (the JAX package's host join is ``pandas.merge``): each
 key pair is coded over both sides at once (integers as themselves, floats
@@ -13,6 +13,13 @@ right-row order.
 Spark join-key semantics: null keys never match; NaN keys match NaN; -0.0
 matches 0.0; ``on=`` joins output the key columns once (coalesced for full
 outer), expression equi-joins keep both sides' columns.
+
+A join without equi-keys (a cross join, or a condition with no equality
+between the sides) pairs every left row with every right row, in the JAX
+package's order (left-row major), and keeps the pairs the condition passes.
+The pairs are formed and filtered ``_PAIR_CHUNK`` at a time over only the
+columns the condition reads, so a large left side never materialises the
+whole cross product; only the kept pairs are gathered.
 """
 from __future__ import annotations
 
@@ -21,14 +28,16 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..columnar.host import HostColumn, HostTable
-from ..conf import STEP_NESTED_LOOP, not_ported
 from ..expr.base import EvalContext, Expression
 from .host_groupby import object_codes, unique_rows
 from .logical import _join_schema
 from .physical import PhysicalPlan, empty_result_table
 
 __all__ = ["CpuShuffledHashJoinExec", "CpuBroadcastHashJoinExec",
-           "join_host_tables"]
+           "CpuBroadcastNestedLoopJoinExec", "join_host_tables"]
+
+#: pair slots a nested-loop join forms and filters at once
+_PAIR_CHUNK = 1 << 22
 
 
 def _key_codes(lt: HostTable, rt: HostTable, lkeys: Sequence[str],
@@ -98,15 +107,51 @@ def _gather_with_nulls(table: HostTable, idx: np.ndarray) -> HostTable:
     return HostTable(list(table.names), out_cols)
 
 
+def _select_names(table: HostTable, names) -> HostTable:
+    keep = [i for i, n in enumerate(table.names) if n in names]
+    return HostTable([table.names[i] for i in keep],
+                     [table.columns[i] for i in keep])
+
+
+def _nested_loop_pairs(lt: HostTable, rt: HostTable,
+                       condition: Optional[Expression]
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Every (left row, right row) pair, left-row major, that the
+    condition passes (all of them without one)."""
+    nl, nr = lt.num_rows, rt.num_rows
+    empty = np.zeros(0, dtype=np.int64)
+    if nl == 0 or nr == 0:
+        return empty, empty
+    if condition is not None:
+        refs = condition.references()
+        lsub, rsub = _select_names(lt, refs), _select_names(rt, refs)
+    step = max(1, _PAIR_CHUNK // nr)
+    lis, ris = [], []
+    for start in range(0, nl, step):
+        stop = min(nl, start + step)
+        li = np.repeat(np.arange(start, stop, dtype=np.int64), nr)
+        ri = np.tile(np.arange(nr, dtype=np.int64), stop - start)
+        if condition is not None:
+            pairs = _combine(lsub, rsub, li, ri, [], "inner", False)
+            c = condition.eval(EvalContext.for_host(pairs))
+            keep = np.asarray(c.values, dtype=np.bool_)
+            if c.validity is not None:
+                keep &= c.validity
+            li, ri = li[keep], ri[keep]
+        lis.append(li)
+        ris.append(ri)
+    return np.concatenate(lis), np.concatenate(ris)
+
+
 def join_host_tables(lt: HostTable, rt: HostTable, lkeys: Sequence[str],
                      rkeys: Sequence[str], how: str,
                      condition: Optional[Expression],
                      merge_keys: bool) -> HostTable:
-    if not lkeys:
-        raise NotImplementedError(
-            "joins without equi-keys (cross and nested-loop joins) are not "
-            "ported yet " + not_ported(STEP_NESTED_LOOP))
-    li, ri = _inner_pairs(*_key_codes(lt, rt, lkeys, rkeys))
+    if how == "cross" or not lkeys:
+        li, ri = _nested_loop_pairs(lt, rt, condition)
+        condition = None
+    else:
+        li, ri = _inner_pairs(*_key_codes(lt, rt, lkeys, rkeys))
     if condition is not None:
         pairs = _combine(lt, rt, li, ri, lkeys, "inner", False)
         c = condition.eval(EvalContext.for_host(pairs))
@@ -114,7 +159,7 @@ def join_host_tables(lt: HostTable, rt: HostTable, lkeys: Sequence[str],
         if c.validity is not None:
             keep &= c.validity
         li, ri = li[keep], ri[keep]
-    if how == "inner":
+    if how in ("inner", "cross"):
         return _combine(lt, rt, li, ri, lkeys, how, merge_keys)
     lmatched = np.zeros(lt.num_rows, dtype=bool)
     lmatched[li] = True
@@ -216,6 +261,50 @@ class CpuBroadcastHashJoinExec(CpuShuffledHashJoinExec):
                 [b for p in range(self.right.num_partitions)
                  for b in self.right.execute(p)], self.right)
         return self._broadcast
+
+
+class CpuBroadcastNestedLoopJoinExec(PhysicalPlan):
+    """Cross or conditional join without equi-keys: the right side read
+    whole, once, and crossed with each left batch. Right and full joins
+    consume every left partition inside partition 0, so an unmatched right
+    row is emitted once."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan, how: str,
+                 condition: Optional[Expression]):
+        self.left, self.right = left, right
+        self.children = (left, right)
+        self.how = how
+        self.condition = condition
+        self.schema = _join_schema(left.schema, right.schema, None, how)
+        self._broadcast: Optional[HostTable] = None
+
+    @property
+    def num_partitions(self) -> int:
+        return self.left.num_partitions
+
+    def _right_table(self) -> HostTable:
+        if self._broadcast is None:
+            self._broadcast = _concat_or_empty(
+                [b for p in range(self.right.num_partitions)
+                 for b in self.right.execute(p)], self.right)
+        return self._broadcast
+
+    def execute(self, pidx: int) -> Iterator[HostTable]:
+        rt = self._right_table()
+        if self.how in ("right", "full"):
+            if pidx != 0:
+                return
+            lt = _concat_or_empty(
+                [b for sp in range(self.left.num_partitions)
+                 for b in self.left.execute(sp)], self.left)
+            out = join_host_tables(lt, rt, [], [], self.how, self.condition,
+                                   False)
+            yield HostTable(self.schema.names, out.columns)
+            return
+        for batch in self.left.execute(pidx):
+            out = join_host_tables(batch, rt, [], [], self.how,
+                                   self.condition, False)
+            yield HostTable(self.schema.names, out.columns)
 
 
 def _concat_or_empty(batches: List[HostTable],

@@ -47,9 +47,10 @@ def insert_transitions(plan: PhysicalPlan, conf: RapidsConf,
                         min_bucket=conf.min_bucket_rows,
                         target_bytes=conf.get(COALESCE_TARGET_BYTES))
             elif not isinstance(node, TpuExec) and isinstance(c2, TpuExec):
-                c2 = DeviceToHostExec(c2, bulk)
+                c2 = DeviceToHostExec(c2, bulk, conf)
             new_children.append(c2)
         return replace_children(node, new_children)
 
     out = walk(plan)
-    return DeviceToHostExec(out, bulk) if isinstance(out, TpuExec) else out
+    return DeviceToHostExec(out, bulk, conf) if isinstance(out, TpuExec) \
+        else out

@@ -8,6 +8,14 @@ exchange runs under adaptive execution (plan/aqe.py) unless
 become window nodes below it, one a (partition, order) spec; rollup, cube
 and grouping sets aggregate over an Expand; a result can stay on the
 device (``to_device_batches``, ``to_torch``).
+
+A session configures the process-wide robustness layer when it starts, as
+the JAX session does: the memory profiler (utils/memprof.py), fault
+injection (utils/faults.py), the OOM ladder's bounds (memory/retry.py), the
+host fallback and its quarantine (exec/fallback.py), the task semaphore's
+permits (memory/semaphore.py), and, when the session sets a pool key, a
+buffer catalog of its own (memory/catalog.py ``bind_catalog``). ``collect``
+runs under the query deadline (utils/deadline.py).
 """
 from __future__ import annotations
 
@@ -42,6 +50,9 @@ from .plan.schema import Schema
 
 __all__ = ["TorchSession", "DataFrame", "GroupedData"]
 
+#: the ids of collects, for the memory profiler's per-query attribution
+_QUERY_IDS = itertools.count(1)
+
 
 class TorchSession:
     """A session whose device plans run on ``device`` (default ``"cuda"``).
@@ -63,6 +74,29 @@ class TorchSession:
                 "device='cpu' to run the engine on the CPU")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"TorchSession: unsupported device {device!r}")
+        from .exec.fallback import configure_fallback
+        from .memory.catalog import bind_catalog
+        from .memory.retry import configure_oom_retry
+        from .memory.semaphore import get_semaphore
+        from .utils.faults import configure_faults
+        from .utils.memprof import configure_memprof
+        # the memory flight recorder: buffer-lifecycle attribution, leak
+        # scans and OOM postmortems (the catalog emits into it)
+        configure_memprof(self.conf)
+        # fault injection: install or clear the process-wide injector
+        # behind the named fault points (None unless faults.enabled)
+        configure_faults(self.conf)
+        # the OOM ladder's bounds and arbitration
+        configure_oom_retry(self.conf)
+        # the runtime host fallback and the operator quarantine store
+        configure_fallback(self.conf)
+        # a session that sets a pool key gets a catalog of those settings
+        bind_catalog(self.conf, self.device)
+        # concurrentGpuTasks permits
+        get_semaphore(self.conf)
+        #: the memory profiler's summary of the last collect (None while
+        #: profiling is off): peak holders by operator and leaked buffers
+        self.last_memory_summary = None
 
     def create_dataframe(self, data, num_partitions: int = 1) -> "DataFrame":
         if isinstance(data, pa.Table):
@@ -277,13 +311,20 @@ class DataFrame:
         ``condition`` whose equalities between the two sides are the keys
         (the rest is the residual condition). The device runs every hash
         join type on keys of any ported type but binary; a join without
-        equi-keys is not ported yet."""
+        equi-keys runs as the broadcast nested-loop join."""
         if isinstance(on, str):
             on = [on]
         cond = _to_expr(condition) if condition is not None else None
         return DataFrame(self.session, LogicalJoin(self.logical,
                                                    other.logical, on, cond,
                                                    how))
+
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        """Every row of this DataFrame with every row of ``other`` (the
+        broadcast nested-loop join, ``other`` broadcast)."""
+        return DataFrame(self.session, LogicalJoin(self.logical,
+                                                   other.logical, None, None,
+                                                   "cross"))
 
     def _col_expr(self, c) -> Expression:
         return _to_expr(_col(c) if isinstance(c, str) else c)
@@ -292,14 +333,29 @@ class DataFrame:
     def collect(self, device: Optional[bool] = None) -> pa.Table:
         """Run the query: on the session's device (``device=True``, the
         default when SQL is enabled) or on the host engine
-        (``device=False``)."""
+        (``device=False``), under ``spark.rapids.tpu.query.timeoutSeconds``
+        (a QueryTimeoutError at the first checkpoint past it)."""
+        from .conf import QUERY_TIMEOUT
+        from .utils import memprof
+        from .utils.deadline import deadline_scope
+        from .utils.node_context import query_scope
+        qid = next(_QUERY_IDS)
+        mp = memprof.active()
+        if mp is not None:
+            mp.begin_query(qid)
         plan = self.session._physical(self.logical, device)
         try:
-            return plan.collect().to_arrow()
+            with deadline_scope(self.session.conf.get(QUERY_TIMEOUT)), \
+                    query_scope(qid):
+                return plan.collect().to_arrow()
         finally:
             # the plan is single-use: close its spill-registered outputs
             # (broadcast builds, grace parts) now rather than at GC
             plan.release_spill_handles()
+            if mp is not None:
+                # the query's memory summary: peak holders by operator and
+                # the buffers still registered after it (leaks)
+                self.session.last_memory_summary = mp.query_end(qid)
 
     def to_pandas(self, device: Optional[bool] = None):
         return self.collect(device).to_pandas()
@@ -384,7 +440,7 @@ class DataFrame:
         if mode == "device":
             text = explain_plan(plan_physical(self.logical,
                                               self.session.conf),
-                                self.session.conf)
+                                self.session.conf, self.session.device)
         else:
             text = self.session._physical(self.logical).tree_string()
         print(text)

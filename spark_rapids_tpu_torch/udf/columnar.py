@@ -46,6 +46,10 @@ class ColumnarUDF(Expression):
         return ColumnarUDF(self.fn, self.udf_name, self._dtype,
                            tuple(children), self.host_fn, self.device_ok)
 
+    def runs_kernel(self) -> bool:
+        # a device function may launch its own kernel (pallas_axpy's axpy)
+        return self.device_ok
+
     def eval(self, ctx: EvalContext) -> EvalCol:
         cols = [c.eval(ctx) for c in self.children]
         fn = self.fn if ctx.is_device or self.host_fn is None else self.host_fn

@@ -91,11 +91,22 @@ def test_unread_table_holds_only_jax_keys():
     ("spark.rapids.tpu.memory.pool.mode", "strict")])
 def test_keys_that_change_the_jax_plan_raise(key, value):
     """``shuffle.mode=host`` puts a host exchange into the JAX plan,
-    ``bogus`` makes the JAX package raise, ``groupby.strategy=sort`` takes
-    its sort-based group-by and ``pool.mode=strict`` its strict memory
-    pool: the port runs none of them, so it raises. (The port reads
-    ``coalesce.afterUpload.enabled``: tests/test_torch_upload_cache.py.)"""
+    ``bogus`` makes the JAX package raise and ``groupby.strategy=sort``
+    takes its sort-based group-by: the port runs none of them, so it
+    raises. ``pool.mode=strict``, the JAX strict memory pool, is read since
+    the memory and robustness step: the session binds a strict catalog.
+    (The port reads ``coalesce.afterUpload.enabled``:
+    tests/test_torch_upload_cache.py.)"""
     from spark_rapids_tpu_torch.session import TorchSession
+    if key not in _UNREAD:
+        from spark_rapids_tpu_torch.memory import catalog as tcat
+        before = tcat.peek_catalog()
+        try:
+            TorchSession({key: value}, device="cpu")
+            assert tcat.peek_catalog()._pool_mode == value
+        finally:
+            tcat.set_catalog(before)
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"\(ROADMAP Queue 1: "
                        rf"{re.escape(_UNREAD[key])}\)"):

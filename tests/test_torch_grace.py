@@ -48,6 +48,21 @@ _TYPES = {"long": (dt.LONG, jdt.LONG), "int": (dt.INT, jdt.INT),
 _HOWS = ["inner", "left", "right", "full", "left_semi", "left_anti"]
 
 
+@pytest.fixture(autouse=True)
+def _jax_bucket_policy():
+    """The JAX joins below run outside any JAX session, on the JAX
+    package's import-time bucket ladder; a JAX session an earlier test file
+    made in this process (``configure_buckets``, its
+    ``batchRowsMinBucket``) would change their buckets and so the JAX row
+    order these tests compare in order. Each test runs on the import-time
+    ladder and puts the ladder back afterwards."""
+    from spark_rapids_tpu.columnar import device as jdev
+    saved = jdev._POLICY
+    jdev._POLICY = jdev.BucketPolicy()
+    yield
+    jdev._POLICY = saved
+
+
 @pytest.fixture
 def small_catalogs():
     """Device pools far below the data in both packages: forced spills

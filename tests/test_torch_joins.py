@@ -420,9 +420,10 @@ def test_count_expand_join_output_equals_jax(kind, distinct):
 def test_out_of_slice_joins_raise_naming_the_roadmap_step():
     """Every hash join type builds on the device, on multi-key, string,
     mixed-type keys and with a residual condition; what is still out of the
-    slice raises naming its ROADMAP step: joins without equi-keys (the
-    nested-loop join: nested-loop and cross joins) and binary keys
-    (breadth)."""
+    slice raises naming its ROADMAP step: binary keys (breadth). Joins
+    without equi-keys raised naming the nested-loop and cross joins step
+    until it was ported: a hash join without keys now refuses to build, and
+    the planner makes them nested-loop joins, which build."""
     from spark_rapids_tpu_torch.columnar import dtypes as tdt
     rng = np.random.default_rng(0)
     build, jbuild = _side(rng, "b", 6, 8, "int64", 4)
@@ -439,10 +440,11 @@ def test_out_of_slice_joins_raise_naming_the_roadmap_step():
                 left, right, lk, rk, how, cond, False, torch.device("cpu"))
     for how, lk, rk in [("cross", [], []), ("inner", [], [])]:
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1: nested-loop and cross "
-                           "joins"):
+                           match="hash join type|needs equi-keys"):
             tjoins.TpuShuffledHashJoinExec(
                 left, right, lk, rk, how, None, False, torch.device("cpu"))
+        tjoins.TpuBroadcastNestedLoopJoinExec(left, right, how, None,
+                                              torch.device("cpu"))
     binary = type(left)(Schema([Field("pb", tdt.BINARY)]))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: breadth"):
         tjoins.TpuShuffledHashJoinExec(binary, binary, ["pb"], ["pb"],

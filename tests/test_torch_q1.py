@@ -296,11 +296,17 @@ def test_sort_over_the_batch_budget_takes_the_out_of_core_sort(monkeypatch):
 
 
 def test_join_still_raises_naming_roadmap():
-    """Joins without equi-keys (the nested-loop join) are still to port."""
+    """Joins without equi-keys (the nested-loop join) were still to port;
+    since the nested-loop and cross joins step the cross join runs on the
+    device's nested-loop join, equal to the host engine's."""
     sess = TorchSession(device="cpu")
     df = sess.create_dataframe(tpch.gen_lineitem(0, seed=0, rows=10))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1: nested-loop and cross joins"):
-        df.join(df.select(F.col("l_tax").alias("t")), how="cross").collect()
+    q = df.join(df.select(F.col("l_tax").alias("t")), how="cross")
+    got = q.collect()
+    assert got.num_rows == 100
+    assert "TpuBroadcastNestedLoopJoinExec" in sess._physical(
+        q.logical).tree_string()
+    assert_tables_equal(got, q.collect(device=False))
 
 
 def test_string_max_is_tagged_and_runs_on_the_host_engine():

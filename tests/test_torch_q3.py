@@ -234,11 +234,15 @@ def test_unread_aqe_confs_raise_unless_default(key, value, step):
 
 
 def test_cross_join_raises_naming_roadmap(tables):
+    """The cross join raised (ROADMAP Queue 1: nested-loop and cross
+    joins) until that step; it now runs on the device's nested-loop join,
+    equal to the host engine's."""
     sess = TorchSession(device="cpu")
-    df = sess.create_dataframe(tables["customer"])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1: nested-loop and cross joins"):
-        df.join(df.select("c_name"), how="cross").collect()
+    df = sess.create_dataframe(tables["customer"].slice(0, 40))
+    q = df.join(df.select(F.col("c_name").alias("n2")), how="cross")
+    got = q.collect()
+    assert got.num_rows == 40 * 40
+    assert_tables_equal(got, q.collect(device=False))
 
 
 # ---------------------------------------------------------------------------
