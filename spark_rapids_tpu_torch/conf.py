@@ -20,7 +20,7 @@ _REGISTRY: "Dict[str, ConfEntry]" = {}
 
 #: The open steps of ROADMAP Queue 1, by name: messages name the step that
 #: will port a feature by these, never by a number a re-anchor changes.
-STEP_MULTI_GPU = "multi-GPU"
+STEP_MULTI_PROCESS = "multi-GPU across processes"
 STEP_BREADTH = "breadth"
 
 
@@ -164,24 +164,20 @@ AQE_ENABLED = register_conf(
     "skew-join splitting). Spark's spark.sql.adaptive.enabled analogue.",
     True)
 
-register_conf(
+AQE_ADVISORY_BYTES = register_conf(
     "spark.rapids.tpu.aqe.advisoryPartitionSizeBytes",
     "Target bytes per shuffle partition after AQE coalescing "
     "(spark.sql.adaptive.advisoryPartitionSizeInBytes analogue).",
-    64 * 1024 * 1024,
-    checker=_not_ported_unless_default(64 * 1024 * 1024, STEP_MULTI_GPU))
+    64 * 1024 * 1024)
 
 AQE_COALESCE_ENABLED = register_conf(
     "spark.rapids.tpu.aqe.coalescePartitions.enabled",
     "Merge adjacent small shuffle partitions toward the advisory size "
-    "(spark.sql.adaptive.coalescePartitions.enabled analogue). Not ported "
-    f"yet {not_ported(STEP_MULTI_GPU)}: a stage of more than one partition "
-    "is left as it is, and AdaptiveExec.events says so.", True)
+    "(spark.sql.adaptive.coalescePartitions.enabled analogue).", True)
 
-register_conf(
+AQE_MIN_PARTITIONS = register_conf(
     "spark.rapids.tpu.aqe.coalescePartitions.minPartitionNum",
-    "Lower bound on the partition count coalescing may produce.", 1,
-    checker=_not_ported_unless_default(1, STEP_MULTI_GPU))
+    "Lower bound on the partition count coalescing may produce.", 1)
 
 AQE_BROADCAST_BYTES = register_conf(
     "spark.rapids.tpu.aqe.autoBroadcastJoinThreshold",
@@ -192,22 +188,17 @@ AQE_BROADCAST_BYTES = register_conf(
 AQE_SKEW_ENABLED = register_conf(
     "spark.rapids.tpu.aqe.skewJoin.enabled",
     "Split skewed probe-side partitions of shuffled hash joins "
-    "(spark.sql.adaptive.skewJoin.enabled analogue). Not ported yet "
-    f"{not_ported(STEP_MULTI_GPU)}: a stage of more than one partition is "
-    "left as it is, and AdaptiveExec.events says so.", True)
+    "(spark.sql.adaptive.skewJoin.enabled analogue).", True)
 
-register_conf(
+AQE_SKEW_FACTOR = register_conf(
     "spark.rapids.tpu.aqe.skewJoin.skewedPartitionFactor",
     "A partition is skewed when its bytes exceed this multiple of the "
-    "median partition size (and the threshold below).", 5,
-    checker=_not_ported_unless_default(5, STEP_MULTI_GPU))
+    "median partition size (and the threshold below).", 5)
 
-register_conf(
+AQE_SKEW_THRESHOLD = register_conf(
     "spark.rapids.tpu.aqe.skewJoin.skewedPartitionThresholdBytes",
     "Minimum bytes for a partition to be considered skewed.",
-    256 * 1024 * 1024,
-    checker=_not_ported_unless_default(256 * 1024 * 1024,
-                                       STEP_MULTI_GPU))
+    256 * 1024 * 1024)
 
 AQE_RUNTIME_FILTER = register_conf(
     "spark.rapids.tpu.aqe.runtimeFilter.enabled",
@@ -505,18 +496,110 @@ DECIMAL128_ENABLED = register_conf(
     "tier, TypeChecks.scala:465).", True)
 
 
+# -- the multi-GPU tier: exchanges across a mesh, mesh stages, the pipeline
+# and the in-process executor tier --------------------------------------
+def _one_of(*values):
+    def check(v):
+        return None if v in values \
+            else f"must be one of {'/'.join(values)}, got {v!r}"
+    return check
+
+
+def _codec_check(native: tuple):
+    """The JAX package's values; the native ones raise until the step of
+    the cross-process tier brings the native codec."""
+    def check(v):
+        v = v.lower()
+        if v in native:
+            raise NotImplementedError(
+                f"codec {v!r} needs the native library, not ported yet "
+                f"{not_ported(STEP_MULTI_PROCESS)}")
+        return _one_of("none", "zlib", *native)(v)
+    return check
+
+
+SHUFFLE_MODE = register_conf(
+    "spark.rapids.tpu.shuffle.mode",
+    "Shuffle exchange tier: 'auto' exchanges across the device mesh when "
+    "the session has a mesh of two or more shards attached, and coalesces "
+    "into one device partition when it does not; 'ici' builds a mesh over "
+    "every visible card; 'local' forces the one-partition device tier; "
+    "'host' forces the host-staged tier.", "auto",
+    checker=_one_of("auto", "host", "ici", "local"))
+
+EXCHANGE_CHUNK_ROWS = register_conf(
+    "spark.rapids.tpu.shuffle.exchangeChunkRows",
+    "Max staged row capacity per device-exchange chunk: child batches "
+    "stream through the mesh exchange in chunks of this many rows, so only "
+    "one chunk is staged at a time and finished output shards can spill.",
+    1 << 19, checker=_positive("exchange chunk rows"))
+
+MESH_STAGE_ENABLED = register_conf(
+    "spark.rapids.tpu.mesh.stageExecution.enabled",
+    "Run the fusible operators after a mesh exchange (project, filter, "
+    "partial aggregate, and a final aggregate when the exchange streamed "
+    "one chunk) over every shard at once, on the exchange's output still "
+    "sharded, with no host read between shards.", True)
+
+SHUFFLE_CACHE_WRITES = register_conf(
+    "spark.rapids.tpu.shuffle.cacheWrites",
+    "Cache written shuffle partitions in the device store as spillable "
+    "buffers (reference: RapidsCachingWriter + ShuffleBufferCatalog): same-"
+    "process readers consume them with no serialize/upload round trip. "
+    "'auto' enables it for the in-process transport only; 'on'/'off' force.",
+    "auto", checker=_one_of("auto", "on", "off"))
+
+SHUFFLE_COMPRESSION_CODEC = register_conf(
+    "spark.rapids.shuffle.compression.codec",
+    "Codec for shuffle payloads: none or zlib (lz4 and zstd need the native "
+    "library).", "none", checker=_codec_check(("zstd", "lz4")))
+SHUFFLE_COMPRESSION_CODEC.checker.normalize = str.lower
+
+MAX_METADATA_SIZE = register_conf(
+    "spark.rapids.shuffle.maxMetadataSize",
+    "Throttle: the most fetched shuffle bytes a reader holds on the host "
+    "before it uploads them as one device batch (reference: "
+    "maxReceiveInflightBytes, RapidsConf.scala:1064).", 1024 * 1024 * 1024,
+    checker=_positive("max metadata size"))
+
+SHUFFLE_TRANSPORT_CLASS = register_conf(
+    "spark.rapids.shuffle.transport.class",
+    "Fully-qualified class name of the shuffle transport, loaded by name "
+    "(reference: RapidsShuffleTransport.scala:545). A class of the JAX "
+    "package names the port's class of the same name.",
+    "spark_rapids_tpu.shuffle.transport.LocalShuffleTransport")
+
+CACHE_COMPRESS_CODEC = register_conf(
+    "spark.rapids.tpu.cache.compressionCodec",
+    "Codec for the host-side df.cache() storage: 'none' keeps live tables, "
+    "'zlib' stores compressed serialized frames (lz4 needs the native "
+    "library). The device cache is spillable either way.", "none",
+    checker=_codec_check(("lz4",)))
+
+PIPELINE_ENABLED = register_conf(
+    "spark.rapids.tpu.pipeline.enabled",
+    "Drain the partitions of a collect concurrently from a bounded task "
+    "pool under task-semaphore admission, and hand batches across the "
+    "exchange's map side through a bounded prefetch queue; 'false' "
+    "restores strictly sequential execution.", True)
+
+PIPELINE_PREFETCH_DEPTH = register_conf(
+    "spark.rapids.tpu.pipeline.prefetchDepth",
+    "Bound of each prefetch queue, in batches.", 2,
+    checker=_positive("prefetch depth"))
+
+PIPELINE_TASK_POOL = register_conf(
+    "spark.rapids.tpu.pipeline.taskPool",
+    "Most partitions a pipelined collect drains at once (each holds the "
+    "task semaphore for its drain).", 4, checker=_positive("task pool"))
+
+
 #: Every key the JAX package registers that this engine does not read yet,
 #: with the JAX default, by the ROADMAP Queue 1 step that will read it. The
 #: port keeps its own copy (it imports nothing of the JAX package);
 #: tests/test_torch_conf.py holds it equal to the JAX registry.
 _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
-    STEP_MULTI_GPU: {
-        # "none" is read (exec/cache.py); zlib and lz4 serialise the host
-        # cache through the shuffle serializer, which comes with this step
-        "spark.rapids.tpu.cache.compressionCodec": "none",
-        "spark.rapids.tpu.shuffle.mode": "auto",
-        "spark.rapids.tpu.shuffle.cacheWrites": "auto",
-        "spark.rapids.tpu.shuffle.exchangeChunkRows": 524288,
+    STEP_MULTI_PROCESS: {  # the TCP transport, ProcessCluster
         "spark.rapids.tpu.shuffle.host.maxProviderRetries": 3,
         "spark.rapids.tpu.shuffle.host.storeBytes": 256 * 1024 ** 2,
         "spark.rapids.tpu.shuffle.tcp.chunkBytes": 1024 ** 2,
@@ -525,22 +608,14 @@ _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
         "spark.rapids.tpu.shuffle.tcp.retryAttempts": 4,
         "spark.rapids.tpu.shuffle.tcp.retryBackoffMs": 50.0,
         "spark.rapids.tpu.shuffle.tcp.retryMaxBackoffMs": 1000.0,
-        "spark.rapids.shuffle.compression.codec": "none",
-        "spark.rapids.shuffle.maxMetadataSize": 1024 ** 3,
-        "spark.rapids.shuffle.transport.class":
-            "spark_rapids_tpu.shuffle.transport.LocalShuffleTransport",
         "spark.rapids.shuffle.transport.maxReceiveInflightBytes":
             64 * 1024 ** 2,
-        "spark.rapids.tpu.mesh.stageExecution.enabled": True,
         "spark.rapids.tpu.task.timeout": 300.0,
         "spark.rapids.tpu.task.maxFailures": 4,
         "spark.rapids.tpu.task.respawnWorkers": True,
         "spark.rapids.tpu.task.maxWorkerRespawns": 2,
         "spark.rapids.tpu.task.heartbeatInterval": 2.0,
         "spark.rapids.tpu.task.heartbeatTimeout": 60.0,
-        "spark.rapids.tpu.pipeline.enabled": True,
-        "spark.rapids.tpu.pipeline.prefetchDepth": 2,
-        "spark.rapids.tpu.pipeline.taskPool": 4,
     },
     STEP_BREADTH: {  # readers and the parquet writer, float and agg
         # modes, planner, UDFs, compile cache, observability
@@ -603,8 +678,7 @@ _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
     },
 }
 #: string keys the JAX package compares in lower case
-_CASE_FREE = {"spark.rapids.sql.mode", "spark.sql.mapKeyDedupPolicy",
-              "spark.rapids.shuffle.compression.codec"}
+_CASE_FREE = {"spark.rapids.sql.mode", "spark.sql.mapKeyDedupPolicy"}
 
 for _step, _keys in _UNREAD_BY_STEP.items():
     for _key, _default in _keys.items():

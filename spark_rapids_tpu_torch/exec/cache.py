@@ -14,9 +14,10 @@ exclusive-ownership mark off a batch before its consumer sees it
 (``take_exclusive``): a donating fused stage above must not free planes
 the cache serves again.
 
-Not ported: the host cache's compressed frames
-(``spark.rapids.tpu.cache.compressionCodec`` zlib or lz4), which serialise
-through the shuffle serializer (ROADMAP Queue 1: multi-GPU).
+With ``spark.rapids.tpu.cache.compressionCodec=zlib`` the host cache keeps
+compressed frames of the shuffle serializer (shuffle/serializer.py) instead
+of live tables; lz4 needs the native library (ROADMAP Queue 1: multi-GPU
+across processes).
 """
 from __future__ import annotations
 
@@ -31,8 +32,7 @@ from .base import TpuExec
 __all__ = ["CacheStorage", "CpuCacheExec", "TpuCacheExec",
            "CACHE_COMPRESS_CODEC", "CACHE_HITS"]
 
-#: the host cache's codec: "none" is ported (live tables), zlib and lz4
-#: raise until ROADMAP Queue 1: multi-GPU (conf.py)
+#: the host cache's codec: "none" (live tables) or "zlib" (frames)
 CACHE_COMPRESS_CODEC = "spark.rapids.tpu.cache.compressionCodec"
 CACHE_HITS = "cacheHits"
 
@@ -40,6 +40,8 @@ CACHE_HITS = "cacheHits"
 class CacheStorage:
     def __init__(self):
         self.host: Dict[int, List[HostTable]] = {}
+        #: the compressed host cache: serialised frames
+        self.host_blobs: Dict[int, List[bytes]] = {}
         # device entries are SpillableDeviceTable handles
         self.device: Dict[int, list] = {}
 
@@ -54,6 +56,12 @@ class CpuCacheExec(PhysicalPlan):
         self.schema = child.schema
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
+        from ..shuffle.serializer import deserialize_table, serialize_table
+        blobs = self.storage.host_blobs.get(pidx)
+        if blobs is not None:
+            for blob in blobs:
+                yield deserialize_table(blob)
+            return
         cached = self.storage.host.get(pidx)
         if cached is not None:
             yield from cached
@@ -62,6 +70,10 @@ class CpuCacheExec(PhysicalPlan):
         for b in self.child.execute(pidx):
             acc.append(b)
             yield b
+        if self.codec != "none":
+            self.storage.host_blobs[pidx] = [serialize_table(b, self.codec)
+                                             for b in acc]
+            return
         self.storage.host[pidx] = acc
 
 

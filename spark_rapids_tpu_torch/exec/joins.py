@@ -97,7 +97,8 @@ from ..memory.catalog import SpillableDeviceTable, SpillPriorities, get_catalog
 from ..plan.logical import _join_schema
 from ..plan.physical import PhysicalPlan
 from ..plan.schema import Schema
-from ..shuffle.manager import MASK32, device_partition_ids, fmix_device
+from ..shuffle.manager import (MASK32, counting_order, fmix_device,
+                               partition_ids)
 from .aggregate import _empty_device_table
 from .base import TpuExec, any_runs_kernel
 from .sort import lexsort
@@ -562,7 +563,8 @@ class TpuShuffledHashJoinExec(TpuExec):
         self.conf = conf
         on = self.left_keys if merge_keys else None
         self.schema = _join_schema(left.schema, right.schema, on, how)
-        #: strategy -> (the build table's row mask, its prep)
+        #: (strategy, task thread) -> (the build table's row mask, its
+        #: prep): each task of a pipelined collect keeps its own entry
         self._preps = {}
 
     @property
@@ -736,13 +738,14 @@ class TpuShuffledHashJoinExec(TpuExec):
         bucket's row count). A bucket holds the active rows whose partition
         id is ``s``, in their order in ``table``, compacted into the bucket
         of its row count (the JAX package's ``shrink_to_fit(filter_mask(pid
-        == s))``, capacities included): one stable sort by id, then one
+        == s))``, capacities included): one counting order by id, then one
         gather a bucket; the counts cross to the host in one copy."""
-        pid = device_partition_ids(self._grace_keys(table, keys), keys,
-                                   n_sub, seed=GRACE_SEED)
-        pid = torch.where(table.row_mask, pid, n_sub)  # inactive rows last
-        order = torch.argsort(pid, stable=True)
-        counts = torch.bincount(pid, minlength=n_sub + 1)[:n_sub].tolist()
+        # the partition_ids and counting_order kernels; inactive rows are
+        # parked last, and only the counts cross to the host
+        pid = partition_ids(self._grace_keys(table, keys), keys, n_sub,
+                            seed=GRACE_SEED, row_mask=table.row_mask)
+        order, counts = counting_order(pid, n_sub + 1)
+        counts = counts[:n_sub].tolist()
         floor = self.min_bucket if self.min_bucket is not None \
             else bucket_rows(1)
         parts = []
@@ -818,7 +821,8 @@ class TpuShuffledHashJoinExec(TpuExec):
         """The build table's prep, computed once per build table (a
         broadcast build serves every probe partition); ``unique`` is read
         on the host here, once."""
-        hit = self._preps.get(strategy)
+        slot = (strategy, threading.get_ident())
+        hit = self._preps.get(slot)
         if hit is None or hit[0] is not build.row_mask:
             key = build.column(self.right_keys[0])
             if strategy == "hash":
@@ -829,7 +833,7 @@ class TpuShuffledHashJoinExec(TpuExec):
                     key, build.row_mask)
                 prep = (b_order, sv, nvalid, bool(unique))
             hit = (build.row_mask, prep)
-            self._preps[strategy] = hit
+            self._preps[slot] = hit
         return hit[1]
 
     def _pk_join(self, build: DeviceTable, probe: DeviceTable

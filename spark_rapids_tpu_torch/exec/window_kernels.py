@@ -173,17 +173,8 @@ def _check_op(fn: str, op: str) -> int:
 
 
 def _launch(fn, kernel: str, device: torch.device, n: int, *args) -> None:
-    if device.type != "cuda":
-        raise TypeError(f"{fn.__name__}: no kernel for device {device}")
-    from ..native import load_kernels
-    lib = load_kernels()
-    with torch.cuda.device(device):
-        rc = getattr(lib, kernel)(*args,
-                                  torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
-                           f"{rc}")
-    fn.launches += 1
+    from ..native import launch
+    launch(fn, kernel, device, *args)
     fn.launch_rows.add(n)
 
 

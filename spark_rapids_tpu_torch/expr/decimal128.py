@@ -41,6 +41,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..native import launch
+
 __all__ = [
     "MAX_PRECISION", "limbs_from_py_ints", "limbs_to_py_ints",
     "d128_add", "d128_sub", "d128_neg", "d128_abs", "d128_sign",
@@ -505,16 +507,6 @@ def _check_precision(fn: str, precision: int) -> None:
                          f"1..{MAX_PRECISION}")
 
 
-def _launch(fn, kernel: str, *args) -> None:
-    from ..native import load_kernels
-    lib = load_kernels()
-    rc = getattr(lib, kernel)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
-                           f"{rc}")
-    fn.launches += 1
-
-
 def _cuda_device(fn: str, device: torch.device) -> None:
     if device.type != "cuda":
         raise TypeError(f"{fn}: no kernel for device {device}")
@@ -543,10 +535,9 @@ def d128_mul_rescaled(a: torch.Tensor, b: torch.Tensor, scale_drop: int,
     out = torch.empty((n, 2), dtype=torch.int64, device=dev)
     over = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        with torch.cuda.device(dev):
-            _launch(d128_mul_rescaled, "srt_d128_mul_rescaled",
-                    a.data_ptr(), wa, b.data_ptr(), wb, n, scale_drop,
-                    precision, out.data_ptr(), over.data_ptr())
+        launch(d128_mul_rescaled, "srt_d128_mul_rescaled", dev,
+               a.data_ptr(), wa, b.data_ptr(), wb, n, scale_drop, precision,
+               out.data_ptr(), over.data_ptr())
     return out, over
 
 
@@ -570,10 +561,9 @@ def d128_rescale(a: torch.Tensor, from_scale: int, to_scale: int,
     out = torch.empty((n, 2), dtype=torch.int64, device=dev)
     over = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        with torch.cuda.device(dev):
-            _launch(d128_rescale, "srt_d128_rescale", a.data_ptr(), wide, n,
-                    to_scale - from_scale, precision, out.data_ptr(),
-                    over.data_ptr())
+        launch(d128_rescale, "srt_d128_rescale", dev, a.data_ptr(), wide, n,
+               to_scale - from_scale, precision, out.data_ptr(),
+               over.data_ptr())
     return out, over
 
 
@@ -624,11 +614,10 @@ def d128_segment_sum(a: torch.Tensor, contrib: torch.Tensor,
     scratch = torch.empty(lib.srt_d128_segment_sum_scratch(n, cap),
                           dtype=torch.int64, device=dev)
     a, contrib, gid = (_aligned16(t) for t in (a, contrib, gid))
-    with torch.cuda.device(dev):
-        _launch(d128_segment_sum, "srt_d128_segment_sum", a.data_ptr(), wide,
-                contrib.data_ptr(), gid.data_ptr(),
-                int(gid.dtype == torch.int64), n, cap, precision,
-                scratch.data_ptr(), out.data_ptr(), over.data_ptr())
+    launch(d128_segment_sum, "srt_d128_segment_sum", dev, a.data_ptr(), wide,
+           contrib.data_ptr(), gid.data_ptr(), int(gid.dtype == torch.int64),
+           n, cap, precision, scratch.data_ptr(), out.data_ptr(),
+           over.data_ptr())
     if cap <= lib.srt_d128_segment_sum_small_cap():
         d128_segment_sum.small_cap_launches += 1
     return out, over

@@ -33,6 +33,8 @@ from typing import Tuple
 
 import torch
 
+from ..native import launch
+
 __all__ = ["pq_expand_hybrid", "pq_expand_hybrid_reference",
            "pq_gather_fixed", "pq_gather_fixed_reference",
            "pq_gather_byte_array", "pq_gather_byte_array_reference",
@@ -50,16 +52,6 @@ def _check(name: str, t: torch.Tensor, dtype, dim: int, device) -> None:
                         f"tensor, got {t.dtype} {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-
-
-def _launch(fn, kernel: str, *args) -> None:
-    from ..native import load_kernels
-    lib = load_kernels()
-    rc = getattr(lib, kernel)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
-                           f"{rc}")
-    fn.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -112,10 +104,9 @@ def pq_expand_hybrid(runs: torch.Tensor, packed: torch.Tensor,
                          "and hold round_up(n_packed, 4) + 4 bytes")
     out = torch.empty(cap, dtype=torch.int32, device=dev)
     if cap:
-        with torch.cuda.device(dev):
-            _launch(pq_expand_hybrid, "srt_pq_expand_hybrid", runs.data_ptr(),
-                    runs.shape[1], packed.data_ptr(), n_packed, cap,
-                    out.data_ptr())
+        launch(pq_expand_hybrid, "srt_pq_expand_hybrid", dev, runs.data_ptr(),
+               runs.shape[1], packed.data_ptr(), n_packed, cap,
+               out.data_ptr())
     return out
 
 
@@ -178,12 +169,11 @@ def pq_gather_fixed(validity: torch.Tensor, pos: torch.Tensor,
     out = torch.empty(cap, dtype=dict_vals.dtype, device=dev)
     if cap:
         word = _WORD[size]
-        with torch.cuda.device(dev):
-            _launch(pq_gather_fixed, "srt_pq_gather_fixed", size,
-                    validity.data_ptr(), pos.data_ptr(), idx.data_ptr(),
-                    idx.numel(), dict_vals.view(word).data_ptr(),
-                    dict_vals.numel(), plain.view(word).data_ptr(),
-                    plain.numel(), n_dict, cap, out.view(word).data_ptr())
+        launch(pq_gather_fixed, "srt_pq_gather_fixed", dev, size,
+               validity.data_ptr(), pos.data_ptr(), idx.data_ptr(),
+               idx.numel(), dict_vals.view(word).data_ptr(),
+               dict_vals.numel(), plain.view(word).data_ptr(),
+               plain.numel(), n_dict, cap, out.view(word).data_ptr())
     return out
 
 
@@ -290,14 +280,13 @@ def pq_gather_byte_array(validity: torch.Tensor, pos: torch.Tensor,
     lengths = torch.empty(cap, dtype=torch.int32, device=dev)
     if cap:
         plain_entries = starts.numel() - dict_entries
-        with torch.cuda.device(dev):
-            _launch(pq_gather_byte_array, "srt_pq_gather_byte_array",
-                    validity.data_ptr(), pos.data_ptr(), idx.data_ptr(),
-                    idx.numel(), starts.data_ptr(), lens.data_ptr(),
-                    blob.data_ptr(), n_blob, n_dict, dict_entries,
-                    pow2_ceil(dict_entries), plain_entries,
-                    pow2_ceil(plain_entries), cap, width,
-                    data.data_ptr(), lengths.data_ptr())
+        launch(pq_gather_byte_array, "srt_pq_gather_byte_array", dev,
+               validity.data_ptr(), pos.data_ptr(), idx.data_ptr(),
+               idx.numel(), starts.data_ptr(), lens.data_ptr(),
+               blob.data_ptr(), n_blob, n_dict, dict_entries,
+               pow2_ceil(dict_entries), plain_entries,
+               pow2_ceil(plain_entries), cap, width,
+               data.data_ptr(), lengths.data_ptr())
     return data, lengths
 
 

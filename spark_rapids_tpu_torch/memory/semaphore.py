@@ -3,9 +3,9 @@
 GpuSemaphore.scala:27,58,74 and spark.rapids.sql.concurrentGpuTasks).
 
 Over-admission on a GPU ends in device OOM, so a task acquires before its
-first device dispatch and releases when it is done. The port has no
-pipelined executor yet (ROADMAP Queue 1: multi-GPU), so ``collect`` holds
-``task_scope()`` around each partition's device drain.
+first device dispatch and releases when it is done. The pipelined collect
+(parallel/pipeline.py) holds ``task_scope()`` around each partition's
+drain; its stage workers run under their task's admission and take none.
 
 Every hold is attributed: the holder's thread name and acquire time are
 recorded per task, final releases feed a held-duration histogram, and
@@ -53,7 +53,12 @@ class TaskSemaphore:
         self.held_histogram = Histogram("semaphoreHeldSeconds")
 
     def acquire_if_necessary(self, task_id: Optional[int] = None):
-        """Reentrant per task (reference: acquireIfNecessary semantics)."""
+        """Reentrant per task (reference: acquireIfNecessary semantics).
+        A pipeline worker runs under its task's admission and takes none
+        (parallel/pipeline.py ``semaphore_exempt``)."""
+        from ..parallel.pipeline import semaphore_exempt
+        if semaphore_exempt():
+            return
         tid = task_id if task_id is not None else threading.get_ident()
         with self._lock:
             hold = self._holders.get(tid)
@@ -81,6 +86,11 @@ class TaskSemaphore:
                                        time.monotonic())
 
     def release_if_held(self, task_id: Optional[int] = None):
+        # symmetric with acquire_if_necessary: an exempt scope never drops
+        # the owning task's permit
+        from ..parallel.pipeline import semaphore_exempt
+        if semaphore_exempt():
+            return
         tid = task_id if task_id is not None else threading.get_ident()
         with self._lock:
             hold = self._holders.get(tid)

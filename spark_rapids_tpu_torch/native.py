@@ -6,6 +6,11 @@ interface, at first use, and reached through ``ctypes``. The library is
 named by a content hash of the sources, so an edit rebuilds and an
 unchanged tree reuses the last build. A failed build raises with nvcc's
 output: there is no path that carries on without the kernels.
+
+Every wrapper launches through ``launch``, which takes the device from the
+wrapper's input tensor: the launch runs under that device's guard, on that
+device's current stream. A kernel of a shard on ``cuda:1`` so never runs on
+the calling thread's default device (a pipeline worker starts on device 0).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load_kernels", "build_seconds", "KernelBuildError"]
+__all__ = ["load_kernels", "launch", "build_seconds", "KernelBuildError"]
 
 _HERE = Path(__file__).resolve().parent
 _SRC_DIR = _HERE / "csrc"
@@ -90,6 +95,25 @@ def _build(so: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def launch(fn, kernel: str, device, *args) -> None:
+    """Launches ``kernel`` of the library with ``args`` and, last, the
+    stream: under ``device``'s guard and on ``device``'s current stream,
+    ``device`` being the device of the wrapper's input. Raises if the launch
+    was refused (the C function returns ``cudaGetLastError()``), and counts
+    it in ``fn.launches`` otherwise."""
+    import torch
+    if device.type != "cuda":
+        raise TypeError(f"{fn.__name__}: no kernel for device {device}")
+    lib = load_kernels()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        rc = getattr(lib, kernel)(*args, stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
+                           f"{rc}")
+    fn.launches += 1
+
+
 def load_kernels() -> ctypes.CDLL:
     """The kernel library, built on first use; raises if it cannot be."""
     global _LIB, build_seconds
@@ -158,5 +182,17 @@ def load_kernels() -> ctypes.CDLL:
             for fn in (lib.srt_seg_scan_scratch_bytes,
                        lib.srt_frame_reduce_scratch_bytes):
                 fn.restype = ctypes.c_int64
+            lib.srt_partition_ids.argtypes = [ptr, i32, i64, ctypes.c_uint32,
+                                              i32, i32, ptr, ptr, ptr]
+            lib.srt_counting_order.argtypes = [ptr, i64, i32, ptr, ptr, ptr,
+                                               ptr]
+            for fn in (lib.srt_partition_ids, lib.srt_counting_order):
+                fn.restype = ctypes.c_int
+            lib.srt_counting_order_scratch.argtypes = [i64, i32]
+            lib.srt_counting_order_scratch.restype = ctypes.c_int64
+            for fn in (lib.srt_partition_ids_max_keys,
+                       lib.srt_counting_order_max_bins):
+                fn.argtypes = []
+                fn.restype = ctypes.c_int32
             _LIB = lib
         return _LIB

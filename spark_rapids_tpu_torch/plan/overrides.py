@@ -22,14 +22,14 @@ import torch
 
 from ..columnar.dtypes import TypeEnum, TypeSig
 from ..columnar import dtypes as dt
-from ..conf import (DECIMAL128_ENABLED, JOIN_STRATEGY, PARQUET_DEVICE_DECODE,
-                    RapidsConf)
+from ..conf import (DECIMAL128_ENABLED, EXCHANGE_CHUNK_ROWS, JOIN_STRATEGY,
+                    PARQUET_DEVICE_DECODE, SHUFFLE_MODE, RapidsConf)
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.basic import (TpuExpandExec, TpuFilterExec, TpuLocalLimitExec,
                           TpuProjectExec, TpuRangeExec, TpuSampleExec,
                           TpuUnionExec)
 from ..exec.cache import CpuCacheExec, TpuCacheExec
-from ..exec.exchange import TpuLocalExchangeExec
+from ..exec.exchange import TpuLocalExchangeExec, TpuShuffleExchangeExec
 from ..exec.fallback import plan_quarantine_pass
 from ..exec.joins import (TpuBroadcastHashJoinExec,
                           TpuBroadcastNestedLoopJoinExec,
@@ -54,8 +54,8 @@ from .physical import (CpuCollectLimitExec, CpuExpandExec, CpuFilterExec,
                        CpuGlobalLimitExec, CpuHashAggregateExec,
                        CpuLocalLimitExec, CpuProjectExec, CpuRangeExec,
                        CpuSampleExec, CpuScanExec, CpuSortExec,
-                       CpuTakeOrderedExec, CpuUnionExec, PhysicalPlan,
-                       ShuffleExchangeExec)
+                       CpuTakeOrderedExec, CpuUnionExec, HashPartitioning,
+                       PhysicalPlan, ShuffleExchangeExec)
 from .physical_joins import (CpuBroadcastHashJoinExec,
                              CpuBroadcastNestedLoopJoinExec,
                              CpuShuffledHashJoinExec)
@@ -237,12 +237,59 @@ def _register_exec_rules():
         lambda p, ch, conf, device: TpuParquetScanExec(
             p.source, p.columns, p.schema, conf.min_bucket_rows, device),
         tag_fn=tag_scan)
-    # one device holds the whole exchange output (exec/exchange.py)
-    register_exec_rule(
-        ShuffleExchangeExec, _device_all,
-        lambda p, ch, conf, device: TpuLocalExchangeExec(
-            ch[0], p.partitioning, conf.min_bucket_rows))
+    # the exchange: across the session's mesh when one is attached, else
+    # one device holds the whole output (exec/exchange.py)
+    register_exec_rule(ShuffleExchangeExec, _device_all, _convert_exchange,
+                       tag_fn=_tag_exchange)
     _register_relational_rules()
+
+
+def _active_mesh():
+    from ..session import TorchSession
+    sess = TorchSession._active
+    return sess.shuffle_mesh() if sess is not None else None
+
+
+def _tag_exchange(meta, conf):
+    """The JAX package's ``tag_exchange``: the host tier when forced; the
+    mesh tier takes hash partitioning only."""
+    p: ShuffleExchangeExec = meta.plan
+    mode = conf.get(SHUFFLE_MODE)
+    if mode == "host":
+        meta.cannot_run("host tier forced (spark.rapids.tpu.shuffle.mode)")
+        return
+    from ..parallel.runtime import active_cluster
+    if active_cluster() is not None:
+        return  # the cluster's shuffle managers, or the local tier
+    mesh = _active_mesh() if mode in ("auto", "ici") else None
+    if mesh is None:
+        if mode == "ici":
+            meta.cannot_run("shuffle.mode=ici but no device mesh could be "
+                            "attached")
+        # the local tier: one device partition satisfies any partitioning
+        return
+    if not isinstance(p.partitioning, HashPartitioning):
+        meta.cannot_run(f"{type(p.partitioning).__name__} stays on the host "
+                        "tier (only hash partitioning exchanges across the "
+                        "mesh)")
+
+
+def _convert_exchange(p, ch, conf, device):
+    from ..parallel.runtime import TpuManagedExchangeExec, active_cluster
+    cluster = active_cluster()
+    if cluster is not None and isinstance(p.partitioning, HashPartitioning):
+        # an in-process cluster runs the query: its shuffle managers carry
+        # the exchange (parallel/runtime.py)
+        return TpuManagedExchangeExec(ch[0], p.partitioning, cluster,
+                                      conf.min_bucket_rows)
+    mesh = _active_mesh() if conf.get(SHUFFLE_MODE) in ("auto", "ici") \
+        else None
+    if mesh is None:
+        return TpuLocalExchangeExec(ch[0], p.partitioning,
+                                    conf.min_bucket_rows)
+    return TpuShuffleExchangeExec(ch[0], p.partitioning, mesh,
+                                  conf.min_bucket_rows,
+                                  chunk_rows=conf.get(EXCHANGE_CHUNK_ROWS))
 
 
 #: the window functions the device runs (the JAX package's list)
@@ -442,5 +489,9 @@ def apply_overrides(cpu_plan: PhysicalPlan, conf: RapidsConf,
                     f"[test.enabled] {type(m.plan).__name__} fell off the "
                     f"device: {m.reasons}")
     converted = meta.convert_if_needed(conf, device)
-    return fuse_stages(insert_transitions(converted, conf, device),
-                       donation_active(conf, device))
+    fused = fuse_stages(insert_transitions(converted, conf, device),
+                        donation_active(conf, device))
+    # after fusion, so a fused stage fed by a mesh exchange runs over
+    # every shard at once (exec/mesh.py)
+    from ..exec.mesh import plan_mesh_stages
+    return plan_mesh_stages(fused, conf)

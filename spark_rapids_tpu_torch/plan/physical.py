@@ -17,6 +17,7 @@ expose ``execute_columnar(pidx) -> Iterator[DeviceTable]``.
 from __future__ import annotations
 
 import math
+import threading
 import weakref
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -684,6 +685,8 @@ class ShuffleExchangeExec(PhysicalPlan):
         self.partitioning = partitioning
         self.schema = child.schema
         self._materialized: Optional[List[List[HostTable]]] = None
+        # the pipelined collect's drains race to materialize; one wins
+        self._mat_lock = threading.Lock()
 
     @property
     def num_partitions(self) -> int:
@@ -691,9 +694,10 @@ class ShuffleExchangeExec(PhysicalPlan):
 
     def materialize(self) -> List[List[HostTable]]:
         """Run the map side once -> each output partition's batches."""
-        if self._materialized is None:
-            self._materialized = self._partition()
-        return self._materialized
+        with self._mat_lock:
+            if self._materialized is None:
+                self._materialized = self._partition()
+            return self._materialized
 
     def _partition(self) -> List[List[HostTable]]:
         inputs = [b for p in range(self.child.num_partitions)

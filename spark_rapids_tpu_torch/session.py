@@ -13,9 +13,11 @@ A session configures the process-wide robustness layer when it starts, as
 the JAX session does: the memory profiler (utils/memprof.py), fault
 injection (utils/faults.py), the OOM ladder's bounds (memory/retry.py), the
 host fallback and its quarantine (exec/fallback.py), the task semaphore's
-permits (memory/semaphore.py), and, when the session sets a pool key, a
-buffer catalog of its own (memory/catalog.py ``bind_catalog``). ``collect``
-runs under the query deadline (utils/deadline.py).
+permits (memory/semaphore.py), the pipelined collect (parallel/pipeline.py)
+and, when the session sets a pool key, a buffer catalog of its own
+(memory/catalog.py ``bind_catalog``). ``collect`` drains the partitions
+through the pipelined collect, under the query deadline
+(utils/deadline.py).
 """
 from __future__ import annotations
 
@@ -59,8 +61,13 @@ class TorchSession:
 
     A session asked for CUDA on a machine without a usable CUDA device
     raises: it never carries on on the CPU unless the caller asked for
-    ``device="cpu"``.
+    ``device="cpu"``. ``attach_mesh`` gives it a device mesh
+    (parallel/mesh.py), across which its hash exchanges then run.
     """
+
+    #: the session that plans and executes now (the planner asks it for
+    #: the mesh, as the JAX package's planner does)
+    _active: Optional["TorchSession"] = None
 
     def __init__(self, conf: Optional[Union[RapidsConf, Dict]] = None,
                  device: Union[str, torch.device] = "cuda"):
@@ -97,6 +104,36 @@ class TorchSession:
         #: the memory profiler's summary of the last collect (None while
         #: profiling is off): peak holders by operator and leaked buffers
         self.last_memory_summary = None
+        from .parallel.pipeline import configure_pipeline
+        # the pipelined collect's switch, queue depth and task pool
+        configure_pipeline(self.conf)
+        self._mesh = None
+        TorchSession._active = self
+
+    # -- the device mesh (the exchange tier across devices) ------------------
+    def attach_mesh(self, mesh) -> "TorchSession":
+        """Attach a ``parallel.mesh.Mesh``: hash exchanges then run across
+        it (exec/exchange.py ``TpuShuffleExchangeExec``)."""
+        self._mesh = mesh
+        return self
+
+    def shuffle_mesh(self):
+        """The mesh the planner may exchange across, or None (the local
+        tier). ``shuffle.mode=host`` turns the device tiers off; ``ici``
+        builds a mesh over every visible card on first use; ``auto`` takes
+        the attached mesh. A mesh of fewer than two shards is the local
+        tier."""
+        from .conf import SHUFFLE_MODE
+        mode = self.conf.get(SHUFFLE_MODE)
+        if mode == "host":
+            return None
+        if self._mesh is None and mode == "ici" \
+                and self.device.type == "cuda":
+            from .parallel.mesh import data_parallel_mesh
+            self._mesh = data_parallel_mesh()
+        if self._mesh is not None and self._mesh.size < 2:
+            return None
+        return self._mesh
 
     def create_dataframe(self, data, num_partitions: int = 1) -> "DataFrame":
         if isinstance(data, pa.Table):
@@ -126,6 +163,7 @@ class TorchSession:
 
     def _physical(self, logical: LogicalPlan,
                   device: Optional[bool] = None) -> PhysicalPlan:
+        TorchSession._active = self
         cpu = plan_physical(logical, self.conf)
         use_device = self.conf.is_sql_enabled if device is None else device
         # scalar subqueries run first, on the same engine, and enter the
@@ -343,11 +381,16 @@ class DataFrame:
         mp = memprof.active()
         if mp is not None:
             mp.begin_query(qid)
+        from .parallel.pipeline import configure_pipeline, pipelined_collect
+        configure_pipeline(self.session.conf)
         plan = self.session._physical(self.logical, device)
         try:
             with deadline_scope(self.session.conf.get(QUERY_TIMEOUT)), \
                     query_scope(qid):
-                return plan.collect().to_arrow()
+                # partitions drain concurrently under the task semaphore
+                # (parallel/pipeline.py); sequential with pipeline.enabled
+                # off or one partition
+                return pipelined_collect(plan, self.session.conf).to_arrow()
         finally:
             # the plan is single-use: close its spill-registered outputs
             # (broadcast builds, grace parts) now rather than at GC

@@ -46,15 +46,9 @@ def axpy(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     n = a.numel()
     if n == 0:
         return out
-    from ..native import load_kernels
-    lib = load_kernels()
-    with torch.cuda.device(a.device):
-        rc = lib.srt_axpy_f32(a.data_ptr(), x.data_ptr(), y.data_ptr(),
-                              out.data_ptr(), n,
-                              torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"axpy kernel launch failed: CUDA error {rc}")
-    axpy.launches += 1
+    from ..native import launch
+    launch(axpy, "srt_axpy_f32", a.device, a.data_ptr(), x.data_ptr(),
+           y.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -374,18 +368,12 @@ def nfa_match(values: torch.Tensor, lengths: torch.Tensor,
     lengths = lengths.contiguous()
     flags = (int(anchored_start) | int(anchored_end) << 1
              | int(nullable) << 2)
-    from ..native import load_kernels
-    lib = load_kernels()
-    with torch.cuda.device(values.device):
-        rc = lib.srt_nfa_match(
-            values.data_ptr(), lengths.data_ptr(), n, w,
-            tab.blob.data_ptr(), tab.blob.numel(), int(tab.dfa),
-            tab.init_state, tab.sink_lo, tab.n_states * 256, tab.chunk_bits,
-            tab.n_chunks, start_bits, accept_bits, flags, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nfa_match kernel launch failed: CUDA error {rc}")
-    nfa_match.launches += 1
+    from ..native import launch
+    launch(nfa_match, "srt_nfa_match", values.device, values.data_ptr(),
+           lengths.data_ptr(), n, w, tab.blob.data_ptr(), tab.blob.numel(),
+           int(tab.dfa), tab.init_state, tab.sink_lo, tab.n_states * 256,
+           tab.chunk_bits, tab.n_chunks, start_bits, accept_bits, flags,
+           out.data_ptr())
     return out
 
 

@@ -90,14 +90,23 @@ def test_unread_table_holds_only_jax_keys():
     ("spark.rapids.tpu.groupby.strategy", "sort"),
     ("spark.rapids.tpu.memory.pool.mode", "strict")])
 def test_keys_that_change_the_jax_plan_raise(key, value):
-    """``shuffle.mode=host`` puts a host exchange into the JAX plan,
-    ``bogus`` makes the JAX package raise and ``groupby.strategy=sort``
-    takes its sort-based group-by: the port runs none of them, so it
-    raises. ``pool.mode=strict``, the JAX strict memory pool, is read since
-    the memory and robustness step: the session binds a strict catalog.
-    (The port reads ``coalesce.afterUpload.enabled``:
+    """``groupby.strategy=sort`` takes the JAX package's sort-based
+    group-by, which the port does not run, so it raises. ``pool.mode=
+    strict``, the JAX strict memory pool, is read since the memory and
+    robustness step: the session binds a strict catalog. ``shuffle.mode``
+    is read since the multi-GPU step: ``host`` plans the host exchange
+    (tests/test_torch_mesh_exchange.py), and ``bogus`` raises as in the JAX
+    package. (The port reads ``coalesce.afterUpload.enabled``:
     tests/test_torch_upload_cache.py.)"""
     from spark_rapids_tpu_torch.session import TorchSession
+    if key == "spark.rapids.tpu.shuffle.mode":
+        if value == "bogus":
+            with pytest.raises(ValueError, match="must be one of"):
+                TorchSession({key: value}, device="cpu")
+        else:
+            assert TorchSession({key: value}, device="cpu").conf.get(key) \
+                == value
+        return
     if key not in _UNREAD:
         from spark_rapids_tpu_torch.memory import catalog as tcat
         before = tcat.peek_catalog()
@@ -114,21 +123,24 @@ def test_keys_that_change_the_jax_plan_raise(key, value):
 
 
 def test_cache_codec_none_is_read_and_the_others_wait_for_multi_gpu():
-    """``df.cache()`` keeps live tables under the default codec "none" (the
-    host cache is read by exec/cache.py); zlib and lz4 serialise through the
-    shuffle serializer, which comes with the multi-GPU step."""
+    """``df.cache()`` keeps live tables under the default codec "none" and
+    serialised zlib frames under "zlib" (the shuffle serializer, read since
+    the multi-GPU step); lz4 needs the native library, which comes with
+    the cross-process half of that step."""
+    from spark_rapids_tpu_torch.conf import STEP_MULTI_PROCESS
     from spark_rapids_tpu_torch.exec.cache import CACHE_COMPRESS_CODEC
     from spark_rapids_tpu_torch.plan.planner import plan_physical
     from spark_rapids_tpu_torch.session import TorchSession
     import pyarrow as pa
-    sess = TorchSession({CACHE_COMPRESS_CODEC: "none"}, device="cpu")
-    df = sess.create_dataframe(pa.table({"a": [1, 2]})).cache()
-    assert plan_physical(df.logical, sess.conf).codec == "none"
-    assert df.collect(device=False).num_rows == 2
-    for codec in ("zlib", "lz4"):
-        with pytest.raises(NotImplementedError,
-                           match=r"\(ROADMAP Queue 1: multi-GPU\)"):
-            TorchSession({CACHE_COMPRESS_CODEC: codec}, device="cpu")
+    for codec in ("none", "zlib"):
+        sess = TorchSession({CACHE_COMPRESS_CODEC: codec}, device="cpu")
+        df = sess.create_dataframe(pa.table({"a": [1, 2]})).cache()
+        assert plan_physical(df.logical, sess.conf).codec == codec
+        assert df.collect(device=False).num_rows == 2
+        assert df.collect(device=False).num_rows == 2  # from the cache
+    with pytest.raises(NotImplementedError,
+                       match=rf"\(ROADMAP Queue 1: {STEP_MULTI_PROCESS}\)"):
+        TorchSession({CACHE_COMPRESS_CODEC: "lz4"}, device="cpu")
 
 
 def test_per_op_and_unknown_keys_still_pass():

@@ -370,15 +370,11 @@ def test_decimal128_disabled_gives_the_jax_host_plan(dlineitem, aqe):
     if not aqe:
         assert plan.tree_string() == jplan.tree_string()
         return
-    # the host stages of 4 partitions: the JAX package coalesces them, the
-    # port leaves them as they are (partition coalescing waits for ROADMAP
-    # Queue 1: multi-GPU); every node is placed alike
-
-    def nodes(text):
-        return [line.strip() for line in text.splitlines()
-                if not line.strip().startswith("CoalescedStageReader")]
-    assert nodes(plan.tree_string()) == nodes(jplan.tree_string())
-    assert any("coalescing are not ported yet" in e for e in plan.events)
+    # the host stages of 4 partitions: both engines coalesce them (the
+    # port since the multi-GPU step), so the plans and events are equal
+    assert plan.tree_string() == jplan.tree_string()
+    assert plan.events == jplan.events
+    assert any(e.startswith("coalesced stage") for e in plan.events)
 
 
 # ---------------------------------------------------------------------------

@@ -132,8 +132,11 @@ def test_latency_delays_then_returns_the_action():
 
 
 def test_multi_gpu_points_are_accepted_and_never_evaluated():
-    """Points only the multi-GPU step reaches parse as in the JAX package;
-    no port code evaluates them yet."""
+    """Points only the multi-GPU step reaches parse as in the JAX package.
+    Its first half evaluates the shuffle's and the mesh stage's
+    (``shuffle.fetch``, ``shuffle.publish``, ``mesh.dispatch``); no port
+    code evaluates the cross-process ones (``tcp.*``, ``dcn.*``,
+    ``worker.task``) yet."""
     import pathlib
     inj = faults.FaultInjector("shuffle.fetch;tcp.read;dcn.fetch;"
                                "worker.task;mesh.dispatch", 0)
@@ -147,4 +150,5 @@ def test_multi_gpu_points_are_accepted_and_never_evaluated():
             if f'fire("{p}")' in text or f"fault_point=\"{p}\"" in text:
                 fired.add(p)
     assert fired == {"spill.write", "spill.read", "h2d.upload",
-                     "alloc.upload", "alloc.jit"}
+                     "alloc.upload", "alloc.jit", "shuffle.fetch",
+                     "shuffle.publish", "mesh.dispatch"}

@@ -188,18 +188,18 @@ def test_out_of_slice_joins_are_tagged_and_run_on_the_host_engine(tables):
 
 def test_aqe_leaves_a_stage_of_many_partitions_as_it_is(tables):
     """An exchange the device may not run (its conf key off) materializes
-    on the host tier in 8 partitions. Coalescing or skew splitting would
-    rewrite such a stage, which waits for ROADMAP Queue 1: multi-GPU. AQE
-    leaves it as
-    it is, says so in its events, and the query equals the host engine
-    under the default confs and with both rewrites off."""
+    on the host tier in 8 partitions. Since the multi-GPU step AQE
+    coalesces such a stage as the JAX package does (it used to leave it as
+    it was): with coalescing on its 8 partitions merge into one read, with
+    both rewrites off the stage stays as it is; the query equals the host
+    engine either way, and no event says a rewrite is not ported."""
     off = {"spark.rapids.sql.exec.ShuffleExchangeExec": False}
     rewrites_off = {"spark.rapids.tpu.aqe.coalescePartitions.enabled": False,
                     "spark.rapids.tpu.aqe.skewJoin.enabled": False}
-    for conf, noted in ((off, True),
-                        ({**off, "spark.rapids.tpu.aqe.skewJoin.enabled":
-                          False}, True),
-                        ({**off, **rewrites_off}, False)):
+    for conf, coalesced in ((off, True),
+                            ({**off, "spark.rapids.tpu.aqe.skewJoin.enabled":
+                              False}, True),
+                            ({**off, **rewrites_off}, False)):
         sess = TorchSession(conf, device="cpu")
         q = tpch.q1({"lineitem": sess.create_dataframe(
             tables["lineitem"], num_partitions=2)})
@@ -208,9 +208,9 @@ def test_aqe_leaves_a_stage_of_many_partitions_as_it_is(tables):
         assert_tables_equal(got, q.collect(device=False), ignore_order=False)
         assert plan.events[0].startswith("materialized stage n=8 rows=")
         assert "ShuffleStageExec [host n=8" in plan.tree_string()
-        note = ("left stage n=8 as it is: skew splitting and partition "
-                "coalescing are not ported yet (ROADMAP Queue 1: multi-GPU)")
-        assert (note in plan.events) == noted
+        assert ("coalesced stage 8 -> 1 partitions" in plan.events) \
+            == coalesced
+        assert not any("not ported" in e for e in plan.events)
 
 
 @pytest.mark.parametrize("key,value,step", [
@@ -221,16 +221,17 @@ def test_aqe_leaves_a_stage_of_many_partitions_as_it_is(tables):
     ("spark.rapids.tpu.aqe.skewJoin.skewedPartitionThresholdBytes", 1,
      "multi-GPU")])
 def test_unread_aqe_confs_raise_unless_default(key, value, step):
-    """A conf the engine does not read yet takes its default, and any other
-    value raises naming the ROADMAP step, never ignored in silence."""
+    """These AQE confs raised off their default until the ``step`` that
+    reads them (ROADMAP Queue 1, multi-GPU): now every value is
+    taken, as given or as a string, and the skew and coalescing rewrites
+    read them (tests/test_torch_aqe_skew.py)."""
     default = TorchSession(device="cpu").conf.get(key)
     assert TorchSession({key: default}, device="cpu").conf.get(key) \
         == default
-    assert TorchSession({key: str(default)}, device="cpu").conf.get(key) \
-        == default
-    with pytest.raises(NotImplementedError,
-                       match=rf"\(ROADMAP Queue 1: {step}\)"):
-        TorchSession({key: value}, device="cpu")
+    assert TorchSession({key: str(value)}, device="cpu").conf.get(key) \
+        == value
+    assert TorchSession({key: value}, device="cpu").conf.get(key) == value
+    assert step == "multi-GPU"
 
 
 def test_cross_join_raises_naming_roadmap(tables):

@@ -122,33 +122,44 @@ def test_admission_parks_on_the_oom_gate():
 
 
 def test_session_permits_and_drain_scope():
-    """``concurrentGpuTasks`` sets the permits; a collect holds one task's
-    permit while a partition drains and leaves none held."""
+    """``concurrentGpuTasks`` sets the permits; each partition drain holds
+    one task's permit and the collect leaves none held. Sequentially
+    (``pipeline.enabled=false``) the calling thread holds it, one holder
+    at a time; pipelined, each drain holds its own on a pool thread, never
+    more than the permits."""
     import pyarrow as pa
     from spark_rapids_tpu_torch.exec import transitions
+    from spark_rapids_tpu_torch.expr import functions as F
     from spark_rapids_tpu_torch.session import TorchSession
-    sess = TorchSession({"spark.rapids.sql.concurrentGpuTasks": 3},
-                        device="cpu")
-    sem = semaphore.peek_semaphore()
-    assert sem.permits == 3
-    seen = []
-    orig = transitions.to_host_batched
+    for pipelined in (False, True):
+        sess = TorchSession({"spark.rapids.sql.concurrentGpuTasks": 3,
+                             "spark.rapids.tpu.pipeline.enabled": pipelined},
+                            device="cpu")
+        sem = semaphore.peek_semaphore()
+        assert sem.permits == 3
+        seen = []
+        orig = transitions.to_host_batched
 
-    def spy(tables):
-        seen.append(sem.dump()["holders"])
-        return orig(tables)
-    transitions.to_host_batched = spy
-    try:
-        df = sess.create_dataframe(pa.table({"a": list(range(100))}),
-                                   num_partitions=2)
-        from spark_rapids_tpu_torch.expr import functions as F
-        out = df.filter(F.col("a") > 10).collect()
-    finally:
-        transitions.to_host_batched = orig
-    assert out.num_rows == 89
-    assert len(seen) == 2 and all(len(h) == 1 for h in seen)
-    assert seen[0][0]["thread"] == threading.current_thread().name
-    assert sem.holder_count() == 0
+        def spy(tables):
+            seen.append(sem.dump()["holders"])
+            return orig(tables)
+        transitions.to_host_batched = spy
+        try:
+            df = sess.create_dataframe(pa.table({"a": list(range(100))}),
+                                       num_partitions=2)
+            out = df.filter(F.col("a") > 10).collect()
+        finally:
+            transitions.to_host_batched = orig
+        assert out.num_rows == 89
+        assert len(seen) == 2
+        if pipelined:
+            assert all(1 <= len(h) <= 2 for h in seen)
+            assert all(x["thread"].startswith("srt-pipeline:collect")
+                       for h in seen for x in h)
+        else:
+            assert all(len(h) == 1 for h in seen)
+            assert seen[0][0]["thread"] == threading.current_thread().name
+        assert sem.holder_count() == 0
     TorchSession(device="cpu")
     assert semaphore.peek_semaphore().permits == 1
 
