@@ -191,7 +191,14 @@ NaN and +-inf, ``frame_bounds`` on int64 and float64 keys with sentinels,
 ``frame_reduce`` on short, running, whole and long frames; integers and
 min/max by bits, float sums within their bound (``_scan_sum_tolerance``,
 ``_float_sum_tolerance``) and the same bits over three runs; each is timed
-at 2^20 and 2^22 rows.
+at 2^20 and 2^22 rows. The shuffle kernels (``csrc/shuffle.cu``) are held
+against their plain versions at 2^20 and 2^23 rows (``partition_ids`` on
+four key sets, ``counting_order`` at P = 4, 8, 64 and 256 also against
+``torch.argsort(stable=True)``) and timed. After the SF10 Q3 phase, MX1-MX3
+run the multi-GPU tier on a virtual mesh of 4 shards; MX1 ends with one
+warm Q3 whose exchange chunks are split by step (``exchange_chunk_split``:
+concat/pad, the two kernels, the count read, the per-plane scatter, the
+per-destination gather).
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -209,6 +216,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5916,6 +5924,210 @@ def mesh_phase(tables: dict, li, dli, partitions: int, mesh,
     return {"runs": runs, "launches": launches}
 
 
+EXCHANGE_PARTS = ("concat/pad", "partition_ids", "counting_order",
+                  "count read", "per-plane scatter", "per-destination gather",
+                  "rest")
+
+
+class _ChunkSplit:
+    """Wraps the mesh exchange's steps so that each chunk's wall splits
+    into ``EXCHANGE_PARTS``: concat/pad (``concat_device_tables``,
+    ``pad_table_capacity``, ``shard_table``), ``partition_ids``,
+    ``partition_order`` (the ``counting_order`` kernel), the count read
+    (from the last plan to ``mesh_exchange``: the n x n counts to the
+    host), ``_scatter_slabs``, the rest of ``mesh_exchange`` (each
+    destination's slabs gathered) and the rest of ``_exchange_chunk``
+    (the spill catalog's bookkeeping). The mesh's devices are
+    synchronised at every boundary, so a part's wall holds its device
+    work; each part also runs in a ``torch.profiler`` range
+    ``split:<part>``, each chunk in ``split:chunk``."""
+
+    def __init__(self, mesh):
+        from spark_rapids_tpu_torch.exec import exchange as ex
+        from spark_rapids_tpu_torch.shuffle import ici
+        self.devices = [d for d in dict.fromkeys(mesh.devices)
+                        if d.type == "cuda"]
+        self.chunks: list = []
+        self._local = threading.local()  # the chunk a thread exchanges
+        self._patches = [
+            (ex, "concat_device_tables", self._timed("concat/pad")),
+            (ex, "pad_table_capacity", self._timed("concat/pad")),
+            (ici, "shard_table", self._timed("concat/pad")),
+            (ici, "partition_ids", self._timed("partition_ids")),
+            (ici, "partition_order", self._timed("counting_order")),
+            (ici, "_scatter_slabs", self._timed("per-plane scatter")),
+            (ici, "mesh_exchange", self._exchange),
+            (ex.TpuShuffleExchangeExec, "_exchange_chunk", self._chunk)]
+
+    def _sync(self) -> None:
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+
+    def __enter__(self):
+        self._saved = [(obj, name, getattr(obj, name))
+                       for obj, name, _ in self._patches]
+        for obj, name, make in self._patches:
+            setattr(obj, name, make(getattr(obj, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self._saved:
+            setattr(obj, name, orig)
+
+    def _timed(self, part: str):
+        def make(fn):
+            def run(*args, **kwargs):
+                self._sync()
+                t0 = time.perf_counter()
+                with torch.profiler.record_function(f"split:{part}"):
+                    out = fn(*args, **kwargs)
+                    self._sync()
+                t1 = time.perf_counter()
+                cur = getattr(self._local, "cur", None)
+                if cur is not None:
+                    cur[part] += t1 - t0
+                    cur["_last"] = t1
+                return out
+            return run
+        return make
+
+    def _exchange(self, fn):
+        def run(*args, **kwargs):
+            self._sync()
+            t0 = time.perf_counter()
+            cur = self._local.cur
+            cur["count read"] += t0 - cur["_last"]
+            scatter = cur["per-plane scatter"]
+            with torch.profiler.record_function(
+                    "split:per-destination gather"):
+                out = fn(*args, **kwargs)
+                self._sync()
+            cur["per-destination gather"] += (time.perf_counter() - t0) - (
+                cur["per-plane scatter"] - scatter)
+            return out
+        return run
+
+    def _chunk(self, fn):
+        def run(exec_self, batches, shards):
+            self._sync()
+            cur = dict.fromkeys(EXCHANGE_PARTS, 0.0)
+            cur["capacity"] = sum(b.capacity for b in batches)
+            self.chunks.append(cur)
+            self._local.cur = cur
+            t0 = cur["_last"] = time.perf_counter()
+            try:
+                with torch.profiler.record_function("split:chunk"):
+                    rows = fn(exec_self, batches, shards)
+                    self._sync()
+            finally:
+                self._local.cur = None
+            cur["wall"] = time.perf_counter() - t0
+            cur["rows"] = rows
+            cur["rest"] = cur["wall"] - sum(cur[p] for p in EXCHANGE_PARTS)
+            return rows
+        return run
+
+
+def _device_split(prof) -> list:
+    """Device seconds of each part, a dict a ``split:chunk`` range in time
+    order: each device event (kernel, copy, memset) goes to the innermost
+    host-side ``split:<part>`` range that holds its start, which the
+    synchronisation at every step makes its own (a kernel launched through
+    ``ctypes`` has no PyTorch op to hang from); what falls in a chunk's
+    range and no part's is its rest."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    # the ranges on the host's side (the profiler also lays each range on
+    # the device's timeline, under the same name)
+    ranges = [e for e in events if e.name.startswith("split:")
+              and e.device_type == DeviceType.CPU]
+    chunks = sorted((e for e in ranges if e.name == "split:chunk"),
+                    key=lambda e: e.time_range.start)
+    parts = [e for e in ranges if e.name != "split:chunk"]
+    out = [dict.fromkeys(EXCHANGE_PARTS, 0.0) for _ in chunks]
+    for c, ce in zip(out, chunks):
+        c["wall"] = 0.0
+    for d in events:
+        if d.device_type != DeviceType.CUDA or d.name.startswith("split:"):
+            continue
+        t = d.time_range.start
+        at = next((i for i, ce in enumerate(chunks)
+                   if ce.time_range.start <= t <= ce.time_range.end), None)
+        if at is None:
+            continue
+        inner = min((e for e in parts
+                     if e.time_range.start <= t <= e.time_range.end),
+                    key=lambda e: e.time_range.elapsed_us(), default=None)
+        name = "rest" if inner is None else inner.name[len("split:"):]
+        sec = d.time_range.elapsed_us() / 1e6
+        out[at][name] += sec
+        out[at]["wall"] += sec
+    return out
+
+
+def exchange_chunk_split(tables: dict, partitions: int, mesh,
+                         label: str) -> dict:
+    """Q3 over ``mesh``, AQE and the pipelined collect off, warm: each
+    exchange chunk's wall split
+    into ``EXCHANGE_PARTS`` (``_ChunkSplit``: host clock, the devices
+    synchronised at every boundary), then one more run under
+    ``torch.profiler`` for each part's device time. Prints the largest
+    chunk (by staged capacity) and the sums over the run's chunks."""
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.session import TorchSession
+    build = _mx_queries(tables, None, None)["q3"][1]
+    # the sequential collect: every chunk on this thread, which the
+    # profiler records (it does not follow pool threads)
+    sess = TorchSession({"spark.rapids.tpu.aqe.enabled": False,
+                         "spark.rapids.tpu.pipeline.enabled": False}) \
+        .attach_mesh(mesh)
+    _mx_run(sess, build, partitions, "split warm-up")
+    with _ChunkSplit(mesh) as split:
+        _mx_run(sess, build, partitions, "split")
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if split.devices else [])
+    with _ChunkSplit(mesh) as traced, profile(activities=acts) as prof:
+        _mx_run(sess, build, partitions, "split traced")
+    device = _device_split(prof) if split.devices else []
+    if not split.chunks:
+        raise AssertionError(f"{label}: Q3 ran no mesh exchange chunk")
+    big = max(range(len(split.chunks)),
+              key=lambda i: split.chunks[i]["capacity"])
+
+    def line(parts: dict, keys) -> str:
+        return ", ".join(f"{k} {1e3 * parts[k]:.3f}" for k in keys)
+
+    c = split.chunks[big]
+    keys = EXCHANGE_PARTS
+    print(f"# MX1 {label} Q3 exchange chunk split (warm, AQE and pipeline "
+          f"off; chunk "
+          f"{big + 1} of {len(split.chunks)}, {c['capacity']} staged rows, "
+          f"{c['rows']} rows; ms, devices synchronised at each step): "
+          f"wall {1e3 * c['wall']:.3f}: {line(c, keys)}", flush=True)
+    total = {k: sum(ch[k] for ch in split.chunks)
+             for k in (*keys, "wall")}
+    print(f"# MX1 {label} Q3 exchange chunks, all {len(split.chunks)} "
+          f"(ms): wall {1e3 * total['wall']:.3f}: {line(total, keys)}",
+          flush=True)
+    out = {"chunk": c, "total": total, "chunks": len(split.chunks),
+           "device": None}
+    if len(device) == len(traced.chunks) and device:
+        d = device[big]
+        dtotal = {k: sum(ch[k] for ch in device) for k in (*keys, "wall")}
+        print(f"# MX1 {label} Q3 exchange chunk {big + 1} device busy "
+              f"time (torch.profiler, ms): {1e3 * d['wall']:.3f}: "
+              f"{line(d, keys)}", flush=True)
+        print(f"# MX1 {label} Q3 exchange chunks, all, device busy time "
+              f"(ms): {1e3 * dtotal['wall']:.3f}: {line(dtotal, keys)}",
+              flush=True)
+        out["device"] = {"chunk": d, "total": dtotal}
+    elif split.devices:
+        print(f"# MX1 {label} Q3 exchange split: the profiler gave "
+              f"{len(device)} chunk ranges for {len(traced.chunks)} chunks; "
+              "device time not measured", flush=True)
+    return out
+
+
 def _same_rows_np(got, want, what: str) -> None:
     """Two tables with the same rows in any order: sorted by every column
     (numpy lexsort), then equal column by column, doubles at rel 1e-9."""
@@ -6279,6 +6491,7 @@ def main() -> int:
         meshes_run.append(dmesh.describe())
     del sf10
     print(f"# MX1 meshes run: {meshes_run}", flush=True)
+    exchange_chunk_split(jtables, args.partitions, vmesh, vmesh.describe())
     phase_s["MX1"] = time.perf_counter() - t0
     quiet.check("MX1")
     t0 = time.perf_counter()

@@ -20,16 +20,52 @@
 // every NaN as one NaN, so equal SQL values meet on one shard; without it
 // the float's bits hash as they are, as in the JAX package.
 //
-// counting_order: a counting sort of int32 ids in [0, nv), stable, in four
-// launches: per-tile histograms (shared-memory atomics), an exclusive scan
-// over (id, tile) in that order (one block an id), an exclusive scan over
-// the ids' totals (one block), and a stable scatter in which one warp walks
-// its tile in 32-row steps and ranks equal ids with __match_any_sync. It
+// counting_order: a counting sort of int32 ids in [0, nv), stable. It
 // returns the permutation and each id's count, so a caller reads the counts
 // and never the ids. Bound: bytes (the ids read twice by the kernel, once by
-// the bound; the order written once). The histogram is nv x tiles ints,
-// which the tile size keeps below the ids' own bytes for nv up to a few
-// hundred.
+// the bound; the order written once).
+//
+// Up to kOnePassBins ids and below 2^30 rows (every id count of the main
+// path: a mesh's shards + 1, the grace split's 65 at most, the executor
+// tier's shuffle.partitions + 1), one memset of the counts and two launches
+// over tiles of kCoTile rows:
+//  1. co_tile_counts, a block a tile: counts the tile's ids in shared
+//     memory (16-byte loads, all in flight before the first is counted),
+//     writes each (id, tile) count as the look-back's word of that pair
+//     (an aggregate; tile 0's inclusive), and adds its counts into
+//     `counts` (one global atomic an id a tile).
+//  2. co_rank_scatter, a block a tile: loads its ids and `counts`; loads
+//     the first round of a decoupled look-back over the (id, tile) words
+//     (a group of lanes an id, many words at once); ranks its rows stably
+//     while those loads are in flight (a warp's 32 rows a step, in row
+//     order, grouped by __match_any_sync up to 16 ids, else one ballot a
+//     bit of the id, with warp-private counters in shared memory); sums
+//     the look-back (further rounds until an inclusive word turns up) and
+//     turns its own word inclusive; takes each id's prefix across the
+//     warps, and one scan of (count, rows in the tile) pairs over the ids
+//     gives each id's offset and its first slot in the tile; stages its
+//     row numbers in shared memory in id order; and writes each id's run
+//     of `order` with coalesced stores.
+// Every aggregate is written by the first launch, before any tile looks
+// back, so a look-back never waits: at 2^20 rows every tile is in flight at
+// once, and tiles that each published their own aggregate would walk back
+// one word a round trip behind one another. Nothing waiting, a tile needs
+// no place in a queue: blockIdx is its number, and no counter's round trip
+// delays its loads. A word holds its status in its top two bits and a
+// count of rows below 2^30 in the rest. It is its own message, so it is
+// read and written relaxed: an acquire would keep the window's other loads
+// from starting until it returned, and a release would wait for the tile's
+// id loads. The words lie id-major where a group of lanes reads one id's
+// run of tiles (8 lanes or more: the run is contiguous), else tile-major
+// (the groups of a warp read neighbouring ids of one tile).
+//
+// Past kOnePassBins ids or 2^30 rows, the first design's four launches:
+// per-tile histograms (shared-memory atomics), an exclusive scan over (id,
+// tile) in that order (one block an id), an exclusive scan over the ids'
+// totals (one block), and a stable scatter in which one warp walks its tile
+// in 32-row steps and ranks equal ids with __match_any_sync. Its histogram
+// is nv x tiles ints, which the tile size keeps below the ids' own bytes
+// for nv up to a few hundred.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,8 +87,31 @@ using KeyDesc = SrtKeyDesc;
 constexpr int kMaxKeys = 16;
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;
-// counting order: at most this many ids, tiles and rows a tile at least
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// counting order: at most this many ids; the one-pass path's ids, rows,
+// warps a block, rows a thread and look-back words a lane reads at once
 constexpr int kMaxBins = 8192;
+constexpr int kOnePassBins = 1024;
+constexpr int64_t kOnePassRows = int64_t(1) << 30;
+constexpr int kCoWarps = 16;
+constexpr int kCoItems = 8;
+constexpr int kCoThreads = 32 * kCoWarps;
+constexpr int kCoTile = kCoThreads * kCoItems;
+constexpr int kCoWindow = 4;
+// the counting pass: 8 warps a tile, 16 rows a thread in 16-byte loads
+constexpr int kCountWarps = 8;
+constexpr int kCountThreads = 32 * kCountWarps;
+constexpr int kCountItems = kCoTile / kCountThreads;
+static_assert(kCountItems % 4 == 0, "a thread's rows: whole 16-byte loads");
+constexpr int kMatchBins = 16;   // ids up to which __match_any_sync ranks
+constexpr int kCountChunks = (kOnePassBins + kCoThreads - 1) / kCoThreads;
+static_assert(kCoTile <= 65536, "a staged row's place in its tile: 16 bits");
+static_assert(kOnePassBins < 32768, "a staged row's id: 15 bits");
+// a look-back word: status in the top two bits, a count below 2^30
+constexpr uint32_t kAggregate = 1u << 30;
+constexpr uint32_t kInclusive = 2u << 30;
+constexpr uint32_t kCountMask = kAggregate - 1u;
+// the first design's tiles: at most this many, rows a tile at least
 constexpr int64_t kMaxTiles = 4096;
 constexpr int64_t kMinTile = 2048;
 constexpr int kScanThreads = 1024;
@@ -202,32 +261,35 @@ __device__ __forceinline__ int32_t clamp_id(int32_t id, int32_t nv) {
 
 // Inclusive scan of one value a thread over the block (blockDim a multiple
 // of 32); `total` gets the block's sum. Every thread must call it.
-__device__ int32_t block_inclusive_scan(int32_t x, int32_t* warp_sums,
-                                        int32_t* total) {
+template <typename T>
+__device__ T block_inclusive_scan(T x, T* warp_sums, T* total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  int32_t v = x;
+  T v = x;
   for (int o = 1; o < 32; o <<= 1) {
-    const int32_t y = __shfl_up_sync(0xFFFFFFFFu, v, o);
+    const T y = __shfl_up_sync(0xFFFFFFFFu, v, o);
     if (lane >= o) v += y;
   }
   if (lane == 31) warp_sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    int32_t s = lane < nw ? warp_sums[lane] : 0;
+    T s = lane < nw ? warp_sums[lane] : 0;
     for (int o = 1; o < 32; o <<= 1) {
-      const int32_t y = __shfl_up_sync(0xFFFFFFFFu, s, o);
+      const T y = __shfl_up_sync(0xFFFFFFFFu, s, o);
       if (lane >= o) s += y;
     }
     if (lane < nw) warp_sums[lane] = s;
   }
   __syncthreads();
-  const int32_t out = v + (warp > 0 ? warp_sums[warp - 1] : 0);
+  const T out = v + (warp > 0 ? warp_sums[warp - 1] : 0);
   *total = warp_sums[nw - 1];
   __syncthreads();
   return out;
 }
+
+// ---- the first design's four launches (past kOnePassBins ids or 2^30
+// rows) -------------------------------------------------------------
 
 // 1. hist[v * n_tiles + t] = rows of tile t with id v.
 __global__ void co_histogram(const int32_t* __restrict__ ids, int64_t n,
@@ -314,6 +376,315 @@ int64_t tile_rows(int64_t n) {
   return tile < kMinTile ? kMinTile : tile;
 }
 
+// ---- the one-pass path -------------------------------------------------
+
+// The lanes of the warp whose label equals this lane's, for labels 0..nv
+// below 2^bits: __match_any_sync up to kMatchBins ids (it costs a step a
+// distinct label), else one ballot a bit (CUB's MatchAny); every lane
+// takes part.
+__device__ __forceinline__ unsigned peers_of(int32_t label, int32_t nv,
+                                             int bits) {
+  if (nv <= kMatchBins) return __match_any_sync(kFull, label);
+  unsigned m = kFull;
+  for (int b = 0; b < bits; ++b) {
+    const bool set = (label >> b) & 1;
+    const unsigned vote = __ballot_sync(kFull, set);
+    m &= set ? vote : ~vote;
+  }
+  return m;
+}
+
+// A look-back word, read and written relaxed: it is its own message.
+__device__ __forceinline__ uint32_t load_word(const uint32_t* p) {
+  uint32_t w;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(w) : "l"(p) : "memory");
+  return w;
+}
+
+__device__ __forceinline__ void publish_word(uint32_t* p, uint32_t w) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(w) : "memory");
+}
+
+// The lanes of a look-back group: the most, up to 32, that give each of
+// the nv ids of a round a group of the block.
+__device__ __forceinline__ int look_back_lanes(int32_t nv) {
+  int lanes = 32;
+  while (lanes > 1 && kCoThreads / lanes < nv) lanes >>= 1;
+  return lanes;
+}
+
+// Word (v, t) of the look-back: id-major where a group of 8 lanes or more
+// reads id v's tiles, else tile-major.
+struct WordLayout {
+  int64_t id_stride, tile_stride;
+  __device__ WordLayout(int32_t nv, int32_t tiles)
+      : id_stride(look_back_lanes(nv) >= 8 ? tiles : 1),
+        tile_stride(look_back_lanes(nv) >= 8 ? 1 : nv) {}
+};
+
+// A thread's rows of the tile, warp-striped: a warp's 32 * kCoItems rows,
+// 32 consecutive rows a step. Rows past n get the label nv.
+__device__ __forceinline__ void load_tile_ids(const int32_t* __restrict__ ids,
+                                              int64_t n, int32_t nv,
+                                              int64_t tile, int local0,
+                                              int32_t (&id)[kCoItems]) {
+#pragma unroll
+  for (int k = 0; k < kCoItems; ++k) {
+    const int64_t i = tile * kCoTile + local0 + 32 * k;
+    id[k] = i < n ? clamp_id(ids[i], nv) : nv;
+  }
+}
+
+// 1. Block t: tile t's count of each id v (shared-memory atomics) into
+//    word (v, t) of the look-back, an aggregate (tile 0's inclusive: no
+//    tile is before it), and into counts[v]. Its rows come in 16-byte
+//    loads, all issued before the first is counted.
+__global__ void __launch_bounds__(kCountThreads)
+    co_tile_counts(const int32_t* __restrict__ ids, int64_t n, int32_t nv,
+                   int32_t tiles, uint32_t* __restrict__ words,
+                   int32_t* __restrict__ counts) {
+  extern __shared__ int32_t hist[];
+  for (int32_t v = threadIdx.x; v < nv; v += kCountThreads) hist[v] = 0;
+  const bool aligned = (reinterpret_cast<uintptr_t>(ids) & 15) == 0;
+  int32_t id[kCountItems];
+#pragma unroll
+  for (int k = 0; k < kCountItems / 4; ++k) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kCoTile +
+                      4 * (threadIdx.x + k * kCountThreads);
+    if (aligned && i + 3 < n) {
+      const int4 q = *reinterpret_cast<const int4*>(ids + i);
+      id[4 * k] = clamp_id(q.x, nv);
+      id[4 * k + 1] = clamp_id(q.y, nv);
+      id[4 * k + 2] = clamp_id(q.z, nv);
+      id[4 * k + 3] = clamp_id(q.w, nv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        id[4 * k + j] = i + j < n ? clamp_id(ids[i + j], nv) : nv;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kCountItems; ++k) {
+    if (id[k] < nv) atomicAdd(&hist[id[k]], 1);
+  }
+  __syncthreads();
+  const uint32_t status = blockIdx.x == 0 ? kInclusive : kAggregate;
+  const WordLayout at(nv, tiles);
+  for (int32_t v = threadIdx.x; v < nv; v += kCountThreads) {
+    const int32_t c = hist[v];
+    words[v * at.id_stride + blockIdx.x * at.tile_stride] =
+        status | static_cast<uint32_t>(c);
+    if (c) atomicAdd(&counts[v], c);
+  }
+}
+
+// Each id v's rows in the tiles before `tile` (> 0): the words (v, tile -
+// 1), (v, tile - 2), ... summed up to and including the first inclusive
+// one, into delta[v]; then word (v, tile) becomes inclusive. A group of
+// look_back_lanes(nv) lanes takes an id, each lane kCoWindow words a
+// round, so a round has lanes * kCoWindow words in flight, and the tile's
+// own word with them. begin() takes the ids v0 + threadIdx.x / lanes and
+// loads their first round; finish() sums it (and loads further rounds
+// until an inclusive word turns up), then publishes. The tile's rank runs
+// between the two while the loads are in flight. Every lane of the block
+// must call both.
+struct LookBack {
+  uint32_t* words;
+  WordLayout at;
+  int64_t tile;
+  int L, q, first;
+  unsigned group_lanes;
+  int32_t v;
+  bool done;
+  uint32_t own, sum;
+  int64_t nearest;  // the nearest word not yet summed
+  uint32_t w[kCoWindow];
+
+  __device__ LookBack(uint32_t* words_, int64_t tile_, int32_t tiles,
+                      int32_t nv)
+      : words(words_), at(nv, tiles), tile(tile_), L(look_back_lanes(nv)) {
+    const int lane = threadIdx.x & 31;
+    q = lane & (L - 1);
+    first = lane - q;  // the group's first lane
+    group_lanes = (L == 32 ? kFull : (1u << L) - 1u) << first;
+  }
+
+  __device__ uint32_t* row() const { return words + v * at.id_stride; }
+
+  // word nearest - q - L * k in w[k]: by distance, round k, then lane
+  __device__ void load_round() {
+#pragma unroll
+    for (int k = 0; k < kCoWindow; ++k) {
+      const int64_t j = nearest - q - static_cast<int64_t>(L) * k;
+      w[k] = !done && j >= 0 ? load_word(row() + j * at.tile_stride)
+                             : kInclusive;
+    }
+  }
+
+  __device__ void begin(int32_t v0, int32_t nv) {
+    v = v0 + static_cast<int32_t>(threadIdx.x) / L;
+    done = v >= nv;
+    if (done) v = 0;
+    own = !done && q == 0 ? load_word(row() + tile * at.tile_stride) : 0u;
+    sum = 0;
+    nearest = tile - 1;
+    load_round();
+  }
+
+  __device__ void finish(int32_t* delta) {
+    const bool active = !done;
+    for (;;) {
+      int kfirst = kCoWindow;
+      unsigned hit = 0;
+#pragma unroll
+      for (int k = 0; k < kCoWindow; ++k) {
+        const unsigned b =
+            __ballot_sync(kFull, (w[k] & kInclusive) != 0u) & group_lanes;
+        if (kfirst == kCoWindow && b) {
+          kfirst = k;
+          hit = b;
+        }
+      }
+      const int qfirst = hit ? __ffs(hit) - 1 - first : L;
+      uint32_t s = 0;
+#pragma unroll
+      for (int k = 0; k < kCoWindow; ++k)
+        if (k < kfirst || (k == kfirst && q <= qfirst)) s += w[k] & kCountMask;
+      for (int o = 1; o < L; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
+      if (!done) {
+        sum += s;
+        done = kfirst < kCoWindow;
+        nearest -= static_cast<int64_t>(L) * kCoWindow;
+      }
+      if (!__any_sync(kFull, !done)) break;
+      load_round();
+    }
+    if (active && q == 0) {
+      publish_word(row() + tile * at.tile_stride,
+                   kInclusive | (sum + (own & kCountMask)));
+      delta[v] = static_cast<int32_t>(sum);
+    }
+  }
+};
+
+// 2. Block t: each row's place in `order` is its id's offset, plus the
+//    id's rows in the tiles before (the look-back, first, so that the tile
+//    publishes early), plus its rank among the id's rows of tile t. Shared
+//    memory: the staged rows (kCoTile), delta and first (nv each), the
+//    warps' counters (kCoWarps x nv).
+__global__ void __launch_bounds__(kCoThreads, 2)
+    co_rank_scatter(const int32_t* __restrict__ ids, int64_t n, int32_t nv,
+                    int32_t tiles, const int32_t* __restrict__ counts,
+                    uint32_t* __restrict__ words,
+                    int32_t* __restrict__ order) {
+  extern __shared__ int32_t smem[];
+  int32_t* stage = smem;              // (id << 16) | row in the tile, by slot
+  int32_t* delta = stage + kCoTile;   // an id's place in order, less its slot
+  int32_t* first = delta + nv;        // an id's first slot in the tile
+  int32_t* warp_bins = first + nv;    // a warp's rows of each id
+  const int64_t tile = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int local0 = warp * (32 * kCoItems) + lane;
+  // loads in flight through the look-back: the ids, and the counts of ids
+  // threadIdx.x, + kCoThreads, ...
+  int32_t id[kCoItems];
+  load_tile_ids(ids, n, nv, tile, local0, id);
+  int32_t c[kCountChunks];
+#pragma unroll
+  for (int k = 0; k < kCountChunks; ++k) {
+    const int32_t v = threadIdx.x + k * kCoThreads;
+    c[k] = v < nv ? counts[v] : 0;
+  }
+  for (int32_t v = threadIdx.x; v < nv; v += kCoThreads) delta[v] = 0;
+  for (int32_t i = threadIdx.x; i < kCoWarps * nv; i += kCoThreads)
+    warp_bins[i] = 0;
+  __syncthreads();
+  LookBack back(words, tile, tiles, nv);
+  if (tile > 0) back.begin(0, nv);
+  // a warp's rows, 32 a step in row order: the rank among the warp's rows
+  // of the id so far
+  const int bits = 32 - __clz(nv);
+  const unsigned lower = (1u << lane) - 1u;
+  int32_t* mine = warp_bins + warp * nv;
+  int32_t rank[kCoItems];
+#pragma unroll
+  for (int k = 0; k < kCoItems; ++k) {
+    const unsigned peers = peers_of(id[k], nv, bits);
+    const bool ok = id[k] < nv;
+    const int32_t before = ok ? mine[id[k]] : 0;
+    rank[k] = before + __popc(peers & lower);
+    __syncwarp();
+    if (ok && lane == __ffs(peers) - 1) mine[id[k]] = before + __popc(peers);
+    __syncwarp();
+  }
+  if (tile > 0) {
+    back.finish(delta);
+    const int groups = kCoThreads / back.L;
+    for (int32_t v0 = groups; v0 < nv; v0 += groups) {
+      back.begin(v0, nv);
+      back.finish(delta);
+    }
+  }
+  __syncthreads();
+  // each id's warps before (in place) and rows in the tile; then one scan
+  // of (count, rows in the tile) pairs gives the id's offset and its first
+  // slot in the tile
+  __shared__ unsigned long long pair_sums[32];
+  unsigned long long carry = 0;
+#pragma unroll
+  for (int k = 0; k < kCountChunks; ++k) {
+    const int32_t v = threadIdx.x + k * kCoThreads;
+    if (k * kCoThreads < nv) {
+      int32_t run = 0;
+      if (v < nv) {
+        for (int w = 0; w < kCoWarps; ++w) {
+          const int32_t c = warp_bins[w * nv + v];
+          warp_bins[w * nv + v] = run;
+          run += c;
+        }
+      }
+      const unsigned long long x =
+          (static_cast<unsigned long long>(c[k]) << 32) |
+          static_cast<uint32_t>(run);
+      unsigned long long total;
+      const unsigned long long e =
+          carry + block_inclusive_scan(x, pair_sums, &total) - x;
+      if (v < nv) {
+        const int32_t slot = static_cast<int32_t>(e & 0xFFFFFFFFu);
+        first[v] = slot;
+        delta[v] += static_cast<int32_t>(e >> 32) - slot;
+      }
+      carry += total;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kCoItems; ++k) {
+    if (id[k] < nv) {
+      stage[first[id[k]] + mine[id[k]] + rank[k]] =
+          (id[k] << 16) | (local0 + 32 * k);
+    }
+  }
+  __syncthreads();
+  const int64_t left = n - tile * kCoTile;
+  const int32_t rows = left < kCoTile ? static_cast<int32_t>(left) : kCoTile;
+  const int32_t row0 = static_cast<int32_t>(tile * kCoTile);
+  for (int32_t slot = threadIdx.x; slot < rows; slot += kCoThreads) {
+    const int32_t st = stage[slot];
+    order[delta[st >> 16] + slot] = row0 + (st & 0xFFFF);
+  }
+}
+
+bool one_pass(int64_t n, int32_t nv) {
+  return nv <= kOnePassBins && n < kOnePassRows;
+}
+
+int64_t co_tiles(int64_t n) { return (n + kCoTile - 1) / kCoTile; }
+
 }  // namespace
 
 // Partition ids of n rows over `n_keys` key columns described by the host
@@ -344,14 +715,16 @@ extern "C" int32_t srt_counting_order_max_bins() { return kMaxBins; }
 
 // int32 words of scratch srt_counting_order needs for n ids in [0, nv).
 extern "C" int64_t srt_counting_order_scratch(int64_t n, int32_t nv) {
+  if (one_pass(n, nv)) return static_cast<int64_t>(nv) * co_tiles(n);
   const int64_t tile = tile_rows(n);
   const int64_t n_tiles = (n + tile - 1) / tile;
   return static_cast<int64_t>(nv) * n_tiles + nv;
 }
 
 // Stable order grouping n int32 ids in [0, nv) ascending -> order (n
-// int32 row numbers) and counts (nv int32). n > 0, nv <= kMaxBins. Four
-// launches on `stream`; returns the first launch error (0 = launched).
+// int32 row numbers) and counts (nv int32). n > 0, nv <= kMaxBins. On
+// `stream`: one memset and two launches (nv <= kOnePassBins, n < 2^30),
+// else four launches; returns the first error (0 = launched).
 extern "C" int srt_counting_order(const int32_t* ids, int64_t n, int32_t nv,
                                   int32_t* scratch, int32_t* order,
                                   int32_t* counts, void* stream) {
@@ -359,6 +732,28 @@ extern "C" int srt_counting_order(const int32_t* ids, int64_t n, int32_t nv,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (one_pass(n, nv)) {
+    const int32_t tiles = static_cast<int32_t>(co_tiles(n));
+    uint32_t* words = reinterpret_cast<uint32_t*>(scratch);
+    int rc = static_cast<int>(
+        cudaMemsetAsync(counts, 0, sizeof(int32_t) * nv, s));
+    if (rc != 0) return rc;
+    co_tile_counts<<<tiles, kCountThreads, sizeof(int32_t) * nv, s>>>(
+        ids, n, nv, tiles, words, counts);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+    const size_t shmem =
+        sizeof(int32_t) * (kCoTile + static_cast<size_t>(kCoWarps + 2) * nv);
+    if (shmem > 48 * 1024) {
+      rc = static_cast<int>(cudaFuncSetAttribute(
+          co_rank_scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(shmem)));
+      if (rc != 0) return rc;
+    }
+    co_rank_scatter<<<tiles, kCoThreads, shmem, s>>>(ids, n, nv, tiles,
+                                                     counts, words, order);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int64_t tile = tile_rows(n);
   const int32_t n_tiles = static_cast<int32_t>((n + tile - 1) / tile);
   int32_t* hist = scratch;

@@ -20,9 +20,10 @@ kernel to the plain version.
 Float keys: the JAX package hashes a float's bits as they are, so -0.0 and
 0.0 (or two NaN payloads) may land on two shards, and an aggregate or join
 after its exchange then keeps them apart. The device exchange here
-(shuffle/ici.py) hashes floats normalised (``normalize_floats``), as the
-grace join and the host exchange do; ``device_partition_ids`` with its
-default stays bit-equal to JAX.
+(shuffle/ici.py) and the executor tier's map side (``ShuffleManager``) hash
+floats normalised (``normalize_floats``), as the grace join and the host
+exchange do; ``device_partition_ids`` with its default stays bit-equal to
+JAX.
 """
 from __future__ import annotations
 
@@ -268,8 +269,9 @@ def counting_order(keys: torch.Tensor, num_vals: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable permutation grouping int32 ``keys`` in ``[0, num_vals)``
     ascending, and each value's count (both int32): the plain version on
-    the CPU, the ``counting_order`` kernel on a CUDA device. The same
-    permutation as ``torch.argsort(keys, stable=True)``."""
+    the CPU, the ``counting_order`` kernel on a CUDA device (one memset and
+    two launches up to 1024 values, four past that). The same permutation
+    as ``torch.argsort(keys, stable=True)``."""
     if keys.dtype != torch.int32 or keys.dim() != 1:
         raise TypeError(f"counting_order: keys must be 1-D int32, got "
                         f"{keys.dtype} {tuple(keys.shape)}")
@@ -284,9 +286,10 @@ def counting_order(keys: torch.Tensor, num_vals: int
     if dev.type == "cpu":
         return counting_order_reference(keys, num_vals)
     order = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(num_vals, dtype=torch.int32, device=dev)
     if n == 0:
-        return order, counts
+        return order, torch.zeros(num_vals, dtype=torch.int32, device=dev)
+    # the kernel writes every count
+    counts = torch.empty(num_vals, dtype=torch.int32, device=dev)
     from ..native import load_kernels
     keys = keys.contiguous()
     scratch = torch.empty(
@@ -338,7 +341,8 @@ def _sorted_by_partition(batch: DeviceTable, key_names: Sequence[str],
     """-> (the batch's rows grouped by partition id, stably, masked rows
     last; the start row of each partition and the end, on the host). The
     counts are the one host read: the ids stay on the device."""
-    pid = partition_ids(batch, key_names, num_parts,
+    # floats normalised: -0.0 and 0.0, and every NaN, meet on one partition
+    pid = partition_ids(batch, key_names, num_parts, normalize_floats=True,
                         row_mask=batch.row_mask)
     order, counts = partition_order(pid, num_parts)
     sorted_tbl = DeviceTable(tuple(c.gather(order) for c in batch.columns),

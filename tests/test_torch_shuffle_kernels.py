@@ -71,6 +71,18 @@ def _table(n: int, seed: int, device="cpu"):
 _KEY_SETS = [["i"], ["i", "s"], ["d"], ["f"], ["j", "s", "d", "i"]]
 
 
+def _id_sets(rng, n: int, nv: int) -> dict:
+    """label -> ids in [0, nv) (numpy): random; sorted (long runs of one
+    id); reverse-sorted; all equal; the rest below nv - 1 with a fifth of
+    the rows parked at nv - 1 (partition_order's masked rows)."""
+    ids = rng.integers(0, nv, n)
+    parked = rng.integers(0, max(nv - 1, 1), n)
+    parked[rng.random(n) < 0.2] = nv - 1
+    return {"random": ids, "sorted": np.sort(ids),
+            "reverse-sorted": np.sort(ids)[::-1], "all equal":
+            np.full(n, nv - 1), "parked at nv - 1": parked}
+
+
 @pytest.mark.parametrize("keys", _KEY_SETS, ids="+".join)
 def test_partition_ids_cpu_is_the_plain_version(keys):
     t = _table(3000, 1)
@@ -192,21 +204,30 @@ def test_partition_ids_kernel_equals_plain(cuda_device, keys):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 2047, 2048, 2049, 100003,
-                               (1 << 23) + 5])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 2047, 2048, 2049, 4097,
+                               100003, (1 << 20) + 3, (1 << 23) + 5])
 def test_counting_order_kernel_equals_plain(cuda_device, n):
+    """Each id set of ``_id_sets`` (the random one also as a view one id
+    into its storage) at 1 to 8192 ids: the one-pass path up to 1024
+    (tiles of 4096 rows, the last ragged), the four launches past it (1025
+    and 8192; at 2^23 rows up to 257 ids)."""
     rng = np.random.default_rng(n)
-    for p in (1, 5, 65, 257, 8192):
+    for p in (1, 5, 65, 257, 1024, 1025, 8192):
         if n > (1 << 20) and p > 257:
             continue
-        ids = torch.from_numpy(rng.integers(0, p, n).astype(
-            np.int32)).to(cuda_device)
-        order, counts = counting_order(ids, p)
-        r_order, r_counts = counting_order_reference(ids, p)
-        torch.cuda.synchronize()
-        assert torch.equal(order, r_order), (n, p)
-        assert torch.equal(counts, r_counts), (n, p)
-        assert torch.equal(order.long(), torch.argsort(ids, stable=True))
+        sets = {label: torch.from_numpy(ids_np.astype(np.int32)).to(
+            cuda_device) for label, ids_np in _id_sets(rng, n, p).items()}
+        # a view one id into its storage: no 16-byte loads
+        sets["random, unaligned"] = torch.cat([sets["random"][:1],
+                                               sets["random"]])[1:]
+        for label, ids in sets.items():
+            order, counts = counting_order(ids, p)
+            r_order, r_counts = counting_order_reference(ids, p)
+            torch.cuda.synchronize()
+            assert torch.equal(order, r_order), (n, p, label)
+            assert torch.equal(counts, r_counts), (n, p, label)
+            assert torch.equal(order.long(),
+                               torch.argsort(ids, stable=True)), (n, p, label)
 
 
 @pytest.mark.cuda

@@ -13,6 +13,9 @@ import torch
 from harness import assert_tables_equal
 from spark_rapids_tpu.columnar.device import DeviceTable as JTable
 from spark_rapids_tpu.columnar.host import HostTable as JHost
+from spark_rapids_tpu.expr import functions as JF
+from spark_rapids_tpu.parallel.runtime import LocalCluster as JCluster
+from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu.shuffle.manager import ShuffleManager as JManager
 from spark_rapids_tpu.shuffle.transport import \
     LocalShuffleTransport as JTransport
@@ -20,6 +23,7 @@ from spark_rapids_tpu.shuffle.transport import \
 from spark_rapids_tpu_torch.columnar.device import DeviceTable
 from spark_rapids_tpu_torch.columnar.host import HostTable
 from spark_rapids_tpu_torch.conf import RapidsConf
+from spark_rapids_tpu_torch.expr import functions as F
 from spark_rapids_tpu_torch.parallel.executor import FailureDetector
 from spark_rapids_tpu_torch.parallel.runtime import (LocalCluster,
                                                      TpuManagedExchangeExec)
@@ -215,3 +219,39 @@ def test_managed_exchange_is_planned_only_inside_a_cluster_run():
     assert "TpuManagedExchangeExec" not in sess._physical(q.logical) \
         .tree_string()
     assert TpuManagedExchangeExec.__doc__
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8, 16])
+def test_local_cluster_meets_float_keys_on_one_partition(parts):
+    """64 probe rows keyed 0.0, -0.0, NaN and a NaN with payload 0x3039 (16
+    of each) joined on ``f == g`` to build rows {0.0, NaN}, broadcasts and
+    AQE off: every hash exchange goes through the executors' shuffle
+    managers, whose map side hashes floats normalised. The port's
+    ``LocalCluster(2)`` gives the JAX cluster's and the host engine's 64
+    rows, the payload-NaN rows included."""
+    nan_payload = np.array([0x7FF8000000003039], dtype=np.uint64).view(
+        np.float64)[0]
+    probe = pa.table({"f": np.repeat([0.0, -0.0, np.nan, nan_payload], 16),
+                      "a": np.arange(64)})
+    build = pa.table({"g": np.array([0.0, np.nan]), "b": np.array([10, 20])})
+    conf = {"spark.rapids.tpu.batchRowsMinBucket": 8,
+            "spark.rapids.tpu.shuffle.partitions": parts,
+            "spark.rapids.tpu.autoBroadcastJoinThreshold": -1,
+            "spark.rapids.tpu.aqe.enabled": False}
+    sess = TorchSession(conf, device="cpu")
+    q = sess.create_dataframe(probe, num_partitions=2).join(
+        sess.create_dataframe(build, num_partitions=2),
+        condition=F.col("f") == F.col("g"))
+    with LocalCluster(2, sess.conf, device="cpu") as cluster:
+        got = cluster.run(q)
+    jsess = TpuSession(conf)
+    jq = jsess.create_dataframe(probe, num_partitions=2).join(
+        jsess.create_dataframe(build, num_partitions=2),
+        condition=JF.col("f") == JF.col("g"))
+    with JCluster(2, jsess.conf) as cluster:
+        jgot = cluster.run(jq)
+    host = q.collect(device=False)
+    for table in (got, jgot, host):
+        assert sorted(table.column("a").to_pylist()) == list(range(64))
+    assert_tables_equal(got, jgot)
+    assert_tables_equal(got, host)

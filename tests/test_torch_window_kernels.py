@@ -18,7 +18,8 @@ plain versions (``exec/window_kernels.py``).
        python -m pytest --noconftest -p no:cacheprovider tests/test_torch_window_kernels.py
 
 2. The CUDA source compiled by ``g++`` against a header that emulates what
-   it uses (a block as ``std::thread``s, ``__syncthreads`` and each warp's
+   it uses (a block's threads as fibers on one OS thread, each running
+   until it waits at a barrier; ``__syncthreads`` and each warp's
    shuffles and ballots as barriers, shared memory as statics, atomics,
    fences, volatile loads and memsets as their C++ counterparts, at most 3
    blocks a grid-stride loop; a grid's blocks one after another, the last
@@ -252,11 +253,13 @@ def test_float_min_max_follow_spark_order():
 _EMULATION = r"""
 #pragma once
 #include <atomic>
-#include <barrier>
 #include <climits>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
-#include <thread>
+#include <functional>
+#include <memory>
 #include <vector>
 #define __global__
 #define __device__
@@ -275,20 +278,62 @@ inline ulonglong2 make_ulonglong2(unsigned long long x,
                                   unsigned long long y) {
   return {x, y};
 }
-inline thread_local emu_dim3 threadIdx, blockIdx;
+// set by the scheduler each time it resumes a thread of the block
+inline emu_dim3 threadIdx, blockIdx;
 inline emu_dim3 blockDim, gridDim;
+#if defined(__x86_64__)
+// saves the callee-saved registers on this stack, stores its top in
+// *save_sp, and resumes the stack at load_sp
+extern "C" void emu_switch(void** save_sp, void* load_sp);
+asm(".text\n.globl emu_switch\n.hidden emu_switch\n"
+    ".type emu_switch,@function\nemu_switch:\n"
+    "  pushq %rbp\n  pushq %rbx\n  pushq %r12\n  pushq %r13\n"
+    "  pushq %r14\n  pushq %r15\n  movq %rsp, (%rdi)\n  movq %rsi, %rsp\n"
+    "  popq %r15\n  popq %r14\n  popq %r13\n  popq %r12\n  popq %rbx\n"
+    "  popq %rbp\n  ret\n.size emu_switch, .-emu_switch\n");
+#else
+#error "the fibers switch stacks on x86-64 only"
+#endif
 namespace emu {
-inline std::barrier<>* block_bar = nullptr;
-struct Warp { std::barrier<>* bar = nullptr; unsigned long long val[32]; };
+// A block's threads as fibers on one OS thread: each runs until it waits
+// at a barrier; the last to arrive releases the others and runs on.
+struct Sched {
+  void* main_sp = nullptr;
+  std::vector<void*> sp;
+  std::vector<std::unique_ptr<char[]>> stacks;
+  std::vector<int> ready;
+  int current = -1;
+  std::function<void()> body;
+};
+inline Sched sched;
+inline void to_scheduler() {
+  emu_switch(&sched.sp[sched.current], sched.main_sp);
+}
+struct Barrier {
+  int expected = 0, arrived = 0;
+  std::vector<int> parked;
+};
+inline void wait(Barrier& b) {
+  if (++b.arrived == b.expected) {
+    b.arrived = 0;
+    for (int f : b.parked) sched.ready.push_back(f);
+    b.parked.clear();
+    return;
+  }
+  b.parked.push_back(sched.current);
+  to_scheduler();
+}
+inline Barrier block_bar;
+struct Warp { Barrier bar; unsigned long long val[32]; };
 inline Warp warps[32];
 inline Warp& warp() { return warps[threadIdx.x / 32]; }
 inline int lane() { return threadIdx.x % 32; }
 inline unsigned long long exchange(unsigned long long v, int src) {
   Warp& w = warp();
   w.val[lane()] = v;
-  w.bar->arrive_and_wait();
+  wait(w.bar);
   unsigned long long r = w.val[src];
-  w.bar->arrive_and_wait();
+  wait(w.bar);
   return r;
 }
 template <class T> unsigned long long bits(T v) {
@@ -323,8 +368,8 @@ extern "C" void emu_set_flaky(unsigned long long seed, unsigned permille) {
   emu::flaky_seed = seed;
   emu::flaky_permille = permille;
 }
-inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
-inline void __syncwarp() { emu::warp().bar->arrive_and_wait(); }
+inline void __syncthreads() { emu::wait(emu::block_bar); }
+inline void __syncwarp() { emu::wait(emu::warp().bar); }
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
 }
@@ -376,38 +421,68 @@ template <class T> T __shfl_down_sync(unsigned, T v, int d) {
 inline unsigned __ballot_sync(unsigned, int pred) {
   emu::Warp& w = emu::warp();
   w.val[emu::lane()] = pred != 0;
-  w.bar->arrive_and_wait();
+  emu::wait(w.bar);
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) r |= static_cast<unsigned>(w.val[i]) << i;
-  w.bar->arrive_and_wait();
+  emu::wait(w.bar);
   return r;
 }
-// the grid's blocks one after another, the last blockIdx first: a thread
-// a block's thread, each running its part of every block in turn
+// the grid's blocks one after another, the last blockIdx first: a fiber a
+// block's thread, each running its part of every block in turn
+namespace emu {
+inline unsigned ended = 0;
+[[noreturn]] inline void fiber_main() {
+  sched.body();
+  ++ended;
+  to_scheduler();
+  __builtin_unreachable();
+}
+}  // namespace emu
 template <class K, class... A>
 void emu_launch(K kernel, unsigned grid, unsigned block, A... args) {
-  ++emu::launches;
+  using namespace emu;
+  ++launches;
   gridDim.x = grid;
   blockDim.x = block;
-  std::barrier<> bar(block);
-  emu::block_bar = &bar;
-  std::vector<std::barrier<>*> wb;
-  for (unsigned w = 0; w < block / 32; ++w) {
-    wb.push_back(new std::barrier<>(32));
-    emu::warps[w].bar = wb.back();
+  block_bar = Barrier{static_cast<int>(block)};
+  for (unsigned w = 0; w < block / 32; ++w) warps[w].bar = Barrier{32};
+  sched.body = [=] {
+    for (unsigned b = grid; b-- > 0;) {
+      blockIdx.x = b;
+      kernel(args...);
+      wait(block_bar);  // the block ends before the next begins
+    }
+  };
+  constexpr size_t kStack = 1 << 18;
+  while (sched.stacks.size() < block)
+    sched.stacks.emplace_back(new char[kStack]);
+  sched.sp.assign(block, nullptr);
+  sched.ready.clear();
+  for (unsigned t = 0; t < block; ++t) {
+    // a fresh stack that "returns" into fiber_main with the registers 0
+    uintptr_t top = reinterpret_cast<uintptr_t>(sched.stacks[t].get()) +
+                    kStack;
+    auto* p = reinterpret_cast<uintptr_t*>(top & ~uintptr_t{15});
+    *--p = 0;
+    *--p = reinterpret_cast<uintptr_t>(&fiber_main);
+    for (int r = 0; r < 6; ++r) *--p = 0;
+    sched.sp[t] = p;
+    sched.ready.push_back(t);
   }
-  std::vector<std::thread> ts;
-  for (unsigned t = 0; t < block; ++t)
-    ts.emplace_back([=, &bar] {
-      threadIdx.x = t;
-      for (unsigned b = grid; b-- > 0;) {
-        blockIdx.x = b;
-        kernel(args...);
-        bar.arrive_and_wait();  // the block ends before the next begins
-      }
-    });
-  for (auto& t : ts) t.join();
-  for (auto* p : wb) delete p;
+  ended = 0;
+  // a queue: a fiber runs until it waits at a barrier (parked there until
+  // the last arrives, who queues it again) or ends
+  for (size_t i = 0; i < sched.ready.size(); ++i) {
+    const int t = sched.ready[i];
+    sched.current = t;
+    threadIdx.x = t;
+    emu_switch(&sched.main_sp, sched.sp[t]);
+  }
+  if (ended != block) {
+    std::fprintf(stderr, "emu_launch: %u of %u threads wait forever\n",
+                 block - ended, block);
+    std::abort();
+  }
 }
 """
 
