@@ -198,7 +198,19 @@ four key sets, ``counting_order`` at P = 4, 8, 64 and 256 also against
 run the multi-GPU tier on a virtual mesh of 4 shards; MX1 ends with one
 warm Q3 whose exchange chunks are split by step (``exchange_chunk_split``:
 concat/pad, the two kernels, the count read, the per-plane scatter, the
-per-destination gather).
+per-destination gather). PC1 then starts ``ProcessCluster(2)`` on the card
+(two worker processes on cuda:0, each with its own CUDA context, spawned):
+its startup seconds (and a third child's import split: torch, the
+package), Q1 and Q3 at SF 0.1 fanned over the workers (cold and warm; the
+workers drop a query's plan when it ends) against the host engine beside
+``LocalCluster(2)``, a shuffle across
+the workers with the codecs none, zlib and lz4 (float keys with -0.0 and
+NaN payloads; each worker's ``partition_ids`` and ``counting_order``
+launches read, at least 1 each), a DCN block and a broadcast between them,
+the TCP rate of a 64 MiB block per codec, lz4 on a 2^20-row lineitem batch,
+and Q1 and Q3 again, each under its own
+``worker.task:after=1:times=1:action=kill`` on worker 0 (rows equal; Q1's
+death respawns the slot, Q3's excludes it, one respawn a slot allowed).
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -6296,6 +6308,386 @@ def mx3_phase(small: dict, tables: dict, li, partitions: int,
     return out
 
 
+PC1_SF = 0.1                    # the TPC-H scale of PC1's queries and data
+PC1_BLOCK_BYTES = 64 << 20      # the raw size of PC1's timed TCP block
+PC1_CODECS = ("none", "zlib", "lz4")
+_PC1_LINEITEM: list = []        # a worker's SF 0.1 lineitem, made once
+
+
+def _pc1_lineitem():
+    from spark_rapids_tpu_torch.columnar.host import HostTable
+    from spark_rapids_tpu_torch.tools import tpch
+    if not _PC1_LINEITEM:
+        _PC1_LINEITEM.append(HostTable.from_arrow(
+            tpch.gen_lineitem(PC1_SF, seed=0)))
+    return _PC1_LINEITEM[0]
+
+
+def pc1_block_task(ctx, sid: int, codec: str, target: int) -> dict:
+    """A worker task: the first lineitem rows (SF 0.1, from the seed) whose
+    uncompressed frame is about ``target`` bytes, serialised with ``codec``
+    and published on the worker's TCP transport as block (sid, 0, 0) ->
+    the rows, raw and wire bytes, the serialise seconds and the wire
+    bytes' xxhash64."""
+    from spark_rapids_tpu_torch.host_native import xxhash64
+    from spark_rapids_tpu_torch.shuffle.serializer import serialize_table
+    from spark_rapids_tpu_torch.shuffle.transport import BlockId
+    li = _pc1_lineitem()
+    sample = len(serialize_table(li.slice(0, 10_000)))
+    table = li.slice(0, min(li.num_rows, 10_000 * target // sample))
+    raw = len(serialize_table(table)) if codec != "none" else None
+    t0 = time.perf_counter()
+    payload = serialize_table(table, codec)
+    seconds = time.perf_counter() - t0
+    ctx.shuffle.transport.publish(BlockId(sid, 0, 0), payload)
+    return {"rows": table.num_rows, "raw": raw or len(payload),
+            "wire": len(payload),
+            "serialize_s": seconds, "xxh": xxhash64(payload)}
+
+
+def pc1_fetch_task(ctx, sid: int, reps: int) -> dict:
+    """A worker task: fetch block (sid, 0, 0) from the peer ``reps`` times
+    over the TCP transport, then deserialise it once -> the walls, the
+    deserialise seconds, the bytes and their xxhash64."""
+    from spark_rapids_tpu_torch.host_native import xxhash64
+    from spark_rapids_tpu_torch.shuffle.serializer import deserialize_table
+    from spark_rapids_tpu_torch.shuffle.transport import BlockId
+    block = BlockId(sid, 0, 0)
+    walls, payload = [], b""
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        payload = dict(ctx.shuffle.transport.fetch([block]))[block]
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rows = deserialize_table(payload).num_rows
+    return {"walls": walls, "deserialize_s": time.perf_counter() - t0,
+            "rows": rows, "bytes": len(payload), "xxh": xxhash64(payload)}
+
+
+def _pc1_shuffle_maps(li: pa.Table, rows: int) -> list:
+    """Two map tasks' inputs of ``rows`` lineitem rows each, with a row id
+    and a float key ``f`` (the extended price; a tenth of the rows 0.0,
+    -0.0, the canonical NaN or a NaN of another payload)."""
+    payload = np.array([0x7FF8000000003039], dtype=np.uint64).view(
+        np.float64)[0]
+    out = []
+    for m in range(2):
+        t = li.slice(m * rows, rows)
+        f = t.column("l_extendedprice").to_numpy().copy()
+        f[0::40], f[1::40], f[2::40], f[3::40] = 0.0, -0.0, np.nan, payload
+        out.append(t.append_column("f", pa.array(f)).append_column(
+            "rid", pa.array(np.arange(m * rows, (m + 1) * rows))))
+    return out
+
+
+def _pc1_shuffle(cluster, maps: list, codec: str, sid: int) -> int:
+    """Map m written on worker m (the two kernels on its card), every
+    reduce partition read on worker 1 (map 0's blocks over TCP): the rows
+    are the inputs' (by row id, every column), and each float key, -0.0
+    with 0.0 and every NaN together, lies in one partition -> rows."""
+    from spark_rapids_tpu_torch.columnar.host import HostTable
+    from spark_rapids_tpu_torch.parallel.runtime import (shuffle_read_task,
+                                                         shuffle_write_task)
+    from spark_rapids_tpu_torch.shuffle.serializer import (deserialize_table,
+                                                           serialize_table)
+    parts = 4
+    for m, t in enumerate(maps):
+        cluster.run_on(m, shuffle_write_task, sid, m,
+                       serialize_table(HostTable.from_arrow(t)), ["f"], parts,
+                       codec)
+    seen, got = {}, []
+    for p in range(parts):
+        out = cluster.run_on(1, shuffle_read_task, sid, 2, p)
+        if out is None:
+            continue
+        t = deserialize_table(out).to_arrow()
+        got.append(t)
+        for k in np.unique(np.where(np.isnan(t.column("f").to_numpy()),
+                                    np.inf, t.column("f").to_numpy() + 0.0)):
+            if seen.setdefault(k, p) != p:
+                raise AssertionError(f"PC1 shuffle {codec}: key {k} in "
+                                     f"partitions {seen[k]} and {p}")
+    got = pa.concat_tables(got).sort_by("rid")
+    want = pa.concat_tables(maps).sort_by("rid")
+    if got.num_rows != want.num_rows or not all(
+            got.column(c).equals(want.column(c)) for c in want.column_names
+            if c != "f") or not np.array_equal(
+                got.column("f").to_numpy(), want.column("f").to_numpy(),
+                equal_nan=True):
+        raise AssertionError(f"PC1 shuffle {codec}: rows differ")
+    return got.num_rows
+
+
+def _pc1_queries(label: str, cluster, small: dict, partitions: int,
+                 card: str, sess, hosts: dict, names=("q1", "q3"),
+                 runs=("cold", "warm")) -> dict:
+    """Each query of ``names`` over the workers, once a run of ``runs``
+    (run_tpch_query: each worker generates the SF 0.1 tables from the
+    seeds, plans for its card and runs every exchange of the query; the
+    workers drop the plan when the query ends, so every run plans and
+    runs anew), each equal to the host engine on the same tables (held in
+    ``hosts``, made on first use) -> walls."""
+    out = {}
+    queries = _mx_queries(small, small["lineitem"], None)
+    for name in names:
+        if name not in hosts:
+            hosts[name] = _host_collect(queries[name][1](sess, partitions))[0]
+        host = hosts[name]
+        walls = []
+        for run in runs:
+            t0 = time.perf_counter()
+            got = cluster.run_tpch_query(name, sf=PC1_SF, tiny=False,
+                                         num_partitions=partitions,
+                                         timeout_s=600)
+            walls.append(time.perf_counter() - t0)
+            _compare_tpch(name, got, host, f"PC1 {label} {name} {run}")
+        out[name] = walls
+        print(f"# PC1 {label} {name}: " + ", ".join(
+            f"{run} {w:.3f} s" for run, w in zip(runs, walls))
+            + f", {host.num_rows} rows equal to the host engine [{card}]",
+            flush=True)
+    return out
+
+
+#: a child that times its own imports as a worker makes them: the
+#: interpreter's start (argv[1] is the parent's wall clock at the spawn),
+#: torch, the package's runtime, and compiling ``chip_smoke.py`` (a spawned
+#: worker runs it again as ``__mp_main__``, from source)
+_PC1_IMPORT_PROBE = """
+import json, sys, time
+t0 = time.perf_counter()
+start_s = time.time() - float(sys.argv[1])
+import torch
+t1 = time.perf_counter()
+import spark_rapids_tpu_torch.parallel.runtime
+t2 = time.perf_counter()
+with open("chip_smoke.py") as f:
+    compile(f.read(), "chip_smoke.py", "exec")
+t3 = time.perf_counter()
+print(json.dumps({"interpreter_s": start_s, "torch_s": t1 - t0,
+                  "package_s": t2 - t1, "main_compile_s": t3 - t2}))
+"""
+
+
+def pc1_phase(small: dict, li: pa.Table, partitions: int, card: str,
+              device: str = "cuda") -> dict:
+    """PC1: ``ProcessCluster(2)`` on the card (both workers on cuda:0 of a
+    one-card machine, each its own process with its own CUDA context):
+    startup seconds and the import split of a third child started beside
+    the workers; Q1 and Q3 over the workers against the host engine,
+    beside ``LocalCluster(2)`` on the same tables; a shuffle across the
+    workers with each codec (the kernels' launches read in each worker); a
+    DCN block and a broadcast between them; the TCP rate of a 64 MiB block
+    per codec; lz4 on a lineitem batch; then Q1 and Q3 again, each under a
+    kill injected on worker 0 (``worker.task:after=1:times=1:action=kill``):
+    Q1's death respawns the slot, Q3's excludes it."""
+    from spark_rapids_tpu_torch import host_native
+    from spark_rapids_tpu_torch.columnar.host import HostTable
+    from spark_rapids_tpu_torch.parallel.runtime import (
+        LocalCluster, ProcessCluster, broadcast_build_task,
+        broadcast_probe_task, configure_faults_task, dcn_add_peer_task,
+        dcn_address_task, dcn_fetch_task, dcn_publish_task,
+        launch_counts_task, worker_info_task)
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.shuffle.serializer import (deserialize_table,
+                                                           serialize_table)
+    from spark_rapids_tpu_torch.utils import faults
+    out = {"card": card}
+    conf = {"spark.rapids.tpu.shuffle.partitions": partitions}
+    sess = TorchSession(conf, device=device)
+    hosts: dict = {}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # one respawn a slot: the first kill respawns worker 0, the second
+    # excludes its slot and leaves the query to worker 1
+    cluster_conf = {**conf, "spark.rapids.tpu.task.maxWorkerRespawns": 1}
+    # a third child imports beside the two workers, timing each part
+    probe = subprocess.Popen(
+        [sys.executable, "-c", _PC1_IMPORT_PROBE, repr(time.time())],
+        stdout=subprocess.PIPE, text=True)
+    with ProcessCluster(2, cluster_conf, device=device) as cluster:
+        probe_out, _ = probe.communicate(timeout=300)
+        if probe.returncode != 0:
+            raise AssertionError(f"PC1 import probe exited "
+                                 f"{probe.returncode}")
+        out["import_split"] = json.loads(probe_out.strip().splitlines()[-1])
+        infos = [cluster.run_on(w, worker_info_task) for w in range(2)]
+        out["startup"] = {"wall_s": cluster.startup["wall_s"],
+                          "workers": dict(cluster.startup["workers"])}
+        print(f"# PC1 ProcessCluster(2) started in "
+              f"{cluster.startup['wall_s']:.3f} s: " + "; ".join(
+                  f"worker {w} pid {infos[w]['pid']} on {infos[w]['device']}"
+                  f", import {t['import_s']:.3f} s, device context "
+                  f"{t['device_context_s']:.3f} s, startup "
+                  f"{t['startup_s']:.3f} s, catalog budget "
+                  f"{infos[w]['catalog_budget']} B"
+                  for w, t in sorted(cluster.startup["workers"].items()))
+              + f" [{card}]", flush=True)
+        split = out["import_split"]
+        print(f"# PC1 a third child spawned beside the workers: interpreter "
+              f"start {split['interpreter_s']:.3f} s, import torch "
+              f"{split['torch_s']:.3f} s, import the package "
+              f"{split['package_s']:.3f} s, compile chip_smoke.py "
+              f"{split['main_compile_s']:.3f} s [{card}]", flush=True)
+        if device == "cuda" and torch.cuda.device_count() == 1 and \
+                {i["device"] for i in infos} != {"cuda:0"}:
+            raise AssertionError(f"PC1: workers on {infos}, not cuda:0")
+        out["process"] = _pc1_queries("ProcessCluster(2)", cluster, small,
+                                      partitions, card, sess, hosts)
+        # -- the shuffle across the workers, each codec, kernels counted ---
+        maps = _pc1_shuffle_maps(small["lineitem"], min(
+            200_000, small["lineitem"].num_rows // 2))
+        for w in range(2):
+            cluster.run_on(w, launch_counts_task, True)
+        for i, codec in enumerate(PC1_CODECS):
+            rows = _pc1_shuffle(cluster, maps, codec, 100 + i)
+            print(f"# PC1 shuffle {codec}: {rows} rows written on both "
+                  "workers, read on worker 1 over TCP, equal; float keys on "
+                  "one partition each", flush=True)
+        launches = [cluster.run_on(w, launch_counts_task) for w in range(2)]
+        out["launches"] = [{k: c[k] for k in ("partition_ids",
+                                              "counting_order")}
+                           for c in launches]
+        print(f"# PC1 kernel launches in the workers over the three "
+              f"shuffles: {out['launches']}", flush=True)
+        if device == "cuda" and any(c[k] < 1 for c in out["launches"]
+                                    for k in c):
+            raise AssertionError(f"PC1: a worker launched no shuffle kernel:"
+                                 f" {out['launches']}")
+        # -- a DCN block from worker 0 to worker 1 -------------------------
+        addrs = [cluster.run_on(w, dcn_address_task) for w in range(2)]
+        for w in range(2):
+            cluster.run_on(w, dcn_add_peer_task, *addrs[1 - w])
+        src = HostTable.from_arrow(maps[0].slice(0, 50_000))
+        frame = serialize_table(src)
+        if cluster.run_on(0, dcn_publish_task, 7, 0, 0, frame) \
+                != src.num_rows:
+            raise AssertionError("PC1 DCN: publish rows")
+        if cluster.run_on(1, dcn_fetch_task, 7, 0, 0) != frame:
+            raise AssertionError("PC1 DCN: fetched bytes differ")
+        # -- a broadcast: one build, the other worker fetches --------------
+        build = HostTable.from_arrow(small["orders"].select(
+            ["o_orderkey", "o_custkey"]).slice(0, 20_000))
+        if cluster.run_on(0, broadcast_build_task, 1,
+                          serialize_table(build)) != (1, 0):
+            raise AssertionError("PC1 broadcast: build counts")
+        probe = HostTable.from_arrow(small["lineitem"].select(
+            ["l_orderkey"]).slice(0, 100_000).rename_columns(["o_orderkey"]))
+        keys = set(build.column("o_orderkey").values.tolist())
+        want = sum(k in keys for k in probe.column("o_orderkey").values)
+        for w, counts in ((0, (1, 0)), (1, (0, 1))):
+            joined, b, f = cluster.run_on(w, broadcast_probe_task, 1,
+                                          serialize_table(probe),
+                                          "o_orderkey")
+            if (b, f) != counts or \
+                    deserialize_table(joined).num_rows != want:
+                raise AssertionError(f"PC1 broadcast worker {w}: "
+                                     f"{(b, f)} {want}")
+        print(f"# PC1 DCN block of {src.num_rows} rows worker 0 -> worker 1: "
+              f"bytes "
+              f"equal; broadcast built once on worker 0, fetched by worker "
+              f"1, {want} probe rows matched on each", flush=True)
+        # -- the TCP rate of a 64 MiB block, per codec ---------------------
+        out["tcp"] = {}
+        for i, codec in enumerate(PC1_CODECS):
+            pub = cluster.run_on(0, pc1_block_task, 200 + i, codec,
+                                 PC1_BLOCK_BYTES)
+            got = cluster.run_on(1, pc1_fetch_task, 200 + i, 3)
+            if (got["xxh"], got["bytes"], got["rows"]) != \
+                    (pub["xxh"], pub["wire"], pub["rows"]):
+                raise AssertionError(f"PC1 TCP {codec}: {pub} vs {got}")
+            wall = min(got["walls"])
+            row = {"raw_bytes": pub["raw"], "wire_bytes": pub["wire"],
+                   "fetch_s": wall, "wire_gb_s": pub["wire"] / wall / 1e9,
+                   "raw_gb_s": pub["raw"] / wall / 1e9,
+                   "serialize_s": pub["serialize_s"],
+                   "deserialize_s": got["deserialize_s"],
+                   "end_to_end_raw_gb_s": pub["raw"] / (
+                       pub["serialize_s"] + wall + got["deserialize_s"])
+                   / 1e9}
+            out["tcp"][codec] = row
+            print(f"# PC1 TCP {codec}: {pub['raw']} raw B as {pub['wire']} "
+                  f"wire B, fetch {wall:.4f} s (best of 3) = "
+                  f"{row['wire_gb_s']:.3f} GB/s wire, {row['raw_gb_s']:.3f}"
+                  f" GB/s raw; serialise {pub['serialize_s']:.4f} s, "
+                  f"deserialise {got['deserialize_s']:.4f} s, end to end "
+                  f"{row['end_to_end_raw_gb_s']:.3f} GB/s raw [{card}]",
+                  flush=True)
+        # -- Q1 and Q3, each through an injected worker kill ---------------
+        # worker 0's injector from this point: its second task (the query's
+        # partition 0, after the partition count) kills its process. Q1's
+        # kill respawns the slot (which comes back without faults); Q3's,
+        # the slot's respawn spent, excludes it and resubmits to worker 1
+        kill = {"spark.rapids.tpu.faults.enabled": True,
+                "spark.rapids.tpu.faults.seed": 7,
+                "spark.rapids.tpu.faults.spec":
+                "worker.task:after=1:times=1:action=kill"}
+        out["kill"], out["recovery"] = {}, {}
+        for name, path in (("q1", "worker_respawns"),
+                           ("q3", "worker_exclusions")):
+            before = faults.recovery_counters()
+            cluster.run_on(0, configure_faults_task, kill)
+            out["kill"].update(_pc1_queries(
+                "ProcessCluster(2)", cluster, small, partitions, card, sess,
+                hosts, names=(name,), runs=("under a kill",)))
+            rec = {k: v - before.get(k, 0)
+                   for k, v in faults.recovery_counters().items()
+                   if v - before.get(k, 0)}
+            out["recovery"][name] = rec
+            print(f"# PC1 recovery in {name} under the kill: {rec}; live "
+                  f"workers after it {cluster.live_workers()}; worker 0's "
+                  f"startup "
+                  f"{cluster.startup['workers'][0]['startup_s']:.3f} s "
+                  f"[{card}]", flush=True)
+            if rec.get("worker_deaths", 0) < 1 or rec.get(path, 0) < 1 or \
+                    rec.get("task_resubmissions", 0) < 1:
+                raise AssertionError(f"PC1 {name}: the kill did not take "
+                                     f"the {path} path: {rec}")
+        out["respawn_startup"] = dict(cluster.startup["workers"])
+    # -- LocalCluster(2) on the same tables -----------------------------------
+    local = {}
+    queries = _mx_queries(small, small["lineitem"], None)
+    with LocalCluster(2, sess.conf, device=sess.device) as lc:
+        for name in ("q1", "q3"):
+            q = queries[name][1](sess, partitions)
+            host, _ = _host_collect(q)
+            walls = []
+            for run in ("cold", "warm"):
+                t0 = time.perf_counter()
+                got = lc.run(q)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                _compare_tpch(name, got, host, f"PC1 LocalCluster {name}")
+            local[name] = walls
+            print(f"# PC1 LocalCluster(2) {name}: cold {walls[0]:.3f} s, "
+                  f"warm {walls[1]:.3f} s, equal to the host engine [{card}]",
+                  flush=True)
+    out["local"] = local
+    # -- lz4 on a lineitem batch ---------------------------------------------
+    body = serialize_table(HostTable.from_arrow(li.slice(0, 1 << 20)))[28:]
+    comp_s, dec_s, comp = [], [], b""
+    for _ in range(3):
+        t0 = time.perf_counter()
+        comp = host_native.lz4_compress(body)
+        comp_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = host_native.lz4_decompress(comp, len(body))
+        dec_s.append(time.perf_counter() - t0)
+    if back != body:
+        raise AssertionError("PC1 lz4: round trip differs")
+    out["lz4"] = {"bytes": len(body), "ratio": len(body) / len(comp),
+                  "compress_mb_s": len(body) / min(comp_s) / 1e6,
+                  "decompress_mb_s": len(body) / min(dec_s) / 1e6}
+    print(f"# PC1 lz4 on a 2^20-row lineitem batch ({len(body)} B, ratio "
+          f"{out['lz4']['ratio']:.3f}): compress "
+          f"{out['lz4']['compress_mb_s']:.1f} MB/s, decompress "
+          f"{out['lz4']['decompress_mb_s']:.1f} MB/s (best of 3, one host "
+          f"thread) [{card}]", flush=True)
+    return out
+
+
 def _shuffle_kernel_lines(timings: dict, launches: dict) -> list:
     """The two shuffle kernels' entries, at 2^20 rows: partition_ids over
     one int64 key (Q3's keys), counting_order over P = MX_SHARDS
@@ -6499,11 +6891,16 @@ def main() -> int:
     phase_s["MX2"] = time.perf_counter() - t0
     quiet.check("MX2")
     t0 = time.perf_counter()
-    small = tpch.gen_all(0.1)
+    small = tpch.gen_all(PC1_SF)
     mx3_phase(small, jtables, li, args.partitions)
-    del small
     phase_s["MX3"] = time.perf_counter() - t0
     quiet.check("MX3")
+    # -- executors as processes: ProcessCluster(2) on the card -------------
+    t0 = time.perf_counter()
+    pc1 = pc1_phase(small, li, args.partitions, card)
+    del small
+    phase_s["PC1"] = time.perf_counter() - t0
+    quiet.check("PC1")
     # -- decimals: Q1 and Q6 over DECIMAL(12,2), a wide key, Parquet -------
     t0 = time.perf_counter()
     d128_runs = decimal_query_phase(li, args.partitions)
@@ -6605,6 +7002,7 @@ def main() -> int:
             k: max(wink["max_abs_err"][k], winm["max_abs_err"][k])
             for k in winm["max_abs_err"]}),
         *_shuffle_kernel_lines(shk, mx1["launches"])]}), flush=True)
+    print("# PC1 summary: " + json.dumps(pc1, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

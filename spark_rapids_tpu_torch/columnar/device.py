@@ -39,8 +39,8 @@ from .host import HostColumn, HostTable, decimal_words
 __all__ = ["BucketPolicy", "DeviceColumn", "DeviceTable", "append_column",
            "as_torch_dtype", "bucket_rows", "bucket_width", "drop_column",
            "concat_device_tables", "pack_string_key_words", "shrink_to_fit",
-           "slice_rows", "stable_partition_order", "to_host_batched",
-           "torch_dtype"]
+           "resolve_device", "slice_rows", "stable_partition_order",
+           "to_host_batched", "torch_dtype"]
 
 _TORCH_DTYPES = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
                  np.dtype(np.int16): torch.int16,
@@ -66,6 +66,20 @@ def torch_dtype(d: dt.DataType) -> torch.dtype:
     if isinstance(d, dt.BinaryType):
         raise TypeError(f"{d!r} columns are not ported to the device yet")
     return as_torch_dtype(d.np_dtype())
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` (default ``"cuda"``) as a ``torch.device``: the engine's
+    entry points run on the card unless the caller asks for the CPU, and a
+    CUDA device on a machine without one raises, naming ``who``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device is available; pass device='cpu' to run "
+            "the engine on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: unsupported device {device!r}")
+    return dev
 
 
 def stable_partition_order(mask: torch.Tensor) -> torch.Tensor:

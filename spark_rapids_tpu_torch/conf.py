@@ -20,7 +20,6 @@ _REGISTRY: "Dict[str, ConfEntry]" = {}
 
 #: The open steps of ROADMAP Queue 1, by name: messages name the step that
 #: will port a feature by these, never by a number a re-anchor changes.
-STEP_MULTI_PROCESS = "multi-GPU across processes"
 STEP_BREADTH = "breadth"
 
 
@@ -505,16 +504,12 @@ def _one_of(*values):
     return check
 
 
-def _codec_check(native: tuple):
-    """The JAX package's values; the native ones raise until the step of
-    the cross-process tier brings the native codec."""
+def _codec_check(*values):
+    """One of ``values`` in any case, stored in lower case (the JAX
+    package's shuffle codec check)."""
     def check(v):
-        v = v.lower()
-        if v in native:
-            raise NotImplementedError(
-                f"codec {v!r} needs the native library, not ported yet "
-                f"{not_ported(STEP_MULTI_PROCESS)}")
-        return _one_of("none", "zlib", *native)(v)
+        return _one_of(*values)(v.lower())
+    check.normalize = str.lower
     return check
 
 
@@ -551,9 +546,10 @@ SHUFFLE_CACHE_WRITES = register_conf(
 
 SHUFFLE_COMPRESSION_CODEC = register_conf(
     "spark.rapids.shuffle.compression.codec",
-    "Codec for shuffle payloads: none or zlib (lz4 and zstd need the native "
-    "library).", "none", checker=_codec_check(("zstd", "lz4")))
-SHUFFLE_COMPRESSION_CODEC.checker.normalize = str.lower
+    "Codec for shuffle payloads: lz4 (the host native library's LZ4 block "
+    "codec, reference nvcomp LZ4), zlib, or none; zstd, which the serializer "
+    "does not have, takes lz4, as in the JAX package.", "none",
+    checker=_codec_check("none", "zlib", "zstd", "lz4"))
 
 MAX_METADATA_SIZE = register_conf(
     "spark.rapids.shuffle.maxMetadataSize",
@@ -572,9 +568,9 @@ SHUFFLE_TRANSPORT_CLASS = register_conf(
 CACHE_COMPRESS_CODEC = register_conf(
     "spark.rapids.tpu.cache.compressionCodec",
     "Codec for the host-side df.cache() storage: 'none' keeps live tables, "
-    "'zlib' stores compressed serialized frames (lz4 needs the native "
-    "library). The device cache is spillable either way.", "none",
-    checker=_codec_check(("lz4",)))
+    "'zlib'/'lz4' store compressed serialized frames. The device cache is "
+    "spillable either way.", "none",
+    checker=_one_of("none", "zlib", "lz4"))
 
 PIPELINE_ENABLED = register_conf(
     "spark.rapids.tpu.pipeline.enabled",
@@ -594,29 +590,120 @@ PIPELINE_TASK_POOL = register_conf(
     "task semaphore for its drain).", 4, checker=_positive("task pool"))
 
 
+# -- the multi-GPU tier across processes: the TCP transport, ProcessCluster
+# and the shuffle observatory ------------------------------------------------
+TCP_CHUNK_BYTES = register_conf(
+    "spark.rapids.tpu.shuffle.tcp.chunkBytes",
+    "Window size for serving shuffle blocks over the TCP transport: a "
+    "block streams in fixed-size chunks instead of one send (reference: "
+    "BufferSendState bounce-buffer windows, RapidsShuffleServer.scala:70).",
+    1 << 20, checker=_positive("chunk bytes"))
+
+MAX_RECEIVE_INFLIGHT = register_conf(
+    "spark.rapids.shuffle.transport.maxReceiveInflightBytes",
+    "Receive-side throttle: total bytes of shuffle blocks in flight "
+    "(being fetched or fetched-but-unconsumed) at one time (reference: "
+    "RapidsConf.scala:1064).", 64 << 20,
+    checker=_positive("max receive inflight bytes"))
+
+HOST_STORE_BYTES = register_conf(
+    "spark.rapids.tpu.shuffle.host.storeBytes",
+    "In-memory budget for published shuffle blocks on the TCP transport; "
+    "overflow spills oldest-first to local disk and is served from there.",
+    256 << 20, checker=_positive("host store bytes"))
+
+TCP_CONNECT_TIMEOUT = register_conf(
+    "spark.rapids.tpu.shuffle.tcp.connectTimeout",
+    "Seconds to wait for a TCP connect to a shuffle peer before the "
+    "attempt counts as a transient failure (retried with backoff).",
+    10.0, checker=_positive("connect timeout"))
+
+TCP_READ_TIMEOUT = register_conf(
+    "spark.rapids.tpu.shuffle.tcp.readTimeout",
+    "Per-socket-operation read timeout (seconds) on shuffle connections, "
+    "client and server side.", 30.0, checker=_positive("read timeout"))
+
+TCP_RETRY_ATTEMPTS = register_conf(
+    "spark.rapids.tpu.shuffle.tcp.retryAttempts",
+    "Attempts per peer for one ranged shuffle request. Transient socket "
+    "errors are retried with exponential backoff and jitter; a peer "
+    "answering 'block not found' is definitive and never retried.",
+    4, checker=_positive("retry attempts"))
+
+TCP_RETRY_BACKOFF_MS = register_conf(
+    "spark.rapids.tpu.shuffle.tcp.retryBackoffMs",
+    "Base backoff (milliseconds) between transient-error retries; grows "
+    "exponentially per attempt with +/-50% jitter.",
+    50.0, checker=_positive("retry backoff"))
+
+TCP_RETRY_MAX_BACKOFF_MS = register_conf(
+    "spark.rapids.tpu.shuffle.tcp.retryMaxBackoffMs",
+    "Cap (milliseconds) on the exponential retry backoff.",
+    1000.0, checker=_positive("max backoff"))
+
+TCP_MAX_PROVIDER_RETRIES = register_conf(
+    "spark.rapids.tpu.shuffle.host.maxProviderRetries",
+    "Times a lazy block provider that raised may be re-registered for "
+    "another request before the block reports missing.",
+    3, checker=_positive("provider retries"))
+
+TASK_TIMEOUT = register_conf(
+    "spark.rapids.tpu.task.timeout",
+    "Default seconds a ProcessCluster task may run before the driver gives "
+    "up and raises TaskTimeoutError with worker forensics (last heartbeat "
+    "age, pending-queue depth). Per-call override via run_on(timeout_s=...).",
+    300.0, checker=_positive("task timeout"))
+
+TASK_MAX_FAILURES = register_conf(
+    "spark.rapids.tpu.task.maxFailures",
+    "Times a task may be attempted across worker deaths before the driver "
+    "fails it with TaskFailedError (tasks are re-attempted only on worker "
+    "loss, never on application errors, which fail fast).",
+    4, checker=_positive("max failures"))
+
+TASK_RESPAWN_WORKERS = register_conf(
+    "spark.rapids.tpu.task.respawnWorkers",
+    "Replace a worker process that died on its own (crash, injected kill, "
+    "heartbeat wedge) with a fresh one on the same slot. Deliberate "
+    "ProcessCluster.kill() always excludes the slot instead.", True)
+
+TASK_MAX_WORKER_RESPAWNS = register_conf(
+    "spark.rapids.tpu.task.maxWorkerRespawns",
+    "Respawns allowed per worker slot before the slot is excluded from "
+    "the cluster.", 2)
+
+TASK_HEARTBEAT_INTERVAL = register_conf(
+    "spark.rapids.tpu.task.heartbeatInterval",
+    "Seconds between worker heartbeat records on the result queue.",
+    2.0, checker=_positive("heartbeat interval"))
+
+TASK_HEARTBEAT_TIMEOUT = register_conf(
+    "spark.rapids.tpu.task.heartbeatTimeout",
+    "Seconds of heartbeat silence (measured only while the driver is "
+    "waiting on a task) before a live worker process is declared wedged, "
+    "recycled, and its tasks resubmitted.",
+    60.0, checker=_positive("heartbeat timeout"))
+
+SHUFFLE_TELEMETRY_ENABLED = register_conf(
+    "spark.rapids.tpu.shuffle.telemetry.enabled",
+    "Enable the shuffle observatory (shuffle/telemetry.py): every transfer "
+    "on every shuffle tier (ici/local/cached/transport/dcn) is recorded "
+    "with phase walls, logical and wire bytes, retries and publish-queue "
+    "depth. When false (the default) every hook is one module-constant "
+    "check and nothing is recorded.", False)
+
+SHUFFLE_TELEMETRY_RING_SIZE = register_conf(
+    "spark.rapids.tpu.shuffle.telemetry.ringSize",
+    "Bounded capacity of the shuffle observatory's raw-event ring. Oldest "
+    "events drop first; the per-(query, shuffle, tier) aggregation is exact "
+    "regardless.", 4096, checker=_positive("ring size"))
+
+
 #: Every key the JAX package registers that this engine does not read yet,
 #: with the JAX default, by the ROADMAP Queue 1 step that will read it. The
 #: port keeps its own copy (it imports nothing of the JAX package);
 #: tests/test_torch_conf.py holds it equal to the JAX registry.
 _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
-    STEP_MULTI_PROCESS: {  # the TCP transport, ProcessCluster
-        "spark.rapids.tpu.shuffle.host.maxProviderRetries": 3,
-        "spark.rapids.tpu.shuffle.host.storeBytes": 256 * 1024 ** 2,
-        "spark.rapids.tpu.shuffle.tcp.chunkBytes": 1024 ** 2,
-        "spark.rapids.tpu.shuffle.tcp.connectTimeout": 10.0,
-        "spark.rapids.tpu.shuffle.tcp.readTimeout": 30.0,
-        "spark.rapids.tpu.shuffle.tcp.retryAttempts": 4,
-        "spark.rapids.tpu.shuffle.tcp.retryBackoffMs": 50.0,
-        "spark.rapids.tpu.shuffle.tcp.retryMaxBackoffMs": 1000.0,
-        "spark.rapids.shuffle.transport.maxReceiveInflightBytes":
-            64 * 1024 ** 2,
-        "spark.rapids.tpu.task.timeout": 300.0,
-        "spark.rapids.tpu.task.maxFailures": 4,
-        "spark.rapids.tpu.task.respawnWorkers": True,
-        "spark.rapids.tpu.task.maxWorkerRespawns": 2,
-        "spark.rapids.tpu.task.heartbeatInterval": 2.0,
-        "spark.rapids.tpu.task.heartbeatTimeout": 60.0,
-    },
     STEP_BREADTH: {  # readers and the parquet writer, float and agg
         # modes, planner, UDFs, compile cache, observability
         "spark.rapids.tpu.parquet.deviceWrite.enabled": True,
@@ -673,8 +760,6 @@ _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
         "spark.rapids.tpu.health.stallTimeout": 120.0,
         "spark.rapids.tpu.movement.enabled": False,
         "spark.rapids.tpu.movement.ringSize": 4096,
-        "spark.rapids.tpu.shuffle.telemetry.enabled": False,
-        "spark.rapids.tpu.shuffle.telemetry.ringSize": 4096,
     },
 }
 #: string keys the JAX package compares in lower case

@@ -15,6 +15,7 @@ partition ``i`` = mesh shard ``i`` (shuffle/ici.py ``mesh_exchange``).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Iterator, List, Optional, Tuple
@@ -24,6 +25,7 @@ import torch
 from ..columnar.device import (DeviceColumn, DeviceTable, bucket_rows,
                                concat_device_tables, shrink_to_fit)
 from ..plan.physical import HashPartitioning, PhysicalPlan
+from ..shuffle import telemetry
 from .base import TpuExec
 
 __all__ = ["TpuLocalExchangeExec", "TpuShuffleExchangeExec",
@@ -33,6 +35,8 @@ __all__ = ["TpuLocalExchangeExec", "TpuShuffleExchangeExec",
 SHUFFLE_BYTES = "shuffleBytes"
 EXCHANGE_CHUNKS = "exchangeChunks"
 EXCHANGE_SECONDS = "exchangeSeconds"
+#: the shuffle observatory's ids of device exchanges (shuffle/telemetry.py)
+_EXCHANGE_IDS = itertools.count()
 
 
 class TpuLocalExchangeExec(TpuExec):
@@ -45,6 +49,7 @@ class TpuLocalExchangeExec(TpuExec):
         self.schema = child.schema
         self._batches: Optional[List[DeviceTable]] = None
         self._mat_lock = threading.Lock()
+        self.telemetry_sid = next(_EXCHANGE_IDS)
 
     @property
     def num_partitions(self) -> int:
@@ -72,7 +77,11 @@ class TpuLocalExchangeExec(TpuExec):
             counts = torch.stack([b.num_rows for b in batches]).tolist()
             for b, n in zip(batches, counts):
                 if n:
-                    out.append(shrink_to_fit(b, self.min_bucket, num_rows=n))
+                    shrunk = shrink_to_fit(b, self.min_bucket, num_rows=n)
+                    telemetry.note_transfer(
+                        "local", "enqueue", shuffle_id=self.telemetry_sid,
+                        partition=p, logical_bytes=shrunk.nbytes)
+                    out.append(shrunk)
                     self.account_batch(n)
         return out
 
@@ -145,6 +154,7 @@ class TpuShuffleExchangeExec(TpuExec):
         self._skew_rows: Optional[List[int]] = None
         self._skew_bytes: Optional[List[int]] = None
         self._mat_lock = threading.Lock()
+        self.telemetry_sid = next(_EXCHANGE_IDS)
 
     @property
     def num_partitions(self) -> int:
@@ -259,6 +269,10 @@ class TpuShuffleExchangeExec(TpuExec):
         chunk_nbytes = table.nbytes()
         self.metrics[SHUFFLE_BYTES] += chunk_nbytes
         self.metrics[EXCHANGE_CHUNKS] += 1
+        # the observatory's enqueue bytes are the shuffleBytes metric's
+        telemetry.note_transfer("ici", "enqueue",
+                                shuffle_id=self.telemetry_sid,
+                                logical_bytes=chunk_nbytes)
         per_shard = bucket_rows(max(1, -(-table.capacity // n)),
                                 self.min_bucket)
         table = pad_table_capacity(table, per_shard * n)
@@ -279,7 +293,13 @@ class TpuShuffleExchangeExec(TpuExec):
             quota = min(per_shard, bucket_rows(max(max_cnt, 1),
                                                self.min_bucket))
             self.quotas.append(quota)
+            t_dispatch = telemetry.clock()
             exchanged = mesh_exchange(sharded, keys, quota, plans)
+            # wire bytes: the padded sharded input the copies move
+            telemetry.note_transfer("ici", "dispatch",
+                                    shuffle_id=self.telemetry_sid,
+                                    t0=t_dispatch, queue_depth=n,
+                                    wire_bytes=sharded.nbytes)
             del sharded, plans
             shard_rows = [sum(row[d] for row in counts) for d in range(n)]
             if self._keep_sharded and self._sharded_chunks:

@@ -31,6 +31,7 @@ import torch
 from ..columnar.device import DeviceTable, shrink_to_fit
 from ..conf import MESH_STAGE_ENABLED
 from ..plan.meta import replace_children
+from ..shuffle import telemetry
 from ..utils import faults
 from .aggregate import TpuHashAggregateExec
 from .base import TpuExec
@@ -192,6 +193,7 @@ class TpuMeshStageExec(TpuExec):
             raise InjectedDeviceFailure("injected mesh-stage dispatch "
                                         "failure (mesh.dispatch)")
         fns = [node.batch_fn() for node in self.chain]
+        t0 = telemetry.clock()
         out = []
         for shard in chunk.shards:
             with _device_guard(shard.device):
@@ -200,6 +202,9 @@ class TpuMeshStageExec(TpuExec):
                     t = f(t)
             out.append(t)
             self.metrics[MESH_DISPATCHES] += 1
+        telemetry.note_transfer(
+            "ici", "mesh_stage", shuffle_id=self.exchange.telemetry_sid,
+            t0=t0, queue_depth=len(chunk.shards), wire_bytes=chunk.nbytes)
         return out
 
 

@@ -30,13 +30,12 @@ Queue 1: breadth).
 """
 from __future__ import annotations
 
-import heapq
 import itertools
 import threading
 import traceback
 import warnings
 from collections import deque
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -46,6 +45,7 @@ from ..conf import (DEVICE_POOL_BYTES, DEVICE_POOL_FRACTION,
                     DISK_SPILL_CHECKSUM, DISK_SPILL_DIRECT,
                     HOST_SPILL_STORAGE_SIZE, MEMORY_DEBUG, OOM_SPILL_ENABLED,
                     RapidsConf)
+from ..host_native import HashedPriorityQueue
 from ..utils.memprof import active as _memprof
 from .stores import (DeviceStore, DiskStore, HostStore, StorageTier,
                      StoredTable, _host_arrays_to_table,
@@ -73,40 +73,6 @@ class SpillPriorities:
     OUTPUT_FOR_SHUFFLE = 10
     BROADCAST = 50
     ACTIVE_ON_DECK = 100
-
-
-class _SpillQueue:
-    """Pop-lowest-priority queue with removal by handle (the JAX package's
-    ``native.HashedPriorityQueue``): a heap of ``(priority, handle)`` with
-    lazy deletion. Handles grow, so equal priorities pop oldest push
-    first, as the JAX queue's ordered map pops them."""
-
-    def __init__(self):
-        self._heap: List[Tuple[int, int]] = []
-        self._entries: Dict[int, Tuple[int, int]] = {}
-        self._next = 1
-
-    def push(self, priority: int, payload: int) -> int:
-        h = self._next
-        self._next += 1
-        self._entries[h] = (priority, payload)
-        heapq.heappush(self._heap, (priority, h))
-        return h
-
-    def remove(self, handle: int) -> bool:
-        return self._entries.pop(handle, None) is not None
-
-    def pop(self) -> Optional[Tuple[int, int]]:
-        """-> (priority, payload) of the lowest entry, or None."""
-        while self._heap:
-            _, h = heapq.heappop(self._heap)
-            entry = self._entries.pop(h, None)
-            if entry is not None:
-                return entry
-        return None
-
-    def __len__(self) -> int:
-        return len(self._entries)
 
 
 def _device_memory_bytes(device: Optional[torch.device]) -> int:
@@ -142,7 +108,9 @@ class BufferCatalog:
                               direct=bool(conf.get(DISK_SPILL_DIRECT)),
                               checksum=bool(conf.get(DISK_SPILL_CHECKSUM)))
         self._buffers: Dict[int, StoredTable] = {}
-        self._spill_pq = _SpillQueue()
+        # spill order (reference: RapidsBufferStore's HashedPriorityQueue):
+        # lowest priority first, equal priorities oldest first
+        self._spill_pq = HashedPriorityQueue()
         self._pq_handles: Dict[int, int] = {}  # buffer_id -> queue handle
         self._ids = itertools.count()
         self._lock = threading.RLock()

@@ -1,2 +1,2 @@
-"""Mesh topology, the pipelined executor and the in-process executor
-runtime."""
+"""Mesh topology, the pipelined executor and the executor runtime: in one
+process (``LocalCluster``) and as processes (``ProcessCluster``)."""

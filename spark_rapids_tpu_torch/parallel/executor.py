@@ -9,7 +9,9 @@
   dead, once, to every listener.
 
 Executors of one process on one card share the process's spill catalog
-(memory/catalog.py): the card's memory is one budget.
+(memory/catalog.py): the card's memory is one budget. An executor runs on
+the card (``"cuda"``) unless the caller asks for another device, and raises
+without a CUDA device, as ``TorchSession`` does.
 """
 from __future__ import annotations
 
@@ -17,8 +19,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-import torch
-
+from ..columnar.device import resolve_device
 from ..conf import CONCURRENT_GPU_TASKS, RapidsConf
 from ..memory.semaphore import TaskSemaphore
 from ..shuffle.manager import ShuffleManager
@@ -28,18 +29,21 @@ __all__ = ["ExecutorContext", "FailureDetector"]
 
 class ExecutorContext:
     """What one executor owns: its device, the spill catalog, an admission
-    semaphore and a shuffle manager."""
+    semaphore, a shuffle manager, a broadcast manager and (made on first
+    use) a DCN-tier transport."""
 
     def __init__(self, executor_id: int, conf: Optional[RapidsConf] = None,
                  transport=None, device=None, buffer_catalog=None):
         self.executor_id = executor_id
         self.conf = conf or RapidsConf()
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device, "ExecutorContext")
         self._transport = transport
         self._buffer_catalog = buffer_catalog
         self.catalog = None
         self.semaphore: Optional[TaskSemaphore] = None
         self.shuffle: Optional[ShuffleManager] = None
+        self.broadcast = None
+        self._dcn = None
         self.initialized = False
 
     def initialize(self) -> "ExecutorContext":
@@ -51,14 +55,36 @@ class ExecutorContext:
         self.shuffle = ShuffleManager(self.conf, self._transport, self.device,
                                       self._buffer_catalog)
         self.shuffle.heartbeats.register(self.executor_id)
+        # a broadcast materialises once and re-materialises from the
+        # transport on every other executor (reference:
+        # GpuBroadcastExchangeExec.scala:336-345)
+        from ..shuffle.broadcast import BroadcastManager
+        self.broadcast = BroadcastManager(
+            self.shuffle.transport, self.catalog, self.conf.min_bucket_rows,
+            self.device)
         self.initialized = True
         return self
+
+    def dcn_transport(self):
+        """The DCN-tier transport, made on first use: blocks stay resident
+        on this executor's device, host bytes only on the TCP wire
+        (shuffle/dcn.py ``TcpDcnShuffleTransport``)."""
+        if self._dcn is None:
+            from ..shuffle.dcn import TcpDcnShuffleTransport
+            self._dcn = TcpDcnShuffleTransport(self.conf, self.device,
+                                               self.catalog)
+        return self._dcn
 
     def heartbeat(self) -> None:
         if self.shuffle is not None:
             self.shuffle.heartbeats.heartbeat(self.executor_id)
 
     def shutdown(self) -> None:
+        if self._dcn is not None:
+            self._dcn.close()
+            self._dcn = None
+        if self.broadcast is not None:
+            self.broadcast.close()
         if self.shuffle is not None:
             self.shuffle.unregister_all()
             if self._transport is None:  # only a transport made here

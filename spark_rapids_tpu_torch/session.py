@@ -29,7 +29,8 @@ import pyarrow as pa
 import torch
 
 from .columnar import dtypes as dt
-from .columnar.device import DeviceTable, concat_device_tables, shrink_to_fit
+from .columnar.device import (DeviceTable, concat_device_tables,
+                              resolve_device, shrink_to_fit)
 from .conf import AQE_ENABLED, RapidsConf
 from .exec.transitions import DeviceToHostExec
 from .expr.base import Alias, AttributeReference, Expression, Literal
@@ -74,13 +75,7 @@ class TorchSession:
         if isinstance(conf, dict):
             conf = RapidsConf(conf)
         self.conf = conf or RapidsConf()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchSession: no CUDA device is available; pass "
-                "device='cpu' to run the engine on the CPU")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"TorchSession: unsupported device {device!r}")
+        self.device = resolve_device(device, "TorchSession")
         from .exec.fallback import configure_fallback
         from .memory.catalog import bind_catalog
         from .memory.retry import configure_oom_retry
@@ -93,6 +88,10 @@ class TorchSession:
         # fault injection: install or clear the process-wide injector
         # behind the named fault points (None unless faults.enabled)
         configure_faults(self.conf)
+        # the shuffle observatory: install or clear the process-wide
+        # per-tier transfer telemetry (None unless telemetry.enabled)
+        from .shuffle.telemetry import configure_shuffle_telemetry
+        configure_shuffle_telemetry(self.conf)
         # the OOM ladder's bounds and arbitration
         configure_oom_retry(self.conf)
         # the runtime host fallback and the operator quarantine store

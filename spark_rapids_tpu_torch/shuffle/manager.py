@@ -36,9 +36,11 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.device import DeviceColumn, DeviceTable, pack_string_key_words
+from ..columnar.device import (DeviceColumn, DeviceTable,
+                               pack_string_key_words, resolve_device)
 from ..conf import STEP_BREADTH, not_ported
 from ..native import launch
+from . import telemetry
 
 __all__ = ["MASK32", "fmix_device", "mul32", "string_key_hash",
            "column_key_hash", "device_partition_ids", "partition_ids",
@@ -417,10 +419,15 @@ class ShuffleManager:
                             SHUFFLE_COMPRESSION_CODEC, RapidsConf)
         from .buffer_catalog import ShuffleBufferCatalog
         from .transport import LocalShuffleTransport, load_transport
+        from .serializer import default_codec
         self.conf = conf or RapidsConf()
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device, "ShuffleManager")
         self.transport = transport or load_transport(self.conf)
         self.codec = self.conf.get(SHUFFLE_COMPRESSION_CODEC)
+        if self.codec not in ("none", "zlib"):
+            # lz4 through the host library (zstd, which the serializer does
+            # not have, takes it too, as in the JAX package)
+            self.codec = default_codec()
         self.max_inflight_bytes = self.conf.get(MAX_METADATA_SIZE)
         self._ids = itertools.count()
         self._skew_lock = threading.Lock()
@@ -507,8 +514,18 @@ class ShuffleManager:
                 table = schema_host.slice(0, 0)
             else:  # the map task saw no batch: a typed-empty marker
                 table = HostTable([], [])
+            t0 = telemetry.clock()
             payload = serialize_table(table, self.codec)
+            telemetry.note_transfer(
+                "transport", "serialize", shuffle_id=shuffle_id,
+                map_id=map_id, partition=p, t0=t0,
+                logical_bytes=lambda: table.nbytes(),
+                wire_bytes=len(payload))
+            t1 = telemetry.clock()
             self.transport.publish(BlockId(shuffle_id, map_id, p), payload)
+            telemetry.note_transfer(
+                "transport", "publish", shuffle_id=shuffle_id,
+                map_id=map_id, partition=p, t0=t1, wire_bytes=len(payload))
             return len(payload)
 
         sizes = parallel_map(publish, range(num_parts),
@@ -544,8 +561,13 @@ class ShuffleManager:
                                                     device=self.device),
                                     torch.zeros((), dtype=torch.int32,
                                                 device=self.device), ())
+            t0 = telemetry.clock()
             self.buffer_catalog.put((shuffle_id, map_id, p), table)
             sizes[p] = table.nbytes()
+            telemetry.note_transfer(
+                "cached", "publish", shuffle_id=shuffle_id, map_id=map_id,
+                partition=p, t0=t0, logical_bytes=sizes[p],
+                wire_bytes=sizes[p])
         _bump(blocks_published=num_parts, bytes_published=sum(sizes),
               writes_cached_tier=1)
         self._bump_skew(shuffle_id, part_rows, sizes)
@@ -586,23 +608,35 @@ class ShuffleManager:
                 if faults.fire("shuffle.fetch") not in (None, "delay"):
                     raise ShuffleFetchFailedException(
                         pending[0], "injected fault 'shuffle.fetch'")
+                t_fetch = telemetry.clock()
                 for bid, payload in self.transport.fetch(pending):
+                    telemetry.note_transfer(
+                        "transport", "fetch", shuffle_id=shuffle_id,
+                        map_id=bid[1], partition=reduce_id,
+                        wire_bytes=len(payload), t0=t_fetch,
+                        retries=1 if bid[1] in retried else 0,
+                        queue_depth=len(pending))
+                    t_des = telemetry.clock()
                     host = deserialize_table(payload)
+                    telemetry.note_transfer(
+                        "transport", "deserialize", shuffle_id=shuffle_id,
+                        map_id=bid[1], partition=reduce_id, t0=t_des,
+                        logical_bytes=host.nbytes)
                     fetched += 1
                     fetched_bytes += len(payload)
                     pending = pending[pending.index(bid) + 1:]
                     if host.num_columns and schema_t is None:
                         schema_t = host
-                    if not (host.num_columns and host.num_rows):
-                        continue
-                    group.append(host)
-                    group_bytes += len(payload)
+                    if host.num_columns and host.num_rows:
+                        group.append(host)
+                        group_bytes += len(payload)
                     if group_bytes >= self.max_inflight_bytes:
                         # the throttle: the fetched bytes held on the host
                         # stay under maxMetadataSize
                         yield upload(group)
                         uploaded = True
                         group, group_bytes = [], 0
+                    t_fetch = telemetry.clock()
                 break
             except ShuffleFetchFailedException as e:
                 map_id = e.block[1]
@@ -657,7 +691,11 @@ class ShuffleManager:
                         bid, "block missing after corruption recompute") \
                         from e
                 t = fresh.get()
-            fetched_bytes += t.nbytes()
+            nb = t.nbytes()
+            telemetry.note_transfer(
+                "cached", "fetch", shuffle_id=shuffle_id, map_id=m,
+                partition=reduce_id, logical_bytes=nb, wire_bytes=nb)
+            fetched_bytes += nb
             if t.num_columns:
                 tables.append(t)
         _bump(blocks_fetched=num_maps, bytes_fetched=fetched_bytes,

@@ -9,9 +9,9 @@ Framed binary format (little-endian)::
 The body (compressed by the codec) is a u32-length JSON header and the raw
 column buffers. Strings travel as int32 offsets + concatenated UTF-8 bytes
 (dense), a wide decimal as two int64 limbs a value (low limb first), the
-rest as their numpy buffers; validity as packed bits. Codecs: ``none`` and
-``zlib``; ``lz4`` needs the native library (ROADMAP Queue 1: multi-GPU
-across processes) and raises.
+rest as their numpy buffers; validity as packed bits. Codecs: ``none``,
+``zlib`` and ``lz4`` (the LZ4 block codec of the host native library,
+``host_native.py``, whose bytes are the JAX package's).
 """
 from __future__ import annotations
 
@@ -25,9 +25,8 @@ import numpy as np
 
 from ..columnar import dtypes as dt
 from ..columnar.host import HostColumn, HostTable
-from ..conf import STEP_MULTI_PROCESS, not_ported
 
-__all__ = ["serialize_table", "deserialize_table", "CODECS"]
+__all__ = ["serialize_table", "deserialize_table", "CODECS", "default_codec"]
 
 _MAGIC = b"SRTT"
 _VERSION = 3
@@ -37,11 +36,16 @@ _CODEC_BY_ID = {v: k for k, v in CODECS.items()}
 _MASK64 = (1 << 64) - 1
 
 
+def default_codec() -> str:
+    """The codec a shuffle manager takes for a codec the serializer does
+    not have (``zstd``), as the JAX package's: lz4, through the host
+    library, which must build (it raises otherwise)."""
+    from ..host_native import load_host_native
+    load_host_native()
+    return "lz4"
+
+
 def _check_codec(codec: str) -> None:
-    if codec == "lz4":
-        raise NotImplementedError(
-            "the lz4 codec needs the native library, not ported yet "
-            f"{not_ported(STEP_MULTI_PROCESS)}")
     if codec not in CODECS:
         raise ValueError(f"unknown codec {codec!r}")
 
@@ -99,6 +103,9 @@ def serialize_table(table: HostTable, codec: str = "none") -> bytes:
     raw_len = len(body)
     if codec == "zlib":
         body = zlib.compress(body, level=1)
+    elif codec == "lz4":
+        from ..host_native import lz4_compress
+        body = lz4_compress(body)
     buf = io.BytesIO()
     buf.write(_MAGIC)
     buf.write(struct.pack("<II", _VERSION, CODECS[codec]))
@@ -114,12 +121,14 @@ def deserialize_table(data: bytes) -> HostTable:
     if version != _VERSION:
         raise ValueError(f"serialized table version {version}, expected "
                          f"{_VERSION}")
-    length, _raw_len = struct.unpack_from("<QQ", data, 12)
+    length, raw_len = struct.unpack_from("<QQ", data, 12)
     body = data[28:28 + length]
     codec = _CODEC_BY_ID[codec_id]
-    _check_codec(codec)
     if codec == "zlib":
         body = zlib.decompress(body)
+    elif codec == "lz4":
+        from ..host_native import lz4_decompress
+        body = lz4_decompress(body, raw_len)
     (hlen,) = struct.unpack_from("<I", body, 0)
     header = json.loads(body[4:4 + hlen])
     pos = 4 + hlen

@@ -3,11 +3,12 @@
 
 Named fault points are threaded through the engine's failure surfaces
 (spill-store write and read, the host-to-device upload, the retry ladder's
-dispatch and upload scopes); a deterministic, seeded spec fires them in
-tests and in ``chip_smoke.py``'s pressure phases. Points that only the
-multi-GPU step reaches (``shuffle.*``, ``tcp.*``, ``dcn.*``,
-``worker.task``, ``mesh.dispatch``) are accepted in a spec, as in the JAX
-package, so one spec serves both; nothing evaluates them yet.
+dispatch and upload scopes, the shuffle manager's publish and fetch, the
+TCP transport's connect and read, the DCN tier's publish and fetch, a
+``ProcessCluster`` worker's task and a mesh stage's dispatch); a
+deterministic, seeded spec fires them in tests and in ``chip_smoke.py``'s
+pressure and process phases. A ``ProcessCluster`` worker configures its
+injector with its worker id as a seed offset.
 
 Cost: a module-level ``_INJECTOR`` that is ``None`` when disabled, so every
 ``fire()`` on a hot path pays one global load and an is-None check.
@@ -58,19 +59,19 @@ __all__ = [
 #: reference these: a mistyped point is a config error, not a clause that
 #: never fires.
 FAULT_POINTS = (
-    "shuffle.fetch",     # multi-GPU step: shuffle read, before the fetch
-    "shuffle.publish",   # multi-GPU step: shuffle write, before publishing
-    "tcp.connect",       # multi-GPU step: connect to a peer
-    "tcp.read",          # multi-GPU step: read a peer's response
-    "dcn.publish",       # multi-GPU step: cross-host block publish
-    "dcn.fetch",         # multi-GPU step: cross-host block fetch
+    "shuffle.fetch",     # shuffle/manager.py read, before the fetch
+    "shuffle.publish",   # shuffle/manager.py write, before publishing
+    "tcp.connect",       # shuffle/tcp.py connect to a peer
+    "tcp.read",          # shuffle/tcp.py read a peer's response
+    "dcn.publish",       # shuffle/dcn.py block publish across processes
+    "dcn.fetch",         # shuffle/dcn.py block fetch across processes
     "spill.write",       # memory/stores.py disk-spill write (supports corrupt)
     "spill.read",        # memory/stores.py disk-spill restore
-    "worker.task",       # multi-GPU step: worker task execution (supports kill)
+    "worker.task",       # parallel/runtime.py worker task (supports kill)
     "h2d.upload",        # exec/transitions.py host->device upload
     "alloc.jit",         # memory/retry.py dispatch retry scope (supports oom/fatal)
     "alloc.upload",      # memory/retry.py H2D-upload retry scope (supports oom/fatal)
-    "mesh.dispatch",     # multi-GPU step: mesh-stage dispatch
+    "mesh.dispatch",     # exec/mesh.py mesh-stage dispatch
 )
 
 # "fatal" is the non-retryable twin of "oom": memory/retry.py raises a

@@ -124,23 +124,22 @@ def test_keys_that_change_the_jax_plan_raise(key, value):
 
 def test_cache_codec_none_is_read_and_the_others_wait_for_multi_gpu():
     """``df.cache()`` keeps live tables under the default codec "none" and
-    serialised zlib frames under "zlib" (the shuffle serializer, read since
-    the multi-GPU step); lz4 needs the native library, which comes with
-    the cross-process half of that step."""
-    from spark_rapids_tpu_torch.conf import STEP_MULTI_PROCESS
+    serialised frames under "zlib" and "lz4" (the shuffle serializer; lz4
+    through the host native library, which came with the cross-process
+    half of the multi-GPU step and raised until then). A codec the JAX
+    package does not take raises."""
     from spark_rapids_tpu_torch.exec.cache import CACHE_COMPRESS_CODEC
     from spark_rapids_tpu_torch.plan.planner import plan_physical
     from spark_rapids_tpu_torch.session import TorchSession
     import pyarrow as pa
-    for codec in ("none", "zlib"):
+    for codec in ("none", "zlib", "lz4"):
         sess = TorchSession({CACHE_COMPRESS_CODEC: codec}, device="cpu")
         df = sess.create_dataframe(pa.table({"a": [1, 2]})).cache()
         assert plan_physical(df.logical, sess.conf).codec == codec
         assert df.collect(device=False).num_rows == 2
         assert df.collect(device=False).num_rows == 2  # from the cache
-    with pytest.raises(NotImplementedError,
-                       match=rf"\(ROADMAP Queue 1: {STEP_MULTI_PROCESS}\)"):
-        TorchSession({CACHE_COMPRESS_CODEC: "lz4"}, device="cpu")
+    with pytest.raises(ValueError, match="must be one of none/zlib/lz4"):
+        TorchSession({CACHE_COMPRESS_CODEC: "zstd"}, device="cpu")
 
 
 def test_per_op_and_unknown_keys_still_pass():

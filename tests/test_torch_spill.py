@@ -179,11 +179,12 @@ def test_corrupt_spill_file_raises(tmp_path, direct):
 
 
 def test_spill_queue_pops_in_the_jax_order():
-    """Random pushes, removals and pops: the port's heap and the JAX
-    package's native queue give the same (priority, payload) sequence,
-    equal priorities oldest first."""
+    """Random pushes, removals and pops: the catalog's queue (the port's
+    host library) and the JAX package's native queue give the same
+    (priority, payload) sequence, equal priorities oldest first."""
     rng = np.random.default_rng(0)
-    ours, theirs = tcatalog._SpillQueue(), jnative.HashedPriorityQueue()
+    ours, theirs = tcatalog.HashedPriorityQueue(), \
+        jnative.HashedPriorityQueue()
     handles = []
     popped = []
     for step in range(2000):
