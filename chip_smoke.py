@@ -211,6 +211,14 @@ the TCP rate of a 64 MiB block per codec, lz4 on a 2^20-row lineitem batch,
 and Q1 and Q3 again, each under its own
 ``worker.task:after=1:times=1:action=kill`` on worker 0 (rows equal; Q1's
 death respawns the slot, Q3's excludes it, one respawn a slot allowed).
+BR1 comes last: round trips of SF1 lineitem's keys, line numbers, dates
+and DECIMAL(12,2) prices through strings and o_orderpriority's leading
+digit (against numpy sums and the host engine), lineitem ⋈ orders grouped
+by (returnflag, linestatus) with date arithmetic, rounding, moments and
+first/last under ``groupby.strategy`` sort and hash (equal rows), and
+``hash``/``xxhash64`` sums; ``str_parse``, ``str_format`` and
+``row_hash`` must launch, and each equals its plain version bit for bit at
+2^20 and 2^23 rows, where it is timed (``--br1-only`` runs BR1 alone).
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -6710,6 +6718,371 @@ def _shuffle_kernel_lines(timings: dict, launches: dict) -> list:
              "bound_by": "bytes", "library_ms": tc["library_ms"]}]
 
 
+# ---------------------------------------------------------------------------
+# BR1: numbers, dates and hashes through strings, statistics, the sort
+# group-by (the str_parse, str_format and row_hash kernels)
+# ---------------------------------------------------------------------------
+BR1_SIZES = (1 << 20, 1 << 23)
+BR1_KERNELS = ("str_parse", "str_format", "row_hash")
+
+
+def _br1_counts() -> dict:
+    from spark_rapids_tpu_torch.expr.cast_kernels import str_format, str_parse
+    from spark_rapids_tpu_torch.expr.hashing import row_hash
+    return {"str_parse": str_parse.launches,
+            "str_format": str_format.launches,
+            "row_hash": row_hash.launches}
+
+
+def _br1_zero() -> None:
+    from spark_rapids_tpu_torch.expr.cast_kernels import str_format, str_parse
+    from spark_rapids_tpu_torch.expr.hashing import row_hash
+    str_parse.launches = str_format.launches = row_hash.launches = 0
+
+
+def _br1_numeric_rows(n: int, w: int, kind: str, gen: torch.Generator):
+    """(uint8 (n, w), int32 lengths) of random numbers as text on the
+    card: up to 19 digits (long) or up to w bytes with a point (double),
+    a third of them negative, zero past each length."""
+    dev = "cuda"
+    top = min(w, 19) if kind == "long" else w
+    lens = torch.randint(1, top + 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    data = torch.randint(48, 58, (n, w), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    j = torch.arange(w, device=dev)[None, :]
+    neg = torch.randint(0, 3, (n,), generator=gen, device=dev) == 0
+    data[:, 0] = torch.where(neg & (lens > 1), ord("-"), data[:, 0].long()
+                             ).to(torch.uint8)
+    if kind == "double":
+        pos = (torch.rand(n, generator=gen, device=dev) * lens).long()
+        data = torch.where((j == pos[:, None]) & (pos[:, None] > 0),
+                           ord("."), data.long()).to(torch.uint8)
+    data = torch.where(j < lens[:, None].long(), data.long(), 0
+                       ).to(torch.uint8)
+    return data, lens
+
+
+def _br1_sets(make, row_bytes: int, n: int) -> list:
+    """Enough input sets that their bytes pass four times the L2 cache."""
+    return [make() for _ in range(max(1, math.ceil(4 * L2_BYTES
+                                                   / (row_bytes * n))))]
+
+
+def _br1_equal(label: str, got, want) -> float:
+    """Bit equality of a kernel's outputs with its plain version's; -> the
+    largest absolute difference (0)."""
+    for g, w_ in zip(got, want):
+        same = torch.equal(g.view(torch.int64), w_.view(torch.int64)) \
+            if g.dtype == torch.float64 else torch.equal(g, w_)
+        if not same:
+            raise AssertionError(f"BR1 {label}: the kernel differs from its "
+                                 "plain version")
+    return 0.0
+
+
+def br1_kernel_phase() -> dict:
+    """The three kernels against their plain versions at BR1's sizes (bit
+    for bit on every timed set), and each one's device time beside its plain
+    version's and its bound (bytes: the bytes within the rows' lengths, the
+    lengths and the outputs, over the card's memory rate)."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.expr.base import EvalCol
+    from spark_rapids_tpu_torch.expr.cast_kernels import (
+        str_format, str_format_reference, str_parse, str_parse_reference)
+    from spark_rapids_tpu_torch.expr.hashing import (row_hash,
+                                                     row_hash_reference)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    timings = {}
+
+    def timed(key, fn, plain, sets, nbytes):
+        out = fn(*sets[0])
+        want = plain(*sets[0])
+        torch.cuda.synchronize()
+        _br1_equal(str(key), out if isinstance(out, tuple) else (out,),
+                   want if isinstance(want, tuple) else (want,))
+        t = {"ms": _graph_ms(fn, sets),
+             "plain_ms": _graph_ms(plain, sets[:1], calls=2, replays=2),
+             "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3}
+        timings[key] = t
+        print(f"# BR1 kernel {key}: kernel {t['ms']:.6f} ms, plain "
+              f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+              f"(bytes {nbytes}); {100 * t['bound_ms'] / t['ms']:.1f} % "
+              "of the bound", flush=True)
+
+    for n in BR1_SIZES:
+        for kind in ("long", "double"):
+            for w in (16, 32):
+                sets = _br1_sets(lambda: _br1_numeric_rows(n, w, kind, gen),
+                                 w, n)
+                out_b = 8 + 1
+                nbytes = int(sets[0][1].sum()) + 4 * n + out_b * n
+                timed(("str_parse", kind, w, n),
+                      lambda d, ln, kind=kind: str_parse(d, ln, kind),
+                      lambda d, ln, kind=kind: str_parse_reference(d, ln,
+                                                                   kind),
+                      sets, nbytes)
+        for kind, scale, in_b in (("long", 0, 8), ("date", 0, 4),
+                                  ("decimal", 2, 8)):
+            def make(kind=kind):
+                if kind == "date":
+                    return (torch.randint(-20000, 60000, (n,), generator=gen,
+                                          device="cuda", dtype=torch.int32),)
+                hi = 10**17 if kind == "decimal" else 2**62
+                return (torch.randint(-hi, hi, (n,), generator=gen,
+                                      device="cuda", dtype=torch.int64),)
+            from spark_rapids_tpu_torch.expr.cast_kernels import FORMAT_WIDTH
+            width = FORMAT_WIDTH[kind]
+            sets = _br1_sets(make, in_b + width, n)
+            timed(("str_format", kind, n),
+                  lambda v, kind=kind, scale=scale: str_format(v, kind,
+                                                               scale),
+                  lambda v, kind=kind, scale=scale: str_format_reference(
+                      v, kind, scale),
+                  sets, (in_b + width + 4) * n)
+        for xx in (False, True):
+            for with_string in (False, True):
+                def make():
+                    cols = [EvalCol(torch.randint(
+                        -2**62, 2**62, (n,), generator=gen, device="cuda",
+                        dtype=torch.int64), None, dt.LONG)]
+                    if with_string:
+                        d, ln = _br1_numeric_rows(n, 16, "double", gen)
+                        cols.append(EvalCol(d, None, dt.STRING, ln))
+                    return (cols,)
+                sets = _br1_sets(make, 8 + (20 if with_string else 0), n)
+                nbytes = 8 * n + (8 if xx else 4) * n
+                if with_string:
+                    nbytes += int(sets[0][0][1].lengths.sum()) + 4 * n
+                name = "xxhash64" if xx else "murmur3"
+                timed(("row_hash", name, "int64+str16" if with_string
+                       else "int64", n),
+                      lambda cols, xx=xx: row_hash(cols, n, xx),
+                      lambda cols, xx=xx: row_hash_reference(cols, n, xx),
+                      sets, nbytes)
+    return {"timings": timings, "max_abs_err": {k: 0.0 for k in BR1_KERNELS}}
+
+
+def _br1_sum(table, name: str):
+    v = table.column(name)[0].as_py()
+    if v is None:
+        raise AssertionError(f"BR1: {name} is null")
+    return v
+
+
+def _br1_run(label: str, q, kernels=BR1_KERNELS) -> tuple:
+    """One device run with the kernels' counts set to 0 just before and
+    read just after; each kernel of ``kernels`` must have launched."""
+    _check_device_only(q.session._physical(q.logical, True), label)
+    _br1_zero()
+    t0 = time.perf_counter()
+    out = q.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _br1_counts()
+    for k in kernels:
+        if counts[k] == 0:
+            raise AssertionError(f"{label}: {k} never launched: {counts}")
+    return out, wall, counts
+
+
+def _br1_compare(label: str, out, host) -> None:
+    """Row for row after sorting: integers, strings and dates exactly,
+    doubles at rel 1e-9."""
+    a, b = _sorted_rows(out), _sorted_rows(host)
+    if len(a) != len(b) or out.column_names != host.column_names:
+        raise AssertionError(f"{label}: {len(a)} rows vs the host engine's "
+                             f"{len(b)}")
+    for ra, rb in zip(a, b):
+        if not all(_same_value(x, y) for x, y in zip(ra, rb)):
+            raise AssertionError(f"{label}: {ra} vs the host engine's {rb}")
+
+
+def br1_phase(li: pa.Table, orders: pa.Table, dli: pa.Table,
+              partitions: int) -> dict:
+    """BR1a casts through strings, BR1b dates and statistics under both
+    group-by strategies, BR1c hashes; every plan device nodes only above
+    the scans; each query against the host engine (and numpy where
+    cheap); the three kernels' launches read around each run."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.expr import functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    col, lit = F.col, F.lit
+    launches = {k: 0 for k in BR1_KERNELS}
+    runs = {}
+
+    def note(label, counts, wall, t_host):
+        for k in BR1_KERNELS:
+            launches[k] += counts[k]
+        runs[label] = {"wall_s": wall, "host_s": t_host, "launches": counts}
+        print(f"# {label}: device {wall:.3f} s, host engine {t_host:.3f} s, "
+              f"launches {counts}", flush=True)
+
+    base = {"spark.rapids.sql.test.enabled": True,
+            "spark.rapids.tpu.aqe.enabled": False}
+    sess = TorchSession(base)
+    ldf = sess.create_dataframe(li, num_partitions=partitions)
+    odf = sess.create_dataframe(orders, num_partitions=partitions)
+    ddf = sess.create_dataframe(dli.select(["l_extendedprice"]),
+                                num_partitions=partitions)
+
+    # -- BR1a: round trips through strings ---------------------------------
+    def trip(c, to):
+        return c.cast(dt.STRING).cast(to)
+    qa = ldf.select(
+        trip(col("l_orderkey"), dt.LONG).alias("ok"),
+        trip(col("l_linenumber"), dt.INT).alias("ln"),
+        trip(col("l_shipdate"), dt.DATE).cast(dt.INT).alias("sd"),
+        trip(col("l_shipdate"), dt.STRING).alias("sds"),
+    ).agg(F.sum(col("ok")).alias("s_ok"), F.sum(col("ln")).alias("s_ln"),
+          F.sum(col("sd")).alias("s_sd"), F.count(col("ok")).alias("c_ok"),
+          F.count(col("ln")).alias("c_ln"), F.count(col("sd")).alias("c_sd"),
+          F.count_star().alias("n"),
+          F.max(col("sds").cast(dt.DATE).cast(dt.INT)).alias("m_sd"))
+    out, wall, counts = _br1_run("BR1a lineitem", qa, ("str_parse",
+                                                       "str_format"))
+    host, t_host = _host_collect(qa)
+    _br1_compare("BR1a lineitem", out, host)
+    days = li.column("l_shipdate").cast(pa.int32()).to_numpy()
+    want = {"s_ok": int(li.column("l_orderkey").to_numpy().sum()),
+            "s_ln": int(li.column("l_linenumber").to_numpy().sum()),
+            "s_sd": int(days.sum()), "c_ok": li.num_rows,
+            "c_ln": li.num_rows, "c_sd": li.num_rows, "n": li.num_rows,
+            "m_sd": int(days.max())}
+    for k, v in want.items():
+        if _br1_sum(out, k) != v:
+            raise AssertionError(f"BR1a {k}: {_br1_sum(out, k)} vs numpy {v}")
+    note("BR1a lineitem", counts, wall, t_host)
+
+    qp = ddf.select(F.round(trip(col("l_extendedprice"), dt.DOUBLE)
+                            * lit(100.0)).cast(dt.LONG).alias("cents")
+                    ).agg(F.sum(col("cents")).alias("s"),
+                          F.count(col("cents")).alias("c"))
+    out, wall, counts = _br1_run("BR1a price", qp, ("str_parse",
+                                                    "str_format"))
+    host, t_host = _host_collect(qp)
+    _br1_compare("BR1a price", out, host)
+    cents = int(sum(int(v.as_py().scaleb(2))
+                    for v in dli.column("l_extendedprice").combine_chunks()))
+    if (_br1_sum(out, "s"), _br1_sum(out, "c")) != (cents, dli.num_rows):
+        raise AssertionError(f"BR1a price: {_br1_sum(out, 's')} vs {cents}")
+    note("BR1a price", counts, wall, t_host)
+
+    qo = odf.select(
+        F.substring(col("o_orderpriority"), 1, 1).cast(dt.INT).alias("d"),
+        F.substring(col("o_orderpriority"), 2, 3).cast(dt.INT).alias("bad"),
+    ).agg(F.sum(col("d")).alias("s"), F.count(col("d")).alias("c"),
+          F.count(col("bad")).alias("c_bad"), F.count_star().alias("n"))
+    out, wall, counts = _br1_run("BR1a orders", qo, ("str_parse",))
+    host, t_host = _host_collect(qo)
+    _br1_compare("BR1a orders", out, host)
+    lead = sum(int(s[0]) for s in orders.column("o_orderpriority")
+               .to_pylist())
+    got = tuple(_br1_sum(out, k) for k in ("s", "c", "c_bad", "n"))
+    if got != (lead, orders.num_rows, 0, orders.num_rows):
+        raise AssertionError(f"BR1a orders: {got} vs numpy ({lead}, "
+                             f"{orders.num_rows}, 0, {orders.num_rows}): the "
+                             "malformed casts must all be null")
+    note("BR1a orders", counts, wall, t_host)
+
+    # -- BR1b: dates and statistics, sort and hash group-by -----------------
+    def stats(s):
+        lj = s.create_dataframe(li, num_partitions=partitions).join(
+            s.create_dataframe(orders, num_partitions=partitions),
+            condition=col("l_orderkey") == col("o_orderkey"))
+        return lj.group_by("l_returnflag", "l_linestatus").agg(
+            F.avg(F.datediff(col("l_receiptdate"), col("l_shipdate")))
+            .alias("avg_transit"),
+            F.max(F.add_months(col("o_orderdate"), lit(3))).alias("max_am"),
+            F.min(F.last_day(col("l_shipdate"))).alias("min_ld"),
+            F.sum(F.months_between(col("l_receiptdate"),
+                                   col("l_commitdate"))).alias("sum_mb"),
+            F.count(F.trunc(col("o_orderdate"), "MM")).alias("n_trunc"),
+            F.sum(F.round(col("l_extendedprice") * (lit(1.0)
+                                                    - col("l_discount")), 2))
+            .alias("sum_rev"),
+            F.sum(F.ceil(col("l_tax") * lit(100.0))).alias("sum_tax"),
+            F.avg(F.sqrt(col("l_quantity"))).alias("avg_sqrt_q"),
+            F.stddev_samp(col("l_quantity")).alias("sd_q"),
+            F.var_pop(col("l_extendedprice")).alias("vp_price"),
+            F.first(col("l_linestatus") == lit("O")).alias("first_open"),
+            F.last(col("l_returnflag") == lit("R")).alias("last_r"))
+    outs = {}
+    for strategy in ("sort", "hash"):
+        s = TorchSession(dict(base, **{
+            "spark.rapids.tpu.groupby.strategy": strategy}))
+        q = stats(s)
+        label = f"BR1b {strategy}"
+        out, wall, counts = _br1_run(label, q, ())
+        host, t_host = _host_collect(q)
+        _br1_compare(label, out, host)
+        outs[strategy] = out
+        note(label, counts, wall, t_host)
+    # the same rows: keys, counts, dates and booleans exactly; a float
+    # may differ in its last bits (the join's output order on the card
+    # is not fixed, and a float sum follows it), at most rel 1e-12
+    a, b = (_sorted_rows(outs[k]) for k in ("sort", "hash"))
+    worst = 0.0
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            if isinstance(x, float) and isinstance(y, float):
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
+            elif x != y:
+                raise AssertionError(f"BR1b: sort {ra} vs hash {rb}")
+    if len(a) != len(b) or worst > 1e-12:
+        raise AssertionError(f"BR1b: sort and hash group-by differ (largest "
+                             f"relative float difference {worst!r})")
+    rows = outs["hash"].to_pylist()
+    groups = li.group_by(["l_returnflag", "l_linestatus"]).aggregate([])
+    if len(rows) != groups.num_rows or any(r["first_open"] != (r["l_linestatus"] == "O")
+                             or r["last_r"] != (r["l_returnflag"] == "R")
+                             or not r["sd_q"] > 0 for r in rows):
+        raise AssertionError(f"BR1b rows: {rows}")
+    transit = (li.column("l_receiptdate").cast(pa.int32()).to_numpy()
+               - days).astype(np.float64)
+    print(f"# BR1b: {len(rows)} groups, sort and hash equal (floats within "
+          f"rel {worst!r}); mean transit {transit.mean():.6f} days over all "
+          "rows (numpy)", flush=True)
+
+    # -- BR1c: hashes ------------------------------------------------------
+    qc = ldf.agg(
+        F.sum(F.hash(col("l_orderkey"), col("l_shipmode"))).alias("h"),
+        F.sum(F.xxhash64(col("l_partkey"), col("l_shipinstruct"),
+                         col("l_shipdate"))).alias("x"),
+        F.max(F.spark_partition_id()).alias("pid"))
+    out, wall, counts = _br1_run("BR1c", qc, ("row_hash",))
+    host, t_host = _host_collect(qc)
+    _br1_compare("BR1c", out, host)
+    if _br1_sum(out, "pid") != partitions - 1:
+        raise AssertionError(f"BR1c: max partition id {_br1_sum(out, 'pid')}")
+    note("BR1c", counts, wall, t_host)
+    print(f"# BR1 launches: {launches}", flush=True)
+    return {"launches": launches, "runs": runs}
+
+
+def _br1_kernel_lines(timings: dict, launches: dict) -> list:
+    """The three kernels' entries at 2^20 rows: str_parse of int64 text
+    in a width-32 matrix (BR1a's round trip), str_format of int64, and
+    row_hash (Murmur3) over an int64 and a 16-byte string (BR1c's shape)."""
+    t = timings["timings"]
+    picks = {"str_parse": t[("str_parse", "long", 32, 1 << 20)],
+             "str_format": t[("str_format", "long", 1 << 20)],
+             "row_hash": t[("row_hash", "murmur3", "int64+str16", 1 << 20)]}
+    return [{"name": k, "route": "cuda",
+             "source": "spark_rapids_tpu_torch/csrc/strings_cast.cu",
+             "replaces": {"str_parse":
+                          "spark_rapids_tpu/expr/cast_kernels.py:169",
+                          "str_format":
+                          "spark_rapids_tpu/expr/cast_kernels.py:30",
+                          "row_hash": "spark_rapids_tpu/expr/hashing.py:176"
+                          }[k],
+             "launches": launches[k],
+             "max_abs_err": timings["max_abs_err"][k], "ms": v["ms"],
+             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+             "bound_by": "bytes", "library_ms": None}
+            for k, v in picks.items()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
@@ -6718,6 +7091,9 @@ def main() -> int:
                     help="TPC-H scale factor of the tables of Q3 and "
                     "the joins phase (default 1)")
     ap.add_argument("--partitions", type=int, default=2)
+    ap.add_argument("--br1-only", action="store_true",
+                    help="build the kernels and run the BR1 phase alone "
+                    "(a quick check; prints no kernels line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6742,6 +7118,16 @@ def main() -> int:
           f"(nvcc {native.build_seconds:.2f} s)", flush=True)
 
     phase_s = {"build": time.perf_counter() - t_start}
+    if args.br1_only:
+        li = tpch.gen_lineitem(args.sf, seed=0)
+        br1 = br1_phase(li, tpch.gen_orders(args.q3_sf, seed=1),
+                        tpch.decimal_lineitem(li), args.partitions)
+        br1k = br1_kernel_phase()
+        print(json.dumps(_br1_kernel_lines(br1k, br1["launches"])),
+              flush=True)
+        print(f"# BR1 alone: {time.perf_counter() - t_start:.2f} s",
+              flush=True)
+        return 0
     quiet = _Quiet()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -6943,6 +7329,13 @@ def main() -> int:
     donation = donation_probe(li, args.partitions)
     phase_s["donation"] = time.perf_counter() - t0
     quiet.check("donation")
+    # -- BR1: casts through strings, dates and statistics under both
+    #    group-by strategies, hashes; the three kernels timed ------------
+    t0 = time.perf_counter()
+    br1 = br1_phase(li, tables["orders"], dli, args.partitions)
+    br1k = br1_kernel_phase()
+    phase_s["BR1"] = time.perf_counter() - t0
+    quiet.check("BR1")
     print("# TPC-H summary (s): query rows cold warm aqe_off host busy% "
           "warm_cache_hits", flush=True)
     for name, r in summary.items():
@@ -7001,7 +7394,8 @@ def main() -> int:
         *_window_kernel_lines(winm, rel["launches"], {
             k: max(wink["max_abs_err"][k], winm["max_abs_err"][k])
             for k in winm["max_abs_err"]}),
-        *_shuffle_kernel_lines(shk, mx1["launches"])]}), flush=True)
+        *_shuffle_kernel_lines(shk, mx1["launches"]),
+        *_br1_kernel_lines(br1k, br1["launches"])]}), flush=True)
     print("# PC1 summary: " + json.dumps(pc1, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ __all__ = [
     "TimestampType", "NullType", "DecimalType", "is_d128",
     "BOOLEAN", "BYTE", "SHORT", "INT", "LONG", "FLOAT", "DOUBLE", "STRING",
     "BINARY", "DATE", "TIMESTAMP", "NULL",
-    "TypeSig", "TypeEnum", "from_simple_name",
+    "TypeSig", "TypeEnum", "from_simple_name", "ArrayType",
 ]
 
 
@@ -125,6 +125,25 @@ class DecimalType(DataType):
         return self.simple_name
 
 
+@dataclasses.dataclass(frozen=True, eq=True)
+class ArrayType(DataType):
+    """ARRAY<element>: on the host engine a column of Python lists. Only
+    ``approx_percentile``'s sketch state and list result use it: the device
+    has no array layout yet (ROADMAP Queue 1, collections)."""
+    element: DataType = None
+    contains_null: bool = True
+
+    @property
+    def simple_name(self):  # type: ignore[override]
+        return f"array<{self.element.simple_name}>"
+
+    def np_dtype(self) -> np.dtype:
+        return np.dtype(object)
+
+    def __repr__(self):
+        return self.simple_name
+
+
 def is_d128(t: DataType) -> bool:
     """True for decimals stored as two int64 limbs on the device (precision
     beyond the scaled-int64 tier)."""
@@ -179,6 +198,7 @@ class TypeEnum:
     TIMESTAMP = "TIMESTAMP"
     NULL = "NULL"
     DECIMAL = "DECIMAL"
+    ARRAY = "ARRAY"
 
 
 def _enum_of(d: DataType) -> str:
@@ -192,7 +212,8 @@ def _enum_of(d: DataType) -> str:
                       (TypeEnum.DATE, DateType),
                       (TypeEnum.TIMESTAMP, TimestampType),
                       (TypeEnum.NULL, NullType),
-                      (TypeEnum.DECIMAL, DecimalType)):
+                      (TypeEnum.DECIMAL, DecimalType),
+                      (TypeEnum.ARRAY, ArrayType)):
         if isinstance(d, cls):
             return enum
     raise TypeError(f"unknown data type {d!r}")

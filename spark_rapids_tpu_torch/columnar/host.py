@@ -54,6 +54,8 @@ _TO_ARROW = {dt.BOOLEAN: pa.bool_(), dt.BYTE: pa.int8(), dt.SHORT: pa.int16(),
 def _dtype_to_arrow(d: dt.DataType) -> pa.DataType:
     if isinstance(d, dt.DecimalType):
         return pa.decimal128(d.precision, d.scale)
+    if isinstance(d, dt.ArrayType):
+        return pa.list_(_dtype_to_arrow(d.element))
     return _TO_ARROW[d]
 
 
@@ -164,7 +166,8 @@ class HostColumn:
     def to_arrow(self) -> pa.Array:
         at = _dtype_to_arrow(self.dtype)
         mask = None if self.validity is None else ~self.validity
-        if isinstance(self.dtype, (dt.StringType, dt.BinaryType)):
+        if isinstance(self.dtype, (dt.StringType, dt.BinaryType,
+                                   dt.ArrayType)):
             vals = list(self.values)
             if mask is not None:
                 vals = [None if m else v for v, m in zip(vals, mask)]

@@ -136,6 +136,14 @@ JOIN_STRATEGY = register_conf(
     "(= hash). Non-unique builds always take the sorted count/expand path.",
     "auto", checker=lambda v: None if str(v).lower() in ("auto", "sort", "hash")
     else "must be auto|sort|hash")
+GROUPBY_STRATEGY = register_conf(
+    "spark.rapids.tpu.groupby.strategy",
+    "Device group-by algorithm: 'sort' (the rows sorted by their key words, "
+    "groups in key order), 'hash' (bucket-resolve rounds, groups in order "
+    "of first appearance) or 'auto' (= hash).", "auto",
+    checker=lambda v: None if str(v).lower() in ("auto", "sort", "hash")
+    else "must be auto|sort|hash")
+
 
 def _not_ported_unless_default(default: Any, step: str,
                                case_free: bool = False
@@ -724,7 +732,6 @@ _UNREAD_BY_STEP: Dict[str, Dict[str, Any]] = {
         "spark.rapids.sql.hasNans": True,
         "spark.rapids.sql.improvedFloatOps.enabled": True,
         "spark.rapids.sql.variableFloatAgg.enabled": True,
-        "spark.rapids.tpu.groupby.strategy": "auto",
         "spark.sql.mapKeyDedupPolicy": "exception",
         "spark.rapids.sql.mode": "executeongpu",
         "spark.rapids.sql.test.allowedNonGpu": "",

@@ -1,17 +1,23 @@
 """Device hash aggregate — the port of ``spark_rapids_tpu/exec/aggregate.py``
 (reference: aggregate.scala, GpuHashAggregateIterator at :181,
-GpuHashAggregateExec at :1319) for sum, count, min and max, with or without
-grouping keys.
+GpuHashAggregateExec at :1319) for sum, count, min, max, first, last and the
+moments of the variance family, with or without grouping keys.
 
-Grouping is the JAX package's hash strategy (what its ``auto`` resolves
-to): key columns become equality words (``_key_small_fields``), the words
-hash into row-count buckets, and rounds resolve each bucket's
-minimum-index candidate's whole key class until no row is left. Group ids
-come out in order of first appearance, whatever the hash. Per-group
+Key columns become equality words (``_key_small_fields``), and
+``spark.rapids.tpu.groupby.strategy`` picks the grouping, as in the JAX
+package: ``hash`` (and ``auto``) hashes the words into row-count buckets
+and resolves each bucket's minimum-index candidate's whole key class in
+rounds until no row is left, so group ids come out in order of first
+appearance; ``sort`` sorts the rows by their words (stable argsorts from
+the least significant word up, a string's or a flag word's bits as
+unsigned) and numbers the runs, so groups come out in key order. Per-group
 reductions then run as ``index_add_`` / ``scatter_reduce_`` over the group
 ids (float sums through a sort and a segmented reduction, so that on the
 card they are the same in every run), and each group's key is gathered
-from its first row.
+from its first row. ``first`` and ``last`` take the group's first and last
+contributing row by position, whatever the strategy. A group's moments
+are its count, its mean (about its first value) and M2, the sum of squared
+deviations from that mean; a merge combines them by Chan's formula.
 
 The partial pass fuses into the whole-stage node above the upload and
 emits one aggregated batch per input batch; the final pass concatenates
@@ -53,7 +59,7 @@ from ..expr.decimal128 import (SUM_OVERFLOW_MARK, d128_key_words,
                                limbs_from_py_ints)
 from ..memory.catalog import SpillPriorities, get_catalog
 from ..plan.physical import (AggSpec, PhysicalPlan, aggregate_columns_ops,
-                             host_aggregate,
+                             host_aggregate, op_refs,
                              aggregate_schema, check_mode)
 from ..plan.schema import Schema
 from ..shuffle.manager import MASK32, fmix_device
@@ -229,6 +235,50 @@ def _hash_group_ids(table: DeviceTable, key_names: List[str]
     return gid, is_rep, is_rep.sum(dtype=torch.int32)
 
 
+def _sorted_group_ids(table: DeviceTable, key_names: List[str]
+                      ) -> Tuple[torch.Tensor, None, torch.Tensor]:
+    """Sort-based exact grouping -> (gid int32 per row, None, num_groups
+    0-d int32): the rows sorted by (not active, the keys' flag words, the
+    value words), as the JAX package's ``_sorted_group_ids`` lexsorts
+    them; a group is a run of equal words among the active rows, and group
+    ids follow the sorted order. Stable argsorts from the least significant
+    word up make the lexicographic order; words holding uint64 bits (a
+    string's packed bytes, the flag words) sort with their sign bit
+    flipped, as unsigned values."""
+    cap = table.capacity
+    active = table.row_mask
+    device = active.device
+    bit_fields = [(torch.logical_not(active).to(torch.int64), 1)]
+    words: List[Tuple[torch.Tensor, bool]] = []
+    for k in key_names:
+        kc = table.column(k)
+        value_words, smalls = _key_small_fields(kc)
+        unsigned = isinstance(kc.dtype, dt.StringType)
+        words.extend((w, unsigned) for w in value_words)
+        bit_fields.extend(smalls)
+    meta = [(w, True) for w in _pack_meta_words(bit_fields)]
+    order = torch.arange(cap, dtype=torch.int64, device=device)
+    # least significant first: the value words last to first, then the
+    # meta words (meta word 0, the not-active flag, most significant)
+    for w, unsigned in list(reversed(words)) + list(reversed(meta)):
+        key = w[order]
+        if unsigned:
+            key = key ^ (-2**63)
+        order = order[torch.argsort(key, stable=True)]
+    active_s = active[order]
+    same = torch.ones(cap, dtype=torch.bool, device=device)
+    for w, _ in words + meta:
+        ws = w[order]
+        same[1:] &= ws[1:] == ws[:-1]
+    same[:1] = False
+    boundary = torch.logical_and(torch.logical_not(same), active_s)
+    gid_s = (torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32)
+             - 1).clamp(0, max(cap - 1, 0))
+    gid = torch.empty_like(gid_s)
+    gid[order] = gid_s
+    return gid, None, boundary.sum(dtype=torch.int32)
+
+
 def _seg_sum(x: torch.Tensor, gid: torch.Tensor, cap: int,
              segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
              ) -> torch.Tensor:
@@ -324,18 +374,74 @@ def _d128_sum(vals: torch.Tensor, contrib: torch.Tensor, gid: torch.Tensor,
     return limbs, torch.logical_and(has, torch.logical_not(over))
 
 
+def _refs(table: DeviceTable, op: str) -> List[torch.Tensor]:
+    """The value planes of the sibling state columns ``op`` names."""
+    return [table.column(name).data for name in op_refs(op)]
+
+
+def _pick_index(contrib: torch.Tensor, gid: torch.Tensor, cap: int,
+                last: bool) -> torch.Tensor:
+    """Each group's first (or last) contributing row; 0 for an empty
+    group."""
+    pos = torch.arange(contrib.shape[0], dtype=torch.int64,
+                       device=contrib.device)
+    p = torch.where(contrib, -pos if last else pos, _BIG)
+    best = _seg_extreme(p, gid, cap, True)
+    return (-best if last else best).clamp(0, max(contrib.shape[0] - 1, 0))
+
+
+def _moment_mean(x: torch.Tensor, w: torch.Tensor, contrib: torch.Tensor,
+                 gid: torch.Tensor, cap: int, segments) -> torch.Tensor:
+    """The w-weighted mean of x in each group, taken about the group's
+    first contributing x (so equal values give it exactly); NaN for an
+    empty group."""
+    pivot = x[_pick_index(contrib, gid, cap, False)]
+    g = gid.long()
+    d = torch.where(contrib, w * (x - pivot[g]), 0.0)
+    total = _seg_sum(torch.where(contrib, w, 0.0), gid, cap, segments)
+    return pivot + _seg_sum(d, gid, cap, segments) / total
+
+
+def _moments(op: str, x: torch.Tensor, contrib: torch.Tensor,
+             gid: torch.Tensor, cap: int, refs: List[torch.Tensor],
+             segments) -> torch.Tensor:
+    """A group's mean or M2 from rows (``moment_mean``, ``moment_m2``) or
+    from partial states (the ``_merge`` ops: ``refs`` holds the counts, and
+    for M2 the means): Chan's merge."""
+    name = op.split(":")[0]
+    x = x.to(torch.float64)
+    merge = name.endswith("_merge")
+    w = refs[0].to(torch.float64) if merge else torch.ones_like(x)
+    if name.startswith("moment_mean"):
+        return _moment_mean(x, w, contrib, gid, cap, segments)
+    # M2: the rows' (or the states' own M2 plus their means') squared
+    # deviations from the group's mean
+    means = refs[1].to(torch.float64) if merge else x
+    mean = _moment_mean(means, w, contrib, gid, cap, segments)
+    dev = means - mean[gid.long()]
+    sq = _seg_sum(torch.where(contrib, w * dev * dev, 0.0), gid, cap,
+                  segments)
+    if merge:
+        sq = _seg_sum(torch.where(contrib, x, 0.0), gid, cap, segments) + sq
+    return sq
+
+
 def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
                     gid: torch.Tensor, cap: int, out_dt: dt.DataType,
                     counts: Optional[torch.Tensor] = None,
                     segments: Optional[Tuple[torch.Tensor,
                                              torch.Tensor]] = None,
-                    merge_active: Optional[torch.Tensor] = None
+                    merge_active: Optional[torch.Tensor] = None,
+                    refs: Optional[List[torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-group reduction -> (values[cap], has[cap]); ``has`` is False for
     a group no row contributed to (its value is then null). ``counts``, the
     per-group count of ``contrib``, is computed when not given: callers
     reducing many columns under one mask compute it once, and likewise
     ``segments`` (``sorted_segments``) for float sums.
+
+    ``refs``: the value planes of the sibling state columns a moment merge
+    names.
 
     Spark rules: NaN is the largest double; sum propagates NaN; masked-off
     rows may hold stale data (even NaN), so they are replaced with the
@@ -352,6 +458,12 @@ def _reduce_segment(op: str, vals: torch.Tensor, contrib: torch.Tensor,
     if op == "count":
         return counts.to(out_dtype), torch.ones(cap, dtype=torch.bool,
                                                 device=vals.device)
+    if op in ("first", "last"):
+        idx = _pick_index(contrib, gid, cap, op == "last")
+        return vals[idx], has
+    if op.startswith("moment"):
+        return _moments(op, vals, contrib, gid, cap, refs or [],
+                        segments), has
     if dt.is_d128(out_dt):
         if op != "sum":
             raise TypeError(f"decimal128 aggregate op {op!r} is host-only")
@@ -398,9 +510,13 @@ class TpuHashAggregateExec(TpuExec):
 
     def __init__(self, child: PhysicalPlan, key_names: List[str],
                  specs: List[AggSpec], mode: str, device: torch.device,
-                 min_bucket: Optional[int] = None):
+                 min_bucket: Optional[int] = None, strategy: str = "hash"):
         super().__init__()
         check_mode(mode)
+        if strategy not in ("hash", "sort"):
+            raise ValueError(f"group-by strategy {strategy!r}")
+        #: the grouping: "hash" (bucket rounds) or "sort"
+        self.strategy = strategy
         self.child = child
         self.children = (child,)
         self.key_names = list(key_names)
@@ -425,8 +541,12 @@ class TpuHashAggregateExec(TpuExec):
         merging = (mode or self.mode) == "final"
         key_names = self.key_names
         out_names = tuple(self.schema.names)
-        float_sums = any(op == "sum" and torch_dtype(out_dt).is_floating_point
-                         for _, op, _, out_dt in cols_ops)
+        float_sums = any(
+            op.startswith("moment")
+            or (op == "sum" and torch_dtype(out_dt).is_floating_point)
+            for _, op, _, out_dt in cols_ops)
+        group_ids = _sorted_group_ids if self.strategy == "sort" \
+            else _hash_group_ids
 
         def contributions(table: DeviceTable, gid: torch.Tensor, cap: int):
             """col -> (contributing rows, their per-group count), the count
@@ -453,7 +573,8 @@ class TpuHashAggregateExec(TpuExec):
                 contrib, counts = contribution(col)
                 val, has = _reduce_segment(
                     op, col.data, contrib, gid, 1, out_dt, counts,
-                    merge_active=table.row_mask if merging else None)
+                    merge_active=table.row_mask if merging else None,
+                    refs=_refs(table, op))
                 # state row 0 of a fixed small capacity, built on the device
                 # (no host read of the reduced values)
                 vals = val.new_zeros((_STATE_CAPACITY,) + val.shape[1:])
@@ -470,7 +591,7 @@ class TpuHashAggregateExec(TpuExec):
 
         def grouped(table: DeviceTable) -> DeviceTable:
             cap = table.capacity
-            gid, _, num_groups = _hash_group_ids(table, key_names)
+            gid, _, num_groups = group_ids(table, key_names)
             # each group's key comes from its first row
             pos = torch.arange(cap, dtype=torch.int64, device=table.device)
             rep_src = torch.where(table.row_mask, pos, _BIG)
@@ -489,7 +610,8 @@ class TpuHashAggregateExec(TpuExec):
                 contrib, counts = contribution(col)
                 vals, has = _reduce_segment(
                     op, col.data, contrib, gid, cap, out_dt, counts,
-                    segments, table.row_mask if merging else None)
+                    segments, table.row_mask if merging else None,
+                    _refs(table, op))
                 validity = group_mask if op == "count" \
                     else torch.logical_and(has, group_mask)
                 out_cols.append(DeviceColumn(vals, validity, out_dt))
@@ -532,7 +654,7 @@ class TpuHashAggregateExec(TpuExec):
                                                                  mode))
 
     def plan_signature(self) -> str:
-        return (f"HashAgg|{self.mode}|{self.key_names}|"
+        return (f"HashAgg|{self.mode}|{self.strategy}|{self.key_names}|"
                 f"{aggregate_columns_ops(self.specs, self.mode)!r}|"
                 f"{self.children[0].schema!r}")
 
@@ -599,7 +721,8 @@ class TpuHashAggregateExec(TpuExec):
                 pending.close()
 
     def node_desc(self):
-        return f"mode={self.mode} keys={self.key_names}"
+        return (f"mode={self.mode} keys={self.key_names}"
+                + (" strategy=sort" if self.strategy == "sort" else ""))
 
 
 def _empty_device_table(schema: Schema, cap: int,

@@ -36,8 +36,9 @@ __all__ = ["TpuProjectExec", "TpuFilterExec", "TpuLocalLimitExec",
 
 
 def eval_exprs_device(table: DeviceTable, exprs: Sequence[Expression],
-                      names: Sequence[str]) -> DeviceTable:
-    ctx = EvalContext.for_device(table)
+                      names: Sequence[str], partition_id: int = 0,
+                      batch_row_offset=0) -> DeviceTable:
+    ctx = EvalContext.for_device(table, partition_id, batch_row_offset)
     cols: List[DeviceColumn] = []
     for e in exprs:
         c = e.eval(ctx)
@@ -105,10 +106,43 @@ class TpuProjectExec(_PerBatchExec):
             return eval_exprs_device(table, exprs, names)
         return fn
 
+    @property
+    def fusible(self) -> bool:
+        # a context-dependent expression (the partition id, the increasing
+        # id) reads its partition and row offset, which a fused stage does
+        # not carry
+        return not any(e.tree_context_dependent() for e in self.exprs)
+
     def host_batch_fn(self):
-        # the host engine's projection of one downloaded batch
+        # the host engine's projection of one downloaded batch; a
+        # context-dependent projection has no batch-alone twin
+        if not self.fusible:
+            return None
         exprs, names = self.exprs, self.names
         return lambda table: host_eval_exprs(table, exprs, names)
+
+    def execute_columnar(self, pidx: int) -> Iterator[DeviceTable]:
+        if self.fusible:
+            yield from super().execute_columnar(pidx)
+            return
+        from ..memory.retry import with_retry, wrap_dispatch
+        exprs, names = self.exprs, self.names
+
+        def project(batch: DeviceTable, offset) -> DeviceTable:
+            return eval_exprs_device(batch, exprs, names, pidx, offset)
+        fn = wrap_dispatch(project, context=self.node_desc())
+        offset = None
+        for batch in self.child_device_batches(pidx):
+            # compacted, so a row's position is the offset plus its index
+            batch = batch.compact()
+            if offset is None:
+                offset = torch.zeros((), dtype=torch.int64,
+                                     device=batch.device)
+            out = with_retry(fn, batch, offset, scope="project",
+                             context=self.node_desc())
+            offset = offset + batch.num_rows.to(torch.int64)
+            self.account_batch()
+            yield out
 
     def runs_kernel(self) -> bool:
         return any_runs_kernel(self.exprs)

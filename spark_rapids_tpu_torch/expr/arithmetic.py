@@ -1,5 +1,6 @@
 """Arithmetic expressions — the port of ``spark_rapids_tpu/expr/arithmetic.py``
-without the bitwise operators (ROADMAP Queue 1: breadth).
+with ``bitwise_not`` and the shifts (the binary bitwise operators are not
+ported yet: ROADMAP Queue 1, breadth).
 
 Numeric promotion follows Spark's binary arithmetic coercion, decimals
 included (DecimalPrecision: the add and multiply rules, capped at 38
@@ -21,6 +22,7 @@ from .cast import Cast, obj_array, rescale_py_half_up
 
 __all__ = ["BinaryArithmetic", "Add", "Subtract", "Multiply", "Divide",
            "IntegralDivide", "Remainder", "UnaryMinus", "Abs", "Pmod",
+           "BitwiseNot", "ShiftLeft", "ShiftRight", "ShiftRightUnsigned",
            "numeric_promote", "adjust_decimal"]
 
 _NUMERIC_ORDER = [dt.BYTE, dt.SHORT, dt.INT, dt.LONG, dt.FLOAT, dt.DOUBLE]
@@ -315,3 +317,85 @@ class Abs(Expression):
             return EvalCol(obj_array([abs(int(v)) for v in c.values]),
                            c.validity, self.data_type)
         return EvalCol(ctx.xp.abs(c.values), c.validity, self.data_type)
+
+
+class BitwiseNot(Expression):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def data_type(self) -> dt.DataType:
+        t = self.child.data_type
+        if not t.is_integral:
+            raise TypeError(
+                f"bitwise_not needs an integral operand, got {t!r}")
+        return t
+
+    def with_children(self, children):
+        return BitwiseNot(children[0])
+
+    def eval(self, ctx: EvalContext) -> EvalCol:
+        c = self.child.eval(ctx)
+        return EvalCol(~c.values, c.validity, self.data_type)
+
+    def __repr__(self):
+        return f"~{self.child!r}"
+
+
+class _ShiftBase(Expression):
+    """The shift amount masks to the value's width, as in Java and Spark
+    (x << 65 on a long shifts by 1)."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.left, self.right = left, right
+        self.children = (left, right)
+
+    @property
+    def data_type(self) -> dt.DataType:
+        t = self.left.data_type
+        if t not in (dt.INT, dt.LONG):
+            raise TypeError(f"shift needs int/bigint value, got {t!r}")
+        return t
+
+    def with_children(self, children):
+        return type(self)(children[0], children[1])
+
+    def eval(self, ctx: EvalContext) -> EvalCol:
+        xp = ctx.xp
+        lc = self.left.eval(ctx)
+        rc = self.right.eval(ctx)
+        bits = 64 if self.data_type == dt.LONG else 32
+        v = xp.astype(lc.values, self.data_type.np_dtype())
+        sh = xp.astype(rc.values & (bits - 1), self.data_type.np_dtype())
+        return EvalCol(self._shift(xp, v, sh, bits),
+                       _combine_validity(ctx, lc, rc), self.data_type)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.left!r}, {self.right!r})"
+
+
+class ShiftLeft(_ShiftBase):
+    def _shift(self, xp, v, sh, bits):
+        return v << sh
+
+
+class ShiftRight(_ShiftBase):
+    def _shift(self, xp, v, sh, bits):
+        return v >> sh  # arithmetic (sign-propagating) on signed ints
+
+
+class ShiftRightUnsigned(_ShiftBase):
+    def _shift(self, xp, v, sh, bits):
+        from .xp_torch import TorchNamespace
+        if not isinstance(xp, TorchNamespace):
+            u = np.uint64 if bits == 64 else np.uint32
+            return (v.astype(u) >> sh.astype(u)).astype(v.dtype)
+        if bits == 32:   # the uint32 bits in int64, shifted, cut back
+            wide = (xp.astype(v, xp.int64) & 0xFFFFFFFF) \
+                >> xp.astype(sh, xp.int64)
+            return xp.astype(wide, xp.int32)
+        # torch shifts no unsigned type: an arithmetic shift, then the
+        # sign-extended bits masked off (none for a shift of 0)
+        mask = (2**63 - 1) >> (sh - 1).clamp(min=0)
+        return xp.where(sh == 0, v, (v >> sh) & mask)

@@ -1,6 +1,17 @@
-"""Cast expression — the port of ``spark_rapids_tpu/expr/cast.py``, cut to
-the numeric, boolean, decimal and date/timestamp directions. Casts to and
-from strings are not ported yet (ROADMAP Queue 1: breadth).
+"""Cast expression — the port of ``spark_rapids_tpu/expr/cast.py``.
+
+Strings: on the device, integral, boolean, date and decimal64 values
+format into the byte matrix and strings parse to integral, float, boolean
+and date values through the ``str_format`` and ``str_parse`` kernels
+(``expr/cast_kernels.py``); the plan keeps the other directions on the host
+engine (float and timestamp to string, string to timestamp and decimal, a
+wide decimal to string), as the JAX package's ``tag_cast`` does. The host
+engine's parse and format helpers below keep the kernels' rules, so that
+the two engines agree (but a double: ``float(s)`` rounds correctly, the
+device formula does not). Unlike the JAX package, a string parsed to a
+decimal past 18 digits keeps its value (the JAX package nulls it past
+10^18), and a non-finite or underscored decimal string is null (the JAX
+package raises on "NaN" and takes "1_0").
 
 Decimal casts follow the JAX package (GpuCast.scala:1513): decimal ->
 decimal rescales exactly with HALF_UP rounding and nulls what passes the
@@ -22,16 +33,29 @@ import math
 import numpy as np
 
 from ..columnar import dtypes as dt
-from ..conf import STEP_BREADTH, not_ported
 from .base import EvalCol, EvalContext, Expression
 
-__all__ = ["Cast", "cast_supported", "obj_array", "rescale_py_half_up"]
+__all__ = ["Cast", "cast_supported", "device_cast_reason", "obj_array",
+           "rescale_py_half_up"]
+
+_STRINGS = (dt.StringType, dt.BinaryType)
+
+
+def _formattable(src: dt.DataType) -> bool:
+    return src.is_numeric or isinstance(src, (dt.BooleanType, dt.DateType,
+                                              dt.TimestampType))
 
 
 def cast_supported(src: dt.DataType, to: dt.DataType) -> bool:
     """Whether this port evaluates the cast ``src -> to`` (either engine)."""
     if src == to or isinstance(src, dt.NullType):
         return True
+    if isinstance(src, _STRINGS) and isinstance(to, _STRINGS):
+        return True
+    if isinstance(to, dt.StringType):
+        return _formattable(src)
+    if isinstance(src, dt.StringType):
+        return _formattable(to)
     if isinstance(to, dt.BooleanType):
         return src.is_numeric
     if isinstance(src, dt.BooleanType):
@@ -44,6 +68,27 @@ def cast_supported(src: dt.DataType, to: dt.DataType) -> bool:
     if isinstance(src, dt.TimestampType):
         return to in (dt.LONG, dt.INT) or isinstance(to, dt.DateType)
     return False
+
+
+def device_cast_reason(src: dt.DataType, to: dt.DataType):
+    """Why the device does not run ``src -> to`` (None: it does): the JAX
+    package's ``tag_cast`` (plan/overrides.py:80-107) and the decimal128
+    tier's ``cast_ok`` (:945-953), with their reasons."""
+    if src == to:
+        return None
+    if not cast_supported(src, to):
+        return f"cast {src!r} -> {to!r} is not ported yet"
+    if isinstance(to, _STRINGS):
+        if src in (dt.FLOAT, dt.DOUBLE):
+            return "float->string (shortest-roundtrip formatting) runs on host"
+        if isinstance(src, dt.TimestampType):
+            return "timestamp->string runs on host"
+        if dt.is_d128(src):
+            return "decimal128 -> string formats on the host"
+    if isinstance(src, _STRINGS) and not isinstance(to, _STRINGS):
+        if isinstance(to, (dt.TimestampType, dt.DecimalType)):
+            return f"string -> {to!r} parse runs on host"
+    return None
 
 
 def rescale_py_half_up(v: int, from_s: int, to_s: int) -> int:
@@ -92,9 +137,12 @@ class Cast(Expression):
         return f"cast({self.child!r} as {self.to!r})"
 
     def runs_kernel(self) -> bool:
-        # d128_rescale: a decimal to or from a two-limb decimal, and an
-        # integral or boolean column to a two-limb decimal
+        # str_format / str_parse: a value to or from a string; d128_rescale:
+        # a decimal to or from a two-limb decimal, and an integral or
+        # boolean column to a two-limb decimal
         src, to = self.child.data_type, self.to
+        if src != to and isinstance(src, _STRINGS) != isinstance(to, _STRINGS):
+            return not isinstance(src, dt.NullType)
         if src == to or not isinstance(to, dt.DecimalType):
             return False
         if isinstance(src, dt.DecimalType):
@@ -108,14 +156,19 @@ class Cast(Expression):
         if src == to:
             return c
         if not cast_supported(src, to):
-            if isinstance(src, (dt.StringType, dt.BinaryType)) \
-                    or isinstance(to, (dt.StringType, dt.BinaryType)):
-                raise TypeError(f"cast {src!r} -> {to!r} is not ported yet "
-                                + not_ported(STEP_BREADTH))
             raise TypeError(f"cast {src!r} -> {to!r} is not ported yet")
         xp = ctx.xp
+        if isinstance(src, _STRINGS) and isinstance(to, _STRINGS):
+            return _cast_string_binary(ctx, c, to)
+        if isinstance(src, _STRINGS):
+            return _cast_from_string(ctx, c, to)
+        if isinstance(to, dt.StringType) \
+                and not isinstance(src, dt.NullType):
+            return _cast_to_string(ctx, c)
         if isinstance(src, dt.NullType):
             n = c.shape0()
+            if isinstance(to, _STRINGS):
+                return _null_strings(ctx, n, to)
             shape = (n, 2) if dt.is_d128(to) and ctx.is_device else n
             return EvalCol(xp.zeros(shape, dtype=to.np_dtype()),
                            xp.zeros(n, dtype=bool), to)
@@ -306,3 +359,278 @@ def _cast_decimal_decimal(ctx, c: EvalCol, src: dt.DecimalType,
                         dtype=np.int64)
     return EvalCol(vals, _and_valid(ctx, c.validity, np.logical_not(over)),
                    to)
+
+
+# ---------------------------------------------------------------------------
+# strings: the device directions on the kernels, the host engine's helpers
+# (their rules equal the kernels'; Spark non-ANSI: malformed -> null)
+# ---------------------------------------------------------------------------
+_WS = " \t\n\r\f\v"
+_TRUE_TOKENS = frozenset(("true", "t", "yes", "y", "1"))
+_FALSE_TOKENS = frozenset(("false", "f", "no", "n", "0"))
+
+
+def _null_strings(ctx, n: int, to: dt.DataType) -> EvalCol:
+    if ctx.is_device:
+        xp = ctx.xp
+        return EvalCol(xp.zeros((n, 8), dtype=xp.uint8),
+                       xp.zeros(n, dtype=bool), to,
+                       xp.zeros(n, dtype=xp.int32))
+    vals = np.empty(n, dtype=object)
+    vals[:] = "" if isinstance(to, dt.StringType) else b""
+    return EvalCol(vals, np.zeros(n, dtype=bool), to)
+
+
+def _cast_string_binary(ctx, c: EvalCol, to: dt.DataType) -> EvalCol:
+    """binary <-> string: the same bytes."""
+    if ctx.is_device:
+        return EvalCol(c.values, c.validity, to, c.lengths)
+    if isinstance(to, dt.BinaryType):
+        vals = [v.encode() if isinstance(v, str) else v for v in c.values]
+    else:
+        vals = [v.decode("utf-8", "replace")
+                if isinstance(v, (bytes, bytearray)) else v
+                for v in c.values]
+    return EvalCol(obj_array(vals), c.validity, to)
+
+
+def _cast_to_string(ctx, c: EvalCol) -> EvalCol:
+    from .cast_kernels import str_format
+    src = c.dtype
+    if ctx.is_device:
+        if isinstance(src, dt.BooleanType):
+            data, lengths = str_format(c.values, "bool")
+        elif isinstance(src, dt.DateType):
+            data, lengths = str_format(c.values, "date")
+        elif isinstance(src, dt.DecimalType) and not dt.is_d128(src):
+            data, lengths = str_format(c.values, "decimal", src.scale)
+        elif src.is_integral:
+            data, lengths = str_format(c.values, "long")
+        else:
+            # float formatting (shortest round trip), timestamps and wide
+            # decimals have no kernel: the plan keeps them on the host
+            raise TypeError(f"device cast {src!r} -> string unsupported")
+        return EvalCol(data, c.validity, dt.STRING, lengths)
+    # whole-column numpy where it formats as str() and isoformat() do
+    v = c.values
+    if isinstance(src, dt.BooleanType):
+        vals = np.where(np.asarray(v, dtype=bool), "true", "false")
+    elif isinstance(src, dt.DateType):
+        vals = np.asarray(v, dtype=np.int64).astype("datetime64[D]") \
+            .astype(str)
+    elif isinstance(src, dt.TimestampType):
+        vals = [_format_timestamp(int(x)) for x in v]
+    elif isinstance(src, dt.DecimalType):
+        vals = _format_decimals(v, src)
+    elif src in (dt.FLOAT, dt.DOUBLE):
+        vals = [repr(float(x)) for x in v]
+    else:
+        vals = np.asarray(v, dtype=np.int64).astype(str)
+    return EvalCol(obj_array(vals), c.validity, dt.STRING)
+
+
+def _cast_from_string(ctx, c: EvalCol, to: dt.DataType) -> EvalCol:
+    if ctx.is_device:
+        from .cast_kernels import str_parse
+        xp = ctx.xp
+        if isinstance(to, dt.BooleanType):
+            vals, ok = str_parse(c.values, c.lengths, "bool")
+        elif isinstance(to, dt.DateType):
+            vals, ok = str_parse(c.values, c.lengths, "date")
+        elif to in (dt.FLOAT, dt.DOUBLE):
+            vals, ok = str_parse(c.values, c.lengths, "double")
+            vals = xp.astype(vals, to.np_dtype())
+            if to == dt.FLOAT:
+                # flushed to a signed zero below float32's least normal,
+                # as the JAX package's XLA:CPU does
+                vals = xp.where(xp.abs(vals) < 1.1754943508222875e-38,
+                                vals * 0, vals)
+        elif to.is_integral:
+            vals, ok = str_parse(c.values, c.lengths, "long")
+            if to != dt.LONG:
+                info = np.iinfo(to.np_dtype())
+                ok = xp.logical_and(ok, xp.logical_and(vals >= int(info.min),
+                                                       vals <= int(info.max)))
+                vals = xp.astype(vals, to.np_dtype())
+        else:
+            raise TypeError(f"device cast string -> {to!r} unsupported")
+        return EvalCol(vals, _and_valid(ctx, c.validity, ok), to)
+    # each distinct string parsed once
+    memo: dict = {}
+    one = _py_parse
+    if to.is_integral:
+        info = np.iinfo(to.np_dtype())
+        lo, hi = int(info.min), int(info.max)
+
+        def one(s, to):
+            return _py_parse_integral(s.strip(_WS), lo, hi)
+
+    def parse(s):
+        if not isinstance(s, str):
+            return None
+        v = memo.get(s, memo)
+        if v is memo:
+            v = memo[s] = one(s, to)
+        return v
+    res = [parse(s) for s in c.values]
+    ok = np.fromiter((r is not None for r in res), dtype=bool,
+                     count=len(res))
+    if c.validity is not None:
+        ok &= np.asarray(c.validity, dtype=bool)
+    zeros = [0 if r is None else r for r in res]
+    out = obj_array(zeros) if dt.is_d128(to) \
+        else np.array(zeros, dtype=to.np_dtype())
+    return EvalCol(out, ok, to)
+
+
+def _format_decimals(values, src: dt.DecimalType):
+    """The decimal strings of a column's unscaled values; a decimal64 column
+    as whole-column numpy."""
+    if dt.is_d128(src) or src.scale <= 0:
+        return [_format_decimal(int(v), src.scale) for v in values]
+    v = np.asarray(values, dtype=np.int64)
+    f = 10 ** src.scale
+    mag = np.abs(v)      # |v| < 10^18: abs cannot wrap
+    whole = (mag // f).astype(str)
+    frac = np.char.zfill((mag % f).astype(str), src.scale)
+    text = np.char.add(np.char.add(whole, "."), frac)
+    return np.where(v < 0, np.char.add("-", text), text)
+
+
+def _format_decimal(unscaled: int, scale: int) -> str:
+    if scale <= 0:
+        return str(unscaled)
+    sign = "-" if unscaled < 0 else ""
+    digits = str(abs(unscaled)).rjust(scale + 1, "0")
+    return f"{sign}{digits[:-scale]}.{digits[-scale:]}"
+
+
+def _format_timestamp(micros: int) -> str:
+    import datetime
+    ts = datetime.datetime(1970, 1, 1) + datetime.timedelta(
+        microseconds=micros)
+    base = ts.strftime("%Y-%m-%d %H:%M:%S")
+    if ts.microsecond:
+        return base + f".{ts.microsecond:06d}".rstrip("0")
+    return base
+
+
+def _py_parse(s: str, to: dt.DataType):
+    s = s.strip(_WS)
+    if not s:
+        return None
+    if isinstance(to, dt.BooleanType):
+        low = s.lower()
+        if low in _TRUE_TOKENS:
+            return True
+        if low in _FALSE_TOKENS:
+            return False
+        return None
+    if isinstance(to, dt.DateType):
+        return _py_parse_date(s)
+    if isinstance(to, dt.TimestampType):
+        return _py_parse_timestamp(s)
+    if to in (dt.FLOAT, dt.DOUBLE):
+        if "_" in s:           # Python's float() takes underscores; Spark not
+            return None
+        low = s.lower()
+        if low == "nan":
+            return float("nan")
+        try:
+            v = float(s)
+        except ValueError:
+            return None
+        # Python takes '-nan'; Spark only an unsigned NaN
+        if v != v:
+            return None
+        return np.float32(v) if to == dt.FLOAT else v
+    if isinstance(to, dt.DecimalType):
+        return _py_parse_decimal(s, to)
+    info = np.iinfo(to.np_dtype())
+    return _py_parse_integral(s, int(info.min), int(info.max))
+
+
+def _py_parse_integral(s: str, lo: int, hi: int):
+    """[+-]digits[.digits] of a trimmed string, the fraction truncated;
+    null when malformed or outside [lo, hi]."""
+    if not s:
+        return None
+    sign = 1
+    body = s
+    if body[0] in "+-":
+        sign = -1 if body[0] == "-" else 1
+        body = body[1:]
+    ip, point, fp = body.partition(".")
+    if not ip.isdigit() or (point and fp and not fp.isdigit()):
+        return None
+    if not ip.isascii() or (fp and not fp.isascii()):
+        return None
+    v = sign * int(ip)
+    return v if lo <= v <= hi else None
+
+
+def _py_parse_decimal(s: str, to: dt.DecimalType):
+    """The unscaled value, HALF_UP at the target scale; null past the
+    precision, for a non-finite value or an underscore."""
+    import decimal
+    if "_" in s:
+        return None
+    try:
+        d = decimal.Decimal(s)
+    except decimal.InvalidOperation:
+        return None
+    if not d.is_finite():
+        return None
+    ctx = decimal.Context(prec=100, Emax=999, Emin=-999)
+    scaled = int(d.scaleb(to.scale, context=ctx).to_integral_value(
+        rounding=decimal.ROUND_HALF_UP))
+    if abs(scaled) >= 10 ** to.precision:
+        return None
+    return scaled
+
+
+def _py_parse_date(s: str):
+    parts = s.split("-")
+    # a leading '-' (a negative year) leaves parts[0] empty: rejected
+    if not 1 <= len(parts) <= 3 or not all(parts):
+        return None
+    if not all(p.isdigit() and p.isascii() for p in parts):
+        return None
+    if len(parts[0]) != 4:
+        return None
+    y = int(parts[0])
+    m = int(parts[1]) if len(parts) > 1 else 1
+    d = int(parts[2]) if len(parts) > 2 else 1
+    if len(parts) > 1 and len(parts[1]) > 2:
+        return None
+    if len(parts) > 2 and len(parts[2]) > 2:
+        return None
+    import datetime
+    try:
+        return datetime.date(y, m, d).toordinal() - 719163
+    except ValueError:
+        return None
+
+
+def _py_parse_timestamp(s: str):
+    import datetime
+    for sep in (" ", "T"):
+        if sep in s:
+            ds, _, ts = s.partition(sep)
+            days = _py_parse_date(ds)
+            if days is None:
+                return None
+            try:
+                t = datetime.time.fromisoformat(ts)
+            except ValueError:
+                return None
+            micros = ((t.hour * 60 + t.minute) * 60 + t.second) * 1_000_000 \
+                + t.microsecond
+            if t.tzinfo is not None:
+                # a zone offset shifts to UTC (Spark's behaviour)
+                micros -= int(t.utcoffset().total_seconds() * 1_000_000)
+            return days * 86_400_000_000 + micros
+    days = _py_parse_date(s)
+    if days is None:
+        return None
+    return days * 86_400_000_000

@@ -22,9 +22,16 @@ from .predicates import (And, EqualNullSafe, EqualTo, GreaterThan,
 
 __all__ = ["Column", "SortOrder", "col", "lit", "when", "coalesce",
            "sum", "count", "count_star", "min", "max", "avg", "mean", "abs",
+           "first", "last", "stddev", "stddev_samp", "stddev_pop",
+           "variance", "var_samp", "var_pop", "approx_percentile",
+           "sqrt", "exp", "log", "ceil", "floor", "round", "pow",
+           "shiftleft", "shiftright", "shiftrightunsigned", "bitwise_not",
            "substring", "year", "month", "dayofmonth", "dayofweek",
-           "weekday", "dayofyear", "weekofyear", "quarter",
-           "scalar_subquery"]
+           "weekday", "dayofyear", "weekofyear", "quarter", "hour", "minute",
+           "second", "date_add", "date_sub", "datediff", "add_months",
+           "last_day", "months_between", "unix_timestamp", "from_unixtime",
+           "date_format", "trunc", "hash", "xxhash64", "spark_partition_id",
+           "monotonically_increasing_id", "scalar_subquery"]
 
 
 class Column:
@@ -232,8 +239,103 @@ def avg(c) -> Column:
 mean = avg
 
 
+def first(c, ignore_nulls: bool = True) -> Column:
+    return Column(agg.First(_to_expr(c), ignore_nulls))
+
+
+def last(c, ignore_nulls: bool = True) -> Column:
+    return Column(agg.Last(_to_expr(c), ignore_nulls))
+
+
+def stddev(c) -> Column:
+    return Column(agg.StddevSamp(_to_expr(c)))
+
+
+def stddev_samp(c) -> Column:
+    return Column(agg.StddevSamp(_to_expr(c)))
+
+
+def stddev_pop(c) -> Column:
+    return Column(agg.StddevPop(_to_expr(c)))
+
+
+def variance(c) -> Column:
+    return Column(agg.VarianceSamp(_to_expr(c)))
+
+
+def var_samp(c) -> Column:
+    return Column(agg.VarianceSamp(_to_expr(c)))
+
+
+def var_pop(c) -> Column:
+    return Column(agg.VariancePop(_to_expr(c)))
+
+
+def approx_percentile(c, percentage, accuracy: int = 10000) -> Column:
+    """A bounded t-digest sketch honouring ``accuracy`` (at most about
+    accuracy / 2 centroids a group); host engine only."""
+    return Column(agg.ApproximatePercentile(_to_expr(c), percentage,
+                                            accuracy=accuracy))
+
+
 def abs(c) -> Column:  # noqa: A001
     return Column(Abs(_to_expr(c)))
+
+
+# -- math ----------------------------------------------------------------------
+def sqrt(c) -> Column:
+    from .math import Sqrt
+    return Column(Sqrt(_to_expr(c)))
+
+
+def exp(c) -> Column:
+    from .math import Exp
+    return Column(Exp(_to_expr(c)))
+
+
+def log(c) -> Column:
+    from .math import Log
+    return Column(Log(_to_expr(c)))
+
+
+def ceil(c) -> Column:
+    from .math import Ceil
+    return Column(Ceil(_to_expr(c)))
+
+
+def floor(c) -> Column:
+    from .math import Floor
+    return Column(Floor(_to_expr(c)))
+
+
+def round(c, scale: int = 0) -> Column:  # noqa: A001
+    from .math import Round
+    return Column(Round(_to_expr(c), Literal(scale)))
+
+
+def pow(c, p) -> Column:  # noqa: A001
+    from .math import Pow
+    return Column(Pow(_to_expr(c), _to_expr(p)))
+
+
+def shiftleft(c, n) -> Column:
+    from .arithmetic import ShiftLeft
+    return Column(ShiftLeft(_to_expr(c), _to_expr(n)))
+
+
+def shiftright(c, n) -> Column:
+    from .arithmetic import ShiftRight
+    return Column(ShiftRight(_to_expr(c), _to_expr(n)))
+
+
+def shiftrightunsigned(c, n) -> Column:
+    from .arithmetic import ShiftRightUnsigned
+    return Column(ShiftRightUnsigned(_to_expr(c), _to_expr(n)))
+
+
+def bitwise_not(c) -> Column:
+    from .arithmetic import BitwiseNot
+    return Column(BitwiseNot(_to_expr(c)))
 
 
 # -- strings -------------------------------------------------------------------
@@ -281,6 +383,93 @@ def weekofyear(c) -> Column:
 def quarter(c) -> Column:
     from .datetimes import Quarter
     return Column(Quarter(_to_expr(c)))
+
+
+def hour(c) -> Column:
+    from .datetimes import Hour
+    return Column(Hour(_to_expr(c)))
+
+
+def minute(c) -> Column:
+    from .datetimes import Minute
+    return Column(Minute(_to_expr(c)))
+
+
+def second(c) -> Column:
+    from .datetimes import Second
+    return Column(Second(_to_expr(c)))
+
+
+# -- date arithmetic and formatting --------------------------------------------
+def date_add(c, days) -> Column:
+    from .datetimes import DateAdd
+    return Column(DateAdd(_to_expr(c), _to_expr(days)))
+
+
+def date_sub(c, days) -> Column:
+    from .datetimes import DateSub
+    return Column(DateSub(_to_expr(c), _to_expr(days)))
+
+
+def datediff(end, start) -> Column:
+    from .datetimes import DateDiff
+    return Column(DateDiff(_to_expr(end), _to_expr(start)))
+
+
+def add_months(c, months) -> Column:
+    from .datetimes import AddMonths
+    return Column(AddMonths(_to_expr(c), _to_expr(months)))
+
+
+def last_day(c) -> Column:
+    from .datetimes import LastDay
+    return Column(LastDay(_to_expr(c)))
+
+
+def months_between(end, start, round_off: bool = True) -> Column:
+    from .datetimes import MonthsBetween
+    return Column(MonthsBetween(_to_expr(end), _to_expr(start), round_off))
+
+
+def unix_timestamp(c) -> Column:
+    from .datetimes import UnixTimestamp
+    return Column(UnixTimestamp(_to_expr(c)))
+
+
+def from_unixtime(c, fmt: str = "yyyy-MM-dd HH:mm:ss") -> Column:
+    from .datetimes import FromUnixTime
+    return Column(FromUnixTime(_to_expr(c), fmt))
+
+
+def date_format(c, fmt: str) -> Column:
+    from .datetimes import DateFormatClass
+    return Column(DateFormatClass(_to_expr(c), fmt))
+
+
+def trunc(c, fmt: str) -> Column:
+    from .datetimes import TruncDate
+    return Column(TruncDate(_to_expr(c), fmt))
+
+
+# -- hashes and ids ------------------------------------------------------------
+def hash(*cols) -> Column:  # noqa: A001
+    from .hashing import Murmur3Hash
+    return Column(Murmur3Hash(*[_to_expr(c) for c in cols]))
+
+
+def xxhash64(*cols) -> Column:
+    from .hashing import XxHash64
+    return Column(XxHash64(*[_to_expr(c) for c in cols]))
+
+
+def spark_partition_id() -> Column:
+    from .hashing import SparkPartitionID
+    return Column(SparkPartitionID())
+
+
+def monotonically_increasing_id() -> Column:
+    from .hashing import MonotonicallyIncreasingID
+    return Column(MonotonicallyIncreasingID())
 
 
 # -- subqueries ----------------------------------------------------------------

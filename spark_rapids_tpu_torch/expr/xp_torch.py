@@ -97,6 +97,10 @@ class TorchNamespace:
         return torch.trunc(a)
 
     @staticmethod
+    def minimum(a, b) -> torch.Tensor:
+        return torch.minimum(a, b)
+
+    @staticmethod
     def floor_divide(a, b) -> torch.Tensor:
         return torch.floor_divide(a, b)
 

@@ -191,8 +191,18 @@ def load_kernels() -> ctypes.CDLL:
             lib.srt_counting_order_scratch.argtypes = [i64, i32]
             lib.srt_counting_order_scratch.restype = ctypes.c_int64
             for fn in (lib.srt_partition_ids_max_keys,
-                       lib.srt_counting_order_max_bins):
+                       lib.srt_counting_order_max_bins,
+                       lib.srt_row_hash_max_cols):
                 fn.argtypes = []
                 fn.restype = ctypes.c_int32
+            lib.srt_str_parse.argtypes = [ptr, i64, i32, ptr, i64, i32, ptr,
+                                          ptr, ptr, ptr]
+            lib.srt_str_format.argtypes = [ptr, i64, i32, i32, i32, ptr, ptr,
+                                           ptr]
+            lib.srt_row_hash.argtypes = [ptr, i32, i64, i32, ctypes.c_uint64,
+                                         ptr, ptr]
+            for fn in (lib.srt_str_parse, lib.srt_str_format,
+                       lib.srt_row_hash):
+                fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB

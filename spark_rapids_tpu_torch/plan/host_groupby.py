@@ -1,5 +1,6 @@
 """Host-side (host engine) group-by with Spark semantics — the port's copy
-of ``spark_rapids_tpu/plan/host_groupby.py`` for sum, count, min and max.
+of ``spark_rapids_tpu/plan/host_groupby.py`` for sum, count, min, max,
+first, last and the moments of the variance family.
 
 numpy and Arrow rather than pandas: pandas nullable floats conflate NaN
 with NA, but Spark distinguishes them (NaN is a *value*, the largest double;
@@ -147,17 +148,104 @@ def _d128_sum(vals: np.ndarray, valid: np.ndarray, gid: np.ndarray,
     return out, np.logical_and(has, np.logical_not(over))
 
 
+def _pick_index(valid: np.ndarray, gid: np.ndarray, ngroups: int,
+                last: bool) -> np.ndarray:
+    """Each group's first (or last) valid row; 0 for an empty group."""
+    n = len(valid)
+    pos = np.arange(n, dtype=np.int64)
+    if last:
+        acc = np.full(ngroups, -1, dtype=np.int64)
+        np.maximum.at(acc, gid[valid], pos[valid])
+    else:
+        acc = np.full(ngroups, n, dtype=np.int64)
+        np.minimum.at(acc, gid[valid], pos[valid])
+    return np.clip(acc, 0, max(n - 1, 0))
+
+
+def _group_sum(x: np.ndarray, valid: np.ndarray, gid: np.ndarray,
+               ngroups: int) -> np.ndarray:
+    acc = np.zeros(ngroups, dtype=np.float64)
+    np.add.at(acc, gid[valid], x[valid])
+    return acc
+
+
+def _moment_mean(x, w, valid, gid, ngroups):
+    """The w-weighted group mean about each group's first valid x."""
+    pivot = x[_pick_index(valid, gid, ngroups, False)] if len(x) \
+        else np.zeros(ngroups)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return pivot + _group_sum(w * (x - pivot[gid]), valid, gid,
+                                  ngroups) / _group_sum(w, valid, gid,
+                                                        ngroups)
+
+
+def _moments(op: str, x: np.ndarray, valid: np.ndarray, gid: np.ndarray,
+             ngroups: int, refs: Sequence[np.ndarray]) -> np.ndarray:
+    """The device's ``_moments`` (exec/aggregate.py) on numpy."""
+    name = op.split(":")[0]
+    x = x.astype(np.float64)
+    merge = name.endswith("_merge")
+    w = refs[0].astype(np.float64) if merge else np.ones_like(x)
+    if name.startswith("moment_mean"):
+        return _moment_mean(x, w, valid, gid, ngroups)
+    means = refs[1].astype(np.float64) if merge else x
+    mean = _moment_mean(means, w, valid, gid, ngroups)
+    with np.errstate(invalid="ignore"):
+        dev = means - mean[gid]
+        sq = _group_sum(w * dev * dev, valid, gid, ngroups)
+    if merge:
+        sq = _group_sum(x, valid, gid, ngroups) + sq
+    return sq
+
+
+def _tdigest(op: str, col: HostColumn, valid: np.ndarray, gid: np.ndarray,
+             ngroups: int) -> np.ndarray:
+    """approx_percentile's sketch ops: ``tdigest:<accuracy>`` sketches each
+    group's values, ``tdigest_merge:<accuracy>`` merges its partial
+    sketches (utils/tdigest.py); a group with none gets the empty
+    sketch."""
+    from ..utils.tdigest import build_digest, merge_digests
+    kind, _, acc = op.partition(":")
+    delta = int(acc) if acc else 10000
+    out = np.empty(ngroups, dtype=object)
+    out[:] = [[] for _ in range(ngroups)]
+    idx = np.nonzero(valid)[0]
+    vals = col.values
+    if kind == "tdigest":
+        if len(idx):
+            order = idx[np.argsort(gid[idx], kind="stable")]
+            gs = gid[order]
+            bounds = np.nonzero(np.diff(gs))[0] + 1
+            starts = np.concatenate([[0], bounds])
+            ends = np.concatenate([bounds, [len(order)]])
+            for a, b in zip(starts, ends):
+                out[gs[a]] = build_digest(
+                    np.asarray(vals[order[a:b]], dtype=np.float64), delta)
+        return out
+    parts: list = [[] for _ in range(ngroups)]
+    for i in idx:
+        parts[gid[i]].append(vals[i])
+    for g in range(ngroups):
+        if parts[g]:
+            out[g] = merge_digests(parts[g], delta)
+    return out
+
+
 def host_group_reduce(op: str, col: HostColumn, gid: np.ndarray, ngroups: int,
-                      out_dtype: dt.DataType, merging: bool = False
+                      out_dtype: dt.DataType, merging: bool = False,
+                      refs: Sequence[np.ndarray] = ()
                       ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """-> (values[ngroups], validity[ngroups] or None). ``merging``: the op
     merges partial states (a final aggregate), so a wide-decimal sum reads
-    its inputs' overflow marks."""
+    its inputs' overflow marks. ``refs``: the values of the sibling state
+    columns a moment merge names."""
     if op in _COLLECT_OPS:
         raise NotImplementedError(
             f"aggregate op {op!r} is not ported yet {not_ported(STEP_BREADTH)}")
     valid = col.valid_mask()
     vals = col.values
+    if op.startswith("tdigest"):
+        return _tdigest(op, col, col.valid_mask(), gid, ngroups), None
     np_out = object if isinstance(out_dtype, (dt.StringType, dt.BinaryType)) \
         else out_dtype.np_dtype()
     vcount = np.zeros(ngroups, dtype=np.int64)
@@ -175,6 +263,13 @@ def host_group_reduce(op: str, col: HostColumn, gid: np.ndarray, ngroups: int,
         return acc, has.copy()
     if op in ("min", "max"):
         return _host_minmax(op, vals, valid, gid, ngroups, has)
+    if op in ("first", "last"):
+        if not len(vals):
+            return np.zeros(ngroups, dtype=vals.dtype), has.copy()
+        return vals[_pick_index(valid, gid, ngroups, op == "last")], \
+            has.copy()
+    if op.startswith("moment"):
+        return _moments(op, vals, valid, gid, ngroups, refs), has.copy()
     raise ValueError(op)
 
 

@@ -22,8 +22,9 @@ import torch
 
 from ..columnar.dtypes import TypeEnum, TypeSig
 from ..columnar import dtypes as dt
-from ..conf import (DECIMAL128_ENABLED, EXCHANGE_CHUNK_ROWS, JOIN_STRATEGY,
-                    PARQUET_DEVICE_DECODE, SHUFFLE_MODE, RapidsConf)
+from ..conf import (DECIMAL128_ENABLED, EXCHANGE_CHUNK_ROWS,
+                    GROUPBY_STRATEGY, JOIN_STRATEGY, PARQUET_DEVICE_DECODE,
+                    SHUFFLE_MODE, RapidsConf)
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.basic import (TpuExpandExec, TpuFilterExec, TpuLocalLimitExec,
                           TpuProjectExec, TpuRangeExec, TpuSampleExec,
@@ -42,10 +43,12 @@ from ..expr import aggregates as A
 from ..expr import arithmetic as AR
 from ..expr import conditional as C
 from ..expr import datetimes as D
+from ..expr import hashing as H
+from ..expr import math as MA
 from ..expr import predicates as P
 from ..expr import strings as S
 from ..expr.base import Alias, AttributeReference, Literal
-from ..expr.cast import Cast, cast_supported
+from ..expr.cast import Cast, device_cast_reason
 from ..io.parquet import ParquetSource
 from ..udf.columnar import ColumnarUDF
 from .meta import register_exec_rule, register_expr_rule, wrap_plan
@@ -89,15 +92,35 @@ def _register_expr_rules():
                 P.EqualNullSafe, P.And, P.Or, P.Not,
                 P.IsNull, P.IsNotNull, P.IsNaN,
                 C.If, C.CaseWhen, C.Coalesce,
-                A.Sum, A.Min, A.Max, A.Count, A.CountStar, A.Average):
+                A.Sum, A.Min, A.Max, A.Count, A.CountStar, A.Average,
+                A.First, A.Last, A.StddevPop, A.StddevSamp, A.VariancePop,
+                A.VarianceSamp, A.ApproximatePercentile, MA.Ceil, MA.Floor,
+                MA.Round):
         register_expr_rule(cls, _device_common)
 
     def tag_cast(meta, conf):
+        """The JAX package's ``tag_cast``: string casts run on the kernels
+        of expr/cast_kernels.py; the directions without one fall back."""
         c: Cast = meta.expr
-        if not cast_supported(c.child.data_type, c.to):
-            meta.cannot_run(f"cast {c.child.data_type!r} -> {c.to!r} is not "
-                            "ported yet")
-    register_expr_rule(Cast, _device_common, tag_fn=tag_cast)
+        reason = device_cast_reason(c.child.data_type, c.to)
+        if reason is not None:
+            meta.cannot_run(reason)
+    register_expr_rule(Cast, _device_all, tag_fn=tag_cast)
+    # the JAX package's math rules (overrides.py:74-78, :238-242)
+    for cls in (MA.Acos, MA.Asin, MA.Atan, MA.Cbrt, MA.Cos, MA.Cosh, MA.Exp,
+                MA.Expm1, MA.Log, MA.Log10, MA.Log1p, MA.Log2, MA.Rint,
+                MA.Signum, MA.Sin, MA.Sinh, MA.Sqrt, MA.Tan, MA.Tanh,
+                MA.ToDegrees, MA.ToRadians, MA.Pow, MA.Atan2):
+        register_expr_rule(cls, TypeSig.fp + TypeSig.integral)
+    # ... its bitwise rules (:447-455): shifts take INT and LONG values
+    register_expr_rule(AR.BitwiseNot, TypeSig.integral)
+    for cls in (AR.ShiftLeft, AR.ShiftRight, AR.ShiftRightUnsigned):
+        register_expr_rule(cls, TypeSig.of(TypeEnum.INT, TypeEnum.LONG))
+    # ... its hash and id rules (:435-446, _register_misc_rules)
+    register_expr_rule(H.Murmur3Hash, _device_all)
+    register_expr_rule(H.XxHash64, _device_all)
+    register_expr_rule(H.SparkPartitionID, _device_all)
+    register_expr_rule(H.MonotonicallyIncreasingID, _device_all)
 
     def tag_columnar_udf(meta, conf):
         if not meta.expr.device_ok:
@@ -105,9 +128,19 @@ def _register_expr_rules():
                             "device_ok=False")
     register_expr_rule(ColumnarUDF, _device_common, tag_fn=tag_columnar_udf)
     _register_string_rules()
+    # ... and its datetime rules (:420-432)
     for cls in (D.Year, D.Month, D.DayOfMonth, D.DayOfWeek, D.WeekDay,
-                D.DayOfYear, D.WeekOfYear, D.Quarter):
+                D.DayOfYear, D.WeekOfYear, D.Quarter, D.Hour, D.Minute,
+                D.Second, D.DateAdd, D.DateSub, D.DateDiff, D.AddMonths,
+                D.LastDay, D.MonthsBetween, D.TimeAdd, D.UnixTimestamp,
+                D.TruncDate):
         register_expr_rule(cls, _dt_sig)
+
+    def host_only_format(meta, conf):
+        meta.cannot_run("host-only: formatting")
+    for cls in (D.FromUnixTime, D.DateFormatClass):
+        register_expr_rule(cls, _dt_sig + TypeSig.of(TypeEnum.STRING),
+                           tag_fn=host_only_format)
 
 
 def _register_string_rules():
@@ -164,7 +197,9 @@ def _register_exec_rules():
         CpuHashAggregateExec, _device_all,
         lambda p, ch, conf, device: TpuHashAggregateExec(
             ch[0], p.key_names, p.specs, p.mode, device,
-            conf.min_bucket_rows),
+            conf.min_bucket_rows,
+            "sort" if str(conf.get(GROUPBY_STRATEGY)).lower() == "sort"
+            else "hash"),
         tag_fn=tag_agg)
     register_exec_rule(
         CpuSortExec, _device_all,
@@ -409,7 +444,7 @@ def _upgrade_decimal128_rules():
 
     def agg_fn_ok(meta, conf):
         if not isinstance(meta.expr, (A.Sum, A.Count, A.CountStar,
-                                      A.Average)):
+                                      A.Average, A.First, A.Last)):
             meta.cannot_run(f"{type(meta.expr).__name__} over decimal128 "
                             "is host-only")
 
@@ -418,7 +453,7 @@ def _upgrade_decimal128_rules():
                 P.EqualTo, P.GreaterThan, P.GreaterThanOrEqual, P.LessThan,
                 P.LessThanOrEqual, P.IsNull, P.IsNotNull):
         chain_expr(cls)
-    for cls in (A.Sum, A.Count, A.CountStar, A.Average):
+    for cls in (A.Sum, A.Count, A.CountStar, A.Average, A.First, A.Last):
         chain_expr(cls, agg_fn_ok)
 
     def chain_exec(cls, extra=None):
@@ -440,7 +475,8 @@ def _upgrade_decimal128_rules():
         for s in meta.plan.specs:
             for ops in (s.update_ops, s.merge_ops):
                 for op, (n, d, _) in zip(ops, s.state_fields):
-                    if dt.is_d128(d) and op not in ("sum", "count"):
+                    if dt.is_d128(d) and op not in ("sum", "count", "first",
+                                                    "last"):
                         meta.cannot_run(
                             f"aggregate op {op!r} over decimal128 state "
                             f"{n} is host-only")

@@ -119,7 +119,8 @@ class PhysicalPlan:
 
 
 def _empty_values(d: dt.DataType) -> np.ndarray:
-    if isinstance(d, (dt.StringType, dt.BinaryType)) or dt.is_d128(d):
+    if isinstance(d, (dt.StringType, dt.BinaryType, dt.ArrayType)) \
+            or dt.is_d128(d):
         return np.empty(0, dtype=object)
     return np.empty(0, dtype=d.np_dtype())
 
@@ -179,8 +180,10 @@ class CpuProjectExec(PhysicalPlan):
                               for n, e in zip(names, exprs)])
 
     def execute(self, pidx: int) -> Iterator[HostTable]:
+        offset = 0
         for batch in self.child.execute(pidx):
-            yield host_eval_exprs(batch, self.exprs, self.names)
+            yield host_eval_exprs(batch, self.exprs, self.names, pidx, offset)
+            offset += batch.num_rows
 
     def node_desc(self):
         return ", ".join(self.names)
@@ -450,8 +453,18 @@ class AggSpec:
         self.input_cols = [f"{prefix}_in{k}"
                            for k in range(len(fn.update_ops()))]
         self.state_fields = fn.state_fields(prefix)
-        self.update_ops = fn.update_ops()
-        self.merge_ops = fn.merge_ops()
+        # an op may name sibling state columns ("{0}": the first state
+        # column's name), which a merge of moments reads
+        names = [n for (n, _, _) in self.state_fields]
+        self.update_ops = [op.format(*names) for op in fn.update_ops()]
+        self.merge_ops = [op.format(*names) for op in fn.merge_ops()]
+
+
+def op_refs(op: str) -> List[str]:
+    """The sibling state columns an aggregate op reads besides its own
+    input: a moment merge's ``moment_*_merge:<n>[:<mean>]`` names them
+    (``tdigest:<accuracy>`` carries a parameter, not a column)."""
+    return op.split(":")[1:] if op.startswith("moment") else []
 
 
 def aggregate_columns_ops(specs: Sequence[AggSpec], mode: str
@@ -501,8 +514,10 @@ def host_aggregate(table: Optional[HostTable], key_names: List[str],
     gid, ngroups, rep = group_codes(table, key_names)
     out_cols = [table.column(k).take(rep) for k in key_names]
     for in_col, op, _, out_dt in cols_ops:
+        refs = [table.column(r).values for r in op_refs(op)]
         vals, validity = host_group_reduce(op, table.column(in_col), gid,
-                                           ngroups, out_dt, mode == "final")
+                                           ngroups, out_dt, mode == "final",
+                                           refs)
         if vals.dtype != object and vals.dtype != out_dt.np_dtype():
             with np.errstate(invalid="ignore"):
                 vals = vals.astype(out_dt.np_dtype())

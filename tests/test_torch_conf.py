@@ -90,8 +90,9 @@ def test_unread_table_holds_only_jax_keys():
     ("spark.rapids.tpu.groupby.strategy", "sort"),
     ("spark.rapids.tpu.memory.pool.mode", "strict")])
 def test_keys_that_change_the_jax_plan_raise(key, value):
-    """``groupby.strategy=sort`` takes the JAX package's sort-based
-    group-by, which the port does not run, so it raises. ``pool.mode=
+    """``groupby.strategy=sort`` takes the sort-based group-by, which the
+    port runs since the numbers-and-dates step: the session reads it.
+    ``pool.mode=
     strict``, the JAX strict memory pool, is read since the memory and
     robustness step: the session binds a strict catalog. ``shuffle.mode``
     is read since the multi-GPU step: ``host`` plans the host exchange
@@ -99,6 +100,10 @@ def test_keys_that_change_the_jax_plan_raise(key, value):
     package. (The port reads ``coalesce.afterUpload.enabled``:
     tests/test_torch_upload_cache.py.)"""
     from spark_rapids_tpu_torch.session import TorchSession
+    if key == "spark.rapids.tpu.groupby.strategy":
+        assert TorchSession({key: value}, device="cpu").conf.get(key) \
+            == value
+        return
     if key == "spark.rapids.tpu.shuffle.mode":
         if value == "bogus":
             with pytest.raises(ValueError, match="must be one of"):

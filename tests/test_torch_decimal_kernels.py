@@ -192,6 +192,10 @@ def model(tmp_path_factory):
     (tmp / "decimal128.cpp").write_text(_emulated_source())
     so = tmp / "libd128model.so"
     out = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared",
+                          # each model keeps its own inline variables: as
+                          # GNU unique symbols, every model in the process
+                          # would share the first one loaded
+                          "-fno-gnu-unique",
                           "-fPIC", "-o", str(so), str(tmp / "decimal128.cpp")],
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr

@@ -352,6 +352,10 @@ def _build(tmp: Path, small_tile: bool) -> ctypes.CDLL:
     (tmp / "shuffle.cpp").write_text(_emulated_source(small_tile))
     so = tmp / "libshufflemodel.so"
     out = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared",
+                          # each model keeps its own inline variables: as
+                          # GNU unique symbols, every model in the process
+                          # would share the first one loaded
+                          "-fno-gnu-unique",
                           "-fPIC", "-o", str(so), str(tmp / "shuffle.cpp")],
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr

@@ -590,6 +590,10 @@ def _build(tmp: Path, small_tile: bool) -> _Model:
     (tmp / "window.cpp").write_text(_emulated_source(small_tile))
     so = tmp / "libwindowmodel.so"
     out = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared",
+                          # each model keeps its own inline variables: as
+                          # GNU unique symbols, every model in the process
+                          # would share the first one loaded
+                          "-fno-gnu-unique",
                           "-fPIC", "-o", str(so), str(tmp / "window.cpp")],
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
