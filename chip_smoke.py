@@ -218,7 +218,12 @@ by (returnflag, linestatus) with date arithmetic, rounding, moments and
 first/last under ``groupby.strategy`` sort and hash (equal rows), and
 ``hash``/``xxhash64`` sums; ``str_parse``, ``str_format`` and
 ``row_hash`` must launch, and each equals its plain version bit for bit at
-2^20 and 2^23 rows, where it is timed (``--br1-only`` runs BR1 alone).
+2^20 and 2^23 rows, where it is timed (``str_parse`` against the whole
+32-byte sectors that hold the bytes within the rows' lengths), and
+``str_format`` and ``str_parse`` on edge sets (the int64 and int32
+extremes, powers of ten, decimals at scales 1, 2 and 18, the year clip
+points; spaces only, rows filling widths 8 to 128, a broadcast row, an
+unaligned view) (``--br1-only`` runs BR1 alone).
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -6763,6 +6768,41 @@ def _br1_numeric_rows(n: int, w: int, kind: str, gen: torch.Generator):
     return data, lens
 
 
+def _br1_format_values(n: int, kind: str, gen: torch.Generator):
+    """BR1's random values to format: days in -20000..60000, DECIMAL
+    unscaled values below 10^17, int64 below 2^62 (18-19 digits)."""
+    if kind == "date":
+        return torch.randint(-20000, 60000, (n,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    hi = 10**17 if kind == "decimal" else 2**62
+    return torch.randint(-hi, hi, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64)
+
+
+def _parse_bound_bytes(data: torch.Tensor, lengths: torch.Tensor,
+                       out_b: int) -> int:
+    """The least bytes ``str_parse`` must move: the whole 32-byte sectors
+    that hold the bytes within the rows' lengths (device memory moves
+    nothing smaller; a sector holding bytes of several rows counts once),
+    the int32 lengths, and ``out_b`` bytes out a row. The rows lie
+    ``data.stride(0)`` bytes apart from ``data.data_ptr()``, in address
+    order (a broadcast row: all at one address)."""
+    n, w = data.shape
+    ln = lengths.to(torch.int64).clamp(0, w)
+    start = data.data_ptr() + torch.arange(n, device=ln.device,
+                                           dtype=torch.int64) * data.stride(0)
+    keep = ln > 0
+    s0 = (start // 32)[keep]
+    s1 = ((start + ln + 31) // 32)[keep]
+    sectors = 0
+    if s0.numel():
+        # intervals in address order: each adds what passes the furthest
+        # end before it
+        before = torch.cat([s0[:1], torch.cummax(s1, 0).values[:-1]])
+        sectors = int((s1 - torch.maximum(s0, before)).clamp(min=0).sum())
+    return 32 * sectors + (4 + out_b) * n
+
+
 def _br1_sets(make, row_bytes: int, n: int) -> list:
     """Enough input sets that their bytes pass four times the L2 cache."""
     return [make() for _ in range(max(1, math.ceil(4 * L2_BYTES
@@ -6781,21 +6821,153 @@ def _br1_equal(label: str, got, want) -> float:
     return 0.0
 
 
+#: the cast grammars' edge cases (``tests/test_torch_cast_kernels.py`` and
+#: ``tests/test_torch_strings_kernel_model.py`` take them from here)
+CAST_EDGE_STRINGS = [
+    "", " ", "0", "-0", "+12.9", "  +12.9 ", "1e400", "-inf", "Infinity",
+    "NaN", "+nan", "-NaN", "1.", ".5", "1e", "1e+5", "1e5+", "1.2.3",
+    "1ee3", "0.05e-307", "1e-310", "4.9e-324", "1e23", "1e210",
+    "9223372036854775807", "9223372036854775808",
+    "-9223372036854775808", "-9223372036854775809",
+    "00000000000000000001", "123456789012345678901234",
+    "2024-02-30", "2024-02-29", "2023-02-29", "0000-01-01", "0001-01-01",
+    "9999-12-31", "2021-7", "2021-13-01", "2021--01", "2021-01-",
+    "-2021-01-01", "2021", "true", "FALSE", " Y ", "no", "t", "maybe",
+    "\t42\n", "4 2", "0x10", "1_000"]
+
+
+def cast_edge_longs() -> list:
+    """The int64 extremes, 0, +-1, every power of ten and its neighbours,
+    with both signs."""
+    lo, hi = -2**63, 2**63 - 1
+    v = {0, 1, -1, lo, hi, lo + 1, hi - 1}
+    for k in range(19):
+        for d in (-1, 0, 1):
+            v.update({10**k + d, -(10**k + d)})
+    v.update({10**18 * 9 + 10**17 * 2, 922 * 10**16, 923 * 10**16 - 1})
+    return sorted(x for x in v if lo <= x <= hi)
+
+
+def cast_edge_days() -> list:
+    """The int32 extremes, 0, +-1, the years 0 and 9999 at their ends
+    (the clip points: -719528 is 0000-01-01, 2932896 is 9999-12-31),
+    leap days and the eras' ends."""
+    return [-2**31, 2**31 - 1, -2**31 + 1, 2**31 - 2, 0, 1, -1, -719528,
+            -719529, -719162, -719163, 2932896, 2932897, 2932531, 11016,
+            11017, -719468, -719469, -573372, 146097 - 719468,
+            146096 - 719468]
+
+
+def cast_edge_strings(w: int) -> list:
+    """``CAST_EDGE_STRINGS``, spaces only, rows filling the width w
+    (digits, leading zeros, a long exponent, spaces around a number), the
+    formatted int64 edge values and more of each grammar's edges."""
+    fill = ["9" * w, "0" * (w - 1) + "7", "-" + "0" * (w - 2) + "5",
+            " " * w, "\t" * (w - 1) + "1", "1" + " " * (w - 1),
+            ("1e" + "0" * w)[:w], ("." + "3" * w)[:w],
+            (" 12" + " " * w)[:w], ("2020-01-01" + " " * w)[:w]]
+    spaces = ["", " ", "  ", "   ", "\t\n\r\x0b\x0c", " \x00", "\x00",
+              "\x1f1"]
+    longs = [str(x) for x in cast_edge_longs()]
+    return CAST_EDGE_STRINGS + spaces + fill + longs + [
+        "infinity", "-INFINITY", "+Inf", "+Infinity", "nan", "NaN ",
+        " -nan", "infinit", "1e-400", "-1e-5", "-1.5E-3", "1e10", "1E+308",
+        "2e308", ".e1", "1.e5", "5.", "1e5.", "+", "-", ".", "e5", "1-1",
+        "+0", "12.5", "-12.5", "  42 ", "\t-7\n",
+        "00000000000000000000000000001", "2021-1-1", "2021-01-1",
+        "2021-1-01", "2021-7-4", "2021-07-04 ", "2021-001-01", "202-01-01",
+        "20210-01-01", "0001-1-1", "9999-12-31", "10000-01-01",
+        "2000-02-29", "1900-02-29", "2021-12-32", "2021-1-32", "2021-00-10",
+        "2021-1", "2021-", "2021-1-", "YES", "No", " y ", "TRUE", "fAlSe",
+        "T", "N", "0", "1", "2", "tru", "falsey", "x", "\x13", "1\x00",
+        "1:2", "12/3", ":", "/", "9;", "0@", "1.5:", "2021/01/01",
+        "2021-01:01", "1e:", "1e/5", "`1", "1~"]
+
+
+def cast_matrix(strs: list, w: int, seed: int) -> tuple:
+    """(uint8 (n, w) with random bytes past each row's length, int32
+    lengths) as numpy arrays; rows longer than w are cut."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (len(strs), w)).astype(np.uint8)
+    lens = np.zeros(len(strs), np.int32)
+    for i, s in enumerate(strs):
+        b = s.encode()[:w]
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return data, lens
+
+
+def _cuda_matrix(strs: list, w: int, seed: int) -> tuple:
+    data, lens = cast_matrix(strs, w, seed)
+    return torch.from_numpy(data).cuda(), torch.from_numpy(lens).cuda()
+
+
+def br1_edge_phase() -> None:
+    """``str_format`` and ``str_parse`` against their plain versions, bit
+    for bit, on edge sets: int64 extremes and powers of ten (as longs and
+    as decimals at scales 1, 2 and 18), the int32 day extremes and the
+    years 0 and 9999 at their ends, both booleans; and, for each parse
+    kind, the grammars' edges, rows of spaces only and rows filling their
+    width at widths 8, 16, 32, 64 and 128, a broadcast row, and a view one
+    byte into 48-byte rows (no vector loads)."""
+    from spark_rapids_tpu_torch.expr.cast_kernels import (
+        str_format, str_format_reference, str_parse, str_parse_reference)
+    longs = torch.tensor(cast_edge_longs(), dtype=torch.int64, device="cuda")
+    days = torch.tensor(cast_edge_days(), dtype=torch.int32, device="cuda")
+    bools = torch.tensor([True, False, True], device="cuda")
+    sets = 0
+    for kind, scale, v in (("long", 0, longs), ("decimal", 1, longs),
+                           ("decimal", 2, longs), ("decimal", 18, longs),
+                           ("date", 0, days), ("bool", 0, bools)):
+        _br1_equal(f"edge str_format {kind} scale {scale}",
+                   str_format(v, kind, scale),
+                   str_format_reference(v, kind, scale))
+        sets += 1
+    for kind in ("long", "double", "bool", "date"):
+        for w in (8, 16, 32, 64, 128):
+            d, ln = _cuda_matrix(cast_edge_strings(w), w, w)
+            _br1_equal(f"edge str_parse {kind} w{w}", str_parse(d, ln, kind),
+                       str_parse_reference(d, ln, kind))
+            sets += 1
+        for s in ("  -123.5e2 ", "2020-02-29", "true", "77"):
+            row, ln = _cuda_matrix([s], 16, 0)
+            d, lens = row.expand(1000, -1), ln.expand(1000).contiguous()
+            _br1_equal(f"edge str_parse {kind} broadcast {s!r}",
+                       str_parse(d, lens, kind),
+                       str_parse_reference(d, lens, kind))
+            sets += 1
+        big, ln = _cuda_matrix([" " + s for s in cast_edge_strings(32)], 48,
+                               48)
+        view, vlen = big[:, 1:33], (ln - 1).clamp(0, 32)
+        _br1_equal(f"edge str_parse {kind} unaligned view",
+                   str_parse(view, vlen, kind),
+                   str_parse_reference(view, vlen, kind))
+        sets += 1
+    torch.cuda.synchronize()
+    print(f"# BR1 edge sets: {sets}, str_format and str_parse bit-equal to "
+          "their plain versions", flush=True)
+
+
 def br1_kernel_phase() -> dict:
     """The three kernels against their plain versions at BR1's sizes (bit
     for bit on every timed set), and each one's device time beside its plain
-    version's and its bound (bytes: the bytes within the rows' lengths, the
-    lengths and the outputs, over the card's memory rate)."""
+    version's and its bound (bytes over the card's memory rate:
+    ``str_parse`` the whole sectors holding the bytes within the rows'
+    lengths, ``_parse_bound_bytes``, with the bytes within the lengths
+    alone beside it; ``str_format`` its values in and its rows and lengths
+    out; ``row_hash`` the bytes within the lengths, the lengths and the
+    values in, the hashes out)."""
     from spark_rapids_tpu_torch.columnar import dtypes as dt
     from spark_rapids_tpu_torch.expr.base import EvalCol
     from spark_rapids_tpu_torch.expr.cast_kernels import (
-        str_format, str_format_reference, str_parse, str_parse_reference)
+        FORMAT_WIDTH, str_format, str_format_reference, str_parse,
+        str_parse_reference)
     from spark_rapids_tpu_torch.expr.hashing import (row_hash,
                                                      row_hash_reference)
     gen = torch.Generator(device="cuda").manual_seed(18)
     timings = {}
 
-    def timed(key, fn, plain, sets, nbytes):
+    def timed(key, fn, plain, sets, nbytes, lengths_bytes=None):
         out = fn(*sets[0])
         want = plain(*sets[0])
         torch.cuda.synchronize()
@@ -6804,11 +6976,17 @@ def br1_kernel_phase() -> dict:
         t = {"ms": _graph_ms(fn, sets),
              "plain_ms": _graph_ms(plain, sets[:1], calls=2, replays=2),
              "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3}
+        old = ""
+        if lengths_bytes is not None:
+            t["lengths_bound_ms"] = lengths_bytes / MEM_BYTES_PER_S * 1e3
+            old = (f"; the bytes within the lengths alone "
+                   f"{t['lengths_bound_ms']:.6f} ms, "
+                   f"{100 * t['lengths_bound_ms'] / t['ms']:.1f} %")
         timings[key] = t
         print(f"# BR1 kernel {key}: kernel {t['ms']:.6f} ms, plain "
               f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
               f"(bytes {nbytes}); {100 * t['bound_ms'] / t['ms']:.1f} % "
-              "of the bound", flush=True)
+              f"of the bound{old}", flush=True)
 
     for n in BR1_SIZES:
         for kind in ("long", "double"):
@@ -6816,24 +6994,18 @@ def br1_kernel_phase() -> dict:
                 sets = _br1_sets(lambda: _br1_numeric_rows(n, w, kind, gen),
                                  w, n)
                 out_b = 8 + 1
-                nbytes = int(sets[0][1].sum()) + 4 * n + out_b * n
+                d, ln = sets[0]
                 timed(("str_parse", kind, w, n),
                       lambda d, ln, kind=kind: str_parse(d, ln, kind),
                       lambda d, ln, kind=kind: str_parse_reference(d, ln,
                                                                    kind),
-                      sets, nbytes)
+                      sets, _parse_bound_bytes(d, ln, out_b),
+                      int(ln.sum()) + (4 + out_b) * n)
         for kind, scale, in_b in (("long", 0, 8), ("date", 0, 4),
                                   ("decimal", 2, 8)):
-            def make(kind=kind):
-                if kind == "date":
-                    return (torch.randint(-20000, 60000, (n,), generator=gen,
-                                          device="cuda", dtype=torch.int32),)
-                hi = 10**17 if kind == "decimal" else 2**62
-                return (torch.randint(-hi, hi, (n,), generator=gen,
-                                      device="cuda", dtype=torch.int64),)
-            from spark_rapids_tpu_torch.expr.cast_kernels import FORMAT_WIDTH
             width = FORMAT_WIDTH[kind]
-            sets = _br1_sets(make, in_b + width, n)
+            sets = _br1_sets(lambda kind=kind: (
+                _br1_format_values(n, kind, gen),), in_b + width, n)
             timed(("str_format", kind, n),
                   lambda v, kind=kind, scale=scale: str_format(v, kind,
                                                                scale),
@@ -7122,6 +7294,7 @@ def main() -> int:
         li = tpch.gen_lineitem(args.sf, seed=0)
         br1 = br1_phase(li, tpch.gen_orders(args.q3_sf, seed=1),
                         tpch.decimal_lineitem(li), args.partitions)
+        br1_edge_phase()
         br1k = br1_kernel_phase()
         print(json.dumps(_br1_kernel_lines(br1k, br1["launches"])),
               flush=True)
@@ -7333,6 +7506,7 @@ def main() -> int:
     #    group-by strategies, hashes; the three kernels timed ------------
     t0 = time.perf_counter()
     br1 = br1_phase(li, tables["orders"], dli, args.partitions)
+    br1_edge_phase()
     br1k = br1_kernel_phase()
     phase_s["BR1"] = time.perf_counter() - t0
     quiet.check("BR1")

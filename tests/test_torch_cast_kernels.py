@@ -11,40 +11,28 @@ mode; on the CPU the wrappers compute the plain versions, which
 JAX package). The inputs are random rows made from a seed with numpy, the
 edge cases of each grammar, garbage bytes past each row's length, several
 matrix widths and a broadcast row; each wrapper is also captured in a CUDA
-graph on a side stream, which fails if it launches on any other stream."""
+graph on a side stream, which fails if it launches on any other stream.
+The edge sets (``edge_longs``, ``edge_days``, ``edge_strings``, kept in
+``chip_smoke.py`` for its edge phase) also feed
+``test_torch_strings_kernel_model.py``, which runs the CUDA source and a
+numpy model of its arithmetic on the CPU: every power of ten and its
+neighbours, the int64 and int32 extremes, the year clip points, rows of
+spaces only and rows filling their width, widths 8 to 136 (past 128 the
+parse keeps its byte loop), views that are not 16-byte aligned."""
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.expr.base import EvalCol
 from spark_rapids_tpu_torch.expr.cast_kernels import (
     str_format, str_format_reference, str_parse, str_parse_reference)
 from spark_rapids_tpu_torch.expr.hashing import row_hash, row_hash_reference
 
-EDGE = ["", " ", "0", "-0", "+12.9", "  +12.9 ", "1e400", "-inf", "Infinity",
-        "NaN", "+nan", "-NaN", "1.", ".5", "1e", "1e+5", "1e5+", "1.2.3",
-        "1ee3", "0.05e-307", "1e-310", "4.9e-324", "1e23", "1e210",
-        "9223372036854775807", "9223372036854775808",
-        "-9223372036854775808", "-9223372036854775809",
-        "00000000000000000001", "123456789012345678901234",
-        "2024-02-30", "2024-02-29", "2023-02-29", "0000-01-01", "0001-01-01",
-        "9999-12-31", "2021-7", "2021-13-01", "2021--01", "2021-01-",
-        "-2021-01-01", "2021", "true", "FALSE", " Y ", "no", "t", "maybe",
-        "\t42\n", "4 2", "0x10", "1_000"]
-
-
-def _matrix(strs, w: int, seed: int):
-    """(uint8 (n, w) with random garbage past each row's length, int32
-    lengths); rows longer than w are cut."""
-    rng = np.random.default_rng(seed)
-    data = rng.integers(0, 256, (len(strs), w)).astype(np.uint8)
-    lens = np.zeros(len(strs), np.int32)
-    for i, s in enumerate(strs):
-        b = s.encode()[:w]
-        data[i, :len(b)] = np.frombuffer(b, np.uint8)
-        lens[i] = len(b)
-    return data, lens
+EDGE = cs.CAST_EDGE_STRINGS
+_matrix = cs.cast_matrix
+edge_strings = cs.cast_edge_strings
 
 
 def random_numeric_strings(n: int, seed: int) -> list:
@@ -76,6 +64,45 @@ def random_numeric_strings(n: int, seed: int) -> list:
             s = s[:p] + rng.choice(list("x.-e+ ")) + s[p:]
         out.append(s)
     return out
+
+
+_I64_MIN, _I64_MAX = -2**63, 2**63 - 1
+
+
+def edge_longs() -> np.ndarray:
+    return np.array(cs.cast_edge_longs(), dtype=np.int64)
+
+
+def edge_days() -> np.ndarray:
+    return np.array(cs.cast_edge_days(), dtype=np.int32)
+
+
+def _rand_longs(rng, n: int) -> np.ndarray:
+    """Uniform int64, and values of every digit count."""
+    a = rng.integers(_I64_MIN, _I64_MAX, n // 2, dtype=np.int64,
+                     endpoint=True)
+    digits = rng.integers(1, 19, n - n // 2)
+    b = (rng.random(n - n // 2) * 10.0 ** digits).astype(np.int64)
+    return np.concatenate([a, np.where(rng.random(b.size) < .5, -b, b)])
+
+
+def format_inputs(kind: str, rng, n: int) -> torch.Tensor:
+    if kind in ("long", "decimal"):
+        v = np.concatenate([edge_longs(), _rand_longs(rng, n)])
+    elif kind == "date":
+        v = np.concatenate([edge_days(), rng.integers(-2**31, 2**31, n // 2,
+                                                      dtype=np.int32),
+                            rng.integers(-800000, 3100000, n - n // 2,
+                                         dtype=np.int32)])
+    else:
+        v = rng.random(n) < .5
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def matrix(strs, w: int, seed: int):
+    """``_matrix`` as CPU tensors."""
+    data, lens = _matrix(strs, w, seed)
+    return torch.from_numpy(data), torch.from_numpy(lens)
 
 
 @pytest.fixture
@@ -127,30 +154,18 @@ def test_str_parse_broadcast_row(cuda_device, kind):
 
 
 def _format_inputs(kind: str, n: int, seed: int, device) -> torch.Tensor:
-    rng = np.random.default_rng(seed)
-    if kind == "long":
-        v = np.concatenate([[0, -1, 7, -2**63, 2**63 - 1, 10, -10],
-                            rng.integers(-2**63, 2**63 - 1, n,
-                                         dtype=np.int64)])
-    elif kind == "decimal":
-        v = np.concatenate([[0, -5, 5, 10**17, -10**17 + 1],
-                            rng.integers(-10**17, 10**17, n)])
-    elif kind == "date":
-        v = np.concatenate([[0, -719162, -719163, 2932896, 2932897,
-                             -2**31, 2**31 - 1],
-                            rng.integers(-10**6, 3 * 10**6, n)]
-                           ).astype(np.int32)
-    else:
-        v = rng.random(n) < .5
-    return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return format_inputs(kind, np.random.default_rng(seed), n).to(device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,scale", [("long", 0), ("decimal", 0),
-                                        ("decimal", 2), ("decimal", 7),
-                                        ("decimal", 18), ("date", 0),
-                                        ("bool", 0)])
+                                        ("decimal", 1), ("decimal", 2),
+                                        ("decimal", 7), ("decimal", 18),
+                                        ("date", 0), ("bool", 0)])
 def test_str_format_equals_plain_bit_for_bit(cuda_device, kind, scale):
+    """The edge values of ``format_inputs`` (the int64 and day extremes,
+    every power of ten and its neighbours, the year clip points) and
+    random ones."""
     v = _format_inputs(kind, 20000, scale, cuda_device)
     got, lens = str_format(v, kind, scale)
     want, wlens = str_format_reference(v, kind, scale)
@@ -255,3 +270,83 @@ def test_launch_counts(cuda_device):
     row_hash([EvalCol(ln, None, dt.INT)], 2, False, device=cuda_device)
     after = (str_parse.launches, str_format.launches, row_hash.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["long", "double", "bool", "date"])
+@pytest.mark.parametrize("width", [8, 20, 24, 128, 136])
+def test_str_parse_edge_rows(cuda_device, kind, width):
+    """Spaces only, rows filling their width, the grammars' edges; 16-byte
+    vectors at width 128, 8-byte ones at 8 and 24, bytes at 20, the byte
+    loop past 128."""
+    strs = edge_strings(width) + random_numeric_strings(2000, width + 1)
+    data, lens = matrix(strs, width, width + 1)
+    d, ln = data.to(cuda_device), lens.to(cuda_device)
+    got, ok = str_parse(d, ln, kind)
+    want, wok = str_parse_reference(d, ln, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, wok) and _same(got, want), kind
+    # on the CPU too, but for a NaN's bits: 0 * inf (as '0e400' gives)
+    # is the card's default NaN there, x86's here
+    cwant, cwok = str_parse_reference(data, lens, kind)
+    got = got.cpu()
+    nan = torch.isnan(got) & torch.isnan(cwant) if kind == "double" \
+        else torch.zeros_like(cwok)
+    assert torch.equal(ok.cpu(), cwok), kind
+    assert _same(torch.where(nan, 0.0, got), torch.where(nan, 0.0, cwant)) \
+        if kind == "double" else _same(got, cwant), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["long", "double", "bool", "date"])
+def test_str_parse_unaligned_views(cuda_device, kind):
+    """Views 1 and 8 bytes into 48-byte rows: bytes one by one, then 8-byte
+    vectors."""
+    strs = edge_strings(32) + random_numeric_strings(2000, 4)
+    big, lens = matrix(strs, 48, 4)
+    big = big.to(cuda_device)
+    for lo in (1, 8):
+        view = big[:, lo:lo + 32]
+        vlens = torch.clamp(lens - lo, 0, 32).to(torch.int32).to(cuda_device)
+        got, ok = str_parse(view, vlens, kind)
+        want, wok = str_parse_reference(view, vlens, kind)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, wok) and _same(got, want), (kind, lo)
+
+
+@pytest.mark.cuda
+def test_redesigned_paths_in_a_graph_on_a_side_stream(cuda_device):
+    """Each load path of str_parse (16- and 8-byte vectors, bytes, the
+    wide rows' byte loop) and each kind of str_format, captured in a CUDA
+    graph on a side stream: the replay gives the plain result."""
+    strs = edge_strings(32) + random_numeric_strings(1000, 8)
+    runs = {}
+    for width in (8, 128, 136):
+        data, lens = matrix(strs, width, width)
+        d, ln = data.to(cuda_device), lens.to(cuda_device)
+        runs[f"str_parse w{width}"] = (
+            lambda d=d, ln=ln: str_parse(d, ln, "double")[0],
+            lambda d=d, ln=ln: str_parse_reference(d, ln, "double")[0])
+    big, lens = matrix(strs, 40, 3)
+    view = big.to(cuda_device)[:, 3:35]
+    vlens = torch.clamp(lens - 3, 0, 32).to(torch.int32).to(cuda_device)
+    runs["str_parse unaligned"] = (
+        lambda: str_parse(view, vlens, "long")[0],
+        lambda: str_parse_reference(view, vlens, "long")[0])
+    rng = np.random.default_rng(8)
+    for kind, scale in (("long", 0), ("decimal", 2), ("date", 0),
+                        ("bool", 0)):
+        v = format_inputs(kind, rng, 2000).to(cuda_device)
+        runs[f"str_format {kind}"] = (
+            lambda v=v, k=kind, s=scale: str_format(v, k, s)[0],
+            lambda v=v, k=kind, s=scale: str_format_reference(v, k, s)[0])
+    side = torch.cuda.Stream()
+    for name, (fn, plain) in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same(out, plain()), name
