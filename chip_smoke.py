@@ -110,7 +110,8 @@ Builds the port's CUDA kernels from ``spark_rapids_tpu_torch/csrc`` and then:
    over RANGE -90..0 days), W2 (lineitem by return flag and line status,
    segments of about 1.5M rows: running min and max, ntile(100), count and
    sum over the partition) and W3 (part: rank by price within a brand, the
-   top 3 kept); R1 (a rollup and a cube of lineitem), U1 (a union of two
+   top 3 kept); R1 (a rollup and a cube of the first quarter of
+   lineitem's rows, ``R1_SHARE``), U1 (a union of two
    ship modes, grouped) and a 1 % sample of lineitem, each with AQE on
    (cold, then warm) and off (warm): device nodes only above the scans,
    the query's node kinds in its plan, results equal to the host engine's
@@ -211,7 +212,9 @@ the TCP rate of a 64 MiB block per codec, lz4 on a 2^20-row lineitem batch,
 and Q1 and Q3 again, each under its own
 ``worker.task:after=1:times=1:action=kill`` on worker 0 (rows equal; Q1's
 death respawns the slot, Q3's excludes it, one respawn a slot allowed).
-BR1 comes last: round trips of SF1 lineitem's keys, line numbers, dates
+BR1 comes next to last, its queries at a quarter of the scale factor
+(``BR1_SF``; lineitem 1.5M rows at --sf 1): round trips of lineitem's
+keys, line numbers, dates
 and DECIMAL(12,2) prices through strings and o_orderpriority's leading
 digit (against numpy sums and the host engine), lineitem ⋈ orders grouped
 by (returnflag, linestatus) with date arithmetic, rounding, moments and
@@ -223,7 +226,25 @@ first/last under ``groupby.strategy`` sort and hash (equal rows), and
 ``str_format`` and ``str_parse`` on edge sets (the int64 and int32
 extremes, powers of ten, decimals at scales 1, 2 and 18, the year clip
 points; spaces only, rows filling widths 8 to 128, a broadcast row, an
-unaligned view) (``--br1-only`` runs BR1 alone).
+unaligned view) (``--br1-only`` runs BR1 alone). ``row_hash``'s bound
+counts its string column's whole 32-byte sectors by the same rule, with
+the bytes within the lengths alone printed beside it.
+ST1 comes last, at ``--q3-sf`` with AQE off: regexp_replace,
+replace, substring_index and two RLIKEs over orders' o_comment (grouped by
+the rewritten comments), and every other string function of the port that
+runs on the device over customer (c_phone, the ``$2/$1`` template and a
+capture group) and part (p_name), each row's results folded into one
+concat_ws string whose Murmur3 and length are summed a group: plans device
+nodes only above the scans, each result equal to the host engine's, the
+kernels' counts set to 0 just before each device run and read just after
+(``regex_replace``, ``regex_extract``, ``delim_select`` and ``nfa_match``
+each launched), RLIKE '[a-z]*$' true on every row; every case of the three
+kernels bit-equal to its plain version on random rows at widths 8, 32 and
+136, clipping outputs, a broadcast row and an unaligned view; and each
+kernel at 2^20 rows of width 128 (text made on the card from a seed) bit-
+equal to its plain version and timed against its bound: the whole 32-byte
+sectors holding the bytes within the lengths, the lengths, and the output
+rows and lengths (``--st1-only`` runs ST1 alone).
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -4523,10 +4544,16 @@ _WINDOW_SEGMENTS = {"W1": ("orders", 15), "W2": ("lineitem", -4),
                     "W3": ("part", 8000)}
 
 
+#: R1's rollup and cube run over this share of lineitem's rows: their
+#: host-engine checks took 26 s over all of SF1's
+R1_SHARE = 0.25
+
+
 def _relational_queries() -> dict:
     """label -> (build(F, W, dfs), the unique keys a result sorts on, the
     node kinds its plan must hold, the window kernels it must launch).
-    ``dfs`` holds orders, lineitem and part."""
+    ``dfs`` holds orders, lineitem, its first ``R1_SHARE`` of rows
+    (``lineitem_r1``) and part."""
     def w1(F, W, t):
         col = F.col
         w = W.Window.partition_by("o_custkey").order_by(
@@ -4580,14 +4607,14 @@ def _relational_queries() -> dict:
 
     def r1_rollup(F, W, t):
         col = F.col
-        return t["lineitem"].rollup("l_returnflag", "l_linestatus").agg(
+        return t["lineitem_r1"].rollup("l_returnflag", "l_linestatus").agg(
             F.sum(col("l_quantity")).alias("sum_qty"),
             F.sum(col("l_extendedprice")).alias("sum_price"),
             F.count_star().alias("n"))
 
     def r1_cube(F, W, t):
         col = F.col
-        return t["lineitem"].cube("l_shipmode", "l_returnflag").agg(
+        return t["lineitem_r1"].cube("l_shipmode", "l_returnflag").agg(
             F.count_star().alias("n"),
             F.avg(col("l_discount")).alias("avg_disc"))
 
@@ -4688,11 +4715,12 @@ def relational_phase(tables: dict, partitions: int,
     W = _Window()
     li = tables["lineitem"]
     tables = dict(tables, lineitem=li.append_column(
-        "l_rowid", pa.array(np.arange(li.num_rows, dtype=np.int64))))
+        "l_rowid", pa.array(np.arange(li.num_rows, dtype=np.int64))),
+                  lineitem_r1=li.slice(0, int(li.num_rows * R1_SHARE)))
     sess = TorchSession({"spark.rapids.sql.test.enabled": True},
                         device=device)
     dfs = {k: sess.create_dataframe(tables[k], num_partitions=partitions)
-           for k in ("orders", "lineitem", "part")}
+           for k in ("orders", "lineitem", "lineitem_r1", "part")}
     summary = {}
     launches = {"seg_scan": 0, "frame_bounds": 0, "frame_reduce": 0}
     shapes = {}
@@ -6728,6 +6756,9 @@ def _shuffle_kernel_lines(timings: dict, launches: dict) -> list:
 # group-by (the str_parse, str_format and row_hash kernels)
 # ---------------------------------------------------------------------------
 BR1_SIZES = (1 << 20, 1 << 23)
+#: BR1's queries run at this share of --sf (and orders of --q3-sf): their
+#: host-engine checks held 68 of BR1's 99.48 s at SF1
+BR1_SF = 0.25
 BR1_KERNELS = ("str_parse", "str_format", "row_hash")
 
 
@@ -6955,8 +6986,9 @@ def br1_kernel_phase() -> dict:
     ``str_parse`` the whole sectors holding the bytes within the rows'
     lengths, ``_parse_bound_bytes``, with the bytes within the lengths
     alone beside it; ``str_format`` its values in and its rows and lengths
-    out; ``row_hash`` the bytes within the lengths, the lengths and the
-    values in, the hashes out)."""
+    out; ``row_hash`` the int64 values, the string column's sectors by the
+    same rule and its lengths in, the hashes out, with the string's bytes
+    within the lengths alone beside it)."""
     from spark_rapids_tpu_torch.columnar import dtypes as dt
     from spark_rapids_tpu_torch.expr.base import EvalCol
     from spark_rapids_tpu_torch.expr.cast_kernels import (
@@ -7024,14 +7056,17 @@ def br1_kernel_phase() -> dict:
                     return (cols,)
                 sets = _br1_sets(make, 8 + (20 if with_string else 0), n)
                 nbytes = 8 * n + (8 if xx else 4) * n
+                old = None
                 if with_string:
-                    nbytes += int(sets[0][0][1].lengths.sum()) + 4 * n
+                    sc = sets[0][0][1]
+                    old = nbytes + int(sc.lengths.sum()) + 4 * n
+                    nbytes += _parse_bound_bytes(sc.values, sc.lengths, 0)
                 name = "xxhash64" if xx else "murmur3"
                 timed(("row_hash", name, "int64+str16" if with_string
                        else "int64", n),
                       lambda cols, xx=xx: row_hash(cols, n, xx),
                       lambda cols, xx=xx: row_hash_reference(cols, n, xx),
-                      sets, nbytes)
+                      sets, nbytes, old)
     return {"timings": timings, "max_abs_err": {k: 0.0 for k in BR1_KERNELS}}
 
 
@@ -7232,6 +7267,338 @@ def br1_phase(li: pa.Table, orders: pa.Table, dli: pa.Table,
     return {"launches": launches, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# ST1: strings and regex (the regex_replace, regex_extract and delim_select
+# kernels; RLIKE on nfa_match)
+# ---------------------------------------------------------------------------
+ST1_KERNELS = ("regex_replace", "regex_extract", "delim_select")
+
+#: the regex kernels' cases (tests/test_torch_regex_kernels.py and
+#: tests/test_torch_regex_kernel_model.py take them from here): a bytes
+#: search is replace's literal, a str a regexp_replace pattern; templates
+#: with $n, \$ and group 0, an anchor at either end, a template that
+#: grows past the output width
+REGEX_REPLACE_CASES = [
+    (b"ab", "X"), (b"l", "LL"), (b"aa", ""), (b"the", "THE"),
+    ("[0-9]+", "#"), ("l+o?", "L"), ("^ab", "#"), ("[a-z]+-[0-9]+$", "<>"),
+    ("[aeiou]+", "#"), ("([a-z]+)-([0-9]+)", "$2/$1"),
+    ("([a-z]+)-([0-9]+)", "[$0]"), ("([a-z]+)-([0-9]+)", r"\$$2"),
+    ("([0-9]+)-([0-9]+)", "$2/$1"), ("([0-9])", "$1$1$1")]
+#: regexp_extract's cases: (pattern, group)
+REGEX_EXTRACT_CASES = [
+    ("[0-9]+", 0), ("([0-9]+)-([0-9]+)", 2), (r"([a-z]+)@([a-z]+)\.com", 2),
+    (r"v([0-9]{1,3})\.([0-9]+)", 1), ("^ab", 0), ("[a-z]+$", 0),
+    ("([0-9]+)-([0-9]+)-([0-9]+)", 3)]
+#: substring_index's cases: (delimiter, count)
+DELIM_CASES = [(",", 1), (",", -1), ("aa", 2), ("aa", -2), ("ab\u65e5", 1),
+               ("ly ", -2), ("x", 3), ("-", -3)]
+#: the pieces of the regex kernels' random rows
+REGEX_PIECES = list("abcdehilnostuxyz-0123456789 ,.@v") + [
+    "aa", "ly ", "the", "ab\u65e5", "\u00e9", "\n"]
+
+
+def regex_rows(n: int, w: int, seed: int) -> tuple:
+    """(uint8 (n, w), int32 lengths) as numpy arrays: random pieces of
+    ``REGEX_PIECES`` cut at a random length (a multi-byte character may be
+    cut), every seventh row empty and every fifth filling the width,
+    random bytes past each length."""
+    rng = np.random.default_rng(seed)
+    pieces = [t.encode() for t in REGEX_PIECES]
+    data = rng.integers(0, 256, (n, w)).astype(np.uint8)
+    lens = np.zeros(n, np.int32)
+    picks = rng.integers(0, len(pieces), (n, w))
+    tops = rng.integers(0, w + 1, n)
+    tops[::7] = 0
+    tops[1::5] = w
+    for i in range(n):
+        b = b"".join(pieces[k] for k in picks[i])[:tops[i]]
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return data, lens
+
+
+def regex_case_programs() -> list:
+    """Every case of the three kernels as (label, kind, program or
+    delimiter, argument): kind 'replace' (argument: None, the width is
+    the expressions'), 'extract' (the group) or 'delim' (the count)."""
+    from spark_rapids_tpu_torch.expr.regex_kernels import (extract_program,
+                                                           replace_program)
+    out = [(f"replace {s!r} -> {r!r}", "replace", replace_program(s, r),
+            None) for s, r in REGEX_REPLACE_CASES]
+    out += [(f"extract {p!r} {g}", "extract", extract_program(p, g), g)
+            for p, g in REGEX_EXTRACT_CASES]
+    out += [(f"delim {d!r} {c}", "delim", d.encode(), c)
+            for d, c in DELIM_CASES]
+    return out
+
+
+def run_regex_case(kind: str, prog, arg, data, lens, plain: bool,
+                   out_w=None) -> tuple:
+    """One case on (data, lens) through its kernel's wrapper or its plain
+    version; a replace at ``out_w`` or, without one, the expressions'
+    width. -> the outputs as a tuple."""
+    from spark_rapids_tpu_torch.expr import regex_kernels as rk
+    if kind == "replace":
+        w = out_w or rk.replace_width(prog, data.shape[1])
+        fn = rk.regex_replace_reference if plain else rk.regex_replace
+        return tuple(fn(data, lens, prog, w))
+    if kind == "extract":
+        fn = rk.regex_extract_reference if plain else rk.regex_extract
+        return tuple(fn(data, lens, prog, arg))
+    fn = rk.delim_select_reference if plain else rk.delim_select
+    return (fn(data, lens, prog, arg),)
+
+
+def _st1_counts() -> dict:
+    from spark_rapids_tpu_torch.expr import regex_kernels as rk
+    from spark_rapids_tpu_torch.udf.kernels import nfa_match
+    return {"regex_replace": rk.regex_replace.launches,
+            "regex_extract": rk.regex_extract.launches,
+            "delim_select": rk.delim_select.launches,
+            "nfa_match": nfa_match.launches}
+
+
+def _st1_zero() -> None:
+    from spark_rapids_tpu_torch.expr import regex_kernels as rk
+    from spark_rapids_tpu_torch.udf.kernels import nfa_match
+    rk.regex_replace.launches = rk.regex_extract.launches = 0
+    rk.delim_select.launches = nfa_match.launches = 0
+
+
+def _st1_queries(F, dfs: dict) -> dict:
+    """label -> (query, the kernels it must launch). Between them the
+    queries use every string function of the port that runs on the device
+    (get_json_object runs on the host engine only). ST1a groups orders by
+    its three rewritten comments (o_comment holds at most a few hundred
+    distinct values), so the rows compare every byte; ST1b and ST1c fold
+    each row's results into one concat_ws string and sum its Murmur3 hash
+    and length a group."""
+    col, lit = F.col, F.lit
+
+    def as_int(flag):
+        return F.when(flag, lit(1)).otherwise(lit(0))
+
+    c = col("o_comment")
+    orders = dfs["orders"].select(
+        F.regexp_replace(c, "[aeiou]+", "#").alias("vowels"),
+        F.replace(c, "the", "THE").alias("the"),
+        F.substring_index(c, "ly ", -2).alias("tail"),
+        as_int(c.rlike("special.*requests")).alias("special"),
+        as_int(c.rlike("[a-z]*$")).alias("end")
+    ).group_by("vowels", "the", "tail").agg(
+        F.count_star().alias("n"), F.sum(col("special")).alias("t_special"),
+        F.sum(col("end")).alias("t_end"))
+
+    def folded(df, key, strs, ints):
+        row = F.concat_ws("|", *strs)
+        return df.select(col(key), row.alias("row"), *ints).group_by(
+            key).agg(F.count_star().alias("n"),
+                     F.sum(F.hash(col("row"))).alias("h_row"),
+                     F.sum(F.length(col("row"))).alias("n_row"),
+                     *[F.sum(col(i.expr.alias)).alias(f"s_{i.expr.alias}")
+                       for i in ints])
+
+    p, seg = col("c_phone"), col("c_mktsegment")
+    padded = F.concat(lit("  "), seg, lit("  "))
+    customer = folded(dfs["customer"], "c_mktsegment", [
+        F.regexp_replace(p, "([0-9]+)-([0-9]+)", "$2/$1"),
+        F.regexp_extract(p, "([0-9]+)-([0-9]+)-([0-9]+)", 3),
+        F.regexp_extract(p, "[0-9]+", 0),
+        F.concat(col("c_name"), lit(" "), p),
+        F.lpad(p, 20, "*"), F.rpad(seg, 12, "-"),
+        F.char(col("c_nationkey") + lit(65)),
+        F.lower(seg), F.initcap(F.lower(seg)), F.upper(col("c_name")),
+        F.reverse(p), F.trim(padded), F.ltrim(padded), F.rtrim(padded),
+        F.repeat(F.substring(p, 1, 2), 3), F.substring_index(p, "-", 2)], [
+        F.locate("-", p, 4).alias("loc"), F.instr(p, "-").alias("ins"),
+        F.ascii(seg).alias("asc"),
+        F.octet_length(col("c_address")).alias("ol"),
+        F.bit_length(col("c_address")).alias("bl"),
+        F.length(col("c_address")).alias("ln")])
+    n = col("p_name")
+    part = folded(dfs["part"], "p_mfgr", [
+        F.regexp_extract(n, "([a-z]+) ([a-z]+)$", 2),
+        F.regexp_replace(n, "[a-z]+", "w"),
+        F.replace(n, "green", "GREEN")], [
+        as_int(n.rlike("(forest|green) [a-z]+")).alias("fg")])
+    return {"ST1a orders": (orders, ("regex_replace", "delim_select",
+                                      "nfa_match")),
+            "ST1b customer": (customer, ("regex_replace", "regex_extract",
+                                         "delim_select")),
+            "ST1c part": (part, ("regex_replace", "regex_extract",
+                                 "nfa_match"))}
+
+
+def st1_phase(tables: dict, partitions: int) -> dict:
+    """ST1: three string and regex queries over SF1 orders (o_comment),
+    customer (c_phone) and part (p_name), AQE off: every plan device nodes
+    only above the scans; the kernels' counts set to 0 just before each
+    device run and read just after, each kernel the query runs launched;
+    each result against the host engine's (integers and strings' hashes
+    exactly); RLIKE '[a-z]*$' true on every row (find()'s empty match at
+    the end)."""
+    from spark_rapids_tpu_torch.expr import functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.tpu.aqe.enabled": False})
+    dfs = {k: sess.create_dataframe(tables[k], num_partitions=partitions)
+           for k in ("orders", "customer", "part")}
+    launches = {k: 0 for k in (*ST1_KERNELS, "nfa_match")}
+    runs = {}
+    for label, (q, kernels) in _st1_queries(F, dfs).items():
+        _check_device_only(sess._physical(q.logical, True), label)
+        _st1_zero()
+        t0 = time.perf_counter()
+        out = q.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _st1_counts()
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched: "
+                                 f"{counts}")
+        host, t_host = _host_collect(q)
+        _br1_compare(label, out, host)
+        for k in launches:
+            launches[k] += counts[k]
+        rows = out.to_pylist()
+        if label == "ST1a orders" and any(r["t_end"] != r["n"]
+                                          for r in rows):
+            raise AssertionError(f"{label}: RLIKE '[a-z]*$' missed rows: "
+                                 f"{rows}")
+        runs[label] = {"wall_s": wall, "host_s": t_host, "launches": counts,
+                       "rows": len(rows)}
+        print(f"# {label}: {len(rows)} groups equal to the host engine's; "
+              f"device {wall:.3f} s (cold), host engine {t_host:.3f} s, "
+              f"launches {counts}", flush=True)
+    print(f"# ST1 launches: {launches}", flush=True)
+    return {"launches": launches, "runs": runs}
+
+
+def st1_edge_phase() -> None:
+    """Every case of the three kernels against its plain version, bit for
+    bit: random rows at widths 8, 32 and 136, outputs clipping at 8 and 12
+    bytes, a broadcast row and a view one byte into 48-byte rows."""
+    sets = 0
+    for i, (label, kind, prog, arg) in enumerate(regex_case_programs()):
+        def check(data, lens, out_w=None, what=""):
+            got = run_regex_case(kind, prog, arg, data, lens, False, out_w)
+            want = run_regex_case(kind, prog, arg, data, lens, True, out_w)
+            torch.cuda.synchronize()
+            for g, w_ in zip(got, want):
+                if not torch.equal(g, w_):
+                    raise AssertionError(f"ST1 edge {label} {what}: the "
+                                         "kernel differs from its plain "
+                                         "version")
+        for w in (8, 32, 136):
+            d, ln = (torch.from_numpy(a).cuda()
+                     for a in regex_rows(2048, w, i + w))
+            check(d, ln, what=f"w{w}")
+            sets += 1
+        if kind == "replace":
+            for out_w in (8, 12):
+                check(d[:, :16], ln.clamp(0, 16), out_w, f"out_w {out_w}")
+                sets += 1
+        check(d[:1].expand(700, -1), ln[:1].expand(700).contiguous(),
+              what="broadcast")
+        big, blen = (torch.from_numpy(a).cuda()
+                     for a in regex_rows(1000, 48, 7))
+        check(big[:, 1:33], (blen - 1).clamp(0, 32), what="view")
+        sets += 2
+    print(f"# ST1 edge sets: {sets}, regex_replace, regex_extract and "
+          "delim_select bit-equal to their plain versions", flush=True)
+
+
+#: the ST1 kernels' timed cases at 2^20 rows of width 128: each as the
+#: expressions run it on ST1's queries
+ST1_TIMED = {"regex_replace": ("[aeiou]+", "#"),
+             "regex_replace template": ("([0-9]+)-([0-9]+)", "$2/$1"),
+             "regex_extract": ("([0-9]+)-([0-9]+)-([0-9]+)", 3),
+             "delim_select": ("ly ", -2)}
+#: the bytes of the timed rows: letters, digits, '-' and spaces
+_ST1_ALPHABET = b"abcdefghijklmnopqrstuvwxyz     0123456789--"
+
+
+def _st1_rows(n: int, w: int, gen: torch.Generator) -> tuple:
+    """(uint8 (n, w), int32 lengths) made on the card: bytes of
+    ``_ST1_ALPHABET``, lengths 1..w, zero past each length."""
+    alpha = torch.frombuffer(bytearray(_ST1_ALPHABET),
+                             dtype=torch.uint8).cuda()
+    idx = torch.randint(0, len(_ST1_ALPHABET), (n, w), generator=gen,
+                        device="cuda")
+    lens = torch.randint(1, w + 1, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    data = alpha[idx]
+    j = torch.arange(w, device="cuda")[None, :]
+    return torch.where(j < lens[:, None], data, 0), lens
+
+
+def st1_kernel_phase(n: int = 1 << 20, w: int = 128) -> dict:
+    """The three kernels at ``n`` rows of width ``w``, bit-equal to their
+    plain versions on every timed set, each one's device time beside its
+    plain version's and its bound: the whole 32-byte sectors holding the
+    bytes within the rows' lengths (``_parse_bound_bytes``), the lengths,
+    and the output rows and lengths, over the card's memory rate."""
+    from spark_rapids_tpu_torch.expr import regex_kernels as rk
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    timings = {}
+    for key, (pat, arg) in ST1_TIMED.items():
+        if key.startswith("regex_replace"):
+            prog = rk.replace_program(pat, arg)
+            out_w = rk.replace_width(prog, w)
+            kind, karg, out_b = "replace", None, out_w + 4
+        elif key == "regex_extract":
+            prog, kind, karg, out_b = rk.extract_program(pat, arg), \
+                "extract", arg, w + 4
+        else:
+            prog, kind, karg, out_b = pat.encode(), "delim", arg, 4
+        sets = _br1_sets(lambda: _st1_rows(n, w, gen), w, n)
+
+        def fn(d, ln, plain=False):
+            return run_regex_case(kind, prog, karg, d, ln, plain)
+        got, want = fn(*sets[0]), fn(*sets[0], plain=True)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"ST1 kernel {key}: the kernel differs "
+                                     "from its plain version")
+        d, ln = sets[0]
+        nbytes = _parse_bound_bytes(d, ln, out_b)
+        # the plain versions take seconds a call at this size: timed in a
+        # graph of one call replayed once; the template's only checked
+        plain = None if key not in ST1_KERNELS else _graph_ms(
+            lambda d, ln: fn(d, ln, True), sets[:1], calls=1, replays=1)
+        t = {"ms": _graph_ms(fn, sets), "plain_ms": plain,
+             "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "n": n, "w": w}
+        timings[key] = t
+        plain_s = "not timed" if plain is None else f"{plain:.6f} ms"
+        print(f"# ST1 kernel {key} ({pat!r}, {arg!r}) at {n} x {w}: kernel "
+              f"{t['ms']:.6f} ms, plain {plain_s}, bound "
+              f"{t['bound_ms']:.6f} ms (bytes {nbytes}); "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound",
+              flush=True)
+    return {"timings": timings,
+            "max_abs_err": {k: 0.0 for k in ST1_KERNELS}}
+
+
+def _st1_kernel_lines(timings: dict, launches: dict) -> list:
+    """The three kernels' entries at 2^20 rows of width 128: regex_replace
+    as ST1a's '[aeiou]+' -> '#', regex_extract as ST1b's third group of
+    the phone, delim_select as ST1a's 'ly ', -2; launches from ST1's
+    runs."""
+    t = timings["timings"]
+    replaces = {"regex_replace": "spark_rapids_tpu/expr/regex.py:419",
+                "regex_extract": "spark_rapids_tpu/expr/regex.py:679",
+                "delim_select": "spark_rapids_tpu/expr/strings.py:416"}
+    return [{"name": k, "route": "cuda",
+             "source": "spark_rapids_tpu_torch/csrc/regex.cu",
+             "replaces": replaces[k], "launches": launches[k],
+             "max_abs_err": timings["max_abs_err"][k], "ms": t[k]["ms"],
+             "plain_ms": t[k]["plain_ms"], "bound_ms": t[k]["bound_ms"],
+             "bound_by": "bytes", "library_ms": None}
+            for k in ST1_KERNELS]
+
+
 def _br1_kernel_lines(timings: dict, launches: dict) -> list:
     """The three kernels' entries at 2^20 rows: str_parse of int64 text
     in a width-32 matrix (BR1a's round trip), str_format of int64, and
@@ -7266,6 +7633,9 @@ def main() -> int:
     ap.add_argument("--br1-only", action="store_true",
                     help="build the kernels and run the BR1 phase alone "
                     "(a quick check; prints no kernels line)")
+    ap.add_argument("--st1-only", action="store_true",
+                    help="build the kernels and run the ST1 phase alone "
+                    "(a quick check; prints no kernels line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7290,9 +7660,21 @@ def main() -> int:
           f"(nvcc {native.build_seconds:.2f} s)", flush=True)
 
     phase_s = {"build": time.perf_counter() - t_start}
+    if args.st1_only:
+        st1 = st1_phase({"orders": tpch.gen_orders(args.q3_sf, seed=1),
+                         "customer": tpch.gen_customer(args.q3_sf, seed=2),
+                         "part": tpch.gen_part(args.q3_sf, seed=3)},
+                        args.partitions)
+        st1_edge_phase()
+        st1k = st1_kernel_phase()
+        print(json.dumps(_st1_kernel_lines(st1k, st1["launches"])),
+              flush=True)
+        print(f"# ST1 alone: {time.perf_counter() - t_start:.2f} s",
+              flush=True)
+        return 0
     if args.br1_only:
-        li = tpch.gen_lineitem(args.sf, seed=0)
-        br1 = br1_phase(li, tpch.gen_orders(args.q3_sf, seed=1),
+        li = tpch.gen_lineitem(args.sf * BR1_SF, seed=0)
+        br1 = br1_phase(li, tpch.gen_orders(args.q3_sf * BR1_SF, seed=1),
                         tpch.decimal_lineitem(li), args.partitions)
         br1_edge_phase()
         br1k = br1_kernel_phase()
@@ -7505,11 +7887,23 @@ def main() -> int:
     # -- BR1: casts through strings, dates and statistics under both
     #    group-by strategies, hashes; the three kernels timed ------------
     t0 = time.perf_counter()
-    br1 = br1_phase(li, tables["orders"], dli, args.partitions)
+    bli = tpch.gen_lineitem(args.sf * BR1_SF, seed=0)
+    br1 = br1_phase(bli, tpch.gen_orders(args.q3_sf * BR1_SF, seed=1),
+                    tpch.decimal_lineitem(bli), args.partitions)
+    del bli
     br1_edge_phase()
     br1k = br1_kernel_phase()
     phase_s["BR1"] = time.perf_counter() - t0
     quiet.check("BR1")
+    # -- ST1: strings and regex on the three span kernels and nfa_match -
+    t0 = time.perf_counter()
+    st1 = st1_phase({"orders": tables["orders"],
+                     "customer": tables["customer"],
+                     "part": ptables["part"]}, args.partitions)
+    st1_edge_phase()
+    st1k = st1_kernel_phase()
+    phase_s["ST1"] = time.perf_counter() - t0
+    quiet.check("ST1")
     print("# TPC-H summary (s): query rows cold warm aqe_off host busy% "
           "warm_cache_hits", flush=True)
     for name, r in summary.items():
@@ -7569,7 +7963,8 @@ def main() -> int:
             k: max(wink["max_abs_err"][k], winm["max_abs_err"][k])
             for k in winm["max_abs_err"]}),
         *_shuffle_kernel_lines(shk, mx1["launches"]),
-        *_br1_kernel_lines(br1k, br1["launches"])]}), flush=True)
+        *_br1_kernel_lines(br1k, br1["launches"]),
+        *_st1_kernel_lines(st1k, st1["launches"])]}), flush=True)
     print("# PC1 summary: " + json.dumps(pc1, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

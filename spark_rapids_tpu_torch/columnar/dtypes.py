@@ -229,13 +229,15 @@ class TypeSig:
     gate to 38 with ``with_decimal128`` (the DECIMAL_128 tier).
     """
 
-    __slots__ = ("_types", "_max_decimal_precision")
+    __slots__ = ("_types", "_max_decimal_precision", "_notes")
 
     def __init__(self, types: Iterable[str] = (),
                  max_decimal_precision: int =
-                 DecimalType.MAX_INT64_PRECISION):
+                 DecimalType.MAX_INT64_PRECISION, notes=None):
         self._types = frozenset(types)
         self._max_decimal_precision = max_decimal_precision
+        #: a note on how a supported type runs (the reference's ps-note)
+        self._notes = dict(notes or {})
 
     @staticmethod
     def of(*enums: str) -> "TypeSig":
@@ -244,16 +246,26 @@ class TypeSig:
     def __add__(self, other: "TypeSig") -> "TypeSig":
         return TypeSig(self._types | other._types,
                        max(self._max_decimal_precision,
-                           other._max_decimal_precision))
+                           other._max_decimal_precision),
+                       {**self._notes, **other._notes})
 
     def __sub__(self, other: "TypeSig") -> "TypeSig":
         return TypeSig(self._types - other._types,
-                       self._max_decimal_precision)
+                       self._max_decimal_precision,
+                       {k: v for k, v in self._notes.items()
+                        if k not in other._types})
 
     def with_decimal128(self) -> "TypeSig":
         """The same types with the decimal gate raised to 38 digits: the
         ops whose device code takes two-limb columns opt in per rule."""
-        return TypeSig(self._types, DecimalType.MAX_PRECISION_128)
+        return TypeSig(self._types, DecimalType.MAX_PRECISION_128,
+                       self._notes)
+
+    def with_ps_note(self, type_enum: str, note: str) -> "TypeSig":
+        """The type supported, with a note on how (e.g. ASCII-only)."""
+        return TypeSig(self._types | {type_enum},
+                       self._max_decimal_precision,
+                       {**self._notes, type_enum: note})
 
     def is_supported(self, d: DataType) -> bool:
         return not self.reasons_not_supported(d)
@@ -268,7 +280,8 @@ class TypeSig:
         return []
 
     def describe(self) -> str:
-        return ", ".join(sorted(self._types))
+        return ", ".join(f"{t} ({self._notes[t]})" if t in self._notes
+                         else t for t in sorted(self._types))
 
     def __contains__(self, d: DataType) -> bool:
         return self.is_supported(d)

@@ -1,6 +1,6 @@
 """User-facing column DSL, modeled on pyspark.sql.functions / Column — the
-port of ``spark_rapids_tpu/expr/functions.py`` for the operators and
-aggregates this engine runs.
+port of ``spark_rapids_tpu/expr/functions.py`` for the operators,
+aggregates and functions this engine runs.
 
 ``col("a") * 2 > lit(3)`` builds an Expression tree consumed by the
 DataFrame API (spark_rapids_tpu_torch.session).
@@ -26,7 +26,11 @@ __all__ = ["Column", "SortOrder", "col", "lit", "when", "coalesce",
            "variance", "var_samp", "var_pop", "approx_percentile",
            "sqrt", "exp", "log", "ceil", "floor", "round", "pow",
            "shiftleft", "shiftright", "shiftrightunsigned", "bitwise_not",
-           "substring", "year", "month", "dayofmonth", "dayofweek",
+           "substring", "upper", "lower", "initcap", "length",
+           "octet_length", "bit_length", "ascii", "char", "reverse", "trim",
+           "ltrim", "rtrim", "lpad", "rpad", "repeat", "concat", "concat_ws",
+           "instr", "locate", "replace", "substring_index", "regexp_extract",
+           "regexp_replace", "get_json_object", "year", "month", "dayofmonth", "dayofweek",
            "weekday", "dayofyear", "weekofyear", "quarter", "hour", "minute",
            "second", "date_add", "date_sub", "datediff", "add_months",
            "last_day", "months_between", "unix_timestamp", "from_unixtime",
@@ -131,6 +135,10 @@ class Column:
     def like(self, pattern: str) -> "Column":
         from .strings import Like
         return Column(Like(self.expr, Literal(pattern)))
+
+    def rlike(self, pattern: str) -> "Column":
+        from .strings import RLike
+        return Column(RLike(self.expr, Literal(pattern)))
 
     def contains(self, needle) -> "Column":
         from .strings import Contains
@@ -342,6 +350,131 @@ def bitwise_not(c) -> Column:
 def substring(c, pos, ln) -> Column:
     from .strings import Substring
     return Column(Substring(_to_expr(c), _to_expr(pos), _to_expr(ln)))
+
+
+def upper(c) -> Column:
+    from .strings import Upper
+    return Column(Upper(_to_expr(c)))
+
+
+def lower(c) -> Column:
+    from .strings import Lower
+    return Column(Lower(_to_expr(c)))
+
+
+def initcap(c) -> Column:
+    from .strings import InitCap
+    return Column(InitCap(_to_expr(c)))
+
+
+def length(c) -> Column:
+    from .strings import Length
+    return Column(Length(_to_expr(c)))
+
+
+def octet_length(c) -> Column:
+    from .strings import OctetLength
+    return Column(OctetLength(_to_expr(c)))
+
+
+def bit_length(c) -> Column:
+    from .strings import BitLength
+    return Column(BitLength(_to_expr(c)))
+
+
+def substring_index(c, delim: str, count: int) -> Column:
+    from .strings import SubstringIndex
+    return Column(SubstringIndex(_to_expr(c), Literal(delim), Literal(count)))
+
+
+def concat(*cols) -> Column:
+    from .strings import Concat
+    return Column(Concat(*[_to_expr(c) for c in cols]))
+
+
+def concat_ws(sep: str, *cols) -> Column:
+    from .strings import ConcatWs
+    return Column(ConcatWs(Literal(sep), *[_to_expr(c) for c in cols]))
+
+
+def char(c) -> Column:
+    """chr(n) — the character for code n & 0xFF (Spark's `chr`)."""
+    from .strings import Chr
+    return Column(Chr(_to_expr(c)))
+
+
+def trim(c) -> Column:
+    from .strings import StringTrim
+    return Column(StringTrim(_to_expr(c)))
+
+
+def ltrim(c) -> Column:
+    from .strings import StringTrimLeft
+    return Column(StringTrimLeft(_to_expr(c)))
+
+
+def rtrim(c) -> Column:
+    from .strings import StringTrimRight
+    return Column(StringTrimRight(_to_expr(c)))
+
+
+def lpad(c, ln: int, pad: str = " ") -> Column:
+    from .strings import StringLpad
+    return Column(StringLpad(_to_expr(c), Literal(ln), Literal(pad)))
+
+
+def rpad(c, ln: int, pad: str = " ") -> Column:
+    from .strings import StringRpad
+    return Column(StringRpad(_to_expr(c), Literal(ln), Literal(pad)))
+
+
+def repeat(c, n: int) -> Column:
+    from .strings import StringRepeat
+    return Column(StringRepeat(_to_expr(c), Literal(n)))
+
+
+def reverse(c) -> Column:
+    from .strings import StringReverse
+    return Column(StringReverse(_to_expr(c)))
+
+
+def replace(c, search: str, replacement: str) -> Column:
+    from .strings import StringReplace
+    return Column(StringReplace(_to_expr(c), Literal(search),
+                                Literal(replacement)))
+
+
+def locate(substr: str, c, pos: int = 1) -> Column:
+    from .strings import StringLocate
+    return Column(StringLocate(Literal(substr), _to_expr(c), Literal(pos)))
+
+
+def instr(c, substr: str) -> Column:
+    from .strings import StringLocate
+    return Column(StringLocate(Literal(substr), _to_expr(c), Literal(1)))
+
+
+def ascii(c) -> Column:  # noqa: A001
+    from .strings import Ascii
+    return Column(Ascii(_to_expr(c)))
+
+
+def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
+    from .strings import RegExpExtract
+    return Column(RegExpExtract(_to_expr(c), Literal(pattern), Literal(idx)))
+
+
+def regexp_replace(c, pattern: str, replacement: str) -> Column:
+    from .strings import RegExpReplace
+    return Column(RegExpReplace(_to_expr(c), Literal(pattern),
+                                Literal(replacement)))
+
+
+def get_json_object(c, path: str) -> Column:
+    """JSONPath extraction over string columns (reference:
+    GpuGetJsonObject; the $.field and [index] subset, host engine only)."""
+    from .strings import GetJsonObject
+    return Column(GetJsonObject(_to_expr(c), Literal(path)))
 
 
 # -- date parts ----------------------------------------------------------------

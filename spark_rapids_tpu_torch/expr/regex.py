@@ -19,7 +19,19 @@ Match semantics follow Java ``Matcher.find()`` (unanchored unless ^/$).
 One difference from the JAX package, on purpose: ``dotall=True`` makes
 ``.`` match line terminators too, which LIKE needs (Spark's ``%`` and ``_``
 match every character; the JAX device LIKE misses ``\\n`` and ``\\r``).
-Match spans (``match_ends``, regexp_replace/extract) are not ported yet.
+RLIKE compiles with ``dotall=False`` (Java's ``.`` without DOTALL), as the
+JAX package does.
+
+The match-span machinery (regexp_replace, regexp_extract, replace) is here
+as plain torch functions under the JAX package's names, each the column
+loop of its ``lax.scan``: ``DeviceNfa.match_ends``,
+``select_leftmost_spans``, ``replace_by_spans``, ``extract_first_span``,
+``literal_match_ends``, the capture-group plan (``compile_group_plan``,
+``_greedy_walk_bounds``, ``group_bounds_all_starts``), the replacement
+template (``parse_replacement_template``, ``replace_by_template``) and
+``extract_group_span``. They are the plain versions of the
+``regex_replace`` and ``regex_extract`` kernels (expr/regex_kernels.py),
+which run Java's find() loop directly, one thread a row.
 """
 from __future__ import annotations
 
@@ -33,7 +45,11 @@ if TYPE_CHECKING:
     from ..udf.kernels import NfaKernelTables
 
 __all__ = ["RegexUnsupported", "RegexParser", "transpile",
-           "compile_device_nfa", "DeviceNfa", "unique_rows"]
+           "compile_device_nfa", "DeviceNfa", "unique_rows",
+           "select_leftmost_spans", "replace_by_spans", "extract_first_span",
+           "literal_match_ends", "GroupPlan", "compile_group_plan",
+           "parse_replacement_template", "group_bounds_all_starts",
+           "replace_by_template", "extract_group_span"]
 
 MAX_STATES = 32          # state set must fit a uint32 bitmask
 # The device NFA is run per *character*: continuation bytes (0x80-0xBF) are
@@ -423,6 +439,46 @@ class DeviceNfa:
         #: the nfa_match kernel's tables, built once, per device
         self._kernel_tables: Dict[torch.device, "NfaKernelTables"] = {}
 
+    @property
+    def spans_supported(self) -> bool:
+        """Span extraction (regexp_replace/extract) supported: ASCII-only
+        byte classes (char-aligned spans), no alternation (NFA longest ==
+        Java greedy order for the remaining subset), non-nullable (no
+        empty-match insertion semantics)."""
+        return self.ascii_only and not self.has_alt and not self.nullable
+
+    def match_ends(self, values: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+        """Per (row, start byte): the longest match END (exclusive), or -1
+        (int32 ``(n, w)``). Byte-level stepping: it requires ``ascii_only``
+        so that spans cannot split a UTF-8 character. The column loop of
+        the JAX scan, every start of every row in step; state sets are
+        int64 holding uint32 bits."""
+        n, w = values.shape
+        dev = values.device
+        cls_t, masks = self.tables(dev)
+        cls = cls_t.long()[values.long()]                         # (n, w)
+        accept = self.accept_bits
+        lengths = lengths.to(torch.int32)
+        in_str = torch.arange(w, dtype=torch.int32,
+                              device=dev)[None, :] < lengths[:, None]
+        states = torch.zeros((n, w), dtype=torch.int64, device=dev)
+        ends = torch.full((n, w), -1, dtype=torch.int32, device=dev)
+        for j in range(w):
+            # open a new match at start j (column j)
+            if not self.anchored_start or j == 0:
+                states[:, j] = torch.where(in_str[:, j], self.start_bits, 0)
+            m = masks[cls[:, j]]                                  # (n, S)
+            nxt = torch.zeros_like(states)
+            for t in range(masks.shape[1]):
+                nxt |= ((states & m[:, t:t + 1]) != 0).long() << t
+            states = torch.where(in_str[:, j:j + 1], nxt, 0)
+            done = (states & accept) != 0
+            if self.anchored_end:
+                done = done & (lengths - 1 == j)[:, None]
+            ends = torch.where(done & in_str[:, j:j + 1], j + 1, ends)
+        return ends
+
     def tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(class_of_byte int32 (256,), masks int64 (classes, states)) on
         ``device``."""
@@ -569,3 +625,363 @@ def _nfa_min_len(frag: _Frag, n_positions: int) -> int:
             break
     best = min((dist[s] for s in frag.last), default=INF)
     return max(1, best if best < INF else 1)
+
+
+# ---------------------------------------------------------------------------
+# Match-span machinery (device regexp_replace / regexp_extract / replace):
+# select leftmost non-overlapping spans, then re-emit bytes around them.
+# Plain torch, each the column loop of the JAX package's lax.scan; on the
+# card the regex_replace and regex_extract kernels compute the same.
+# ---------------------------------------------------------------------------
+def _cols(w: int, device) -> torch.Tensor:
+    return torch.arange(w, dtype=torch.int32, device=device)
+
+
+def select_leftmost_spans(ends: torch.Tensor, lengths: torch.Tensor):
+    """ends: (n, w) longest-match end per start (or -1). Returns
+    (start_mask, in_match): the leftmost non-overlapping selection, the
+    order Java Matcher.find() visits matches."""
+    n, w = ends.shape
+    next_allowed = torch.zeros(n, dtype=torch.int32, device=ends.device)
+    starts = torch.zeros((n, w), dtype=torch.bool, device=ends.device)
+    in_match = torch.zeros((n, w), dtype=torch.bool, device=ends.device)
+    for j in range(w):
+        start = (ends[:, j] >= 0) & (next_allowed <= j)
+        next_allowed = torch.where(start, ends[:, j], next_allowed)
+        starts[:, j] = start
+        in_match[:, j] = next_allowed > j
+    return starts, in_match
+
+
+def _put(out: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
+         byte: torch.Tensor) -> None:
+    """out[r, idx[r]] = byte[r] where keep[r]; ``out`` has one trash column
+    past its width, which takes the rows not kept."""
+    trash = out.shape[1] - 1
+    col = torch.where(keep, idx.long(), trash)[:, None]
+    out.scatter_(1, col, byte.to(torch.uint8)[:, None])
+
+
+def _emit_literal(out, cursor, start, payload: bytes, out_w: int):
+    """Writes ``payload`` at ``cursor`` (clipped to ``out_w - 1``) on the
+    rows of ``start``; -> the new cursor."""
+    for k, b in enumerate(payload):
+        idx = torch.clamp(cursor + k, 0, out_w - 1)
+        _put(out, idx, start, torch.full_like(idx, b))
+    return torch.where(start, cursor + len(payload), cursor)
+
+
+def _emit_copy(out, cursor, copy, byte, out_w: int):
+    _put(out, torch.clamp(cursor, 0, out_w - 1), copy, byte)
+    return torch.where(copy, cursor + 1, cursor)
+
+
+def replace_by_spans(values: torch.Tensor, lengths: torch.Tensor,
+                     start_mask: torch.Tensor, in_match: torch.Tensor,
+                     repl: bytes, out_w: int):
+    """Emit input bytes with each selected span replaced by ``repl``.
+    -> (out (n, out_w) uint8, out_lengths int32). Spans must be non-empty.
+    A write past ``out_w - 1`` lands on ``out_w - 1``, and the lengths
+    count every byte, as in the JAX package."""
+    return replace_by_template(values, lengths, start_mask, in_match, None,
+                               [("lit", repl)] if repl else [], {}, out_w)
+
+
+def extract_first_span(values: torch.Tensor, lengths: torch.Tensor,
+                       ends: torch.Tensor):
+    """First (leftmost) match span copied to column 0; no match -> ''.
+    -> (out (n, w) uint8, out_lengths int32)."""
+    n, w = values.shape
+    valid = ends >= 0
+    found = valid.any(dim=1)
+    s = torch.argmax(valid.to(torch.int8), dim=1).to(torch.int32)
+    e = torch.take_along_dim(ends, s[:, None].long(), dim=1)[:, 0]
+    out_len = torch.where(found, e - s, 0).to(torch.int32)
+    return _span_rows(values, s, out_len), out_len
+
+
+def _span_rows(values: torch.Tensor, start: torch.Tensor,
+               out_len: torch.Tensor) -> torch.Tensor:
+    """Each row's bytes [start, start + out_len) moved to byte 0, the rest
+    zero."""
+    w = values.shape[1]
+    k = _cols(w, values.device)
+    idx = torch.clamp(start[:, None] + k[None, :], 0, w - 1)
+    out = torch.take_along_dim(values, idx.long(), dim=1)
+    return torch.where(k[None, :] < out_len[:, None], out,
+                       0).to(torch.uint8)
+
+
+def literal_match_ends(values: torch.Tensor, lengths: torch.Tensor,
+                       search: bytes) -> torch.Tensor:
+    """The ends matrix for a literal byte-string search (StringReplace)."""
+    n, w = values.shape
+    pos = _cols(w, values.device)
+    match = torch.ones((n, w), dtype=torch.bool, device=values.device)
+    for k, b in enumerate(search):
+        idx = torch.clamp(pos + k, 0, w - 1).long()
+        match &= values[:, idx] == b
+    match &= (pos[None, :] + len(search)) <= lengths[:, None]
+    return torch.where(match, pos[None, :] + len(search), -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Capture groups (reference: CudfRegexTranspiler keeps capture groups in the
+# transpiled pattern, RegexParser.scala:414; cuDF extracts them natively).
+# For the deterministic no-alternation subset the pattern linearizes into
+# charset items; after the NFA finds the match span, a greedy walk over the
+# items recovers every group boundary.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GroupPlan:
+    """Linearized pattern: items are (charset, lo, hi); groups maps group
+    index -> [first_item, end_item) ranges over ``items``."""
+    items: List[Tuple[frozenset, int, Optional[int]]]
+    groups: dict
+    ngroups: int
+
+
+def _linearize(node: RNode, items: List, groups: dict,
+               in_group: Optional[int]) -> None:
+    if isinstance(node, RSeq):
+        for it in node.items:
+            _linearize(it, items, groups, in_group)
+        return
+    if isinstance(node, RGroup):
+        if in_group is not None:
+            raise RegexUnsupported("nested capture group")
+        start = len(items)
+        _linearize(node.child, items, groups, node.index)
+        groups[node.index] = (start, len(items))
+        return
+    if isinstance(node, RChars):
+        items.append((node.bytes_, 1, 1))
+        return
+    if isinstance(node, RRepeat):
+        if not isinstance(node.child, RChars):
+            raise RegexUnsupported("repeat over a non-class in group plan")
+        items.append((node.child.bytes_, node.lo, node.hi))
+        return
+    raise RegexUnsupported(f"group plan: {type(node).__name__}")
+
+
+def compile_group_plan(pattern: str) -> Optional[GroupPlan]:
+    """Linearize ``pattern`` for device capture-group extraction, or None.
+
+    Subset: no alternation/lazy, ASCII-only classes (char-aligned spans),
+    non-nullable, groups flat (not nested, not repeated), and greedy
+    consumption DETERMINISTIC: every variable-length item's charset is
+    disjoint from the first-sets of the items that may follow it up to and
+    including the next mandatory item — under that condition the greedy
+    left-to-right walk reproduces Java's backtracking parse exactly."""
+    try:
+        parser = RegexParser(pattern)
+        ast = parser.parse()
+    except RegexUnsupported:
+        return None
+    if parser.saw_lazy or parser.ngroups == 0 or _contains_alt(ast):
+        return None
+    if isinstance(ast, RSeq):
+        its = list(ast.items)
+        if its and isinstance(its[0], RStartAnchor):
+            its = its[1:]
+        if its and isinstance(its[-1], REndAnchor):
+            its = its[:-1]
+        ast = RSeq(its)
+    items: List[Tuple[frozenset, int, Optional[int]]] = []
+    groups: dict = {}
+    try:
+        _linearize(ast, items, groups, None)
+    except RegexUnsupported:
+        return None
+    if not items or all(lo == 0 for _, lo, _ in items):
+        return None                       # nullable: empty-match semantics
+    for cs, _, _ in items:
+        if not cs or max(cs) >= 0x80:
+            return None                   # spans must stay char-aligned
+    # determinism of greedy consumption
+    for i, (cs, lo, hi) in enumerate(items):
+        if hi is not None and hi == lo:
+            continue                      # fixed width: nothing to choose
+        for cs2, lo2, _ in items[i + 1:]:
+            if cs & cs2:
+                return None
+            if lo2 >= 1:
+                break                     # first mandatory follower reached
+    return GroupPlan(items, groups, parser.ngroups)
+
+
+def parse_replacement_template(repl: str, ngroups: int):
+    """Java Matcher.appendReplacement template -> segment list
+    [('lit', bytes) | ('grp', int)], or None if un-parsable.
+
+    ``$`` followed by digits is a group reference (digits consumed
+    greedily while the number still names an existing group, Java
+    semantics); ``\\`` escapes the next character (``\\$`` is a literal
+    dollar). Group 0 is the whole match. (reference: GpuRegExpReplace with
+    group refs, stringFunctions.scala:895.)"""
+    segs = []
+    lit = bytearray()
+    i = 0
+    while i < len(repl):
+        ch = repl[i]
+        if ch == "\\":
+            if i + 1 >= len(repl):
+                return None
+            lit += repl[i + 1].encode()
+            i += 2
+            continue
+        if ch == "$":
+            j = i + 1
+            if j >= len(repl) or not repl[j].isdigit():
+                return None               # bare $: Java throws
+            g = 0
+            k = j
+            while k < len(repl) and repl[k].isdigit():
+                cand = g * 10 + int(repl[k])
+                if cand > ngroups and k > j:
+                    break
+                if cand > ngroups:
+                    return None           # first digit already invalid
+                g = cand
+                k += 1
+            if lit:
+                segs.append(("lit", bytes(lit)))
+                lit = bytearray()
+            segs.append(("grp", g))
+            i = k
+            continue
+        lit += ch.encode()
+        i += 1
+    if lit:
+        segs.append(("lit", bytes(lit)))
+    return segs
+
+
+def charset_lut(cs) -> np.ndarray:
+    """A charset as a bool (256,) table."""
+    lut = np.zeros(256, dtype=bool)
+    lut[list(cs)] = True
+    return lut
+
+
+#: (charset, device) -> its bool (256,) table on the device, copied once (a
+#: copy from host memory cannot run inside a CUDA graph's capture)
+_LUTS: Dict[Tuple[frozenset, torch.device], torch.Tensor] = {}
+
+
+def _device_lut(cs, device) -> torch.Tensor:
+    key = (frozenset(cs), torch.device(device))
+    if key not in _LUTS:
+        _LUTS[key] = torch.from_numpy(charset_lut(cs)).to(device)
+    return _LUTS[key]
+
+
+def _greedy_walk_bounds(values: torch.Tensor, lengths: torch.Tensor,
+                        plan: GroupPlan, pos: torch.Tensor) -> list:
+    """Greedy item walk from start positions ``pos`` (n, k). Returns the
+    bounds list: bounds[i] is the position after item i-1. The ONE
+    implementation of the deterministic greedy consumption:
+    extract_group_span (k=1) and the all-starts replace path (k=w) both run
+    through it. An item's ``lo`` is never checked, as in the JAX package."""
+    n, w = values.shape
+    dev = values.device
+    idxs = _cols(w, dev)
+    vi = values.long()
+    in_str = idxs[None, :] < lengths[:, None]
+    bounds = [pos]
+    for cs, lo, hi in plan.items:
+        lut = _device_lut(cs, dev)
+        member = lut[vi] & in_str
+        bad_at = torch.where(member, w, idxs[None, :])
+        nb = torch.cummin(bad_at.flip(1), dim=1).values.flip(1)
+        next_bad = torch.take_along_dim(nb, torch.clamp(pos, 0, w - 1).long(),
+                                        dim=1)
+        avail = torch.clamp(next_bad - pos, min=0)
+        take = avail if hi is None else torch.clamp(avail, max=hi)
+        pos = (pos + take).to(torch.int32)
+        bounds.append(pos)
+    return bounds
+
+
+def group_bounds_all_starts(values: torch.Tensor, lengths: torch.Tensor,
+                            plan: GroupPlan) -> dict:
+    """Greedy-walk group bounds for EVERY potential match start j.
+    -> {g: (GS, GE)} with (n, w) int32 matrices: the bounds of group g for
+    a match beginning at column j. Only meaningful where the NFA reported
+    a match at j (same deterministic-subset contract as
+    extract_group_span)."""
+    n, w = values.shape
+    pos = _cols(w, values.device)[None, :].expand(n, w)
+    bounds = _greedy_walk_bounds(values, lengths, plan, pos)
+    return {g: (bounds[lo_i], bounds[hi_i])
+            for g, (lo_i, hi_i) in plan.groups.items()}
+
+
+def _emit_group(out, cursor, start, values, gs, ge, out_w: int):
+    """Copies each started row's bytes [gs, ge) to ``cursor``: the JAX
+    package's loop over k in [0, w) in one scatter. A write at or past
+    ``out_w - 1`` lands on ``out_w - 1``, so the last such k wins there."""
+    n, w = values.shape
+    glen = torch.where(start, torch.clamp(ge - gs, min=0), 0)
+    k = _cols(w, values.device)[None, :]
+    src = torch.clamp(gs[:, None] + k, 0, w - 1).long()
+    byte = torch.take_along_dim(values, src, dim=1)
+    idx = cursor[:, None] + k
+    plain = (k < glen[:, None]) & (idx < out_w - 1)
+    trash = out.shape[1] - 1
+    out.scatter_(1, torch.where(plain, idx.long(), trash), byte)
+    last = glen - 1
+    clip = (glen > 0) & (cursor + last >= out_w - 1)
+    lb = torch.take_along_dim(values, torch.clamp(gs + last, 0, w - 1)
+                              .long()[:, None], dim=1)[:, 0]
+    _put(out, torch.full_like(cursor, out_w - 1), clip, lb)
+    return cursor + glen
+
+
+def replace_by_template(values: torch.Tensor, lengths: torch.Tensor,
+                        start_mask: torch.Tensor, in_match: torch.Tensor,
+                        ends: Optional[torch.Tensor], segments,
+                        group_bounds: dict, out_w: int):
+    """replace_by_spans generalized to a segment template: literals are
+    emitted verbatim, group segments copy that match's captured span from
+    the input. -> (out (n, out_w) uint8, out_lengths int32)."""
+    n, w = values.shape
+    dev = values.device
+    in_str = _cols(w, dev)[None, :] < lengths[:, None]
+    out = torch.zeros((n, out_w + 1), dtype=torch.uint8, device=dev)
+    cursor = torch.zeros(n, dtype=torch.int32, device=dev)
+    for j in range(w):
+        start = start_mask[:, j]
+        for kind, payload in segments:
+            if kind == "lit":
+                cursor = _emit_literal(out, cursor, start, payload, out_w)
+            else:
+                if payload == 0:           # whole match: [j, ends[:, j])
+                    gs = torch.full_like(cursor, j)
+                    ge = torch.clamp(ends[:, j], min=0)
+                else:
+                    gs = group_bounds[payload][0][:, j]
+                    ge = group_bounds[payload][1][:, j]
+                cursor = _emit_group(out, cursor, start, values, gs, ge,
+                                     out_w)
+        copy = in_str[:, j] & ~in_match[:, j]
+        cursor = _emit_copy(out, cursor, copy, values[:, j], out_w)
+    return out[:, :out_w].contiguous(), cursor
+
+
+def extract_group_span(values: torch.Tensor, lengths: torch.Tensor,
+                       ends: torch.Tensor, plan: GroupPlan, gidx: int):
+    """Extract capture group ``gidx`` of the leftmost match per row.
+    -> (out (n, w) uint8, out_lengths int32). No match -> ''."""
+    valid = ends >= 0
+    found = valid.any(dim=1)
+    start = torch.argmax(valid.to(torch.int8), dim=1).to(torch.int32)
+    bounds = _greedy_walk_bounds(values, lengths, plan, start[:, None])
+    lo_i, hi_i = plan.groups[gidx]
+    gs = bounds[lo_i][:, 0]
+    ge = bounds[hi_i][:, 0]
+    out_len = torch.where(found, torch.clamp(ge - gs, min=0),
+                          0).to(torch.int32)
+    return _span_rows(values, gs, out_len), out_len

@@ -204,5 +204,14 @@ def load_kernels() -> ctypes.CDLL:
             for fn in (lib.srt_str_parse, lib.srt_str_format,
                        lib.srt_row_hash):
                 fn.restype = ctypes.c_int
+            lib.srt_regex_replace.argtypes = [ptr, i64, i32, ptr, i64, ptr,
+                                              i32, i32, ptr, ptr, ptr]
+            lib.srt_regex_extract.argtypes = [ptr, i64, i32, ptr, i64, ptr,
+                                              i32, i32, ptr, ptr, ptr]
+            lib.srt_delim_select.argtypes = [ptr, i64, i32, ptr, i64, ptr,
+                                             i32, i32, ptr, ptr]
+            for fn in (lib.srt_regex_replace, lib.srt_regex_extract,
+                       lib.srt_delim_select):
+                fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB

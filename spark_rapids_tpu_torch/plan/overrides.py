@@ -144,16 +144,50 @@ def _register_expr_rules():
 
 
 def _register_string_rules():
-    """The JAX package's rules (``plan/overrides.py`` string rules) for the
-    string functions ported here, with its tags and reasons."""
+    """The JAX package's string rules (``plan/overrides.py``
+    ``_register_string_rules``), with its tags and reasons, and its
+    host-only rule for get_json_object."""
+    ascii_note = ("device case mapping is ASCII-only (host fallback is "
+                  "Unicode)")
+    register_expr_rule(S.Upper, _string.with_ps_note(TypeEnum.STRING,
+                                                     ascii_note))
+    register_expr_rule(S.Lower, _string.with_ps_note(TypeEnum.STRING,
+                                                     ascii_note))
+    register_expr_rule(S.InitCap, _string.with_ps_note(TypeEnum.STRING,
+                                                       ascii_note))
+    for cls in (S.Length, S.OctetLength, S.BitLength, S.StringReverse,
+                S.Ascii, S.StartsWith, S.EndsWith, S.Concat, S.StringTrim,
+                S.StringTrimLeft, S.StringTrimRight):
+        register_expr_rule(cls, _string)
     register_expr_rule(S.Substring, _string + TypeSig.integral)
-    register_expr_rule(S.StartsWith, _string)
-    register_expr_rule(S.EndsWith, _string)
 
-    def tag_contains(meta, conf):
-        if S.literal_value(meta.expr.right) is None:
-            meta.cannot_run("device contains pattern requires a literal")
-    register_expr_rule(S.Contains, _string, tag_fn=tag_contains)
+    def _require_lit(child_attr, what):
+        def tag(meta, conf):
+            if S.literal_value(getattr(meta.expr, child_attr)) is None:
+                meta.cannot_run(f"device {what} requires a literal")
+        return tag
+
+    register_expr_rule(S.Contains, _string,
+                       tag_fn=_require_lit("right", "contains pattern"))
+    register_expr_rule(S.StringLocate, _string + TypeSig.integral,
+                       tag_fn=_require_lit("substr", "locate pattern"))
+
+    def tag_pad(meta, conf):
+        e = meta.expr
+        if S.literal_value(e.length) is None \
+                or S.literal_value(e.pad) is None:
+            meta.cannot_run("device pad requires literal length/pad")
+    pad_note = "device pads count bytes (ASCII-exact; the host counts " \
+        "characters)"
+    for cls in (S.StringLpad, S.StringRpad):
+        register_expr_rule(cls, (_string + TypeSig.integral).with_ps_note(
+            TypeEnum.STRING, pad_note), tag_fn=tag_pad)
+
+    def tag_repeat(meta, conf):
+        if S.literal_value(meta.expr.times) is None:
+            meta.cannot_run("device repeat requires literal count")
+    register_expr_rule(S.StringRepeat, _string + TypeSig.integral,
+                       tag_fn=tag_repeat)
 
     def tag_like(meta, conf):
         e: S.Like = meta.expr
@@ -163,6 +197,116 @@ def _register_string_rules():
         if e.simple_kind() is None and e.device_nfa() is None:
             meta.cannot_run("LIKE pattern outside the device regex subset")
     register_expr_rule(S.Like, _string, tag_fn=tag_like)
+
+    def tag_rlike(meta, conf):
+        e: S.RLike = meta.expr
+        pat = S.literal_value(e.pattern)
+        if pat is None:
+            meta.cannot_run("device rlike requires a literal pattern")
+            return
+        if e.device_nfa() is None:
+            meta.cannot_run(
+                f"regex {pat!r} outside the device NFA subset (transpiler "
+                "rejected it; runs on host)")
+    register_expr_rule(S.RLike, _string, tag_fn=tag_rlike)
+
+    def tag_replace(meta, conf):
+        e: S.StringReplace = meta.expr
+        if S.literal_value(e.search) is None \
+                or S.literal_value(e.replace) is None:
+            meta.cannot_run("device replace requires literal "
+                            "search/replacement")
+            return
+        if any(ord(ch) > 127 for ch in S.literal_value(e.search)):
+            meta.cannot_run("non-ASCII search runs on host (byte-span "
+                            "alignment)")
+    register_expr_rule(S.StringReplace, _string, tag_fn=tag_replace)
+
+    def _span_nfa(meta, pattern):
+        if pattern is None:
+            meta.cannot_run("device regex requires a literal pattern")
+            return None
+        from ..expr.regex import compile_device_nfa
+        nfa = compile_device_nfa(pattern)
+        if nfa is None:
+            meta.cannot_run(f"regex {pattern!r} outside the device NFA "
+                            "subset")
+            return None
+        if not nfa.spans_supported:
+            meta.cannot_run(
+                f"regex {pattern!r} matches but spans are host-only "
+                "(alternation/lazy/nullable/non-ASCII patterns)")
+            return None
+        return nfa
+
+    def tag_regexp_replace(meta, conf):
+        import re
+        e: S.RegExpReplace = meta.expr
+        pat = S.literal_value(e.pattern)
+        if _span_nfa(meta, pat) is None:
+            return
+        repl = S.literal_value(e.replacement)
+        if repl is None:
+            meta.cannot_run("null replacement runs on host")
+            return
+        if re.search(r"\$\d", repl):
+            # $n group refs run on the device over the deterministic
+            # group-plan subset (reference: GpuRegExpReplace group refs,
+            # stringFunctions.scala:895 + RegexParser.scala:414)
+            from ..expr.regex import (compile_group_plan,
+                                      parse_replacement_template)
+            plan = compile_group_plan(pat)
+            if plan is None:
+                meta.cannot_run(
+                    f"regexp_replace: pattern {pat!r} outside the device "
+                    "capture-group subset (non-deterministic greedy walk)")
+                return
+            if parse_replacement_template(repl, plan.ngroups) is None:
+                meta.cannot_run(
+                    f"replacement {repl!r} is not a valid Java group-ref "
+                    "template for this pattern")
+    register_expr_rule(S.RegExpReplace, _string, tag_fn=tag_regexp_replace)
+
+    def tag_regexp_extract(meta, conf):
+        e: S.RegExpExtract = meta.expr
+        pat = S.literal_value(e.pattern)
+        if _span_nfa(meta, pat) is None:
+            return
+        idx = S.literal_value(e.idx)
+        if idx is None:
+            meta.cannot_run("device regexp_extract requires a literal "
+                            "group index")
+            return
+        if int(idx) != 0:
+            # capture groups run on the device when the pattern linearizes
+            # into the deterministic group plan (the reference transpiles
+            # capture groups the same way, RegexParser.scala:414)
+            from ..expr.regex import compile_group_plan
+            plan = compile_group_plan(pat)
+            if plan is None:
+                meta.cannot_run(
+                    f"regexp_extract: pattern {pat!r} outside the device "
+                    "capture-group subset (non-deterministic greedy walk)")
+            elif int(idx) > plan.ngroups:
+                meta.cannot_run(f"group index {idx} > group count "
+                                f"{plan.ngroups}")
+    register_expr_rule(S.RegExpExtract, _string, tag_fn=tag_regexp_extract)
+
+    def tag_substring_index(meta, conf):
+        e = meta.expr
+        if S.literal_value(e.delim) is None \
+                or S.literal_value(e.count) is None:
+            meta.cannot_run("device substring_index requires literal "
+                            "delimiter/count")
+    register_expr_rule(S.SubstringIndex, _string + TypeSig.integral,
+                       tag_fn=tag_substring_index)
+    register_expr_rule(S.ConcatWs, _string)
+    register_expr_rule(S.Chr, TypeSig.of(TypeEnum.STRING, TypeEnum.INT,
+                                         TypeEnum.LONG))
+
+    def host_only_json(meta, conf):
+        meta.cannot_run("host-only: JSON parsing")
+    register_expr_rule(S.GetJsonObject, _string, tag_fn=host_only_json)
 
 
 def _register_exec_rules():
