@@ -239,8 +239,8 @@ nodes only above the scans, each result equal to the host engine's, the
 kernels' counts set to 0 just before each device run and read just after
 (``regex_replace``, ``regex_extract``, ``delim_select`` and ``nfa_match``
 each launched), RLIKE '[a-z]*$' true on every row; every case of the three
-kernels bit-equal to its plain version on random rows at widths 8, 32 and
-136, clipping outputs, a broadcast row and an unaligned view; and each
+kernels bit-equal to its plain version on random rows at widths 8, 16, 32,
+64 and 136, clipping outputs, a broadcast row and an unaligned view; and each
 kernel at 2^20 rows of width 128 (text made on the card from a seed) bit-
 equal to its plain version and timed against its bound: the whole 32-byte
 sectors holding the bytes within the lengths, the lengths, and the output
@@ -451,18 +451,19 @@ def _nfa_patterns() -> dict:
 def _nfa_args(nfa, values: torch.Tensor, lengths: torch.Tensor,
               tables=None) -> tuple:
     """The arguments of ``nfa_match`` for one compiled pattern, the kernel's
-    tables last (the pattern's own, cached on the ``DeviceNfa``, unless
-    ``tables`` is given); ``nfa_match_reference`` takes all but the last."""
+    tables (the pattern's own, cached on the ``DeviceNfa``, unless
+    ``tables`` is given) and a regex `$`'s flag (``end_newline``) last;
+    ``nfa_match_reference`` takes all but the tables."""
     cls, masks = nfa.tables(values.device)
     return (values, lengths, cls, masks, nfa.start_bits, nfa.accept_bits,
             nfa.anchored_start, nfa.anchored_end, nfa.nullable,
             tables if tables is not None
-            else nfa.kernel_tables(values.device))
+            else nfa.kernel_tables(values.device), nfa.end_newline)
 
 
 def _nfa_reference(*args):
     from spark_rapids_tpu_torch.udf.kernels import nfa_match_reference
-    return nfa_match_reference(*args[:9])
+    return nfa_match_reference(*args[:9], args[10])
 
 
 def _check_nfa(args: tuple, what: str) -> int:
@@ -599,7 +600,7 @@ def nfa_kernel_phase() -> dict:
         nfa_only[label] = nfa_kernel_tables(
             nfa.class_of_byte, nfa.masks, nfa.start_bits, nfa.accept_bits,
             nfa.anchored_start, nfa.anchored_end, nfa.nullable,
-            dfa_max_states=0).to("cuda")
+            dfa_max_states=0, end_newline=nfa.end_newline).to("cuda")
         if nfa_only[label].dfa:
             raise AssertionError(f"{label}: a DFA cap of 0 gave a DFA")
     paths = {label: "DFA" if nfa.kernel_tables("cuda").dfa else "NFA"
@@ -7273,22 +7274,29 @@ def br1_phase(li: pa.Table, orders: pa.Table, dli: pa.Table,
 # ---------------------------------------------------------------------------
 ST1_KERNELS = ("regex_replace", "regex_extract", "delim_select")
 
+#: a span-subset pattern whose span DFA passes its 256-state cap (2^9
+#: subsets): the kernels step the NFA's successor sets
+REGEX_PAST_CAP = "[ab]*a[ab][ab][ab][ab][ab][ab][ab][ab]"
 #: the regex kernels' cases (tests/test_torch_regex_kernels.py and
 #: tests/test_torch_regex_kernel_model.py take them from here): a bytes
 #: search is replace's literal, a str a regexp_replace pattern; templates
-#: with $n, \$ and group 0, an anchor at either end, a template that
-#: grows past the output width
+#: with $n, \$ and group 0, an anchor at either end (a regex `$` also
+#: before a final newline), a template that grows past the output width, a
+#: match as long as the row, a DFA past its cap
 REGEX_REPLACE_CASES = [
     (b"ab", "X"), (b"l", "LL"), (b"aa", ""), (b"the", "THE"),
     ("[0-9]+", "#"), ("l+o?", "L"), ("^ab", "#"), ("[a-z]+-[0-9]+$", "<>"),
     ("[aeiou]+", "#"), ("([a-z]+)-([0-9]+)", "$2/$1"),
     ("([a-z]+)-([0-9]+)", "[$0]"), ("([a-z]+)-([0-9]+)", r"\$$2"),
-    ("([0-9]+)-([0-9]+)", "$2/$1"), ("([0-9])", "$1$1$1")]
+    ("([0-9]+)-([0-9]+)", "$2/$1"), ("([0-9])", "$1$1$1"),
+    ("[a-z0-9 -]+", "#"), ("b$", "#"), ("(b)$", "[$1]"),
+    (REGEX_PAST_CAP, "#")]
 #: regexp_extract's cases: (pattern, group)
 REGEX_EXTRACT_CASES = [
     ("[0-9]+", 0), ("([0-9]+)-([0-9]+)", 2), (r"([a-z]+)@([a-z]+)\.com", 2),
     (r"v([0-9]{1,3})\.([0-9]+)", 1), ("^ab", 0), ("[a-z]+$", 0),
-    ("([0-9]+)-([0-9]+)-([0-9]+)", 3)]
+    ("([0-9]+)-([0-9]+)-([0-9]+)", 3), ("b$", 0), ("(b)$", 1),
+    (REGEX_PAST_CAP, 0)]
 #: substring_index's cases: (delimiter, count)
 DELIM_CASES = [(",", 1), (",", -1), ("aa", 2), ("aa", -2), ("ab\u65e5", 1),
                ("ly ", -2), ("x", 3), ("-", -3)]
@@ -7317,6 +7325,33 @@ def regex_rows(n: int, w: int, seed: int) -> tuple:
     return data, lens
 
 
+#: the edge rows of every regex case: a final newline (and \r\n) under
+#: `$`, runs of a and b for the pattern past the DFA's cap, whole-row
+#: matches, a row of one newline
+REGEX_EDGE_STRINGS = [
+    "ab\n", "ab", "ab\n\n", "b\n", "\n", "ab\r\n", "", "b", "xb\nb",
+    "aababbabab", "babbbabbbaaab-ab", "abababababababababab\n", "the b\n",
+    "ab-12 x-7 the end", "12-34-56", "v1.22 ly ,ly ab\u65e5", "bbbb\n",
+    "aa aa,aa", "zz-9\n"]
+
+
+def regex_edge_rows(w: int, seed: int) -> tuple:
+    """(uint8 (n, w), int32 lengths) as numpy arrays: each of
+    ``REGEX_EDGE_STRINGS`` cut to ``w`` bytes, and again right-aligned to
+    end at the width, random bytes past each length."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for t in REGEX_EDGE_STRINGS:
+        b = t.encode()[:w]
+        rows += [b, (b"0123456789" * w)[:w - len(b)] + b]
+    data = rng.integers(0, 256, (len(rows), w)).astype(np.uint8)
+    lens = np.zeros(len(rows), np.int32)
+    for i, b in enumerate(rows):
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return data, lens
+
+
 def regex_case_programs() -> list:
     """Every case of the three kernels as (label, kind, program or
     delimiter, argument): kind 'replace' (argument: None, the width is
@@ -7330,6 +7365,16 @@ def regex_case_programs() -> list:
     out += [(f"delim {d!r} {c}", "delim", d.encode(), c)
             for d, c in DELIM_CASES]
     return out
+
+
+def regex_nfa_case_programs() -> list:
+    """``regex_case_programs`` with every pattern's span DFA left out, so
+    the kernels step the NFA's successor sets (their matcher past the
+    DFA's cap); literal searches and delimiters as they are."""
+    from spark_rapids_tpu_torch.expr.regex_kernels import _without_span_dfa
+    return [(label, kind, prog if kind == "delim"
+             or isinstance(prog.matcher, bytes) else _without_span_dfa(prog),
+             arg) for label, kind, prog, arg in regex_case_programs()]
 
 
 def run_regex_case(kind: str, prog, arg, data, lens, plain: bool,
@@ -7429,14 +7474,36 @@ def _st1_queries(F, dfs: dict) -> dict:
                                  "nfa_match"))}
 
 
+class _LaunchWidths:
+    """While open, the widths of the matrices each regex kernel launches
+    on (the wrappers' third argument after the device), by kernel."""
+
+    def __init__(self):
+        self.widths: dict = {}
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.expr import regex_kernels as rk
+        self._launch = rk.launch
+
+        def record(fn, kernel, dev, *args):
+            self.widths.setdefault(fn.__name__, set()).add(int(args[2]))
+            return self._launch(fn, kernel, dev, *args)
+        rk.launch = record
+        return self
+
+    def __exit__(self, *exc):
+        from spark_rapids_tpu_torch.expr import regex_kernels as rk
+        rk.launch = self._launch
+
+
 def st1_phase(tables: dict, partitions: int) -> dict:
     """ST1: three string and regex queries over SF1 orders (o_comment),
     customer (c_phone) and part (p_name), AQE off: every plan device nodes
     only above the scans; the kernels' counts set to 0 just before each
-    device run and read just after, each kernel the query runs launched;
-    each result against the host engine's (integers and strings' hashes
-    exactly); RLIKE '[a-z]*$' true on every row (find()'s empty match at
-    the end)."""
+    device run and read just after, each kernel the query runs launched,
+    and the widths of the matrices it launched on; each result against the
+    host engine's (integers and strings' hashes exactly); RLIKE '[a-z]*$'
+    true on every row (find()'s empty match at the end)."""
     from spark_rapids_tpu_torch.expr import functions as F
     from spark_rapids_tpu_torch.session import TorchSession
     sess = TorchSession({"spark.rapids.sql.test.enabled": True,
@@ -7449,8 +7516,9 @@ def st1_phase(tables: dict, partitions: int) -> dict:
         _check_device_only(sess._physical(q.logical, True), label)
         _st1_zero()
         t0 = time.perf_counter()
-        out = q.collect()
-        torch.cuda.synchronize()
+        with _LaunchWidths() as lw:
+            out = q.collect()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _st1_counts()
         missing = [k for k in kernels if counts[k] == 0]
@@ -7466,22 +7534,38 @@ def st1_phase(tables: dict, partitions: int) -> dict:
                                           for r in rows):
             raise AssertionError(f"{label}: RLIKE '[a-z]*$' missed rows: "
                                  f"{rows}")
+        widths = {k: sorted(v) for k, v in lw.widths.items()}
         runs[label] = {"wall_s": wall, "host_s": t_host, "launches": counts,
-                       "rows": len(rows)}
+                       "rows": len(rows), "widths": widths}
         print(f"# {label}: {len(rows)} groups equal to the host engine's; "
               f"device {wall:.3f} s (cold), host engine {t_host:.3f} s, "
-              f"launches {counts}", flush=True)
+              f"launches {counts}, matrix widths {widths}", flush=True)
     print(f"# ST1 launches: {launches}", flush=True)
     return {"launches": launches, "runs": runs}
 
 
+def _with_edge_rows(data: np.ndarray, lens: np.ndarray, w: int) -> tuple:
+    """Random rows with ``regex_edge_rows`` after them, on the card."""
+    ed, el = regex_edge_rows(w, w)
+    return (torch.from_numpy(np.concatenate([data, ed])).cuda(),
+            torch.from_numpy(np.concatenate([lens, el])).cuda())
+
+
 def st1_edge_phase() -> None:
     """Every case of the three kernels against its plain version, bit for
-    bit: random rows at widths 8, 32 and 136, outputs clipping at 8 and 12
-    bytes, a broadcast row and a view one byte into 48-byte rows."""
+    bit: random rows and ``REGEX_EDGE_STRINGS`` (a final newline and \\r\\n
+    under `$`, whole-row matches, runs for the pattern past the span DFA's
+    cap) at widths 8, 16 (regex_extract's lane groups of 4 lanes), 32
+    (8), 64 (16) and 136 (the warp),
+    outputs clipping at 8 and 12 bytes, a broadcast row and a view one
+    byte into 48-byte rows; every NFA case again with no span DFA (the
+    NFA's successor sets step). Then `$` before a final newline and the
+    empty pad through a device session, against the host engine and
+    Python's re."""
     sets = 0
+    nfa_only = regex_nfa_case_programs()
     for i, (label, kind, prog, arg) in enumerate(regex_case_programs()):
-        def check(data, lens, out_w=None, what=""):
+        def check(data, lens, out_w=None, what="", prog=prog):
             got = run_regex_case(kind, prog, arg, data, lens, False, out_w)
             want = run_regex_case(kind, prog, arg, data, lens, True, out_w)
             torch.cuda.synchronize()
@@ -7490,11 +7574,14 @@ def st1_edge_phase() -> None:
                     raise AssertionError(f"ST1 edge {label} {what}: the "
                                          "kernel differs from its plain "
                                          "version")
-        for w in (8, 32, 136):
-            d, ln = (torch.from_numpy(a).cuda()
-                     for a in regex_rows(2048, w, i + w))
+        for w in (8, 16, 32, 64, 136):
+            d, ln = _with_edge_rows(*regex_rows(2048, w, i + w), w)
             check(d, ln, what=f"w{w}")
             sets += 1
+            if w == 32 and kind != "delim" \
+                    and not isinstance(prog.matcher, bytes):
+                check(d, ln, what="w32, the NFA's sets", prog=nfa_only[i][2])
+                sets += 1
         if kind == "replace":
             for out_w in (8, 12):
                 check(d[:, :16], ln.clamp(0, 16), out_w, f"out_w {out_w}")
@@ -7507,6 +7594,57 @@ def st1_edge_phase() -> None:
         sets += 2
     print(f"# ST1 edge sets: {sets}, regex_replace, regex_extract and "
           "delim_select bit-equal to their plain versions", flush=True)
+    st1_newline_and_pad_rows()
+
+
+def st1_newline_and_pad_rows() -> None:
+    """RLIKE, regexp_replace and regexp_extract with 'b$' and '(b)$', LIKE
+    '%b', and lpad/rpad with an empty pad on rows ending in "\\n", "\\n\\n"
+    and "\\r\\n": the device path (nfa_match, the span kernels) equals the
+    host engine and Python's re (`$` also before a final newline, not
+    before "\\r\\n"; LIKE's end strict; an empty pad cuts or keeps)."""
+    import re as re_
+    from spark_rapids_tpu_torch.expr import functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    rows = ["ab\n", "ab", "ab\n\n", "b\n", "\n", "ab\r\n", "xyzb\n",
+            "abcdef"]
+    sess = TorchSession({"spark.rapids.sql.test.enabled": True})
+    s = F.col("s")
+    q = sess.create_dataframe(pa.table({"s": rows})).select(
+        s.rlike("b$").alias("r"), s.rlike("(b)$").alias("r2"),
+        F.regexp_replace(s, "b$", "X").alias("p"),
+        F.regexp_replace(s, "(b)$", "<$1>").alias("p2"),
+        F.regexp_extract(s, "b$", 0).alias("e"),
+        F.regexp_extract(s, "(b)$", 1).alias("e2"),
+        s.like("%b").alias("like"), F.lpad(s, 2, "").alias("l2"),
+        F.rpad(s, 4, "").alias("r4"), F.rpad(s, 9, "").alias("r9"))
+    _check_device_only(sess._physical(q.logical, True), "ST1 newline rows")
+    _st1_zero()
+    dev = q.collect()
+    counts = _st1_counts()
+    host = q.collect(device=False)
+    want = {"r": [re_.search("b$", t) is not None for t in rows],
+            "p": [re_.sub("b$", "X", t) for t in rows],
+            "p2": [re_.sub("(b)$", r"<\1>", t) for t in rows],
+            "e": [m.group(0) if (m := re_.search("b$", t)) else ""
+                  for t in rows],
+            "e2": [m.group(1) if (m := re_.search("(b)$", t)) else ""
+                   for t in rows],
+            "like": [t.endswith("b") for t in rows],
+            "l2": [t[:2] for t in rows], "r4": [t[:4] for t in rows],
+            "r9": rows}
+    for k, v in want.items():
+        for name, got in (("device", dev), ("host engine", host)):
+            if got.column(k).to_pylist() != v:
+                raise AssertionError(f"ST1 newline rows {k} on the {name}: "
+                                     f"{got.column(k).to_pylist()} != {v}")
+    if dev.to_pylist() != host.to_pylist() or not all(
+            counts[k] for k in ("regex_replace", "regex_extract",
+                                "nfa_match")):
+        raise AssertionError(f"ST1 newline rows: {dev.to_pylist()} vs the "
+                             f"host engine's; launches {counts}")
+    print(f"# ST1 newline and empty-pad rows: {len(rows)} rows equal to "
+          f"the host engine and Python's re; launches {counts}", flush=True)
 
 
 #: the ST1 kernels' timed cases at 2^20 rows of width 128: each as the
@@ -7572,6 +7710,8 @@ def st1_kernel_phase(n: int = 1 << 20, w: int = 128) -> dict:
              "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "n": n, "w": w}
         timings[key] = t
         plain_s = "not timed" if plain is None else f"{plain:.6f} ms"
+        if kind != "delim":
+            plain_s += f", span DFA {prog.dfa_states} states"
         print(f"# ST1 kernel {key} ({pat!r}, {arg!r}) at {n} x {w}: kernel "
               f"{t['ms']:.6f} ms, plain {plain_s}, bound "
               f"{t['bound_ms']:.6f} ms (bytes {nbytes}); "

@@ -17,7 +17,13 @@
 //   character, which is the state after its last byte, since continuation
 //   bytes change nothing;
 // - an empty row matches iff the pattern is nullable; a non-empty one
-//   before any character iff it is nullable and not anchored at the end.
+//   before any character iff it is nullable and not anchored at the end;
+// - a regex `$` (flag end_newline, never LIKE's end) also matches just
+//   before a final '\n' that is the row's last character: the state before
+//   that character accepts (or, nullable, the row is that '\n' alone).
+//   The DFA path's tables tell such a row apart in their states (the
+//   newline has a class of its own there); the NFA path carries the flag
+//   `nl` beside its set.
 //
 // The host builds the tables once per pattern (nfa_kernel_tables in
 // udf/kernels.py) and the kernel takes one of two paths:
@@ -97,6 +103,7 @@ constexpr int kRows = 256;               // rows, and threads, a block
 constexpr int kFlagAnchoredStart = 1;
 constexpr int kFlagAnchoredEnd = 2;
 constexpr int kFlagNullable = 4;
+constexpr int kFlagEndNewline = 8;
 
 template <int C>
 struct Chunk {
@@ -159,19 +166,29 @@ __device__ __forceinline__ uint32_t dfa_word(const uint8_t* tbl, uint32_t x,
 struct NfaState {
   uint32_t active;  // the state set
   uint32_t seen;    // every state active after some byte so far
+  // end_newline: the last character was a '\n' read where the set before
+  // accepted; at0: no character read yet (a nullable pattern's empty match)
+  bool nl;
+  bool at0;
 };
 
 // One NFA step on byte `sel` of x (sel = 0x4440 + byte index).
 __device__ __forceinline__ void nfa_byte(const uint16_t* cls,
                                          const uint32_t* succ, uint32_t x,
                                          uint32_t sel, int bits, int chunks,
+                                         uint32_t accept, bool end_nl,
                                          NfaState& st) {
-  const uint32_t c = cls[__byte_perm(x, 0, sel)];
+  const uint32_t b = __byte_perm(x, 0, sel);
+  const uint32_t c = cls[b];
   const uint32_t* t = succ + ((c * chunks) << bits);
   const uint32_t vmask = (1u << bits) - 1;
   uint32_t nxt = 0;
   for (int k = 0; k < chunks; ++k) {
     nxt |= t[(k << bits) + ((st.active >> (k * bits)) & vmask)];
+  }
+  if (end_nl && (b & 0xC0) != 0x80) {
+    st.nl = b == '\n' && ((st.active & accept) != 0 || st.at0);
+    st.at0 = false;
   }
   st.active = nxt;
   st.seen |= nxt;
@@ -179,11 +196,13 @@ __device__ __forceinline__ void nfa_byte(const uint16_t* cls,
 
 __device__ __forceinline__ void nfa_word(const uint16_t* cls,
                                          const uint32_t* succ, uint32_t x,
-                                         int bits, int chunks, NfaState& st) {
-  nfa_byte(cls, succ, x, 0x4440, bits, chunks, st);
-  nfa_byte(cls, succ, x, 0x4441, bits, chunks, st);
-  nfa_byte(cls, succ, x, 0x4442, bits, chunks, st);
-  nfa_byte(cls, succ, x, 0x4443, bits, chunks, st);
+                                         int bits, int chunks,
+                                         uint32_t accept, bool end_nl,
+                                         NfaState& st) {
+  nfa_byte(cls, succ, x, 0x4440, bits, chunks, accept, end_nl, st);
+  nfa_byte(cls, succ, x, 0x4441, bits, chunks, accept, end_nl, st);
+  nfa_byte(cls, succ, x, 0x4442, bits, chunks, accept, end_nl, st);
+  nfa_byte(cls, succ, x, 0x4443, bits, chunks, accept, end_nl, st);
 }
 
 struct Params {
@@ -269,9 +288,10 @@ __global__ void __launch_bounds__(kRows, 5)
   const bool anchored_start = p.flags & kFlagAnchoredStart;
   const bool anchored_end = p.flags & kFlagAnchoredEnd;
   const bool nullable = p.flags & kFlagNullable;
+  const bool end_nl = p.flags & kFlagEndNewline;
 
   uint32_t s = p.init_state;                        // DFA path
-  NfaState st{p.start_bits, 0u};                    // NFA path
+  NfaState st{p.start_bits, 0u, false, nullable};   // NFA path
   // a non-empty row whose answer is known before its first byte reads none
   bool active = len > 0 && (kDfa ? s < p.sink_lo : !nullable || anchored_end);
 
@@ -326,12 +346,16 @@ __global__ void __launch_bounds__(kRows, 5)
           s = dfa_word(smem, v.w, s);
           return s >= p.sink_lo;
         }
-        nfa_word(cls, succ, v.x, p.chunk_bits, p.n_chunks, st);
-        nfa_word(cls, succ, v.y, p.chunk_bits, p.n_chunks, st);
-        nfa_word(cls, succ, v.z, p.chunk_bits, p.n_chunks, st);
-        nfa_word(cls, succ, v.w, p.chunk_bits, p.n_chunks, st);
+        nfa_word(cls, succ, v.x, p.chunk_bits, p.n_chunks, p.accept_bits,
+                 end_nl, st);
+        nfa_word(cls, succ, v.y, p.chunk_bits, p.n_chunks, p.accept_bits,
+                 end_nl, st);
+        nfa_word(cls, succ, v.z, p.chunk_bits, p.n_chunks, p.accept_bits,
+                 end_nl, st);
+        nfa_word(cls, succ, v.w, p.chunk_bits, p.n_chunks, p.accept_bits,
+                 end_nl, st);
         return (!anchored_end && (st.seen & p.accept_bits)) ||
-               (anchored_start && st.active == 0);
+               (anchored_start && st.active == 0 && !st.nl);
       };
       const int last = (span - 1) >> 4;
       bool settled = walk(load_piece(slot, m, span));
@@ -354,7 +378,7 @@ __global__ void __launch_bounds__(kRows, 5)
   } else if (kDfa) {
     matched = smem[p.accept_off + s] != 0;
   } else if (anchored_end) {
-    matched = (st.active & p.accept_bits) != 0;
+    matched = (st.active & p.accept_bits) != 0 || st.nl;
   } else {
     matched = nullable || (st.seen & p.accept_bits) != 0;
   }

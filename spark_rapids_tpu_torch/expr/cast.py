@@ -304,8 +304,10 @@ def _cast_to_decimal(ctx, c: EvalCol, src: dt.DataType,
         return EvalCol(limbs, _and_valid(ctx, c.validity,
                                          xp.logical_not(over)), to)
     f = 10 ** to.scale
-    # the overflow test before the multiply: the product could wrap int64
-    over = xp.abs(v) >= (10 ** to.precision + f - 1) // f
+    # the overflow test before the multiply: the product could wrap int64.
+    # Both sides without abs: abs(-2^63) wraps to itself
+    lim = (10 ** to.precision + f - 1) // f
+    over = (v >= lim) | (v <= -lim)
     return EvalCol(v * f, _and_valid(ctx, c.validity, xp.logical_not(over)),
                    to)
 

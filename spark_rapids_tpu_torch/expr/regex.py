@@ -31,7 +31,12 @@ loop of its ``lax.scan``: ``DeviceNfa.match_ends``,
 template (``parse_replacement_template``, ``replace_by_template``) and
 ``extract_group_span``. They are the plain versions of the
 ``regex_replace`` and ``regex_extract`` kernels (expr/regex_kernels.py),
-which run Java's find() loop directly, one thread a row.
+which run Java's find() loop directly over a span DFA (regex_replace
+a thread a row, regex_extract a warp a row).
+
+One more difference, on purpose: a regex ``$`` (``DeviceNfa.end_newline``)
+also matches before a final ``\\n``, as Python's and Java's do; the JAX
+device path matches it at the row's end alone. LIKE's end stays strict.
 """
 from __future__ import annotations
 
@@ -419,7 +424,8 @@ class DeviceNfa:
 
     def __init__(self, class_of_byte: np.ndarray, masks: np.ndarray,
                  start_bits: int, accept_bits: int, anchored_start: bool,
-                 anchored_end: bool, nullable: bool):
+                 anchored_end: bool, nullable: bool,
+                 end_newline: bool = False):
         self.class_of_byte = class_of_byte   # (256,) int32
         self.masks = masks                   # (n_classes, n_states) uint32
         self.start_bits = start_bits
@@ -427,6 +433,11 @@ class DeviceNfa:
         self.anchored_start = anchored_start
         self.anchored_end = anchored_end
         self.nullable = nullable
+        #: a regex ``$`` (not LIKE's end): the end matches at the row's end
+        #: or just before a final ``\n`` that is the row's last byte
+        #: (Python's and Java's rule for ``\n``; Java's other line
+        #: terminators are a written difference, ROADMAP Queue 3)
+        self.end_newline = end_newline
         #: every matchable byte < 0x80 (match spans are char-aligned)
         self.ascii_only = False
         #: alternation (or a lazy quantifier) present
@@ -464,6 +475,7 @@ class DeviceNfa:
                               device=dev)[None, :] < lengths[:, None]
         states = torch.zeros((n, w), dtype=torch.int64, device=dev)
         ends = torch.full((n, w), -1, dtype=torch.int32, device=dev)
+        at_end = self.end_positions(values, lengths)
         for j in range(w):
             # open a new match at start j (column j)
             if not self.anchored_start or j == 0:
@@ -474,10 +486,27 @@ class DeviceNfa:
                 nxt |= ((states & m[:, t:t + 1]) != 0).long() << t
             states = torch.where(in_str[:, j:j + 1], nxt, 0)
             done = (states & accept) != 0
-            if self.anchored_end:
-                done = done & (lengths - 1 == j)[:, None]
+            if at_end is not None:
+                done = done & at_end[:, j:j + 1]
             ends = torch.where(done & in_str[:, j:j + 1], j + 1, ends)
         return ends
+
+    def end_positions(self, values: torch.Tensor,
+                      lengths: torch.Tensor) -> Optional[torch.Tensor]:
+        """Where a match of a pattern anchored at the end may stop: bool
+        ``(n, w)``, true at the row's last byte and, with ``end_newline``,
+        at the byte before a final ``\\n``; None unanchored."""
+        if not self.anchored_end:
+            return None
+        n, w = values.shape
+        j = _cols(w, values.device)[None, :]
+        at = j == (lengths - 1)[:, None]
+        if self.end_newline:
+            last = torch.take_along_dim(
+                values, torch.clamp(lengths - 1, 0, w - 1).long()[:, None],
+                dim=1)
+            at = at | ((j == (lengths - 2)[:, None]) & (last == 10))
+        return at
 
     def tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(class_of_byte int32 (256,), masks int64 (classes, states)) on
@@ -500,7 +529,7 @@ class DeviceNfa:
             self._kernel_tables[device] = nfa_kernel_tables(
                 self.class_of_byte, self.masks, self.start_bits,
                 self.accept_bits, self.anchored_start, self.anchored_end,
-                self.nullable).to(device)
+                self.nullable, end_newline=self.end_newline).to(device)
         return self._kernel_tables[device]
 
     def matches(self, ctx, col) -> torch.Tensor:
@@ -515,7 +544,8 @@ class DeviceNfa:
         return nfa_match(values, col.lengths.to(torch.int32), cls, masks,
                          self.start_bits, self.accept_bits,
                          self.anchored_start, self.anchored_end,
-                         self.nullable, kernel_tables=tabs)
+                         self.nullable, end_newline=self.end_newline,
+                         kernel_tables=tabs)
 
 
 def unique_rows(mat: np.ndarray):
@@ -529,7 +559,9 @@ def unique_rows(mat: np.ndarray):
 def compile_device_nfa(pattern: str,
                        dotall: bool = False) -> Optional[DeviceNfa]:
     """Compile ``pattern`` to a DeviceNfa, or None when outside the subset.
-    ``dotall``: ``.`` matches line terminators too (LIKE)."""
+    ``dotall``: ``.`` matches line terminators too, and a final ``$``
+    matches at the row's end alone (LIKE); without it a final ``$`` also
+    matches before a final ``\\n`` (``DeviceNfa.end_newline``)."""
     try:
         parser = RegexParser(pattern, dotall=dotall)
         ast = parser.parse()
@@ -588,7 +620,8 @@ def compile_device_nfa(pattern: str,
     nfa = DeviceNfa(class_of_byte.astype(np.int32), masks,
                     start_bits=1, accept_bits=accept_bits,
                     anchored_start=anchored_start, anchored_end=anchored_end,
-                    nullable=frag.nullable)
+                    nullable=frag.nullable,
+                    end_newline=anchored_end and not dotall)
     nfa.ascii_only = all(max(bs, default=0) < 0x80 for bs in sets)
     nfa.has_alt = _contains_alt(ast) or parser.saw_lazy
     nfa.min_len = _nfa_min_len(frag, len(sets))

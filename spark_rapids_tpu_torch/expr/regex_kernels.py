@@ -4,10 +4,13 @@
   replace. The plain version is the JAX package's chain
   ``match_ends`` (or ``literal_match_ends``) -> ``select_leftmost_spans``
   -> ``group_bounds_all_starts`` -> ``replace_by_template`` of
-  expr/regex.py; the kernel runs Java's find() loop, one thread a row.
+  expr/regex.py; the kernel runs Java's find() loop, a thread a row,
+  stepping the pattern's span DFA from each start.
 - ``regex_extract(values, lengths, program, group)``: regexp_extract, the
   first match's span (``extract_first_span``) or its capture group
-  (``extract_group_span``).
+  (``extract_group_span``); the kernel runs a warp a row (or a group of
+  lanes a short row), each lane stepping the span DFA from its own starts,
+  a ballot picking the first match.
 - ``delim_select(values, lengths, delim, count)``: substring_index's
   delimiter scan (the ``lax.scan`` of the JAX ``SubstringIndex``): the cut
   position of each row.
@@ -28,6 +31,7 @@ import torch
 
 from ..columnar.device import bucket_width
 from ..native import launch
+from ..udf.kernels import SPAN_DFA_MAX_STATES, span_dfa
 from .regex import (DeviceNfa, GroupPlan, charset_lut, compile_device_nfa,
                     compile_group_plan, extract_first_span,
                     extract_group_span, group_bounds_all_starts,
@@ -44,8 +48,13 @@ __all__ = ["RegexProgram", "regex_program", "replace_program",
 REGEX_HEADER = {"kind": 0, "flags": 1, "states": 2, "start": 3, "accept": 4,
                 "items": 5, "segs": 6, "groups": 7, "class_at": 8,
                 "succ_at": 9, "item_at": 10, "group_at": 11, "seg_at": 12,
-                "pool_at": 13, "words": 14, "first_at": 15}
-_HEADER_WORDS = 16
+                "pool_at": 13, "words": 14, "first_at": 15, "classes": 16,
+                "dfa_states": 17, "dfa_init": 18, "dfa_accept": 19,
+                "dfa_at": 20}
+_HEADER_WORDS = 24
+#: csrc/regex.cu's flags: anchored at the start, at the end, and a regex
+#: ``$`` that also stops before a final ``\n``
+_FLAG_START, _FLAG_END, _FLAG_END_NEWLINE = 1, 2, 4
 _NO_HI = 0xFFFFFFFF
 
 
@@ -58,6 +67,9 @@ class RegexProgram:
     matcher: Union[DeviceNfa, bytes]
     segments: Tuple
     plan: Optional[GroupPlan]
+    #: the states of the span DFA the kernels step (0: none, past its cap
+    #: or a literal search; an NFA then steps its successor sets)
+    dfa_states: int = 0
     _on: Dict[torch.device, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
@@ -89,7 +101,24 @@ def regex_program(matcher: Union[DeviceNfa, bytes],
     or the non-empty bytes of a literal search; ``segments`` the template
     (``('lit', bytes)`` and ``('grp', g)``, as parse_replacement_template
     gives them); ``plan`` the capture-group plan, needed for a group past
-    0."""
+    0. An NFA's span DFA (``udf/kernels.py span_dfa``) goes in when its
+    subset construction stays within ``SPAN_DFA_MAX_STATES``; past it the
+    kernels step the NFA's successor sets."""
+    return _build_program(matcher, segments, plan, SPAN_DFA_MAX_STATES)
+
+
+def _without_span_dfa(program: RegexProgram) -> RegexProgram:
+    """``program`` built again with no span DFA, so the kernels step the
+    NFA's successor sets (the matcher of a pattern past the cap), for the
+    tests and the smoke run to hold that matcher on every pattern."""
+    return _build_program(program.matcher, program.segments, program.plan, 0)
+
+
+def _build_program(matcher: Union[DeviceNfa, bytes], segments: Sequence,
+                   plan: Optional[GroupPlan],
+                   dfa_max_states: int) -> RegexProgram:
+    """``regex_program`` with the span DFA's cap ``dfa_max_states`` (0:
+    no span DFA)."""
     segments = tuple(segments)
     groups = [g for kind, g in segments if kind == "grp" and g > 0]
     if groups and (plan is None or max(groups) > plan.ngroups):
@@ -105,13 +134,16 @@ def regex_program(matcher: Union[DeviceNfa, bytes],
         body.append(np.asarray(arr, dtype=np.uint32).reshape(-1))
 
     first = np.zeros(256, dtype=bool)       # bytes that can begin a match
+    dfa = None
     if isinstance(matcher, DeviceNfa):
         nfa = matcher
         masks = nfa.masks.astype(np.uint32)
         succ = _successors(masks)
         head.update(kind=1, states=masks.shape[1], start=nfa.start_bits,
-                    accept=nfa.accept_bits, flags=int(nfa.anchored_start)
-                    | int(nfa.anchored_end) << 1)
+                    accept=nfa.accept_bits, classes=masks.shape[0],
+                    flags=_FLAG_START * nfa.anchored_start
+                    | _FLAG_END * nfa.anchored_end
+                    | _FLAG_END_NEWLINE * nfa.end_newline)
         place("class_at", nfa.class_of_byte.astype(np.uint8).view(np.uint32))
         place("succ_at", succ)
         from_start = np.zeros(succ.shape[0], dtype=np.uint32)
@@ -119,6 +151,14 @@ def regex_program(matcher: Union[DeviceNfa, bytes],
             if nfa.start_bits >> st & 1:
                 from_start |= succ[:, st]
         first = from_start[nfa.class_of_byte] != 0
+        dfa = span_dfa(masks, nfa.start_bits, nfa.accept_bits,
+                       dfa_max_states) if dfa_max_states > 0 else None
+        if dfa is not None:
+            head.update(dfa_states=dfa.n_states, dfa_init=dfa.init,
+                        dfa_accept=dfa.accept_lo)
+            trans = dfa.trans.astype(np.uint8).reshape(-1)
+            place("dfa_at", np.concatenate(
+                [trans, np.zeros(-len(trans) % 4, np.uint8)]).view(np.uint32))
     else:
         search = bytes(matcher)
         if not search:
@@ -155,7 +195,8 @@ def regex_program(matcher: Union[DeviceNfa, bytes],
         header[REGEX_HEADER[field]] = value
     words = np.concatenate([header] + body)
     words[REGEX_HEADER["words"]] = len(words)
-    return RegexProgram(words, matcher, segments, plan)
+    return RegexProgram(words, matcher, segments, plan,
+                        dfa.n_states if dfa is not None else 0)
 
 
 def replace_program(search: Union[str, bytes], repl: str) -> RegexProgram:

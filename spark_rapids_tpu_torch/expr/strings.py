@@ -878,10 +878,15 @@ class StringRpad(Expression):
         if pad is None or tgt is None:
             raise ValueError("device pad requires a literal length and pad")
         tgt = max(int(tgt), 0)
-        pb = pad.encode() or b" "
+        pb = pad.encode()
         out_w = bucket_width(max(tgt, c.values.shape[1], 1))
         v = _pad_to(c.values, out_w)
         slen = c.lengths
+        if not pb:
+            # Spark's UTF8String.lpad/rpad: an empty pad only cuts
+            out_len = torch.clamp(slen, max=tgt)
+            return EvalCol(_zero_tail(v, out_len), validity, dt.STRING,
+                           out_len.to(torch.int32))
         j = torch.arange(out_w, dtype=torch.int64, device=v.device)[None, :]
         patv = _pattern_bytes(pb, v.device)
         if self.pad_left:

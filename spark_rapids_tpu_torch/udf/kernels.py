@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 __all__ = ["axpy", "axpy_reference", "nfa_match", "nfa_match_reference",
-           "NfaKernelTables", "nfa_kernel_tables", "DFA_MAX_STATES"]
+           "NfaKernelTables", "nfa_kernel_tables", "DFA_MAX_STATES",
+           "SpanDfa", "span_dfa", "SPAN_DFA_MAX_STATES"]
 
 
 def axpy_reference(a: torch.Tensor, x: torch.Tensor,
@@ -60,10 +61,14 @@ def nfa_match_reference(values: torch.Tensor, lengths: torch.Tensor,
                         class_of_byte: torch.Tensor, masks: torch.Tensor,
                         start_bits: int, accept_bits: int,
                         anchored_start: bool, anchored_end: bool,
-                        nullable: bool) -> torch.Tensor:
+                        nullable: bool,
+                        end_newline: bool = False) -> torch.Tensor:
     """Plain version of ``nfa_match``: the column loop of the JAX
     ``DeviceNfa.matches`` scan, every row in step. State sets are int64
-    (torch has no shifts on uint32)."""
+    (torch has no shifts on uint32). With ``end_newline`` (a regex ``$``)
+    a pattern anchored at the end also matches where it accepts just
+    before a final ``\\n``, the row's last character (the JAX scan does
+    not: ROADMAP Queue 3)."""
     n, w = values.shape
     dev = values.device
     n_states = masks.shape[1]
@@ -82,9 +87,16 @@ def nfa_match_reference(values: torch.Tensor, lengths: torch.Tensor,
                           torch.full((n,), nullable, device=dev),
                           torch.full((n,), nullable and not anchored_end,
                                      device=dev))
+    end_newline = end_newline and anchored_end
+    if end_newline and nullable:
+        # the empty match at 0, before a row's only byte, a newline
+        matched |= (lengths == 1) & (values[:, 0] == 10)
+    nl_last = is_last & (values == 10)
     active = torch.full((n,), start_bits, dtype=torch.int64, device=dev)
     accept = accept_bits
     for j in range(w):
+        if end_newline:
+            matched |= nl_last[:, j] & ((active & accept) != 0)
         m = m_all[cls[:, j]]                                       # (n, S)
         hits = (active[:, None] & m) != 0
         nxt = (hits.long() * bit[None, :]).sum(dim=1)
@@ -138,7 +150,7 @@ class NfaKernelTables:
     chunk_bits: int
     n_chunks: int
     #: (start_bits, accept_bits, anchored_start, anchored_end, nullable,
-    #: n_classes, n_nfa_states) the tables were built for
+    #: n_classes, n_nfa_states, end_newline) the tables were built for
     built_for: tuple
 
     def to(self, device) -> "NfaKernelTables":
@@ -156,23 +168,38 @@ def _nfa_steps(masks: np.ndarray, n_states: int) -> np.ndarray:
 
 def _subset_dfa(succ: np.ndarray, start_bits: int, accept_bits: int,
                 anchored_start: bool, anchored_end: bool, nullable: bool,
-                max_states: int):
+                max_states: int, newline_class: Optional[int] = None):
     """Subset construction over byte classes, from the start set, then
     minimised. Returns (transitions (states, classes), accept flags, sink
     ids), the initial state 0, or None past ``max_states`` subsets.
     Unanchored at the end, every set holding an accepting state becomes one
     sink MATCH (find() is settled there); anchored at the start, the empty
-    set is a sink."""
+    set is a sink.
+
+    ``newline_class`` (a class of ``\\n`` alone; anchored at the end): a
+    regex ``$`` that also matches before a final ``\\n``. A state is then
+    a set, a bit 32 "the last byte was a ``\\n`` read where the set
+    before accepted" and, for a nullable pattern, a bit 33 "no byte read
+    yet" (the empty match at 0); a state accepts when its set does or its
+    bit 32 is set."""
     n_classes, n_states = succ.shape
     match = -1                                  # key of the MATCH sink
     settle = not anchored_end
+    low = (1 << 32) - 1
 
     def key(a: int) -> int:
         return match if settle and a & accept_bits else a
 
+    def before_newline(a: int) -> int:
+        """bit 32 of the state a ``\\n`` leads to from state ``a``"""
+        took = a & low & accept_bits or (a >> 33 & 1 and nullable)
+        return 1 << 32 if took else 0
+
     if max_states < 1:
         return None
     init = match if settle and nullable else start_bits
+    if newline_class is not None and nullable:
+        init |= 1 << 33
     ids = {init: 0}
     order = [init]
     trans = []
@@ -188,6 +215,8 @@ def _subset_dfa(succ: np.ndarray, start_bits: int, accept_bits: int,
             if not anchored_start:
                 nxt = nxt | start_bits
             row = [key(int(x)) for x in nxt]
+            if newline_class is not None:
+                row[newline_class] |= before_newline(a)
         for b in row:
             if b not in ids:
                 if len(ids) >= max_states:
@@ -196,7 +225,8 @@ def _subset_dfa(succ: np.ndarray, start_bits: int, accept_bits: int,
                 order.append(b)
         trans.append([ids[b] for b in row])
         i += 1
-    accept = [a == match or (not settle and bool(a & accept_bits))
+    accept = [a == match or (not settle and bool(a & (accept_bits
+                                                      | 1 << 32)))
               for a in order]
     sinks = {ids[k] for k in ids if k == match or k == 0}
     return _minimal(np.array(trans, np.int64), np.array(accept), sinks)
@@ -227,11 +257,58 @@ def _minimal(trans: np.ndarray, accept: np.ndarray, sinks: set):
             {int(label[s]) for s in sinks})
 
 
+#: The most states of a span DFA (``span_dfa``): its states are uint8
+SPAN_DFA_MAX_STATES = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanDfa:
+    """The DFA of a match from one start (``span_dfa``): ``trans[state,
+    class]`` the next state; state 0 dead (no accepting state is reachable
+    from it), ``init`` the start, and states ``accept_lo`` and up
+    accepting."""
+    trans: np.ndarray
+    init: int
+    accept_lo: int
+
+    @property
+    def n_states(self) -> int:
+        return self.trans.shape[0]
+
+
+def span_dfa(masks, start_bits: int, accept_bits: int,
+             max_states: int = SPAN_DFA_MAX_STATES) -> Optional[SpanDfa]:
+    """The subset construction of a match from one start, over the NFA's
+    byte classes (``masks`` (classes, states) of uint32 bit sets): the
+    ``_subset_dfa`` of a pattern anchored at both ends, so never re-seeded
+    and with no sink for a match (a step goes on past an accept, to the
+    longest match); the empty set, which every pattern reaches (no class
+    holds the NUL byte), its one sink and the only set from which no
+    accept is reachable (each NFA state reaches an accept). Numbered dead
+    0, then the states that do not accept, then those that do. None past
+    ``max_states`` subsets. The kernels of csrc/regex.cu step it from each
+    start; where it is None they step the NFA's successor sets."""
+    m = np.asarray(masks, dtype=np.int64) & 0xFFFFFFFF
+    dfa = _subset_dfa(_nfa_steps(m, m.shape[1]), int(start_bits),
+                      int(accept_bits), True, True, False, max_states)
+    if dfa is None:
+        return None
+    trans, accept, sinks = dfa
+    (dead,) = sinks
+    rest = [k for k in range(len(trans)) if k != dead]
+    order = [dead] + [k for k in rest if not accept[k]] \
+        + [k for k in rest if accept[k]]
+    new = np.empty(len(order), np.int64)
+    new[order] = np.arange(len(order))
+    return SpanDfa(trans=new[trans[order]], init=int(new[0]),
+                   accept_lo=len(order) - int(accept.sum()))
+
+
 def nfa_kernel_tables(class_of_byte, masks, start_bits: int,
                       accept_bits: int, anchored_start: bool,
                       anchored_end: bool, nullable: bool,
-                      dfa_max_states: int = DFA_MAX_STATES
-                      ) -> NfaKernelTables:
+                      dfa_max_states: int = DFA_MAX_STATES,
+                      end_newline: bool = False) -> NfaKernelTables:
     """The ``nfa_match`` kernel's tables for one NFA (``class_of_byte``
     int (256,), ``masks`` (classes, states) of uint32 bit sets, numpy or
     CPU tensors), on the CPU: the byte-indexed DFA when the subset
@@ -241,13 +318,24 @@ def nfa_kernel_tables(class_of_byte, masks, start_bits: int,
     cls = np.asarray(class_of_byte, dtype=np.int64).reshape(-1)
     m = np.asarray(masks, dtype=np.int64) & 0xFFFFFFFF
     n_classes, n_states = m.shape
+    end_newline = bool(end_newline and anchored_end)
     built_for = (int(start_bits), int(accept_bits), bool(anchored_start),
-                 bool(anchored_end), bool(nullable), n_classes, n_states)
+                 bool(anchored_end), bool(nullable), n_classes, n_states,
+                 end_newline)
     succ = _nfa_steps(m, n_states)                       # (C, S)
     cont = (np.arange(256) & 0xC0) == 0x80               # continuation
-    dfa = _subset_dfa(succ, int(start_bits), int(accept_bits),
+    nl_class = None
+    dfa_cls, dfa_succ = cls, succ
+    if end_newline:
+        # the DFA's own class for the newline: its states tell apart a
+        # row that ended just after one
+        nl_class = n_classes
+        dfa_succ = np.concatenate([succ, succ[cls[10]][None]])
+        dfa_cls = cls.copy()
+        dfa_cls[10] = nl_class
+    dfa = _subset_dfa(dfa_succ, int(start_bits), int(accept_bits),
                       anchored_start, anchored_end, nullable,
-                      min(dfa_max_states, 256))
+                      min(dfa_max_states, 256), nl_class)
     if dfa is not None:
         trans, accept, sinks = dfa
         # renumber: sinks last, so "settled" is one compare in the kernel
@@ -259,7 +347,7 @@ def nfa_kernel_tables(class_of_byte, masks, start_bits: int,
         accept = accept[order]
         n = len(order)
         table = np.where(cont[None, :], np.arange(n)[:, None],
-                         trans[:, cls])                  # (n, 256)
+                         trans[:, dfa_cls])              # (n, 256)
         blob = np.concatenate([table.astype(np.uint8).reshape(-1),
                                accept.astype(np.uint8)])
         return NfaKernelTables(
@@ -304,15 +392,17 @@ def nfa_match(values: torch.Tensor, lengths: torch.Tensor,
               class_of_byte: torch.Tensor, masks: torch.Tensor,
               start_bits: int, accept_bits: int, anchored_start: bool,
               anchored_end: bool, nullable: bool,
-              kernel_tables: Optional[NfaKernelTables] = None
-              ) -> torch.Tensor:
+              kernel_tables: Optional[NfaKernelTables] = None,
+              end_newline: bool = False) -> torch.Tensor:
     """Per row of the padded string matrix ``values`` (uint8 ``(n, w)``,
     byte ``lengths`` int32 ``(n,)``): does the byte-class NFA accept, with
     find() semantics (kernel: csrc/nfa_match.cu, replacing the XLA scan of
     ``spark_rapids_tpu/expr/regex.py`` ``DeviceNfa.matches``).
     ``class_of_byte`` is int32 ``(256,)``; ``masks`` int64 ``(classes,
     states)`` holding uint32 bit sets, at most 32 states; the start state
-    never accepts (an empty match is ``nullable``). Returns bool ``(n,)``.
+    never accepts (an empty match is ``nullable``). ``end_newline``: a
+    regex ``$``, which also matches before a final ``\\n``. Returns bool
+    ``(n,)``.
 
     On a CUDA device the kernel walks ``kernel_tables``, the tables of
     ``nfa_kernel_tables`` for these arguments on that device; when it is
@@ -346,15 +436,17 @@ def nfa_match(values: torch.Tensor, lengths: torch.Tensor,
     if values.device.type == "cpu":
         return nfa_match_reference(values, lengths, class_of_byte, masks,
                                    start_bits, accept_bits, anchored_start,
-                                   anchored_end, nullable)
+                                   anchored_end, nullable, end_newline)
     if values.device.type != "cuda":
         raise TypeError(f"nfa_match: no kernel for device {values.device}")
+    end_newline = bool(end_newline and anchored_end)
     built_for = (int(start_bits), int(accept_bits), bool(anchored_start),
-                 bool(anchored_end), bool(nullable), *masks.shape)
+                 bool(anchored_end), bool(nullable), *masks.shape,
+                 end_newline)
     if kernel_tables is None:
         kernel_tables = nfa_kernel_tables(
             class_of_byte.cpu().numpy(), masks.cpu().numpy(),
-            *built_for[:5]).to(values.device)
+            *built_for[:5], end_newline=end_newline).to(values.device)
     tab = kernel_tables
     if tab.built_for != built_for or tab.blob.device != values.device \
             or tab.blob.dtype != torch.uint8 or not tab.blob.is_contiguous() \
@@ -367,7 +459,7 @@ def nfa_match(values: torch.Tensor, lengths: torch.Tensor,
         return out
     lengths = lengths.contiguous()
     flags = (int(anchored_start) | int(anchored_end) << 1
-             | int(nullable) << 2)
+             | int(nullable) << 2 | int(end_newline) << 3)
     from ..native import launch
     launch(nfa_match, "srt_nfa_match", values.device, values.data_ptr(),
            lengths.data_ptr(), n, w, tab.blob.data_ptr(), tab.blob.numel(),

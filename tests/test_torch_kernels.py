@@ -6,6 +6,8 @@ on the card's machine, where JAX is not installed:
 On a CPU-only machine the ``cuda`` tests skip and the wrapper tests check
 the CPU path and the input checks; on the card every kernel is held against
 its plain version."""
+import types
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -255,6 +257,72 @@ def test_nfa_match_kernel_matches_plain_version_on_card(cuda_device, width,
             assert nfa_match.launches == launches + 1
             assert torch.equal(got, nfa_match_reference(*args)), (path, view)
             assert torch.equal(got.cpu(), want), (path, view)
+
+
+def _newline_rows(w: int):
+    """Random rows each ending in a newline (or two, or \\r\\n), and the
+    rows of one newline."""
+    values, lengths = _utf8_rows(2000, w, w + 11)
+    ends = [b"\n", b"\n\n", b"\r\n", b"b\n", b"c\n", b"3c\n"]
+    for i in range(len(lengths)):
+        e = ends[i % len(ends)]
+        cut = min(int(lengths[i]), w - len(e))
+        if cut >= 0 and i % 3:
+            values[i, cut:] = 0
+            values[i, cut:cut + len(e)] = torch.frombuffer(bytearray(e),
+                                                           dtype=torch.uint8)
+            lengths[i] = cut + len(e)
+    return values, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 64, 256])
+@pytest.mark.parametrize("pattern", ["b$", "^ab[0-9]+c$", "^(ab|c)*x?$",
+                                     "^$", "(a|b)*a(a|b)(a|b)(a|b)(a|b)"
+                                     "(a|b)$"])
+def test_nfa_match_dollar_before_a_final_newline_on_card(cuda_device, width,
+                                                         pattern):
+    """A regex `$` (``end_newline``) on both kernel paths, rows ending in
+    newlines: equal to the plain version, and the flag's tables apart from
+    the strict end's."""
+    values, lengths = _newline_rows(width)
+    nfa = _nfa(pattern)
+    assert nfa.end_newline
+    want = nfa_match_reference(*_nfa_args(nfa, values, lengths),
+                               end_newline=True)
+    args = _nfa_args(nfa, values.to(cuda_device), lengths.to(cuda_device))
+    for cap in (64, 0):
+        tables = nfa_kernel_tables(
+            nfa.class_of_byte, nfa.masks, nfa.start_bits, nfa.accept_bits,
+            nfa.anchored_start, nfa.anchored_end, nfa.nullable,
+            dfa_max_states=cap, end_newline=True).to(cuda_device)
+        got = nfa_match(*args, kernel_tables=tables, end_newline=True)
+        assert torch.equal(got.cpu(), want), cap
+    # the pattern's own cached tables, through DeviceNfa.matches
+    col_ = types.SimpleNamespace(values=args[0], lengths=args[1])
+    assert torch.equal(nfa.matches(None, col_).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_like_keeps_its_strict_end_on_card(cuda_device):
+    """LIKE compiles through the same NFA with its end strict: '%b' on
+    "ab\\n" is false on the card, where RLIKE 'b$' is true."""
+    values, lengths = _newline_rows(64)
+    like, rlike = _nfa("%b"), _nfa("b$")
+    assert like.anchored_end and not like.end_newline
+    col_ = types.SimpleNamespace(values=values.to(cuda_device),
+                                 lengths=lengths.to(cuda_device))
+    got_like = like.matches(None, col_).cpu()
+    assert torch.equal(got_like, nfa_match_reference(
+        *_nfa_args(like, values, lengths)))
+    row = b"ab\n"
+    one = torch.zeros((1, 64), dtype=torch.uint8)
+    one[0, :3] = torch.frombuffer(bytearray(row), dtype=torch.uint8)
+    single = types.SimpleNamespace(values=one.to(cuda_device),
+                                   lengths=torch.tensor([3], dtype=torch.int32,
+                                                        device=cuda_device))
+    assert not bool(like.matches(None, single)[0])
+    assert bool(rlike.matches(None, single)[0])
 
 
 @pytest.mark.cuda

@@ -5,6 +5,7 @@ numpy exactly as csrc/nfa_match.cu walks them: chunks of C bytes, aligned
 a sink. Each walk equals ``nfa_match_reference`` and the JAX package's
 ``DeviceNfa.matches`` for every pattern of the NFA subset, on random UTF-8
 matrices, including patterns past the DFA cap and 4-bit chunk tables."""
+import re
 import types
 
 import jax.numpy as jnp
@@ -55,9 +56,11 @@ def _matrix(n: int, w: int, seed: int):
 
 
 def kernel_walk(values: np.ndarray, lengths: np.ndarray, tab, flags,
-                offset: int = 0) -> np.ndarray:
+                offset: int = 0, end_newline: bool = False) -> np.ndarray:
     """csrc/nfa_match.cu's walk in numpy, all rows in step. ``offset`` is
-    the byte address of row 0 modulo 16 (a view's alignment)."""
+    the byte address of row 0 modulo 16 (a view's alignment);
+    ``end_newline`` a regex `$` (the NFA path's flag ``nl``: the last
+    character a newline read where the set before accepted)."""
     start_bits, accept_bits, anchored_start, anchored_end, nullable = flags
     n, w = values.shape
     blob = tab.blob.numpy()
@@ -75,6 +78,8 @@ def kernel_walk(values: np.ndarray, lengths: np.ndarray, tab, flags,
         bits, chunks = tab.chunk_bits, tab.n_chunks
         state = np.full(n, start_bits, np.int64)
         seen = np.zeros(n, np.int64)
+        nl = np.zeros(n, bool)
+        at0 = np.full(n, nullable)
         active = (ln > 0) & (not (nullable and not anchored_end))
     rows = np.arange(n)
     for k in range(-(-w // chunk)):
@@ -93,6 +98,11 @@ def kernel_walk(values: np.ndarray, lengths: np.ndarray, tab, flags,
                     state = np.where(on, table[state * 256 + byte], state)
                 else:
                     c = cls[byte]
+                    if end_newline:
+                        lead = on & ((byte & 0xC0) != 0x80)
+                        took = ((state & accept_bits) != 0) | at0
+                        nl = np.where(lead, (byte == 10) & took, nl)
+                        at0 &= ~lead
                     nxt = np.zeros(n, np.int64)
                     for j in range(chunks):
                         v = (state >> (j * bits)) & ((1 << bits) - 1)
@@ -104,14 +114,14 @@ def kernel_walk(values: np.ndarray, lengths: np.ndarray, tab, flags,
             else:
                 settled = ((seen & accept_bits) != 0) & (not anchored_end)
                 if anchored_start:
-                    settled |= state == 0
+                    settled |= (state == 0) & ~nl
             stop = on & settled
             active &= ~stop
             walking &= ~stop
     if tab.dfa:
         got = accept[state] != 0
     elif anchored_end:
-        got = (state & accept_bits) != 0
+        got = ((state & accept_bits) != 0) | nl
     else:
         got = nullable | ((seen & accept_bits) != 0)
     return np.where(ln == 0, nullable, got)
@@ -183,3 +193,48 @@ def test_dfa_tables_are_minimal_and_sinks_last():
     assert tab.sink_lo == tab.n_states - 1
     assert (t[tab.sink_lo] == tab.sink_lo).all()
     assert tab.blob.numpy()[tab.n_states * 256 + tab.sink_lo] == 1
+
+
+#: `$` patterns, anchored at the start or not, nullable or not, one past
+#: the DFA cap
+_DOLLAR = ["b$", "^ab$", "^$", "^(ab|c)*x?$", "(ab|c)*x?$", "(a|b)*c{1,3}$",
+           "[a-z]+\n$",
+           "^.*b$", "(a|b)*a(a|b)(a|b)(a|b)(a|b)(a|b)$"]
+
+
+@pytest.mark.parametrize("width", [8, 64])
+@pytest.mark.parametrize("pattern", _DOLLAR)
+def test_dollar_before_a_final_newline_on_both_paths(pattern, width):
+    """A regex `$` (``end_newline``): both kernel paths' walks equal the
+    plain version, and on rows ending in a newline Python's re.search (the
+    host engines'); the DFA's tables for it differ from those of the same
+    NFA with a strict end (LIKE's), and are cached apart."""
+    values, lengths = _matrix(300, width, width * 3 + len(pattern))
+    ends = [b"ab\n", b"\n", b"b\n\n", b"ab", b"xb\r\n", b"c\n", b"aabc\n"]
+    for i, e in enumerate(ends):
+        values[i, :len(e)] = np.frombuffer(e, np.uint8)
+        lengths[i] = len(e)
+    nfa = regex.compile_device_nfa(pattern)
+    assert nfa.end_newline
+    cls, masks = nfa.tables("cpu")
+    want = nfa_match_reference(torch.from_numpy(values),
+                               torch.from_numpy(lengths), cls, masks,
+                               *_flags(nfa), end_newline=True).numpy()
+    if not (nfa.nullable and not nfa.anchored_start):
+        # (a pattern that is: nfa_match takes no late empty match; RLIKE
+        # answers it without the kernel, matches_every_row)
+        for i, e in enumerate(ends):
+            assert want[i] == (re.search(pattern, e.decode()) is not None), e
+    paths = set()
+    for cap in (DFA_MAX_STATES, 0):
+        tab = nfa_kernel_tables(nfa.class_of_byte, nfa.masks, *_flags(nfa),
+                                dfa_max_states=cap, end_newline=True)
+        strict = nfa_kernel_tables(nfa.class_of_byte, nfa.masks,
+                                   *_flags(nfa), dfa_max_states=cap)
+        assert tab.built_for != strict.built_for
+        paths.add(tab.dfa)
+        for offset in (0, 5):
+            got = kernel_walk(values, lengths, tab, _flags(nfa), offset,
+                              end_newline=True)
+            np.testing.assert_array_equal(got, want, err_msg=f"{cap}")
+    assert paths == ({False} if pattern == _DOLLAR[-1] else {True, False})

@@ -2,6 +2,7 @@
 against the JAX package's ``spark_rapids_tpu/expr/regex.py``, and LIKE on
 strings with line terminators (Spark's answer on both of the port's paths,
 where the JAX device path misses ``\\n`` and ``\\r``)."""
+import re
 import types
 
 import jax.numpy as jnp
@@ -131,9 +132,23 @@ def test_plain_match_equals_jax_device_matches(pattern, width):
                               nfa.accept_bits, nfa.anchored_start,
                               nfa.anchored_end, nfa.nullable)
     np.testing.assert_array_equal(got.numpy(), want)
-    # DeviceNfa.matches on a CPU batch is the plain version
+    # DeviceNfa.matches on a CPU batch is the plain version, with the
+    # port's `$` (end_newline): it also matches before a final "\n". On
+    # such rows the JAX device path keeps its end strict (a reference
+    # fault, ROADMAP Queue 3: the `$` before a final newline); there the
+    # port equals the JAX host engine's re.search
     col_ = types.SimpleNamespace(values=v, lengths=ln)
-    assert torch.equal(nfa.matches(None, col_), got)
+    port = nfa.matches(None, col_)
+    assert torch.equal(port, nfa_match_reference(
+        v, ln, cls, masks, nfa.start_bits, nfa.accept_bits,
+        nfa.anchored_start, nfa.anchored_end, nfa.nullable,
+        nfa.end_newline))
+    assert nfa.end_newline == nfa.anchored_end
+    differ = np.flatnonzero(port.numpy() != want)
+    for i in differ:
+        s = values[i, :lengths[i]].tobytes().decode()
+        assert nfa.end_newline and s.endswith("\n"), (pattern, s)
+        assert bool(port[i]) == (re.search(pattern, s) is not None), s
 
 
 # -- LIKE and line terminators --------------------------------------------------

@@ -12,9 +12,17 @@ against the JAX package, on every case of ``chip_smoke.py``
 10^4 random rows of width 32, edge rows at widths 8, 16, 64 and 136 (rows
 of length 0 and filling their width, matches reaching the width, random
 bytes past each length), replace outputs that clip at 8 and 12 bytes (the
-byte-store path), a broadcast row and a view one byte into 48-byte rows.
-The kernels themselves cannot run here; this is the nearest check.
-Tolerance: exact."""
+byte-store path), a broadcast row and a view one byte into 48-byte rows;
+``REGEX_EDGE_STRINGS`` (a final newline under `$`, \\r\\n, runs for the
+pattern past the span DFA's cap, matches as long as the row) at widths 8
+and 16 (regex_extract's lane groups of 4 lanes, 8 rows a warp), 32 (8
+lanes), 64 (16 lanes) and 136 (the warp, five chunks of 32 starts);
+every NFA case again with the span DFA left out (the kernels' second
+matcher, the NFA's successor sets); and rows of 128 KiB
+(``test_torch_regex_kernels.py WIDE_CASES``: regex_extract reads rows
+too wide to stage where they lie) against Python's re. The kernels
+themselves cannot run here; this is the nearest check. Tolerance:
+exact."""
 import ctypes
 import re
 import shutil
@@ -26,6 +34,9 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from chip_smoke import REGEX_PAST_CAP
+from test_torch_regex_kernels import (WIDE, WIDE_CASES, wide_case,
+                                      wide_rows, wide_want)
 from test_torch_shuffle_kernel_model import _EMULATION
 from test_torch_strings_kernel_model import _INTRINSICS
 
@@ -43,16 +54,17 @@ def _emulated_source() -> str:
              "constexpr int64_t kMaxBlocks = 3;", 1),
             (r"\*reinterpret_cast<const uint4\*>\(a\)",
              "*emu_aligned<const uint4>(reinterpret_cast<const void*>(a))", 1),
-            (r"\*reinterpret_cast<(uint[24])\*>\(", r"*emu_aligned<\1>(", 2),
-            (r"extern __shared__ uint32_t (\w+)\[\];",
-             r"static uint32_t \1[1 << 16];", 2)]
+            (r"\*reinterpret_cast<((?:const )?uint[24])\*>\(",
+             r"*emu_aligned<\1>(", 7),
+            (r"extern __shared__ __align__\(16\) uint32_t (\w+)\[\];",
+             r"alignas(16) static uint32_t \1[1 << 16];", 2)]
     for pat, rep, count in subs:
         src, n = re.subn(pat, rep, src)
         assert n == count, pat
     src, n = re.subn(r"([\w]+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),\s*(.*?),"
                      r"\s*(.*?)>>>\(", r"emu_launch(\1, \2, \3, ", src,
                      flags=re.S)
-    assert n == 3, "every launch of regex.cu is rewritten"
+    assert n == 4, "every launch of regex.cu is rewritten"
     return src
 
 
@@ -96,6 +108,11 @@ def lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def cases():
     return cs.regex_case_programs()
+
+
+@pytest.fixture(scope="module")
+def nfa_cases():
+    return cs.regex_nfa_case_programs()
 
 
 def _model(lib, kind: str, prog, arg, data: torch.Tensor,
@@ -181,3 +198,44 @@ def test_broadcast_rows_views_and_no_rows(lib, cases, index):
     big, blen = _tensors(*cs.regex_rows(1000, 48, 7))
     _check(lib, case, big[:, 1:33], (blen - 1).clamp(0, 32))
     _check(lib, case, big[:0], blen[:0])
+
+
+@pytest.mark.parametrize("index", range(len(_CASE_IDS)), ids=_CASE_IDS)
+def test_newline_ends_lane_groups_and_long_matches(lib, cases, index):
+    """``REGEX_EDGE_STRINGS`` at widths 8 and 16 (lane groups of 4 lanes),
+    32 (8 lanes), 64 (16 lanes) and 136 (a warp a row, two chunks; 8-byte
+    output words)."""
+    for w in (8, 16, 32, 64, 136):
+        _check(lib, cases[index], *_tensors(*cs.regex_edge_rows(w, w)))
+
+
+_NFA_INDEX = [i for i, c in enumerate(_CASE_IDS)
+              if not c.startswith(("delim", "replace b'"))]
+
+
+@pytest.mark.parametrize("index", _NFA_INDEX,
+                         ids=[_CASE_IDS[i] for i in _NFA_INDEX])
+def test_nfa_successor_sets_equal_the_plain_version(lib, cases, nfa_cases,
+                                                    index):
+    """Every NFA case with no span DFA in its program: the kernels step
+    the NFA's successor sets, on random rows and the edge rows."""
+    case = nfa_cases[index]
+    assert case[2].dfa_states == 0
+    assert cases[index][2].dfa_states > 0 or REGEX_PAST_CAP in case[0]
+    _check(lib, case, *_tensors(*cs.regex_rows(2000, 32, index)))
+    for w in (16, 136):
+        _check(lib, case, *_tensors(*cs.regex_edge_rows(w, w)))
+
+
+@pytest.mark.parametrize("nfa_sets", [False, True], ids=["dfa", "nfa"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
+def test_rows_too_wide_to_stage(lib, case, nfa_sets):
+    """Rows of 128 KiB, past what regex_extract stages in shared memory
+    (its kernel reads them where they lie), against Python's re."""
+    from spark_rapids_tpu_torch.expr.regex_kernels import replace_width
+    data, lens = wide_rows()
+    label, kind, prog, arg = wide_case(case, nfa_sets)
+    out_w = replace_width(prog, WIDE) if kind == "replace" else WIDE
+    got = _model(lib, kind, prog, arg, *_tensors(data, lens))
+    for g, w_ in zip(got, wide_want(case, data, lens, out_w)):
+        assert torch.equal(g, w_), label

@@ -217,6 +217,12 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) {
   int l = emu::lane();
   return emu::from<T>(emu::exchange(emu::bits(v), l >= d ? l - d : l));
 }
+// over segments of `width` lanes, as the hardware's
+template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  int l = emu::lane();
+  return emu::from<T>(emu::exchange(emu::bits(v),
+                                    (l & ~(width - 1)) + (src & (width - 1))));
+}
 inline unsigned __match_any_sync(unsigned, int v) {
   emu::Warp& w = emu::warp();
   w.val[emu::lane()] = static_cast<unsigned long long>(
